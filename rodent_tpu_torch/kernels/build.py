@@ -29,11 +29,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
+# nodes, tris, rays, n, arity, packet, any_hit, stack_cap, t, u, v, prim,
+# geom: the arguments every traversal entry starts with
+_TRAVERSE = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P]
 # name -> (restype, argtypes) of every C entry the library exports
 _ENTRIES = {
-    "rt_bvh_traverse": (ctypes.c_int, [
-        _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P]),
+    "rt_bvh_traverse": (ctypes.c_int, _TRAVERSE + [_P]),
+    "rt_bvh_traverse_prefetch": (ctypes.c_int, _TRAVERSE + [_P]),
+    "rt_bvh_traverse_count": (ctypes.c_int, _TRAVERSE + [_P, _P, _P]),
 }
 
 _libs = {}  # library path -> loaded CDLL

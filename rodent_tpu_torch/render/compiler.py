@@ -9,11 +9,14 @@ tensors on an explicit device. `from_jax_device` carries a JAX
 CompiledScene.device across instead, so both packages can trace the very
 same tables.
 
-Textured scenes (texture banks, mathall) are not ported yet and raise
-NotImplementedError.
+The tier rule (packet_mode and the policies built on it) measures the
+scene's tables against the card's L2, where the TPU measured them against
+VMEM. Textured scenes (texture banks, mathall) are not ported yet and
+raise NotImplementedError.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -169,12 +172,16 @@ _EMITTER_POWER = 8.0   # panel radiance (compiler.py:354-359)
 
 
 def compile_mesh(verts, indices, device, arity=8, max_path_len=64,
-                 emitter="above", bvh_kwargs=None, materials=None):
+                 emitter="above", bvh_kwargs=None, materials=None,
+                 timings=None):
     """Procedural mesh -> CompiledScene on `device` (compiler.py:271-392):
     per-mat-id palette diffuse materials (or `materials`, obj Materials
     indexed by mat id), smooth area-weighted vertex normals, and one
     emissive area-light panel just under the bbox top (emitter="inside")
-    or above it ("above"). Textured materials raise NotImplementedError."""
+    or above it ("above"). Textured materials raise NotImplementedError.
+    timings, a dict, receives the seconds of the BVH build ("bvh_s") and
+    of the whole compile ("total_s")."""
+    t_start = time.perf_counter()
     verts = np.asarray(verts, np.float32)
     idx4 = np.asarray(indices, np.int32).reshape(-1, 4).copy()
     lo, hi = verts.min(0), verts.max(0)
@@ -238,13 +245,123 @@ def compile_mesh(verts, indices, device, arity=8, max_path_len=64,
         mesh, ke_table, emissive_tri)
     num_lights = int((lights["kind"] == light_mod.TRIANGLE).sum()) or 1
 
+    t_bvh = time.perf_counter()
     bvh = build_bvh(mesh.vertices, mesh.indices, arity=arity,
                     **(bvh_kwargs or {}))
+    t_bvh = time.perf_counter() - t_bvh
     dev = _build_device(mesh, mat_params, lights, light_ids, bvh,
                         max_path_len, num_lights, device)
+    if timings is not None:
+        timings["bvh_s"] = t_bvh
+        timings["total_s"] = time.perf_counter() - t_start
     return CompiledScene(device=dev, mesh=mesh,
                          materials=[m.name for m in mats],
                          mat_params=mat_params, num_lights=num_lights)
+
+
+# copy of rodent_tpu/traversal/dense.py:36 (that module imports jax): the
+# packet count up to which a scene is "dense" (brute-force tier)
+DENSE_MAX_PACKETS = 16
+# the JAX package's VMEM budget; the fast-memory size the tier rule uses
+# for tables that lie on the CPU, so CPU runs pick the JAX package's tiers
+_CPU_FAST_BYTES = 80 * 1024 * 1024
+
+
+def fast_memory_bytes(device):
+    """The fast memory the tier rule measures a scene against: on a CUDA
+    card its L2 cache (50 MB on an H100), where the TPU's VMEM stood; for
+    tables on the CPU, the JAX package's 80 MiB VMEM budget."""
+    d = device["bvh"]["nodes"].device
+    if d.type == "cuda":
+        return torch.cuda.get_device_properties(d).L2_cache_size
+    return _CPU_FAST_BYTES
+
+
+def _table_bytes(device):
+    bvh = device["bvh"]
+    return bvh["nodes"].numel() * 4, bvh["tris"].numel() * 4
+
+
+def packet_ok(device, limit_bytes=None):
+    """True when the scene's BVH tables fit the fast memory
+    (compiler.py:508)."""
+    if limit_bytes is None:
+        limit_bytes = fast_memory_bytes(device)
+    return sum(_table_bytes(device)) <= limit_bytes
+
+
+def packet_mode(device, limit_bytes=None):
+    """The scene's tier (compiler.py:515-533): "dense" (a few Tri
+    packets), "hybrid" (both tables fit the fast memory), "hybrid-hbm"
+    (the node table fits, the Tri table does not: San-Miguel-class) or
+    "hybrid-giga" (neither fits). limit_bytes defaults to
+    fast_memory_bytes: the L2 size on a card."""
+    if limit_bytes is None:
+        limit_bytes = fast_memory_bytes(device)
+    nodes_b, tris_b = _table_bytes(device)
+    if device["bvh"]["tris"].shape[0] <= DENSE_MAX_PACKETS:
+        return "dense"
+    if nodes_b + tris_b <= limit_bytes:
+        return "hybrid"
+    if nodes_b <= limit_bytes:
+        return "hybrid-hbm"
+    return "hybrid-giga"
+
+
+def select_packet(device, limit_bytes=None):
+    """The single-call traversal policy (compiler.py:536-550), TPU branch:
+    dense scenes go to the packet kernel (the dense engine, ROADMAP A9, is
+    not ported), every other tier keeps packet_mode's word, which
+    integrator._traverse maps onto K1 ("hybrid") or K2 ("hybrid-hbm",
+    "hybrid-giga")."""
+    mode = packet_mode(device, limit_bytes=limit_bytes)
+    return True if mode == "dense" else mode
+
+
+def shell_coverage(device):
+    """Fraction of the scene-bbox shell covered by geometry lying within
+    2.5% of a shell face (compiler.py:553-580): near 1 for enclosed
+    interiors (hall-class), about 1/6 for open scenes (crown-class). A
+    host-side statistic, computed once per scene."""
+    v = device["vertices"].cpu().numpy()
+    i4 = device["indices"].cpu().numpy()
+    lo, hi = v.min(0), v.max(0)
+    ext = np.maximum(hi - lo, 1e-6)
+    tri = v[i4[:, :3]]                     # (T, 3, 3)
+    cen = tri.mean(1)
+    area = 0.5 * np.linalg.norm(
+        np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]), axis=1)
+    cover = 0.0
+    for ax in range(3):
+        o1, o2 = (ax + 1) % 3, (ax + 2) % 3
+        face_area = ext[o1] * ext[o2]
+        for plane in (lo[ax], hi[ax]):
+            near = np.abs(cen[:, ax] - plane) < 0.025 * ext[ax]
+            cover += min(float(area[near].sum()) / face_area, 1.0)
+    return cover / 6.0
+
+
+def select_render_policy(device, limit_bytes=None):
+    """kwargs for render_iteration_persistent by tier: the TPU branch of
+    compiler.py:583-630.
+
+    - dense: packet=True, retire_every=2 (the TPU's packet kernel on
+      cornell-class scenes);
+    - hybrid (tables fit L2): packet=True, with the shell_coverage pool
+      rule (a 64K pool for enclosed interiors). The TPU sends this tier to
+      the dual-queue engine (packet=False, tiled.py); that engine's role
+      is ROADMAP A10 and not ported, so the port keeps K1;
+    - hbm / giga (San-Miguel-class, the Tri table exceeds L2): the
+      prefetching kernel K2 with the pool sort, packet="hbm" or "giga"."""
+    mode = packet_mode(device, limit_bytes=limit_bytes)
+    if mode == "dense":
+        return dict(packet=True, retire_every=2)
+    if mode == "hybrid":
+        pol = dict(packet=True)
+        if shell_coverage(device) >= 0.5:
+            pol["pool"] = 1 << 16
+        return pol
+    return dict(packet=mode[len("hybrid-"):], sort="pool")
 
 
 def from_jax_device(np_tree, device):

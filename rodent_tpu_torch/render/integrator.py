@@ -6,11 +6,17 @@ against light sampling, next-event estimation with an any-hit shadow ray,
 and BSDF-sampled bounces with Russian roulette clamped at 0.75.
 
 Per-ray state is a set of flat (B,) tensors, Vec3s as tuples of them
-(core.vmath). The JAX `while_loop` over bounces is a Python loop that
-reads one boolean back per bounce; every traversal (camera and bounce
-rays closest-hit, shadow rays any-hit) goes through
-traversal.packet.traverse_packet_components, i.e. the CUDA kernel K1 on a
-CUDA device and its plain torch version on the CPU.
+(core.vmath). The JAX `while_loop`s are Python loops that read one boolean
+back per step. Every traversal (camera and bounce rays closest-hit, shadow
+rays any-hit) goes through traversal.packet.traverse_packet_components:
+on a CUDA device the kernel K1 (packet=True) or its prefetching variant K2
+(packet="hbm"/"giga", the big-scene tiers), on the CPU their plain torch
+version.
+
+Two renderers: render_iteration (spp wavefront passes, each traced to
+completion over the whole image) and render_iteration_persistent (a fixed
+pool of ray slots; a slot whose path ends is splatted and re-emitted with
+the next unprocessed sample, the reference's megakernel regeneration).
 """
 from __future__ import annotations
 
@@ -37,11 +43,48 @@ def make_rays_c(org, dirv, tmin, tmax):
             "tmin": tmin, "tmax": tmax}
 
 
-def _traverse(scene, rays, any_hit=False, sort=False):
-    """Traversal of a ray bundle through the packet route
-    (integrator.py:68-140 with packet=True). sort=True traces the bundle
-    in octant+Morton key order (dead rays, tmax <= 0, to the tail) and
-    scatters the hits back to slot order."""
+# the hybrid tiers' full-packet flavours (integrator.py:479-485, :628-629)
+_HYBRID = {"hybrid": True, "hybrid-hbm": "hbm", "hybrid-giga": "giga"}
+
+
+def _engine(packet):
+    """The renderer's packet argument -> traverse_packet's prefetch flag.
+    True takes K1; "hbm" and "giga" take K2 (on the card one prefetching
+    kernel serves both of the TPU's HBM transports); the hybrid tiers take
+    their full-packet flavour: the TPU traces their bounces on the
+    dual-queue engine, which is not ported. False (the dual-queue engine,
+    ROADMAP A10) and "dense" (ROADMAP A9) raise NotImplementedError."""
+    packet = _HYBRID.get(packet, packet)
+    if packet is True:
+        return False
+    if packet in ("hbm", "giga"):
+        return True
+    if packet is False:
+        raise NotImplementedError(
+            "packet=False is the dual-queue engine (traversal/tiled.py, "
+            "ROADMAP A10), which is not ported; use packet=True")
+    if packet == "dense":
+        raise NotImplementedError(
+            "packet='dense' is the brute-force engine (traversal/dense.py, "
+            "ROADMAP A9), which is not ported; use packet=True")
+    raise ValueError(f"unknown packet engine {packet!r}")
+
+
+def _no_dual_queue(compact, sub):
+    if compact or sub:
+        raise NotImplementedError(
+            "compact and sub configure the dual-queue engine "
+            "(traversal/tiled.py, ROADMAP A10), which is not ported")
+
+
+def _traverse(scene, rays, any_hit=False, packet=True, sort=False,
+              compact=0, sub=0):
+    """Traversal of a ray bundle (integrator.py:68-140): packet=True
+    through K1, packet="hbm"/"giga" through K2 (see _engine). sort=True
+    traces the bundle in octant+Morton key order (dead rays, tmax <= 0, to
+    the tail) and scatters the hits back to slot order."""
+    _no_dual_queue(compact, sub)
+    prefetch = _engine(packet)
     if sort:
         keys = ray_sort_keys(rays["org"], rays["dir"], scene["scene_lo"],
                              scene["scene_hi"])
@@ -52,7 +95,8 @@ def _traverse(scene, rays, any_hit=False, sort=False):
                            rays["tmin"][perm], rays["tmax"][perm])
     hit = traverse_packet_components(
         scene["bvh"], rays["org"], rays["dir"], rays["inv_dir"],
-        rays["inv_org"], rays["tmin"], rays["tmax"], any_hit=any_hit)
+        rays["inv_org"], rays["tmin"], rays["tmax"], any_hit=any_hit,
+        prefetch=prefetch)
     if not sort:
         return hit
     out = {k: torch.empty_like(v) for k, v in hit.items()}
@@ -123,9 +167,14 @@ def gather_material(scene, mat_id):
     return out
 
 
-def _shade(scene, rays, hit, state, sort=False):
+def _shade(scene, rays, hit, state, packet=True, sort=False,
+           shadow_packet=None):
     """One shading stage: on_hit accumulation, NEE shadow rays, bounce
-    sampling (integrator.py:297-409). Returns (next_rays, next_state)."""
+    sampling (integrator.py:297-409). Returns (next_rays, next_state).
+    shadow_packet (default: packet) is the engine of the NEE shadow
+    traversal alone."""
+    if shadow_packet is None:
+        shadow_packet = packet
     alive = state["alive"] & (hit["prim_id"] >= 0)
     surf = surface_element(scene, rays, hit)
     mat = gather_material(scene, surf["mat_id"])
@@ -175,7 +224,8 @@ def _shade(scene, rays, hit, state, sort=False):
     off = torch.full_like(vis, OFFSET)
     shadow_rays = make_rays_c(surf["point"], light_vec, off,
                               torch.where(nee_ok, 1.0 - OFFSET, -1.0))
-    shadow_hit = _traverse(scene, shadow_rays, any_hit=True, sort=sort)
+    shadow_hit = _traverse(scene, shadow_rays, any_hit=True,
+                           packet=shadow_packet, sort=sort)
     add_shadow = nee_ok & (shadow_hit["prim_id"] < 0)
     acc = vm.add(acc, vm.where(add_shadow, shadow_color, zero3))
 
@@ -223,10 +273,15 @@ def _emit_camera(camera, width, height, sample, iteration, pix):
 
 
 def render_sample(scene, camera, film, width, height, sample, iteration,
-                  sort=False, stats=None):
+                  packet=True, sort=False, stats=None):
     """Traces one sample per pixel to completion (one wavefront pass) and
-    returns film + the pass's radiance. The bounce loop runs until no path
-    is alive; stats, a dict, counts the bounces under "bounces"."""
+    returns film + the pass's radiance (integrator.py:432-500). packet
+    picks the traversal kernel (_engine); the hybrid tiers run their
+    full-packet flavour for every depth. sort="pool" exists only in the
+    persistent renderer and means sort=True here. The bounce loop runs
+    until no path is alive; stats, a dict, counts the bounces under
+    "bounces"."""
+    sort = sort in (True, "pool")
     device = film.device
     n = width * height
     pix = torch.arange(n, dtype=torch.int64, device=device)
@@ -244,15 +299,35 @@ def render_sample(scene, camera, film, width, height, sample, iteration,
         "acc": (zeros, zeros, zeros),
     }
     while bool(state["alive"].any()):      # one host sync per bounce
-        hit = _traverse(scene, rays, sort=sort)
-        rays, state = _shade(scene, rays, hit, state, sort=sort)
+        hit = _traverse(scene, rays, packet=packet, sort=sort)
+        rays, state = _shade(scene, rays, hit, state, packet=packet,
+                             sort=sort)
         if stats is not None:
             stats["bounces"] = stats.get("bounces", 0) + 1
     return film + torch.stack(state["acc"], dim=-1)
 
 
+def render_debug(scene, camera, film, width, height, iteration,
+                 packet=True):
+    """Eye-light debug renderer (integrator.py:505-526,
+    make_debug_renderer, renderer.impala:42-60): one camera pass, no NEE
+    or bounces, accumulates white * -dot(ray.dir, shading normal); spp is
+    1 as in the reference."""
+    device = film.device
+    n = width * height
+    pix = torch.arange(n, dtype=torch.int64, device=device)
+    org, d, _ = _emit_camera(camera, width, height, 0, iteration, pix)
+    zeros = torch.zeros(n, dtype=torch.float32, device=device)
+    rays = make_rays_c(org, d, zeros, torch.full_like(zeros, FLT_MAX))
+    hit = _traverse(scene, rays, packet=packet)
+    surf = surface_element(scene, rays, hit)
+    shade = torch.clamp(-vm.dot(rays["dir"], surf["n"]), min=0.0)
+    shade = torch.where(hit["prim_id"] >= 0, shade, 0.0)
+    return film + torch.stack((shade, shade, shade), dim=-1)
+
+
 def render_iteration(scene, camera, film, width, height, spp, iteration,
-                     sort=False, stats=None):
+                     packet=True, sort=False, stats=None):
     """One progressive iteration (integrator.py:532-543): spp wavefront
     passes summed into zeros, then film + delta * (1/spp), so the film
     holds per-iteration means and the tonemapper divides by the iteration
@@ -260,5 +335,192 @@ def render_iteration(scene, camera, film, width, height, spp, iteration,
     delta = torch.zeros_like(film)
     for s in range(spp):
         delta = render_sample(scene, camera, delta, width, height, s,
-                              iteration, sort=sort, stats=stats)
+                              iteration, packet=packet, sort=sort,
+                              stats=stats)
     return film + delta * (1.0 / spp)
+
+
+def _index_add_in_order(plane, idx, val):
+    """plane[idx[j]] += val[j], summed in the order of j. On the CPU
+    index_put_(accumulate=True) runs serially in that order; on a CUDA
+    card it uses atomics unless deterministic algorithms are on, and then
+    sorts the indices stably and adds each run of equal indices in order,
+    so a film does not change in its last bits from run to run."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        plane.index_put_((idx,), val, accumulate=True)
+    finally:
+        torch.use_deterministic_algorithms(prev, warn_only=warn_only)
+
+
+def _splat_planar(planes, pixel, color, mask):
+    """Scatter-adds a Vec3 into a component-planar film (3 x (N,) tensors,
+    updated in place; integrator.py:284-294). Masked-off rays add an exact
+    0.0 to their own pixel instead of being dropped: x + 0.0 == x bit for
+    bit for every value but -0.0, which radiance sums never hold, and no
+    index has to be compacted on the host."""
+    for p, c in zip(planes, color):
+        _index_add_in_order(p, pixel, torch.where(mask, c, 0.0))
+
+
+def render_iteration_persistent(scene, camera, film, width, height, spp,
+                                iteration, pool=None, packet=True,
+                                pixel_lo=0, n_pixels=None, sample_lo=0,
+                                spp_weight=None, sort=False, compact=0,
+                                sub=0, retire_every=1, bounce_packet=None,
+                                shadow_packet=None, depth_split=False,
+                                return_steps=False):
+    """Persistent-wavefront iteration (integrator.py:552-834): the
+    reference's megakernel regeneration (gpu_mega_kernel_trace,
+    mapping_gpu.impala:371-474). A pool of `pool` ray slots (default
+    min(total, 32768)) processes all n_pixels * spp samples of the
+    iteration; when a path ends, its slot is splatted into the film and
+    re-emitted with the next unprocessed sample id. RNG seeds depend only
+    on (sample, iteration, x, y), so the film does not depend on the pool,
+    on retire_every or on the sort.
+
+    The JAX while_loop is a Python loop that reads one boolean per step
+    (any slot alive, or samples left); lax.cond is a Python `if`, which
+    with retire_every > 1 reads a second boolean on the steps between
+    retirements. The retirement follows the JAX order exactly: splat the
+    dead slots, zero their radiance, number them by a cumsum in slot
+    order, re-emit those whose new id is below the total, and under
+    sort="pool" reorder the whole pool by the stable sort of the
+    post-regeneration ray keys (dead slots last). The flat pool has no
+    padding slots, so the JAX package's carried real-slot mask is not
+    needed.
+
+    packet / bounce_packet / shadow_packet pick the kernel of the whole
+    pool's traversal, of the bounce rays and of the NEE shadow rays (see
+    _engine); depth_split traces the depth-0 rays on `packet` and the rest
+    on `bounce_packet`. pixel_lo / n_pixels restrict the pass to a strip
+    of the image, sample_lo offsets the sample ids and spp_weight
+    overrides the 1/spp film weight (the sharding hooks); a film of
+    n_pixels rows is taken as the strip's own. compact and sub belong to
+    the dual-queue engine, which is not ported, and raise. Returns the
+    film, and with return_steps=True (film, steps)."""
+    _no_dual_queue(compact, sub)
+    packet = _HYBRID.get(packet, packet)
+    bounce_packet = packet if bounce_packet is None else bounce_packet
+    shadow_packet = packet if shadow_packet is None else shadow_packet
+    for p in (packet, bounce_packet, shadow_packet):
+        _engine(p)                     # refuse unported engines up front
+    depth_split = depth_split and bounce_packet != packet
+    device = film.device
+    n_pixels = n_pixels or width * height
+    total = n_pixels * spp
+    weight = spp_weight if spp_weight is not None else (1.0 / spp)
+    local_film = film.shape[0] == n_pixels
+    pool = pool or min(total, 1 << 15)
+    pool_sort = sort == "pool" and "scene_lo" in scene
+    call_sort = sort is True
+
+    def emit_rays(sample_id):
+        pix = pixel_lo + torch.clamp(sample_id // spp, max=n_pixels - 1)
+        s = sample_lo + sample_id % spp
+        org, d, rnd = _emit_camera(camera, width, height, s, iteration, pix)
+        return org, d, rnd, pix
+
+    sample_id = torch.arange(pool, dtype=torch.int64, device=device)
+    next_free = torch.tensor(pool, dtype=torch.int64, device=device)
+    org, d, rnd, pixel = emit_rays(sample_id)
+    live = sample_id < min(total, pool)
+    zeros = torch.zeros(pool, dtype=torch.float32, device=device)
+    ones = torch.ones(pool, dtype=torch.float32, device=device)
+    rays = make_rays_c(org, d, zeros, torch.where(live, FLT_MAX, -1.0))
+    state = {
+        "rnd": rnd,
+        "contrib": (ones, ones, ones),
+        "mis": zeros,
+        "depth": torch.zeros(pool, dtype=torch.int32, device=device),
+        "alive": live,
+        "acc": (zeros, zeros, zeros),
+    }
+    zero3 = (zeros, zeros, zeros)
+    ones3 = (ones, ones, ones)
+    # the film rides through the loop as 3 component planes (in place)
+    planes = tuple(film[:, i].clone(memory_format=torch.contiguous_format)
+                   for i in range(3))
+
+    def film_index(pix):
+        return pix - pixel_lo if local_film else pix
+
+    def retire(rays, state, pixel, next_free):
+        dead = ~state["alive"]
+        _splat_planar(planes, film_index(pixel),
+                      vm.scale(state["acc"], weight), dead)
+        state = dict(state, acc=vm.where(dead, zero3, state["acc"]))
+        dead_i = dead.to(torch.int64)
+        new_id = next_free + torch.cumsum(dead_i, 0) - 1
+        can = dead & (new_id < total)
+        next_free = torch.clamp(next_free + dead_i.sum(), max=total)
+        norg, nd, nrnd, npix = emit_rays(torch.where(can, new_id, 0))
+        fresh = make_rays_c(norg, nd, zeros, torch.full_like(zeros, FLT_MAX))
+        rays = {k: (vm.where(can, fresh[k], rays[k])
+                    if isinstance(rays[k], tuple)
+                    else torch.where(can, fresh[k], rays[k]))
+                for k in rays}
+        state = {
+            "rnd": torch.where(can, nrnd, state["rnd"]),
+            "contrib": vm.where(can, ones3, state["contrib"]),
+            "mis": torch.where(can, 0.0, state["mis"]),
+            "depth": torch.where(can, 0, state["depth"]),
+            "alive": state["alive"] | can,
+            "acc": state["acc"],     # zeroed above for retired slots
+        }
+        pixel = torch.where(can, npix, pixel)
+        if pool_sort:
+            # reorder the pool by the post-regeneration rays' keys so the
+            # next steps' bounce and shadow traversals see coherent warps;
+            # slot identity carries (pixel, acc, sample): the film is
+            # unchanged
+            keys = ray_sort_keys(rays["org"], rays["dir"],
+                                 scene["scene_lo"], scene["scene_hi"])
+            if depth_split:
+                keys = (keys >> 1) | torch.where(state["depth"] == 0, 0,
+                                                 0x80000000)
+            keys = torch.where(state["alive"], keys, _DEAD_KEY)
+            perm = torch.sort(keys, stable=True).indices
+
+            def gt(t):
+                return tuple(x[perm] for x in t)
+            rays = make_rays_c(gt(rays["org"]), gt(rays["dir"]),
+                               rays["tmin"][perm], rays["tmax"][perm])
+            state = {k: gt(v) if isinstance(v, tuple) else v[perm]
+                     for k, v in state.items()}
+            pixel = pixel[perm]
+        return rays, state, pixel, next_free
+
+    step = 0
+    while bool(state["alive"].any() | (next_free < total)):  # host read
+        if depth_split:
+            # depth-0 camera rays on `packet`, the bounce depths on
+            # `bounce_packet`; each traversal sees the other's rays dead
+            d0 = state["depth"] == 0
+            h0 = _traverse(scene, dict(rays, tmax=torch.where(
+                d0, rays["tmax"], -1.0)), packet=packet, sort=call_sort)
+            hb = _traverse(scene, dict(rays, tmax=torch.where(
+                d0, -1.0, rays["tmax"])), packet=bounce_packet,
+                sort=call_sort)
+            hit = {k: torch.where(d0, h0[k], hb[k]) for k in h0}
+        else:
+            hit = _traverse(scene, rays, packet=bounce_packet,
+                            sort=call_sort)
+        rays, state = _shade(scene, rays, hit, state, packet=packet,
+                             sort=call_sort, shadow_packet=shadow_packet)
+        step += 1
+        # deferred retirement: every retire_every-th step, or whenever no
+        # slot is alive (else the loop could spin with samples pending)
+        if (retire_every == 1 or step % retire_every == 0
+                or not bool(state["alive"].any())):
+            rays, state, pixel, next_free = retire(rays, state, pixel,
+                                                   next_free)
+    # slots that ran out of samples never reached a retirement's splat
+    _splat_planar(planes, film_index(pixel), vm.scale(state["acc"], weight),
+                  torch.ones_like(state["alive"]))
+    film = torch.stack(planes, dim=-1)
+    if return_steps:
+        return film, step
+    return film

@@ -222,11 +222,19 @@ def _leaf_step(dev, org, dirv, tmin, t_cur, code):
             pid[:, m - 1] < 0)
 
 
-def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False):
+def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
+                        count_pops=False):
     """Closest-hit (any_hit=False) or first-hit (any_hit=True) traversal of
     flat (B,) component rays: org, dirv, inv_d are Vec3 tuples. A ray with
     tmax < tmin is dead. Returns {t, u, v, prim_id, geom_id}; on a miss
-    t = tmax and prim_id = geom_id = -1."""
+    t = tmax and prim_id = geom_id = -1.
+
+    count_pops=True adds the pop counters of the legacy Pallas body
+    (pallas_packet.py:690-699) as (B,) int32: "pops", every retired stack
+    entry, and "leaf_pops", the leaf entries alone (one Tri-row fetch
+    each). On the TPU they count per tile, whose rays share one stack
+    (rows 0 and 1 of each 8-row block, :870-875); here each ray has its
+    own stack, so they count per ray, and a dead ray counts 0."""
     device = tmin.device
     b = tmin.shape[0]
     stack = torch.zeros((b, stack_entries(dev)), dtype=torch.int32,
@@ -238,6 +246,9 @@ def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False):
     v = torch.zeros_like(t)
     prim = torch.full((b,), -1, dtype=torch.int32, device=device)
     geom = torch.full((b,), -1, dtype=torch.int32, device=device)
+    if count_pops:
+        pops = torch.zeros(b, dtype=torch.int32, device=device)
+        leaf_pops = torch.zeros(b, dtype=torch.int32, device=device)
     while True:
         act = torch.nonzero(sptr > 0).squeeze(1)
         if act.numel() == 0:
@@ -246,6 +257,9 @@ def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False):
         code = stack[act, sp]
         sptr[act] = sp
         is_node = code > 0
+        if count_pops:
+            pops[act] += 1
+            leaf_pops[act[~is_node]] += 1
 
         rays = act[is_node]
         if rays.numel():
@@ -281,7 +295,11 @@ def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False):
             sptr[rays] = lsp + cont.to(torch.int64)
             if any_hit:
                 sptr[upd] = 0
-    return {"t": t, "u": u, "v": v, "prim_id": prim, "geom_id": geom}
+    out = {"t": t, "u": u, "v": v, "prim_id": prim, "geom_id": geom}
+    if count_pops:
+        out["pops"] = pops
+        out["leaf_pops"] = leaf_pops
+    return out
 
 
 def components(rays):
@@ -294,11 +312,11 @@ def components(rays):
             cols(rays["inv_org"]), rays["tmin"], rays["tmax"])
 
 
-def traverse(dev, rays, any_hit=False):
+def traverse(dev, rays, any_hit=False, count_pops=False):
     """traverse_components over a make_rays dict ((B, 3) org/dir)."""
     org, dirv, inv_d, _, tmin, tmax = components(rays)
     return traverse_components(dev, org, dirv, inv_d, tmin, tmax,
-                               any_hit=any_hit)
+                               any_hit=any_hit, count_pops=count_pops)
 
 
 def occluded(dev, rays):

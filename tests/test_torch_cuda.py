@@ -1,4 +1,5 @@
-"""The CUDA kernel K1 and the port's slice on a CUDA card.
+"""The CUDA kernels K1, K2 (prefetch) and K3 (pop counters) and the port's
+slices on a CUDA card.
 
 Every test here is marked `cuda` and skips where torch sees no card. The
 file imports no jax, so it also runs where jax is not installed:
@@ -16,7 +17,8 @@ from rodent_tpu.utils import testscenes
 from rodent_tpu_torch.render import film as film_mod
 from rodent_tpu_torch.render.camera import Camera
 from rodent_tpu_torch.render.compiler import compile_mesh
-from rodent_tpu_torch.render.integrator import render_iteration
+from rodent_tpu_torch.render.integrator import (
+    render_iteration, render_iteration_persistent)
 from rodent_tpu_torch.traversal import api, packet
 
 pytestmark = pytest.mark.cuda
@@ -123,3 +125,75 @@ def test_render_on_card_matches_cpu(card):
     close = np.isclose(gpu, cpu, rtol=1e-4, atol=1e-5).all(axis=1)
     assert close.mean() >= 0.99, close.mean()
     assert abs(gpu.mean() / cpu.mean() - 1.0) < 5e-3
+
+
+@pytest.mark.parametrize("width", [8, 16, 24])
+def test_prefetch_and_count_kernels(card, width):
+    """K2 returns K1's hits bit for bit and K3 K1's hits plus counters
+    equal to the plain version's, closest-hit and any-hit, on BVH8 soups
+    with Tri8/16/24 rows; one launch of each per call."""
+    verts, idx = _soup(3000, seed=7 * width)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=width),
+                            card)
+    for any_hit, tmax in ((False, 1e30), (True, 2.0)):
+        rays = _rays(8192, width + 1, card, tmax)
+        packet.reset_launches()
+        k1 = packet.traverse_packet(dev, rays, any_hit=any_hit)
+        k2 = packet.traverse_packet(dev, rays, any_hit=any_hit,
+                                    prefetch=True)
+        k3 = packet.traverse_packet(dev, rays, any_hit=any_hit,
+                                    count_pops=True)
+        p = api.traverse(dev, rays, any_hit=any_hit, count_pops=True)
+        assert packet.launches == {"bvh_traverse": 1,
+                                   "bvh_traverse_prefetch": 1,
+                                   "bvh_traverse_count": 1}
+        for key in ("t", "u", "v", "prim_id", "geom_id"):
+            assert torch.equal(k2[key], k1[key]), key
+            assert torch.equal(k3[key], k1[key]), key
+        for key in ("pops", "leaf_pops"):
+            assert torch.equal(k3[key], p[key]), key
+        np.testing.assert_array_equal(k1["prim_id"].cpu().numpy() >= 0,
+                                      p["prim_id"].cpu().numpy() >= 0)
+
+
+def test_prefetch_refusals(card):
+    """K2 and K3 exist for BVH8 only; CPU tensors never launch them."""
+    verts, idx = _soup(500, seed=3)
+    dev4 = api.bvh_to_device(build_bvh(verts, idx, arity=4, packet=8), card)
+    rays = _rays(256, 4, card, 1e30)
+    for kw in (dict(prefetch=True), dict(count_pops=True)):
+        with pytest.raises(ValueError, match="built for BVH8"):
+            packet.traverse_packet(dev4, rays, **kw)
+    cpu = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8), "cpu")
+    packet.reset_launches()
+    packet.traverse_packet(cpu, _rays(256, 4, "cpu", 1e30), prefetch=True)
+    assert set(packet.launches.values()) == {0}
+
+
+def test_persistent_films_through_k1_and_k2(card):
+    """hall-20K, 32x24, spp 2, pool 256: the persistent film through K1
+    (packet=True) and through K2 (packet="hbm") on the card. The film
+    splat sums each pixel in slot order (deterministic index_put_), and
+    K2's hits are K1's, so the two films are equal bit for bit; against
+    the CPU film (plain traversal) they are held to rtol 1e-4 / atol 1e-5
+    on >= 99% of pixels and the mean to 0.5% (CPU and CUDA sqrt/sin/cos
+    differ by ULPs, test_render_on_card_matches_cpu)."""
+    verts, idx = testscenes.make_hall(20_000)
+    cam = Camera.make((2.5, 5.0, 5.0), (1.0, -0.12, 0.02), (0, 1, 0), 60.0,
+                      32, 24)
+    films = {}
+    for device, pk in (("cpu", True), (card, True), (card, "hbm")):
+        scene = compile_mesh(verts, idx, device, max_path_len=4,
+                             emitter="inside")
+        packet.reset_launches()
+        films[(str(device), pk)] = render_iteration_persistent(
+            scene.device, cam, film_mod.new_film(32, 24, device), 32, 24,
+            2, 0, pool=256, packet=pk, sort="pool").cpu().numpy()
+    assert packet.launches["bvh_traverse_prefetch"] > 0
+    assert packet.launches["bvh_traverse"] == 0
+    k1, k2 = films[("cuda", True)], films[("cuda", "hbm")]
+    np.testing.assert_array_equal(k2, k1)
+    cpu = films[("cpu", True)]
+    close = np.isclose(k1, cpu, rtol=1e-4, atol=1e-5).all(axis=1)
+    assert close.mean() >= 0.99, close.mean()
+    assert abs(k1.mean() / cpu.mean() - 1.0) < 5e-3

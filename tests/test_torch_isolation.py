@@ -29,7 +29,9 @@ def test_port_imports_no_jax():
     fresh interpreter: the test process itself has jax loaded)."""
     names = [m.name for m in pkgutil.walk_packages(
         rodent_tpu_torch.__path__, "rodent_tpu_torch.")]
-    assert "rodent_tpu_torch.traversal.packet" in names
+    for name in ("traversal.packet", "render.integrator", "render.compiler",
+                 "tools.benchmark", "tools.bench_traversal"):
+        assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
@@ -52,7 +54,12 @@ def test_cpu_traversal_never_launches_the_kernel():
     packet.reset_launches()
     hit = packet.traverse_packet(dev, rays)
     packet.traverse_packet(dev, rays, any_hit=True)
-    assert packet.launches["bvh_traverse"] == 0
+    for kw in (dict(prefetch=True), dict(count_pops=True)):
+        for any_hit in (False, True):
+            packet.traverse_packet(dev, rays, any_hit=any_hit, **kw)
+    assert packet.launches == {"bvh_traverse": 0,
+                               "bvh_traverse_prefetch": 0,
+                               "bvh_traverse_count": 0}
     assert hit["t"].device.type == "cpu"
 
 

@@ -6,7 +6,9 @@ It is held against the JAX package's Pallas traversal, run in interpret
 mode with tile_rows=4, and against api.traverse, on random triangle soups
 for arity 2/4/8 and Tri4/8/16/24 packets: prim_id exact, t within atol
 1e-5 and rtol 1e-6, any-hit hit/miss exact (tests/test_traversal.py
-pattern). Device tables and sort keys are held byte for byte.
+pattern). Device tables and sort keys are held byte for byte. The per-ray
+pop counters (the plain version of K3) are held against the legacy Pallas
+body's per-tile counters.
 """
 import numpy as np
 import pytest
@@ -16,7 +18,8 @@ import jax.numpy as jnp
 from rodent_tpu.accel import build_bvh
 from rodent_tpu.traversal import api as japi
 from rodent_tpu.traversal import sorting as jsort
-from rodent_tpu.traversal.pallas_packet import traverse_packet as jpacket
+from rodent_tpu.traversal.pallas_packet import (_call_kernel, pack_rays,
+                                                traverse_packet as jpacket)
 from rodent_tpu.utils import testscenes
 from rodent_tpu_torch.traversal import api as tapi
 from rodent_tpu_torch.traversal import packet as tpacket
@@ -149,3 +152,60 @@ def test_sort_keys_bit_exact():
         jperm = np.asarray(jperm)
         np.testing.assert_array_equal(tperm.numpy(), jperm)
         np.testing.assert_array_equal(srt["dir"].numpy(), dd[jperm])
+
+
+def test_pop_counters_match_the_legacy_body():
+    """The port's per-ray pops / leaf_pops against the count_pops output of
+    the legacy Pallas body (_kernel, interpret mode): each of 32 rays is
+    replicated across all 128 lanes of a one-row tile, so the tile's shared
+    stack is that ray's own stack and its per-tile counts (rows 0 and 1 of
+    the tile's 8-row block) are the ray's. Closest-hit on a BVH8/Tri8 soup.
+    All 32 rays agree exactly, pops and leaf pops; the hits agree too."""
+    _, jdev, tdev = _both(8, 8)
+    org, d, _ = random_rays(32, seed=55, tmax=1e30)
+    n = 32 * 128
+    jr = japi.make_rays(jnp.asarray(np.repeat(org, 128, 0)),
+                        jnp.asarray(np.repeat(d, 128, 0)),
+                        jnp.zeros(n, jnp.float32),
+                        jnp.full(n, 1e30, jnp.float32))
+    packed, nt = pack_rays(jr, 1, 1)
+    outs = _call_kernel(jdev, packed, nt, 1, False, True, count_pops=True,
+                        multi=1)
+    cnt = np.asarray(outs[5]).reshape(nt, 8, 128)
+    got = _np(tapi.traverse(tdev, tapi.make_rays(org, d, 0.0, 1e30),
+                            count_pops=True))
+    np.testing.assert_array_equal(got["pops"], cnt[:, 0, 0])
+    np.testing.assert_array_equal(got["leaf_pops"], cnt[:, 1, 0])
+    np.testing.assert_array_equal(
+        got["prim_id"], np.asarray(outs[3]).reshape(nt, 128)[:, 0])
+    assert got["pops"].max() > 5 and got["leaf_pops"].max() > 1
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_pop_counter_invariants(any_hit):
+    """0 <= leaf_pops <= pops, a dead ray counts 0 and a live one at least
+    the root; counting changes no hit; traverse_packet on CPU tensors
+    gives the same counters and launches nothing, and refuses to prefetch
+    and count at once."""
+    _, _, tdev = _both(8, 16)
+    org, d, tmax = random_rays(400, seed=57, tmax=2.0 if any_hit else 1e30)
+    tmax[::5] = -1.0
+    rays = tapi.make_rays(org, d, 0.0, tmax)
+    got = _np(tapi.traverse(tdev, rays, any_hit=any_hit, count_pops=True))
+    plain = _np(tapi.traverse(tdev, rays, any_hit=any_hit))
+    for key in plain:
+        np.testing.assert_array_equal(got[key], plain[key])
+    pops, leaf = got["pops"], got["leaf_pops"]
+    assert pops.dtype == leaf.dtype == np.int32
+    assert (leaf >= 0).all() and (leaf <= pops).all()
+    dead = tmax < 0
+    assert (pops[dead] == 0).all() and (pops[~dead] >= 1).all()
+    assert leaf.sum() > 0
+    tpacket.reset_launches()
+    wrapped = _np(tpacket.traverse_packet(tdev, rays, any_hit=any_hit,
+                                          count_pops=True))
+    np.testing.assert_array_equal(wrapped["pops"], pops)
+    np.testing.assert_array_equal(wrapped["leaf_pops"], leaf)
+    assert set(tpacket.launches.values()) == {0}
+    with pytest.raises(ValueError, match="prefetch and count_pops"):
+        tpacket.traverse_packet(tdev, rays, prefetch=True, count_pops=True)
