@@ -5,8 +5,9 @@ Drives the port's main path once at the size the repository's benchmark
 calls real, and checks it:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
-2. builds the BVH traversal kernels (csrc/bvh_traverse.cu) with nvcc: K1,
-   its prefetching variant K2 and its pop-counting variant K3;
+2. builds the BVH traversal kernels (csrc/bvh_traverse.cu) with nvcc, two
+   libraries at once: K1, its prefetching variant K2 and its pop-counting
+   variant K3; and K4, the options of the legacy Pallas body;
 3. K1 against its plain torch version on random triangle soups, arity
    2/4/8 and Tri4/8/16 packets, closest-hit and any-hit;
 4. hall-260K: 1024x1024 sorted primary rays timed through K1 and through
@@ -26,11 +27,22 @@ calls real, and checks it:
    path length 20 under the port's select_render_policy (K2, pool sort),
    three iterations, with every kernel's launch count read around them,
    then one iteration with a 16x larger pool for comparison;
-10. the hall golden gate through render_iteration_persistent (K1).
+10. the hall golden gate through render_iteration_persistent (K1);
+11. the attribution path (rodent_tpu_torch.experiments): K4 against the
+   plain version on two soups with multi-row leaves, every option; then
+   on hall-260K and powerplant-4.3M, every option against K3 in turns on
+   1M sorted primaries and on the ao rays (nonodetest, which pops the
+   whole tree, on fewer rays), with K4's launch count read around them,
+   and each option's counters and hits held against the plain version.
+
+Every kernel's time stands beside its bound, the least time the card
+could take for the same pops and the table rows they read
+(experiments.common.bound_ms). The scenes' builds, the ray distributions
+and the CUDA-event timer are those of rodent_tpu_torch.experiments.common,
+which the port's tools share.
 
 Run from the repository root: python3 chip_smoke.py
-Needs one CUDA card, nvcc and g++; writes only under build/ and, when
-the shared BVH builder's library is missing, rodent_tpu/native/. Any failed
+Needs one CUDA card, nvcc and g++; writes only under build/. Any failed
 check raises, so the exit code is not 0; the last line of a successful
 run is a JSON object naming the device.
 """
@@ -44,11 +56,11 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-TIE_LIMIT = 1e-4            # exact-t ties allowed in phases 4, 8: < 0.01%
+TIE_LIMIT = 1e-4            # exact-t ties allowed in phases 4, 8, 11
 SUBSET = 65_536             # ao rays held against the plain version
-# the big-scene build of bench.py:174-175 (Tri24 leaves, cheap DP leaves)
-BIG_BVH = {"packet": 24, "quality": 0, "leaf_threshold": 12,
-           "leaf_cost": 0.45}
+# powerplant rays through K4's nonodetest, which pops all of the tree's
+# 250,000 entries per ray
+NONODE_BIG = 16_384
 BIG_CAM = ((-30.0, 60.0, -30.0), (130.0, -40.0, 130.0), (0, 1, 0), 55.0)
 
 
@@ -59,31 +71,6 @@ def log(msg):
 def check(ok, msg):
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def timed(fn, iters, blocks, warmup_s=0.0):
-    """Median per-call milliseconds over `blocks` blocks of `iters` calls,
-    timed with CUDA events after warm-up calls (at least one, and for at
-    least warmup_s seconds, so the card leaves its idle clocks); returns
-    (ms, result)."""
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    while time.perf_counter() - t0 < warmup_s:
-        out = fn()
-        torch.cuda.synchronize()
-    samples = []
-    for _ in range(blocks):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(iters):
-            out = fn()
-        e1.record()
-        torch.cuda.synchronize()
-        samples.append(e0.elapsed_time(e1) / iters)
-    samples.sort()
-    return samples[len(samples) // 2], out
 
 
 def sm_clock():
@@ -146,30 +133,34 @@ def phase_env():
 
 
 def phase_build():
-    from rodent_tpu_torch.kernels.build import build, load_library
+    from rodent_tpu_torch.kernels.build import build_all, load_library
     t0 = time.perf_counter()
-    path, nvcc_log = build()
+    built = build_all()
     dt = time.perf_counter() - t0
-    load_library()
-    if nvcc_log is None:
-        log(f"[2] kernel library already built: "
+    what = {"main": "K1, K2 and K3", "options": "K4 (-DRT_OPTIONS)"}
+    for kind, (path, nvcc_log) in built.items():
+        load_library(kind=kind)
+        if nvcc_log is None:
+            log(f"[2] {what[kind]} already built: "
+                f"{os.path.relpath(path, REPO)}")
+            continue
+        with open(f"{path}.nvcc.log", "w") as f:
+            f.write(nvcc_log)
+        regs = [int(w) for line in nvcc_log.splitlines()
+                if "Used" in line and "registers" in line
+                for w in [line.split("Used")[1].split()[0]]]
+        spills = sum("0 bytes spill stores" not in line
+                     for line in nvcc_log.splitlines()
+                     if "spill stores" in line)
+        log(f"[2] built {what[kind]} from rodent_tpu_torch/csrc/"
+            f"bvh_traverse.cu: {len(regs)} kernels, registers "
+            f"{min(regs)}-{max(regs)}, {spills} with spills -> "
             f"{os.path.relpath(path, REPO)}")
-        return
-    with open(os.path.join(os.path.dirname(path), "nvcc.log"), "w") as f:
-        f.write(nvcc_log)
-    regs = [int(w) for line in nvcc_log.splitlines()
-            if "Used" in line and "registers" in line
-            for w in [line.split("Used")[1].split()[0]]]
-    spills = sum("0 bytes spill stores" not in line
-                 for line in nvcc_log.splitlines() if "spill stores" in line)
-    log(f"[2] built K1, K2 and K3 from rodent_tpu_torch/csrc/"
-        f"bvh_traverse.cu in {dt:.1f} s: {len(regs)} kernels, registers "
-        f"{min(regs)}-{max(regs)}, {spills} with spills -> "
-        f"{os.path.relpath(path, REPO)}")
+    log(f"[2] both libraries built at once in {dt:.1f} s")
 
 
 def phase_soups(device):
-    from rodent_tpu.accel import build_bvh
+    from rodent_tpu_torch.accel import build_bvh
     from rodent_tpu_torch.traversal import api
     from rodent_tpu_torch.traversal.packet import traverse_packet
     err = 0.0
@@ -202,37 +193,34 @@ def phase_soups(device):
 
 
 def phase_primary(device, scene):
-    from rodent_tpu.utils import testscenes
-    from rodent_tpu_torch.core.math import FLT_MAX
+    from rodent_tpu_torch.experiments import common
     from rodent_tpu_torch.traversal import api
     from rodent_tpu_torch.traversal.packet import (
         traverse_packet_components)
-    from rodent_tpu_torch.traversal.sorting import sort_rays
     bvh = scene.device["bvh"]
-    org, dirs = testscenes.hall_primary_rays(1024, 1024)
-    n = len(org)
-    rays = api.make_rays(org, dirs, 0.0, FLT_MAX, device=device)
-    srt, perm = sort_rays(rays, scene.device["scene_lo"],
-                          scene.device["scene_hi"])
-    o, d, inv, inv_o, tmin, tmax = api.components(srt)
+    dists = common.distributions("hall", scene.mesh.vertices,
+                                 scene.mesh.indices, bvh, 1024, device,
+                                 ("primary", "ao-unsorted"))
+    prim = dists["primary"][0]
+    o, d, inv, _, tmin, tmax = prim
+    n = tmin.shape[0]
 
     def k1():
-        return traverse_packet_components(bvh, o, d, inv, inv_o, tmin,
-                                          tmax)
+        return traverse_packet_components(bvh, *prim)
 
-    k_ms, hit = timed(k1, iters=20, blocks=5, warmup_s=0.5)
+    k_ms, hit = common.timed(k1, device, blocks=5, warmup_s=0.5)
     clock = sm_clock()
     mrays = n / k_ms / 1e3
     hit_frac = float((hit["prim_id"] >= 0).float().mean())
     log(f"[4] hall-260K primary, {n} sorted rays: K1 {k_ms:.4f} ms = "
-        f"{mrays:.1f} Mrays/s (median of 5 blocks x 20 after 0.5 s of "
-        f"warm-up; SM clock, power after: {clock}), hit fraction "
+        f"{mrays:.1f} Mrays/s (median of 5 blocks of about 20 ms after "
+        f"0.5 s of warm-up; SM clock, power after: {clock}), hit fraction "
         f"{hit_frac:.4f}")
 
     def plain():
         return api.traverse_components(bvh, o, d, inv, tmin, tmax)
 
-    p_ms, phit = timed(plain, iters=1, blocks=3)
+    p_ms, phit = common.timed(plain, device, blocks=3)
     log(f"[4] plain version on the same {n} rays: {p_ms:.1f} ms = "
         f"{n / p_ms / 1e3:.3f} Mrays/s (median of 3)")
     ties, err = compare_hits(hit, phit, "hall primary")
@@ -240,28 +228,26 @@ def phase_primary(device, scene):
     log(f"[4] K1 vs plain on all {n} primary rays: {ties} exact-t ties "
         f"({100.0 * ties / n:.4f}%), other prim_id mismatches 0, max "
         f"|dt,du,dv| {err:.3g}")
+    # K1's bound: the least time for the pops these rays need (K3 counts
+    # them) and the table rows they read (the plain version counts them)
+    s = common.pop_stats(traverse_packet_components(bvh, *prim,
+                                                    count_pops=True))
+    rows = common.rows_read(bvh, prim)
+    bound = common.bound_ms(bvh, n, s["node"], s["leaf"], rows)
+    log(f"[4] pops per ray {s['pops_ray']:.3f} (leaf {s['leaf_ray']:.3f});"
+        f" rows read {rows[0]} of {bvh['nodes'].shape[0]} node rows, "
+        f"{rows[1]} of {bvh['tris'].shape[0]} Tri8 rows: K1's bound "
+        f"{bound[0]:.4f} ms ({bound[1]}), K1 at {bound[0] / k_ms:.1%} of it")
 
     # ao rays from the primary hit points, in pixel order
-    t = torch.empty_like(hit["t"])
-    t[perm] = hit["t"]
-    pid = torch.empty_like(hit["prim_id"])
-    pid[perm] = hit["prim_id"]
-    mesh = scene.mesh
-    o2, d2, tmin2, tmax2 = testscenes.secondary_rays_from_trace(
-        "ao", org, dirs, t.cpu().numpy(), pid.cpu().numpy(),
-        mesh.vertices, mesh.indices.reshape(-1, 4))
-    sub = slice(0, SUBSET)
-    ao = api.make_rays(o2[sub], d2[sub], tmin2[sub], tmax2[sub],
-                       device=device)
-    oc, dc, ic, ioc, tmn, tmx = api.components(ao)
-    ka = traverse_packet_components(bvh, oc, dc, ic, ioc, tmn, tmx,
-                                    any_hit=True)["prim_id"] >= 0
-    pa = api.traverse_components(bvh, oc, dc, ic, tmn, tmx,
+    ao = common.head(dists["ao-unsorted"][0], SUBSET)
+    ka = traverse_packet_components(bvh, *ao, any_hit=True)["prim_id"] >= 0
+    pa = api.traverse_components(bvh, ao[0], ao[1], ao[2], ao[4], ao[5],
                                  any_hit=True)["prim_id"] >= 0
     check(bool(torch.equal(ka, pa)), "hall ao: any-hit hit/miss differs")
     log(f"[4] {SUBSET} ao any-hit rays: hit/miss identical, occluded "
         f"fraction {float(ka.float().mean()):.4f}")
-    return k_ms, p_ms, err
+    return k_ms, p_ms, err, bound, prim, ao
 
 
 def phase_render(device, scene):
@@ -301,8 +287,8 @@ def phase_render(device, scene):
 
 
 def phase_golden(device):
-    from rodent_tpu.io import png
-    from rodent_tpu.utils import testscenes
+    from rodent_tpu_torch.io import png
+    from rodent_tpu_torch.utils import testscenes
     from rodent_tpu_torch.render import film as film_mod
     from rodent_tpu_torch.render.camera import Camera
     from rodent_tpu_torch.render.compiler import compile_mesh
@@ -330,18 +316,19 @@ def phase_golden(device):
         f" {m['test_iters']} iterations): MSE {mse:.2f} <= {gate:.2f}")
 
 
-def phase_bigscene(device, tris=5_000_000):
-    from rodent_tpu.utils import testscenes
+def phase_bigscene(device):
+    from rodent_tpu_torch.experiments import common
+    from rodent_tpu_torch.utils import testscenes
     from rodent_tpu_torch.render.compiler import (compile_mesh,
                                                   fast_memory_bytes,
                                                   packet_mode)
     from rodent_tpu_torch.traversal.packet import stack_cap
     t0 = time.perf_counter()
-    verts, idx = testscenes.make_powerplant(tris)
+    verts, idx = testscenes.make_powerplant(common.SIZES["powerplant"])
     t_gen = time.perf_counter() - t0
     timings = {}
     scene = compile_mesh(verts, idx, device, max_path_len=20,
-                         emitter="above", bvh_kwargs=BIG_BVH,
+                         emitter="above", bvh_kwargs=common.TRI24,
                          timings=timings)
     bvh = scene.device["bvh"]
     nodes_mb = bvh["nodes"].numel() * 4 / 1e6
@@ -355,21 +342,19 @@ def phase_bigscene(device, tris=5_000_000):
         f"= {tris_mb:.1f} MB; stack {bvh['meta'].shared_stack}+2 of "
         f"{stack_cap(bvh)}; L2 {l2 / 1e6:.1f} MB -> tier {tier}")
     check(tier == "hybrid-hbm", f"powerplant tier {tier}, not hybrid-hbm")
-    return verts, scene
+    return scene
 
 
-def phase_bigscene_traversal(device, verts, scene, side=1024):
-    from rodent_tpu.utils import testscenes
-    from rodent_tpu_torch.core.math import FLT_MAX
+def phase_bigscene_traversal(device, scene, side=1024):
+    from rodent_tpu_torch.experiments import common
     from rodent_tpu_torch.traversal import api, packet
-    from rodent_tpu_torch.traversal.sorting import sort_rays
     bvh = scene.device["bvh"]
-    org, dirs = testscenes.powerplant_primary_rays(side, side)
-    n = len(org)
-    rays = api.make_rays(org, dirs, 0.0, FLT_MAX, device=device)
-    srt, perm = sort_rays(rays, verts.min(0), verts.max(0))
-    comps = api.components(srt)
+    dists = common.distributions("powerplant", scene.mesh.vertices,
+                                 scene.mesh.indices, bvh, side, device,
+                                 ("primary", "ao-unsorted"))
+    comps = dists["primary"][0]
     o, d, inv, _, tmin, tmax = comps
+    n = tmin.shape[0]
 
     def kernel(**kw):
         return lambda: packet.traverse_packet_components(bvh, *comps, **kw)
@@ -377,20 +362,20 @@ def phase_bigscene_traversal(device, verts, scene, side=1024):
     torch.cuda.reset_peak_memory_stats()
     ms, hits = {}, {}
     # in turns, K1, K2, K2, K1, then K3; a kernel's time is the mean of
-    # its turns, each the median of 5 blocks of 10 launches
+    # its turns, each the median of 5 blocks of about 20 ms
     for name, kw in (("K1", {}), ("K2", {"prefetch": True}),
                      ("K2", {"prefetch": True}), ("K1", {}),
                      ("K3", {"count_pops": True})):
-        t, hits[name] = timed(kernel(**kw), iters=10, blocks=5,
-                              warmup_s=0.5)
+        t, hits[name] = common.timed(kernel(**kw), device, blocks=5,
+                                     warmup_s=0.5)
         ms.setdefault(name, []).append(t)
     clock = sm_clock()
     k1, k2, k3 = hits["K1"], hits["K2"], hits["K3"]
     for key in ("t", "u", "v", "prim_id", "geom_id"):
         check(bool(torch.equal(k1[key], k2[key])),
               f"powerplant primary: K2 {key} differs from K1")
-    p_ms, plain = timed(lambda: api.traverse_components(
-        bvh, o, d, inv, tmin, tmax, count_pops=True), iters=1, blocks=2)
+    p_ms, plain = common.timed(lambda: api.traverse_components(
+        bvh, o, d, inv, tmin, tmax, count_pops=True), device, blocks=2)
     peak = torch.cuda.max_memory_allocated() / 1e9
     ties, err = compare_hits(k1, plain, "powerplant primary")
     check(ties < TIE_LIMIT * n, f"powerplant primary: {ties} ties")
@@ -423,25 +408,28 @@ def phase_bigscene_traversal(device, verts, scene, side=1024):
     for key in ("t", "u", "v", "prim_id", "geom_id"):
         check(bool(torch.equal(att[key], k1[key])),
               f"powerplant primary: K3 {key} differs from K1")
-    pops = float(att["pops"].double().mean())
-    leaf = float(att["leaf_pops"].double().mean())
+    s = common.pop_stats(att)
+    rows = common.rows_read(bvh, comps)
+    read_mb = (rows[0] * bvh["nodes"].shape[1]
+               + rows[1] * bvh["tris"].shape[1]) * 4 / 1e6
+    table_mb = (bvh["nodes"].numel() + bvh["tris"].numel()) * 4 / 1e6
+    bounds = {"K2": common.bound_ms(bvh, n, s["node"], s["leaf"], rows),
+              "K3": common.bound_ms(bvh, n, s["node"], s["leaf"], rows,
+                                    counters=True)}
     log(f"[8] K3 counters == plain counters on all {n} rays: mean pops "
-        f"per ray {pops:.3f}, leaf pops {leaf:.3f}, leaf share "
-        f"{leaf / pops:.4f}")
+        f"per ray {s['pops_ray']:.3f}, leaf pops {s['leaf_ray']:.3f}, leaf "
+        f"share {s['leaf'] / s['pops']:.4f}; rows read {rows[0]} of "
+        f"{bvh['nodes'].shape[0]} node rows, {rows[1]} of "
+        f"{bvh['tris'].shape[0]} Tri24 rows "
+        f"({read_mb:.1f} of {table_mb:.1f} MB); "
+        f"bound {bounds['K2'][0]:.4f} ms "
+        f"({bounds['K2'][1]}; with counters {bounds['K3'][0]:.4f}): K1 at "
+        f"{bounds['K2'][0] / k_ms['K1']:.1%} of it, K2 "
+        f"{bounds['K2'][0] / k_ms['K2']:.1%}, K3 "
+        f"{bounds['K3'][0] / k_ms['K3']:.1%}")
 
     # ao rays from the primary hit points, in pixel order
-    t = torch.empty_like(k1["t"])
-    t[perm] = k1["t"]
-    pid = torch.empty_like(k1["prim_id"])
-    pid[perm] = k1["prim_id"]
-    mesh = scene.mesh
-    o2, d2, tmin2, tmax2 = testscenes.secondary_rays_from_trace(
-        "ao", org, dirs, t.cpu().numpy(), pid.cpu().numpy(),
-        mesh.vertices, mesh.indices.reshape(-1, 4))
-    sub = slice(0, SUBSET)
-    ao = api.make_rays(o2[sub], d2[sub], tmin2[sub], tmax2[sub],
-                       device=device)
-    aoc = api.components(ao)
+    aoc = common.head(dists["ao-unsorted"][0], SUBSET)
     ka = packet.traverse_packet_components(bvh, *aoc, any_hit=True,
                                            prefetch=True)["prim_id"] >= 0
     k1a = packet.traverse_packet_components(bvh, *aoc,
@@ -452,7 +440,7 @@ def phase_bigscene_traversal(device, verts, scene, side=1024):
     check(bool(torch.equal(k1a, pa)), "powerplant ao: K1 hit/miss differs")
     log(f"[8] {SUBSET} ao any-hit rays: K2 and K1 hit/miss identical to "
         f"plain, occluded fraction {float(ka.float().mean()):.4f}")
-    return k_ms, p_ms, err, k3_launches
+    return k_ms, p_ms, err, k3_launches, bounds, comps, aoc
 
 
 def phase_bigscene_render(device, scene, w=1920, h=1088):
@@ -513,8 +501,8 @@ def phase_bigscene_render(device, scene, w=1920, h=1088):
 
 
 def phase_golden_persistent(device):
-    from rodent_tpu.io import png
-    from rodent_tpu.utils import testscenes
+    from rodent_tpu_torch.io import png
+    from rodent_tpu_torch.utils import testscenes
     from rodent_tpu_torch.render import film as film_mod
     from rodent_tpu_torch.render.camera import Camera
     from rodent_tpu_torch.render.compiler import compile_mesh
@@ -552,12 +540,166 @@ def phase_golden_persistent(device):
         f"{mse:.2f} <= {gate:.2f}")
 
 
+def options_for(any_hit, nonodetest=True):
+    """K4's options for closest-hit or any-hit (nosort is closest-hit
+    only)."""
+    from rodent_tpu_torch.traversal.packet import OPTIONS
+    return [o for o in OPTIONS if not (any_hit and o == "nosort")
+            and (nonodetest or o != "nonodetest")]
+
+
+def phase_option_soups(device):
+    """K4 against the plain version on two soups whose leaves span several
+    Tri rows (so leaf chains run): every option, closest-hit and any-hit,
+    counters and hits."""
+    from rodent_tpu_torch.accel import build_bvh
+    from rodent_tpu_torch.experiments.common import plain_args
+    from rodent_tpu_torch.traversal import api
+    from rodent_tpu_torch.traversal.packet import OPTION_ARGS, traverse_packet
+    err, runs = 0.0, 0
+    for m in (8, 24):
+        verts, idx = random_tri_soup(3000, seed=70 + m)
+        dev = api.bvh_to_device(build_bvh(
+            verts, idx, arity=8, packet=m, leaf_threshold=32,
+            leaf_cost=0.2), device)
+        r = np.random.RandomState(80 + m)
+        org = r.randn(8192, 3).astype(np.float32) * 3.0
+        d = r.randn(8192, 3).astype(np.float32)
+        d[:64, 0] = 0.0
+        tmax = np.full(8192, 1e30, np.float32)
+        tmax[128:160] = -1.0
+        for any_hit in (False, True):
+            rays = api.make_rays(org, d, 0.0, np.minimum(tmax, 2.0)
+                                 if any_hit else tmax, device=device)
+            for opt in options_for(any_hit):
+                k = traverse_packet(dev, rays, any_hit=any_hit,
+                                    count_pops=True, **OPTION_ARGS[opt])
+                p = api.traverse(dev, rays, any_hit=any_hit, count_pops=True,
+                                 **plain_args(opt))
+                what = f"soup Tri{m} {opt} any_hit={any_hit}"
+                for key in ("pops", "leaf_pops"):
+                    check(bool(torch.equal(k[key], p[key])),
+                          f"{what}: {key} differ from the plain version")
+                ties, e = compare_hits(k, p, what)
+                check(ties == 0, f"{what}: {ties} ties")
+                err = max(err, e)
+                runs += 1
+    log(f"[11] K4 == plain on 2 soups (BVH8/Tri8, Tri24, leaves of up to "
+        f"32 tris), {runs} option runs, closest-hit and any-hit: counters "
+        f"equal, prim_id identical, max |dt,du,dv| {err:.3g}")
+    return err
+
+
+def phase_options(device, name, bvh, prim, ao, nonode_rays):
+    """[11] The attribution path on one scene: every K4 option against K3
+    in turns on 1M sorted primaries and on the ao rays, the way
+    rodent_tpu_torch.experiments drives it (nonodetest, which pops the
+    whole tree per ray, on the first `nonode_rays` rays of each); then
+    each option's counters and hits against the plain version on 65,536
+    of those rays, which also count the table rows read for each option's
+    bound (fewer than all the rays read, so the bound stays a lower one).
+    Returns (K4's launches in the path, results, max |dt,du,dv|)."""
+    from rodent_tpu_torch.experiments import common
+    from rodent_tpu_torch.traversal import api, packet
+    head = common.head
+
+    sub_prim, sub_ao = head(prim, nonode_rays), head(ao, nonode_rays)
+    packet.reset_launches()
+    t0 = time.perf_counter()
+    runs = {
+        "primary": common.option_turns(
+            bvh, prim, device, options_for(False, False), blocks=3),
+        "ao": common.option_turns(
+            bvh, ao, device, options_for(True, False), any_hit=True,
+            blocks=3),
+        "primary nonodetest": common.option_turns(
+            bvh, sub_prim, device, ["nonodetest"], blocks=1),
+        "ao nonodetest": common.option_turns(
+            bvh, sub_ao, device, ["nonodetest"], any_hit=True, blocks=1),
+    }
+    torch.cuda.synchronize()
+    launched = packet.launches["bvh_traverse_option"]
+    dt = time.perf_counter() - t0
+    check(launched >= 2 * (len(options_for(False)) + len(options_for(True))),
+          f"{name}: {launched} K4 launches")
+    log(f"[11] {name}: K4 launched {launched} times in {dt:.1f} s "
+        f"(clock, power after: {sm_clock()})")
+
+    err = 0.0
+    n_nodes, n_rows = bvh["nodes"].shape[0], bvh["tris"].shape[0]
+    for run, res in runs.items():
+        any_hit = run.startswith("ao")
+        comps = (sub_ao if any_hit else sub_prim) if "nonodetest" in run \
+            else (ao if any_hit else prim)
+        k3 = res["K3"]["out"]
+        sub = min(SUBSET, comps[-1].shape[0])
+        pc = head(comps, sub)
+        for opt, r in res.items():
+            if opt == "K3":
+                continue
+            out = r["out"]
+            what = f"{name} {run.split()[0]} {opt}"
+            s = common.pop_stats(out)
+            if opt == "nonodetest":
+                # no node is culled: a ray that finds no hit pops every
+                # node and every Tri row; the hits are K3's
+                miss = out["prim_id"] < 0
+                full = out["pops"] == n_nodes + n_rows
+                check(bool(full[miss].all() if any_hit else full.all()),
+                      f"{what}: a ray did not pop the whole tree")
+                if any_hit:
+                    check(bool(torch.equal(miss, k3["prim_id"] < 0)),
+                          f"{what}: hit/miss differs from K3")
+                else:
+                    ties, e = compare_hits(out, k3, what)
+                    check(ties < TIE_LIMIT * sub, f"{what}: {ties} ties")
+                    err = max(err, e)
+                note = "every missing ray popped the whole tree"
+                rows = common.rows_read(bvh, comps, any_hit, opt)
+            else:
+                p = api.traverse_components(
+                    bvh, pc[0], pc[1], pc[2], pc[4], pc[5], any_hit=any_hit,
+                    count_pops=True, count_rows=True,
+                    **common.plain_args(opt))
+                rows = (int(p.pop("nodes_read").sum()),
+                        int(p.pop("tris_read").sum()))
+                ko = {k: v[:sub] for k, v in out.items()}
+                for key in ("pops", "leaf_pops"):
+                    check(bool(torch.equal(ko[key], p[key])),
+                          f"{what}: {key} differ from the plain version")
+                ties, e = compare_hits(ko, p, what)
+                check(ties < TIE_LIMIT * sub, f"{what}: {ties} ties")
+                err = max(err, e)
+                note = f"counters == plain on {sub} rays, {ties} ties"
+            if opt == "noleaftest":
+                check(bool((out["prim_id"] < 0).all()),
+                      f"{what}: a ray hit with the leaf tests off")
+            if opt == "row_loads":
+                for key in out:
+                    check(bool(torch.equal(out[key], k3[key])),
+                          f"{what}: {key} differs from K3")
+                note += ", every output bit equal to K3's"
+            # a leaf chain tests the Tri rows K3 pops one by one
+            tested = (common.pop_stats(k3)["leaf"] if opt.startswith("chain")
+                      else s["leaf"])
+            bound = common.bound_ms(bvh, s["n"], s["node"], tested, rows,
+                                    any_hit, opt, counters=True)
+            log(f"[11] {what}: {r['ms']:.4f} ms vs K3 {r['k3_ms']:.4f} ms "
+                f"in turns ({r['ms'] / r['k3_ms']:.3f}x) on "
+                f"{out['t'].shape[0]} rays; pops/ray {s['pops_ray']:.3f} "
+                f"(leaf {s['leaf_ray']:.3f}); bound {bound[0]:.4f} ms "
+                f"({bound[1]}; rows read by {sub} rays {rows[0]} + "
+                f"{rows[1]}); {note}")
+    return launched, runs, err
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
-    from rodent_tpu.utils import testscenes
     from rodent_tpu_torch.device import cuda_device
+    from rodent_tpu_torch.experiments import common
     from rodent_tpu_torch.render.compiler import compile_mesh
+    from rodent_tpu_torch.utils import testscenes
     from rodent_tpu_torch.traversal.packet import stack_cap
     device = cuda_device()
     t_start = time.perf_counter()
@@ -566,40 +708,69 @@ def main():
     phase_soups(device)
 
     t0 = time.perf_counter()
-    verts, idx = testscenes.make_hall(260_000)
+    verts, idx = testscenes.make_hall(common.SIZES["hall"])
     scene = compile_mesh(verts, idx, device, max_path_len=20,
-                         emitter="inside",
-                         bvh_kwargs={"packet": 8, "leaf_threshold": 12})
+                         emitter="inside", bvh_kwargs=common.TRI8)
     bvh = scene.device["bvh"]
     log(f"[4] hall-260K: {scene.mesh.num_tris} tris, "
         f"{bvh['nodes'].shape[0]} BVH8 nodes, {bvh['tris'].shape[0]} Tri8 "
         f"packets, stack {bvh['meta'].shared_stack}+2 of {stack_cap(bvh)}; "
         f"compiled in {time.perf_counter() - t0:.1f} s")
-    k_ms, p_ms, err = phase_primary(device, scene)
+    k_ms, p_ms, err, k1_bound, hall_prim, hall_ao = phase_primary(device,
+                                                                  scene)
     launches = phase_render(device, scene)
     phase_golden(device)
+    hall_bvh = bvh
     del scene, bvh
-    big_verts, big = phase_bigscene(device)
-    big_ms, big_plain_ms, big_err, k3_launches = phase_bigscene_traversal(
-        device, big_verts, big)
+    big = phase_bigscene(device)
+    (big_ms, big_plain_ms, big_err, k3_launches, bounds, big_prim,
+     big_ao) = phase_bigscene_traversal(device, big)
     k2_launches = phase_bigscene_render(device, big)
+    big_bvh = big.device["bvh"]
     del big
     phase_golden_persistent(device)
+    t_att = time.perf_counter()
+    k4_err = phase_option_soups(device)
+    k4_launches, variants = 0, {}
+    for name, bvh, prim, ao, nonode in (
+            ("hall-260K", hall_bvh, hall_prim, hall_ao, SUBSET),
+            ("powerplant-4.3M", big_bvh, big_prim, big_ao, NONODE_BIG)):
+        n, runs, e = phase_options(device, name, bvh, prim, ao, nonode)
+        k4_launches += n
+        k4_err = max(k4_err, e)
+        variants[name] = {run: {o: {"ms": r["ms"], "k3_ms": r["k3_ms"]}
+                                for o, r in res.items() if o != "K3"}
+                          for run, res in runs.items()}
+    log(f"[11] the attribution phase took {time.perf_counter() - t_att:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     src = "rodent_tpu_torch/csrc/bvh_traverse.cu"
     pallas = "rodent_tpu/traversal/pallas_packet.py"
+    # no PyTorch call computes a BVH traversal: library_ms is null
     log(json.dumps({"kernels": [
         {"name": "bvh_traverse", "route": "cuda", "source": src,
          "replaces": f"{pallas}:878", "launches": launches,
-         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms},
+         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
+         "library_ms": None},
         {"name": "bvh_traverse_prefetch", "route": "cuda", "source": src,
          "replaces": f"{pallas}:96", "launches": k2_launches,
          "max_abs_err": big_err, "ms": big_ms["K2"],
-         "plain_ms": big_plain_ms},
+         "plain_ms": big_plain_ms, "bound_ms": bounds["K2"][0],
+         "bound_by": bounds["K2"][1], "library_ms": None},
         {"name": "bvh_traverse_count", "route": "cuda", "source": src,
          "replaces": f"{pallas}:395", "launches": k3_launches,
          "max_abs_err": big_err, "ms": big_ms["K3"],
-         "plain_ms": big_plain_ms}]}))
+         "plain_ms": big_plain_ms, "bound_ms": bounds["K3"][0],
+         "bound_by": bounds["K3"][1], "library_ms": None},
+        # ms: row_loads on the powerplant primaries, which does K3's work
+        # (so K3's bound); every variant's time is under "variants"
+        {"name": "bvh_traverse_option", "route": "cuda", "source": src,
+         "replaces": f"{pallas}:395", "launches": k4_launches,
+         "max_abs_err": k4_err,
+         "ms": variants["powerplant-4.3M"]["primary"]["row_loads"]["ms"],
+         "plain_ms": big_plain_ms, "bound_ms": bounds["K3"][0],
+         "bound_by": bounds["K3"][1], "library_ms": None,
+         "variants": variants}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

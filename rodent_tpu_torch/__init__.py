@@ -10,9 +10,9 @@ Layout rules of the port:
   of rodent_tpu.core.tiles is a TPU rule and is not ported);
 - every function takes its device from an explicit argument or from the
   tensors it is given: there is no global default device;
-- jax-free host code (rodent_tpu.accel, rodent_tpu.io, rodent_tpu.native,
-  rodent_tpu.utils.testscenes) is shared with the JAX package, never
-  copied; nothing here imports jax.
+- the port imports nothing of the JAX package: the host code it needs
+  (accel, io, native, utils.testscenes) is a copy kept here, and nothing
+  here imports jax.
 """
 
 __version__ = "0.1.0"

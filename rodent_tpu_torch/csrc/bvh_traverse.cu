@@ -1,5 +1,7 @@
-// K1: BVH traversal for Hopper (sm_90a), one thread per ray, and its two
-// compile-time variants K2 (next-pop L2 prefetch) and K3 (pop counters).
+// K1: BVH traversal for Hopper (sm_90a), one thread per ray, and its
+// compile-time variants K2 (next-pop L2 prefetch), K3 (pop counters) and
+// K4 (the options of the legacy Pallas body, built with -DRT_OPTIONS into
+// a second library).
 //
 // K1 replaces the Pallas bodies _kernel_ct and _kernel_multi of
 // rodent_tpu/traversal/pallas_packet.py (:878-1131, :1132-1391), which
@@ -83,6 +85,49 @@
 // K2 and K3 are instantiated for BVH8 with Tri4/8/16/24 rows only (the
 // builds that use them); the C entries return cudaErrorInvalidValue for
 // the rest and the wrapper raises before that.
+//
+// K4 (bvh_traverse_option_kernel, -DRT_OPTIONS) is K3 with one option of
+// the legacy body _kernel (pallas_packet.py:395-876) compiled in, so each
+// option is timed against K3 with the same counting overhead. The options
+// are the TPU's levers against the per-pop dependent chain; on this card
+// the same chain (a row load whose address comes from the previous pop)
+// and warp divergence bound K1, so each is asked again here:
+//   kNoNodeTest  ablate "nonodetest" (:575-578): push every nonzero child
+//                in slot order without a slab test; hits stay right, pops
+//                grow; the time per pop without the 8 slab tests.
+//   kNoLeafTest  ablate "noleaftest" (:639-644): a leaf skips its M lanes
+//                and follows its continuation; every ray misses; the time
+//                per pop without Moller-Trumbore.
+//   kNoSort      ablate "nosort" (:548, :582, :773), closest-hit only:
+//                hit children pushed in slot order, no Batcher network.
+//   kPops2       pops=2, the phased body (:679-789): pop two entries, test
+//                both against t as the iteration began, merge the two leaf
+//                folds first-wins with strict <, push the second entry's
+//                children first. Two node rows are expanded in one basic
+//                block, so both rows' loads are in flight at once: the
+//                thread waits on one latency for two pops.
+//   kChain2/4    leaf_chain 2 and 4 (:651-663): one pop consumes up to N
+//                consecutive Tri rows of a leaf in registers, with no
+//                stack store or load between them; still one pop and one
+//                leaf pop on the counters.
+//   kRowLoads    the counterpart of scalar_reads (:449-460). K1 already
+//                reads each field with its own __ldg, which is what
+//                scalar_reads=True was on the TPU; this variant instead
+//                reads a node row (224 B for BVH8) as 14 16-byte
+//                ld.global.nc.v4.f32 loads, and a Tri row's fields four
+//                lanes at a time the same way (rows are laid out by field,
+//                so four lanes of a field are contiguous; rows are 28A and
+//                56M bytes, so 16-byte aligned). Fewer, wider loads per
+//                pop; it changes no bit of any output.
+// The octant-pure ordered slab test (ablation "nopure", :794-799) and the
+// row-frustum test (frustum=True, :493-550) belong to one stack shared by
+// a tile of rays and have no per-thread counterpart here. K4 is
+// instantiated for BVH8 x Tri8/Tri24 x stack 64/128 x closest/any-hit
+// (kNoSort closest-hit only): 52 kernels. kPops2 takes stacks of 128/256:
+// expanding the second entry early leaves up to A more entries per level,
+// and the wrapper sizes it at twice the pops=1 worst case, a bound that is
+// not proven. So K4 checks every push: a stack that would overflow is
+// never written past; the ray stops and its pop counter reads -1.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,11 +135,6 @@
 namespace {
 
 constexpr int kBlock = 128;
-
-// kernel variants (a template argument: each is its own instantiation)
-constexpr int kPlain = 0;     // K1
-constexpr int kPrefetch = 1;  // K2: exact next-pop L2 prefetch
-constexpr int kCount = 2;     // K3: per-ray pop counters
 
 struct Args {
   const float* nodes;  // (N, 7A)
@@ -110,26 +150,18 @@ struct Args {
   float* v;
   int* prim;
   int* geom;
-  int* pops;       // K3 only: (n,) retired entries per ray
-  int* leaf_pops;  // K3 only: (n,) leaf entries per ray
+  int* pops;       // K3, K4: (n,) retired entries per ray
+  int* leaf_pops;  // K3, K4: (n,) leaf entries per ray
 };
 
-// Prefetches the `bytes` at p into L2, one `prefetch.global.L2` per
-// 128-byte line (the last one covers a row that ends on a fresh line); the
-// thread does not wait for them.
-__device__ __forceinline__ void prefetch_l2(const float* p, unsigned bytes) {
-  const char* c = reinterpret_cast<const char*>(p);
-  for (unsigned off = 0; off < bytes; off += 128) {
-    asm volatile("prefetch.global.L2 [%0];" :: "l"(c + off));
-  }
-  asm volatile("prefetch.global.L2 [%0];" :: "l"(c + bytes - 1));
-}
+// one ray's inputs, in registers
+struct Ray {
+  float ix, iy, iz, ox, oy, oz, dx, dy, dz, tmin;
+};
 
-// K2: when stack entry `code` (the exact next pop; 0 = none) is a leaf,
-// start bringing its Tri row into L2.
-template <int M>
-__device__ __forceinline__ void prefetch_entry(const Args& a, int code) {
-  if (code < 0) prefetch_l2(a.tris + (long long)(~code) * (14 * M), 56 * M);
+__device__ __forceinline__ Ray load_ray(const Args& a, long long i) {
+  return Ray{a.ix[i], a.iy[i], a.iz[i], a.ox[i], a.oy[i], a.oz[i],
+             a.dx[i], a.dy[i], a.dz[i], a.tmin[i]};
 }
 
 template <int A>
@@ -172,23 +204,103 @@ __device__ __forceinline__ void sort_children(float (&key)[A], int (&ch)[A],
   }
 }
 
+// Slab tests of every child of one node row; ld(j) reads float j of the
+// row. Fills the child codes, the hit mask (entry <= exit, nonzero child)
+// and the sort key (entry distance; +inf for a miss).
+template <int A, typename Ld>
+__device__ __forceinline__ void slab_test(Ld ld, const Ray& r, float t_cur,
+                                          float (&key)[A], int (&ch)[A],
+                                          bool (&hit)[A]) {
+#pragma unroll
+  for (int c = 0; c < A; ++c) {
+    const float tx0 = (ld(0 * A + c) - r.ox) * r.ix;
+    const float tx1 = (ld(1 * A + c) - r.ox) * r.ix;
+    const float ty0 = (ld(2 * A + c) - r.oy) * r.iy;
+    const float ty1 = (ld(3 * A + c) - r.oy) * r.iy;
+    const float tz0 = (ld(4 * A + c) - r.oz) * r.iz;
+    const float tz1 = (ld(5 * A + c) - r.oz) * r.iz;
+    const float entry = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                              fmaxf(fminf(tz0, tz1), r.tmin));
+    const float exit = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                             fminf(fmaxf(tz0, tz1), t_cur));
+    ch[c] = __float_as_int(ld(6 * A + c));
+    hit[c] = (entry <= exit) && (ch[c] != 0);
+    key[c] = hit[c] ? entry : INFINITY;
+  }
+}
+
+// Sign-trick Moller-Trumbore of one Tri lane whose fields are f (v0, e1,
+// e2, n; xyz each). Where the lane passes `t <= t_test` and beats t_run
+// strictly, returns true with its t, u and v.
+__device__ __forceinline__ bool mt_lane(const float (&f)[12], const Ray& r,
+                                        float t_test, float t_run, float& t,
+                                        float& u, float& v) {
+  const float cx = f[0] - r.ox;
+  const float cy = f[1] - r.oy;
+  const float cz = f[2] - r.oz;
+  const float rx = r.dy * cz - r.dz * cy;
+  const float ry = r.dz * cx - r.dx * cz;
+  const float rz = r.dx * cy - r.dy * cx;
+  const float det = f[9] * r.dx + f[10] * r.dy + f[11] * r.dz;
+  const float abs_det = fabsf(det);
+  const float sign = det < 0.0f ? -1.0f : 1.0f;
+  const float uu = (rx * f[6] + ry * f[7] + rz * f[8]) * sign;
+  const float vv = (rx * f[3] + ry * f[4] + rz * f[5]) * sign;
+  const float tt = (cx * f[9] + cy * f[10] + cz * f[11]) * sign;
+  const bool ok = (uu >= 0.0f) && (vv >= 0.0f) && (uu + vv <= abs_det) &&
+                  (abs_det != 0.0f) && (tt >= abs_det * r.tmin) &&
+                  (tt <= abs_det * t_test);
+  const float inv_det = 1.0f / (abs_det != 0.0f ? abs_det : 1.0f);
+  const float tv = tt * inv_det;
+  if (ok && tv < t_run) {
+    t = tv;
+    u = uu * inv_det;
+    v = vv * inv_det;
+    return true;
+  }
+  return false;
+}
+
+#ifndef RT_OPTIONS
+
+// kernel variants (a template argument: each is its own instantiation)
+constexpr int kPlain = 0;     // K1
+constexpr int kPrefetch = 1;  // K2: exact next-pop L2 prefetch
+constexpr int kCount = 2;     // K3: per-ray pop counters
+
+// Prefetches the `bytes` at p into L2, one `prefetch.global.L2` per
+// 128-byte line (the last one covers a row that ends on a fresh line); the
+// thread does not wait for them.
+__device__ __forceinline__ void prefetch_l2(const float* p, unsigned bytes) {
+  const char* c = reinterpret_cast<const char*>(p);
+  for (unsigned off = 0; off < bytes; off += 128) {
+    asm volatile("prefetch.global.L2 [%0];" :: "l"(c + off));
+  }
+  asm volatile("prefetch.global.L2 [%0];" :: "l"(c + bytes - 1));
+}
+
+// K2: when stack entry `code` (the exact next pop; 0 = none) is a leaf,
+// start bringing its Tri row into L2.
+template <int M>
+__device__ __forceinline__ void prefetch_entry(const Args& a, int code) {
+  if (code < 0) prefetch_l2(a.tris + (long long)(~code) * (14 * M), 56 * M);
+}
+
 template <bool ANY_HIT, int A, int M, int STACK, int VAR>
 __global__ void __launch_bounds__(kBlock) bvh_traverse_kernel(Args a) {
   constexpr bool PF = VAR == kPrefetch;
   constexpr bool COUNT = VAR == kCount;
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= a.n) return;
-  const float ix = a.ix[i], iy = a.iy[i], iz = a.iz[i];
-  const float ox = a.ox[i], oy = a.oy[i], oz = a.oz[i];
-  const float dx = a.dx[i], dy = a.dy[i], dz = a.dz[i];
-  const float tmin = a.tmin[i], tmax = a.tmax[i];
+  const Ray r = load_ray(a, i);
+  const float tmax = a.tmax[i];
 
   float t = tmax, u = 0.0f, v = 0.0f;
   int prim = -1, geom = -1;
   int stack[STACK];
   int sp = 0;
-  int pops = 0, leaf_pops = 0;        // K3's counters
-  if (tmax >= tmin) stack[sp++] = 1;  // root ref; dead rays never start
+  int pops = 0, leaf_pops = 0;          // K3's counters
+  if (tmax >= r.tmin) stack[sp++] = 1;  // root ref; dead rays never start
 
   while (sp > 0) {
     const int code = stack[--sp];
@@ -201,22 +313,8 @@ __global__ void __launch_bounds__(kBlock) bvh_traverse_kernel(Args a) {
       float key[A];
       int ch[A];
       bool hit[A];
-#pragma unroll
-      for (int c = 0; c < A; ++c) {
-        const float tx0 = (__ldg(row + 0 * A + c) - ox) * ix;
-        const float tx1 = (__ldg(row + 1 * A + c) - ox) * ix;
-        const float ty0 = (__ldg(row + 2 * A + c) - oy) * iy;
-        const float ty1 = (__ldg(row + 3 * A + c) - oy) * iy;
-        const float tz0 = (__ldg(row + 4 * A + c) - oz) * iz;
-        const float tz1 = (__ldg(row + 5 * A + c) - oz) * iz;
-        const float entry = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                                  fmaxf(fminf(tz0, tz1), tmin));
-        const float exit = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                                 fminf(fmaxf(tz0, tz1), t));
-        ch[c] = __float_as_int(__ldg(row + 6 * A + c));
-        hit[c] = (entry <= exit) && (ch[c] != 0);
-        key[c] = hit[c] ? entry : INFINITY;
-      }
+      slab_test<A>([&](int j) { return __ldg(row + j); }, r, t, key, ch,
+                   hit);
       if (!ANY_HIT) sort_children<A>(key, ch, hit);
       int k = 0;
 #pragma unroll
@@ -254,36 +352,10 @@ __global__ void __launch_bounds__(kBlock) bvh_traverse_kernel(Args a) {
       for (int l = 0; l < M; ++l) {
         const int pid = __ldg(rowi + 12 * M + l);
         if (pid == -1) continue;
-        const float cx = __ldg(row + 0 * M + l) - ox;
-        const float cy = __ldg(row + 1 * M + l) - oy;
-        const float cz = __ldg(row + 2 * M + l) - oz;
-        const float e1x = __ldg(row + 3 * M + l);
-        const float e1y = __ldg(row + 4 * M + l);
-        const float e1z = __ldg(row + 5 * M + l);
-        const float e2x = __ldg(row + 6 * M + l);
-        const float e2y = __ldg(row + 7 * M + l);
-        const float e2z = __ldg(row + 8 * M + l);
-        const float nx = __ldg(row + 9 * M + l);
-        const float ny = __ldg(row + 10 * M + l);
-        const float nz = __ldg(row + 11 * M + l);
-        const float rx = dy * cz - dz * cy;
-        const float ry = dz * cx - dx * cz;
-        const float rz = dx * cy - dy * cx;
-        const float det = nx * dx + ny * dy + nz * dz;
-        const float abs_det = fabsf(det);
-        const float sign = det < 0.0f ? -1.0f : 1.0f;
-        const float uu = (rx * e2x + ry * e2y + rz * e2z) * sign;
-        const float vv = (rx * e1x + ry * e1y + rz * e1z) * sign;
-        const float tt = (cx * nx + cy * ny + cz * nz) * sign;
-        const bool ok = (uu >= 0.0f) && (vv >= 0.0f) &&
-                        (uu + vv <= abs_det) && (abs_det != 0.0f) &&
-                        (tt >= abs_det * tmin) && (tt <= abs_det * t_test);
-        const float inv_det = 1.0f / (abs_det != 0.0f ? abs_det : 1.0f);
-        const float tv = tt * inv_det;
-        if (ok && tv < t) {
-          t = tv;
-          u = uu * inv_det;
-          v = vv * inv_det;
+        float f[12];
+#pragma unroll
+        for (int k = 0; k < 12; ++k) f[k] = __ldg(row + k * M + l);
+        if (mt_lane(f, r, t_test, t, t, u, v)) {
           prim = pid & 0x7FFFFFFF;
           geom = __ldg(rowi + 13 * M + l);
           found = true;
@@ -356,6 +428,270 @@ int wide(const Args& a, int arity, int m, int cap, cudaStream_t s) {
   }
 }
 
+#else  // RT_OPTIONS: K4
+
+// K4's options, in the order of traversal/packet.py OPTIONS
+constexpr int kNoNodeTest = 0;
+constexpr int kNoLeafTest = 1;
+constexpr int kNoSort = 2;
+constexpr int kPops2 = 3;
+constexpr int kChain2 = 4;
+constexpr int kChain4 = 5;
+constexpr int kRowLoads = 6;
+
+// the running hit of a ray
+struct Hit {
+  float t, u, v;
+  int prim, geom;
+};
+
+__device__ __forceinline__ float lane_of(const float4& x, int j) {
+  return j == 0 ? x.x : j == 1 ? x.y : j == 2 ? x.z : x.w;
+}
+
+// Expands one node row: the children to push (in push order) and their
+// mask. NODETEST=false pushes every nonzero child in slot order.
+template <int A, bool NODETEST, bool SORT, bool ROW>
+__device__ __forceinline__ void expand_node(const float* row, const Ray& r,
+                                            float t_test, int (&ch)[A],
+                                            bool (&hit)[A]) {
+  if constexpr (!NODETEST) {
+#pragma unroll
+    for (int c = 0; c < A; ++c) {
+      ch[c] = __float_as_int(__ldg(row + 6 * A + c));
+      hit[c] = ch[c] != 0;
+    }
+    return;
+  } else {
+    float key[A];
+    if constexpr (ROW) {
+      static_assert((7 * A) % 4 == 0, "row loads need 16-byte rows");
+      const float4* row4 = reinterpret_cast<const float4*>(row);
+      float b[7 * A];
+#pragma unroll
+      for (int q = 0; q < 7 * A / 4; ++q) {
+        const float4 x = __ldg(row4 + q);
+        b[4 * q] = x.x; b[4 * q + 1] = x.y;
+        b[4 * q + 2] = x.z; b[4 * q + 3] = x.w;
+      }
+      slab_test<A>([&](int j) { return b[j]; }, r, t_test, key, ch, hit);
+    } else {
+      slab_test<A>([&](int j) { return __ldg(row + j); }, r, t_test, key,
+                   ch, hit);
+    }
+    if constexpr (SORT) sort_children<A>(key, ch, hit);
+  }
+}
+
+// Moller-Trumbore over the M lanes of one Tri row, folded into h: lanes
+// test against t_test and update on a strict < against the running h.t.
+template <int M, bool ROW>
+__device__ __forceinline__ void leaf_row(const float* row, const Ray& r,
+                                         float t_test, Hit& h) {
+  const int* rowi = reinterpret_cast<const int*>(row);
+  if constexpr (ROW) {
+    static_assert(M % 4 == 0, "row loads need M a multiple of 4");
+#pragma unroll 1
+    for (int q = 0; q < M / 4; ++q) {
+      float4 x[14];
+#pragma unroll
+      for (int k = 0; k < 14; ++k)
+        x[k] = __ldg(reinterpret_cast<const float4*>(row + k * M) + q);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int pid = __float_as_int(lane_of(x[12], j));
+        if (pid == -1) continue;
+        float f[12];
+#pragma unroll
+        for (int k = 0; k < 12; ++k) f[k] = lane_of(x[k], j);
+        if (mt_lane(f, r, t_test, h.t, h.t, h.u, h.v)) {
+          h.prim = pid & 0x7FFFFFFF;
+          h.geom = __float_as_int(lane_of(x[13], j));
+        }
+      }
+    }
+  } else {
+#pragma unroll 4
+    for (int l = 0; l < M; ++l) {
+      const int pid = __ldg(rowi + 12 * M + l);
+      if (pid == -1) continue;
+      float f[12];
+#pragma unroll
+      for (int k = 0; k < 12; ++k) f[k] = __ldg(row + k * M + l);
+      if (mt_lane(f, r, t_test, h.t, h.t, h.u, h.v)) {
+        h.prim = pid & 0x7FFFFFFF;
+        h.geom = __ldg(rowi + 13 * M + l);
+      }
+    }
+  }
+}
+
+// One leaf pop: up to CHAIN consecutive Tri rows from `code`, each tested
+// against t_test (t as the pop began). Returns the continuation to push
+// (the next row of a leaf longer than the chain), else 0.
+template <int M, int CHAIN, bool LEAFTEST, bool ROW>
+__device__ __forceinline__ int leaf_pop(const Args& a, int code, const Ray& r,
+                                        float t_test, Hit& h) {
+#pragma unroll 1
+  for (int step = 0; step < CHAIN; ++step) {
+    const float* row = a.tris + (long long)(~code) * (14 * M);
+    if constexpr (LEAFTEST) leaf_row<M, ROW>(row, r, t_test, h);
+    const int* rowi = reinterpret_cast<const int*>(row);
+    if (__ldg(rowi + 12 * M + M - 1) < 0) return 0;
+    --code;
+  }
+  return code;
+}
+
+// Pushes the masked children so the first one in push order ends on top;
+// false (and nothing written) where they do not fit.
+template <int A, int STACK>
+__device__ __forceinline__ bool push(int (&stack)[STACK], int& sp,
+                                     const int (&ch)[A],
+                                     const bool (&hit)[A]) {
+  int k = 0;
+#pragma unroll
+  for (int c = 0; c < A; ++c) k += hit[c] ? 1 : 0;
+  if (sp + k > STACK) return false;
+  int rank = 0;
+#pragma unroll
+  for (int c = 0; c < A; ++c) {
+    if (hit[c]) {
+      stack[sp + k - 1 - rank] = ch[c];
+      ++rank;
+    }
+  }
+  sp += k;
+  return true;
+}
+
+// One popped entry of K4: a node's children, or a leaf pop folded into h
+// with its continuation as the only child.
+template <int A, int M, int OPT, bool ANY_HIT>
+__device__ __forceinline__ void expand_entry(const Args& a, int code,
+                                             const Ray& r, float t_test,
+                                             Hit& h, int (&ch)[A],
+                                             bool (&hit)[A]) {
+  constexpr bool ROW = OPT == kRowLoads;
+  if (code > 0) {
+    expand_node<A, OPT != kNoNodeTest,
+                !ANY_HIT && OPT != kNoSort && OPT != kNoNodeTest, ROW>(
+        a.nodes + (long long)(code - 1) * (7 * A), r, t_test, ch, hit);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < A; ++c) {
+    ch[c] = 0;
+    hit[c] = false;
+  }
+  if (code < 0) {
+    constexpr int CHAIN = OPT == kChain2 ? 2 : OPT == kChain4 ? 4 : 1;
+    ch[0] = leaf_pop<M, CHAIN, OPT != kNoLeafTest, ROW>(a, code, r, t_test,
+                                                        h);
+    hit[0] = ch[0] != 0;
+  }
+}
+
+template <bool ANY_HIT, int M, int STACK, int OPT>
+__global__ void __launch_bounds__(kBlock) bvh_traverse_option_kernel(Args a) {
+  constexpr int A = 8;
+  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+  if (i >= a.n) return;
+  const Ray r = load_ray(a, i);
+  const float tmax = a.tmax[i];
+
+  Hit h{tmax, 0.0f, 0.0f, -1, -1};
+  int stack[STACK];
+  int sp = 0;
+  int pops = 0, leaf_pops = 0;
+  bool overflow = false;
+  if (tmax >= r.tmin) stack[sp++] = 1;  // root ref; dead rays never start
+
+  while (sp > 0) {
+    int ch0[A], ch1[A];
+    bool hit0[A], hit1[A];
+    if constexpr (OPT != kPops2) {
+      const int code = stack[--sp];
+      ++pops;
+      leaf_pops += code < 0 ? 1 : 0;
+      expand_entry<A, M, OPT, ANY_HIT>(a, code, r, h.t, h, ch0, hit0);
+      overflow = !push<A, STACK>(stack, sp, ch0, hit0);
+    } else {
+      // the phased body: both entries start from the same hit and t
+      const int c0 = stack[--sp];
+      const int c1 = sp > 0 ? stack[--sp] : 0;
+      pops += 1 + (c1 != 0 ? 1 : 0);
+      leaf_pops += (c0 < 0 ? 1 : 0) + (c1 < 0 ? 1 : 0);
+      const float t_test = h.t;
+      Hit h0 = h, h1 = h;
+      if (c0 > 0 && c1 > 0) {
+        // two node rows in one basic block: their loads fly together
+        expand_node<A, true, !ANY_HIT, false>(
+            a.nodes + (long long)(c0 - 1) * (7 * A), r, t_test, ch0, hit0);
+        expand_node<A, true, !ANY_HIT, false>(
+            a.nodes + (long long)(c1 - 1) * (7 * A), r, t_test, ch1, hit1);
+      } else {
+        expand_entry<A, M, OPT, ANY_HIT>(a, c0, r, t_test, h0, ch0, hit0);
+        expand_entry<A, M, OPT, ANY_HIT>(a, c1, r, t_test, h1, ch1, hit1);
+      }
+      h = h1.t < h0.t ? h1 : h0;  // first-wins on a tie
+      // the second entry's children go in first, so the first entry's
+      // first child in push order ends on top
+      overflow = !push<A, STACK>(stack, sp, ch1, hit1) ||
+                 !push<A, STACK>(stack, sp, ch0, hit0);
+    }
+    if (overflow) break;
+    if (ANY_HIT && h.prim >= 0) break;
+  }
+  a.t[i] = h.t;
+  a.u[i] = h.u;
+  a.v[i] = h.v;
+  a.prim[i] = h.prim;
+  a.geom[i] = h.geom;
+  a.pops[i] = overflow ? -1 : pops;
+  a.leaf_pops[i] = leaf_pops;
+}
+
+template <int OPT, bool AH, int M, int S>
+int launch_option(const Args& a, cudaStream_t stream) {
+  const unsigned grid = (unsigned)((a.n + kBlock - 1) / kBlock);
+  bvh_traverse_option_kernel<AH, M, S, OPT><<<grid, kBlock, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Tri8 or Tri24 rows; stacks of 64 or 128 entries (128 or 256 for
+// kPops2, whose bound the wrapper doubles)
+template <int OPT, bool AH>
+int option_shape(const Args& a, int arity, int m, int cap, cudaStream_t s) {
+  constexpr int S = OPT == kPops2 ? 128 : 64;
+  if (arity != 8) return (int)cudaErrorInvalidValue;
+  if (m == 8 && cap == S) return launch_option<OPT, AH, 8, S>(a, s);
+  if (m == 8 && cap == 2 * S) return launch_option<OPT, AH, 8, 2 * S>(a, s);
+  if (m == 24 && cap == S) return launch_option<OPT, AH, 24, S>(a, s);
+  if (m == 24 && cap == 2 * S)
+    return launch_option<OPT, AH, 24, 2 * S>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool AH>
+int by_option(const Args& a, int option, int arity, int m, int cap,
+              cudaStream_t s) {
+  switch (option) {
+    case kNoNodeTest: return option_shape<kNoNodeTest, AH>(a, arity, m, cap, s);
+    case kNoLeafTest: return option_shape<kNoLeafTest, AH>(a, arity, m, cap, s);
+    case kNoSort:
+      if constexpr (AH) return (int)cudaErrorInvalidValue;
+      else return option_shape<kNoSort, AH>(a, arity, m, cap, s);
+    case kPops2: return option_shape<kPops2, AH>(a, arity, m, cap, s);
+    case kChain2: return option_shape<kChain2, AH>(a, arity, m, cap, s);
+    case kChain4: return option_shape<kChain4, AH>(a, arity, m, cap, s);
+    case kRowLoads: return option_shape<kRowLoads, AH>(a, arity, m, cap, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+#endif  // RT_OPTIONS
+
 Args make_args(const float* nodes, const float* tris,
                const float* const* rays, long long n, float* t, float* u,
                float* v, int* prim, int* geom, int* pops, int* leaf_pops) {
@@ -371,6 +707,8 @@ Args make_args(const float* nodes, const float* tris,
 // xyz, org xyz, dir xyz, tmin, tmax), each to n floats. Each launches on
 // `stream`, never synchronizes or allocates, and returns
 // cudaGetLastError() after the launch (0 = success).
+
+#ifndef RT_OPTIONS
 
 // K1
 extern "C" int rt_bvh_traverse(const float* nodes, const float* tris,
@@ -412,3 +750,21 @@ extern "C" int rt_bvh_traverse_count(
   return any_hit ? wide<kCount, true>(a, arity, packet, stack_cap, s)
                  : wide<kCount, false>(a, arity, packet, stack_cap, s);
 }
+
+#else
+
+// K4: K3's arguments plus the option (kNoNodeTest ... kRowLoads)
+extern "C" int rt_bvh_traverse_option(
+    const float* nodes, const float* tris, const float* const* rays,
+    long long n, int arity, int packet, int any_hit, int stack_cap,
+    float* t, float* u, float* v, int* prim, int* geom, int* pops,
+    int* leaf_pops, int option, void* stream) {
+  if (n <= 0) return 0;
+  const Args a = make_args(nodes, tris, rays, n, t, u, v, prim, geom,
+                           pops, leaf_pops);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return any_hit ? by_option<true>(a, option, arity, packet, stack_cap, s)
+                 : by_option<false>(a, option, arity, packet, stack_cap, s);
+}
+
+#endif  // RT_OPTIONS

@@ -1,0 +1,304 @@
+"""What the port's traversal tools share: the scenes at their full size
+and their BVH builds, the ray distributions, the card's name and power
+limit, CUDA-event timing (in turns), per-warp pop statistics, and the
+least time the card could take for a traversal launch (its bound). The
+experiments here, tools/benchmark.py and chip_smoke.py all take them from
+this module."""
+from __future__ import annotations
+
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..accel import build_bvh
+from ..core.math import FLT_MAX
+from ..traversal import api, packet
+from ..traversal.sorting import sort_rays
+from ..utils import testscenes
+
+# scene -> its full size, the generator's target_tris (the generators and
+# primary-ray fixtures are testscenes.SCENES): hall-260K, crown-800K and
+# powerplant-4.3M (make_powerplant(5_000_000) makes 4,347,968 triangles)
+SIZES = {"hall": 260_000, "crown": 800_000, "powerplant": 5_000_000}
+# BVH8 builds: Tri8 leaves (bench.py's primary row) and the big-scene
+# Tri24 build (bench.py:174-175), binned SAH (quality 0) to keep the
+# multi-million-triangle build tractable, with cheap DP leaves
+TRI8 = {"packet": 8, "leaf_threshold": 12}
+TRI24 = {"packet": 24, "quality": 0, "leaf_threshold": 12,
+         "leaf_cost": 0.45}
+DISTS = ("primary", "primary-unsorted", "ao", "bounces", "bounces-unsorted")
+WARP = 32
+# seconds of calls before a run's first timed turn: a card left idle, as
+# during a scene build, runs its first launches at lower clocks
+WARMUP_S = 0.5
+
+# NVIDIA's published H100 SXM peaks at 700 W: float32 outside the tensor
+# cores, and device memory
+PEAK_OPS = 67e12
+PEAK_BYTES = 3.35e12
+# Operations per pop, counted from csrc/bvh_traverse.cu (adds, multiplies,
+# min/max, compares, selects and logical operations on a ray's values;
+# loads, stores and loop control not counted):
+#   one child's slab test (slab_test): 6 subtracts, 6 multiplies, 6 min/max
+#     of the pairs, 6 min/max into entry and exit, entry <= exit, child !=
+#     0, their and, the key's select = 28;
+#   one child's push: its count, its test, two index operations = 4;
+#   the Batcher network (sort_children): 1 compare and 6 selects for each
+#     of its 1/5/19 exchanges at arity 2/4/8;
+#   one Tri lane (mt_lane): 3 (org offset) + 9 (cross product) + 5 (det)
+#     + 1 (abs) + 2 (sign) + 18 (u, v, t) + 14 (the accept test) + 3 (the
+#     reciprocal) + 1 (t) + 2 (the strict < and its and) + 1 (pid == -1)
+#     = 59;
+#   a Tri row's continuation: its test and its push = 2.
+SLAB_OPS, PUSH_OPS, LANE_OPS, CONT_OPS = 28, 4, 59, 2
+SORT_SWAPS = {2: 1, 4: 5, 8: 19}
+
+
+def add_args(p):
+    p.add_argument("--cpu", action="store_true",
+                   help="the plain torch version on the CPU, at small "
+                        "sizes: no number of such a run is a card's")
+    p.add_argument("--blocks", type=int, default=5,
+                   help="timed blocks per turn (the median is kept)")
+
+
+def device_of(args, prog):
+    if args.cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        sys.exit(f"{prog}: no CUDA card; pass --cpu to run the plain "
+                 "version on the CPU")
+    return torch.device("cuda")
+
+
+def card(device):
+    """The card's name and power limit as nvidia-smi gives them, the line
+    every time of a run stands beside; on the CPU, a line saying that no
+    number of the run is a card's."""
+    if device.type != "cuda":
+        return ("cpu: the plain torch version, host clock; not a card "
+                "measurement")
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def build_of(scene):
+    """The BVH8 build a scene is traced with: the big-scene Tri24 build for
+    powerplant, Tri8 for the rest."""
+    return TRI24 if scene == "powerplant" else TRI8
+
+
+def load(scene, build, device, tris=None):
+    """(verts, idx, device tables, seconds) of a procedural scene and its
+    BVH8 build."""
+    make = testscenes.SCENES[scene][0]
+    t0 = time.perf_counter()
+    verts, idx = make(tris or SIZES[scene])
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, **build), device)
+    return verts, idx, dev, time.perf_counter() - t0
+
+
+def distributions(scene, verts, idx, dev, side, device, kinds=DISTS):
+    """{kind: (ray components, any_hit)} of side x side rays: the scene's
+    primaries, sorted (octant + Morton key) or, as "primary-unsorted", in
+    pixel order; "ao" (any-hit) and "bounces" rays from the primaries' hit
+    points (testscenes.secondary_rays_from_trace, the fixture of the JAX
+    package's benchmarks), sorted unless the kind ends in "-unsorted"."""
+    org, dirs = testscenes.SCENES[scene][1](side, side)
+    lo, hi = verts.min(0), verts.max(0)
+    prim = api.make_rays(org, dirs, 0.0, FLT_MAX, device=device)
+    out, hit = {}, None
+    for kind in kinds:
+        base, _, order = kind.partition("-")
+        rays = prim
+        if base != "primary":
+            if hit is None:
+                hit = packet.traverse_packet(dev, prim)
+            o2, d2, tmin2, tmax2 = testscenes.secondary_rays_from_trace(
+                base, org, dirs, hit["t"].cpu().numpy(),
+                hit["prim_id"].cpu().numpy(), verts, idx.reshape(-1, 4))
+            rays = api.make_rays(o2, d2, tmin2, tmax2, device=device)
+        if order != "unsorted":
+            rays = sort_rays(rays, lo, hi)[0]
+        out[kind] = (api.components(rays), base == "ao")
+    return out
+
+
+def samples(fn, device, blocks=5, block_ms=20.0, warmup_s=0.0):
+    """(milliseconds per call of each of `blocks` blocks, last result).
+    On a card: one warm-up call timed with CUDA events, more calls until
+    warmup_s seconds have passed (WARMUP_S before a run's first turn), then
+    blocks of back-to-back calls between two events, each block about
+    block_ms long.
+    A call of over half a second is its own warm-up: its first time is
+    the first sample, and at most 3 blocks of one call are taken. On the
+    CPU: one call per block on the host clock. `fn` must not synchronise,
+    or the host's time between launches is timed with it."""
+    if device.type != "cuda":
+        out = []
+        for _ in range(blocks):
+            t0 = time.perf_counter()
+            res = fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out, res
+    t0 = time.perf_counter()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    res = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    first = e0.elapsed_time(e1)
+    while time.perf_counter() - t0 < warmup_s:
+        res = fn()
+        torch.cuda.synchronize()
+    iters = max(1, min(50, int(np.ceil(block_ms / max(first, 1e-3)))))
+    out = []
+    if first > 500.0:
+        blocks = min(blocks, 3) - 1
+        out.append(first)
+    for _ in range(blocks):
+        e0.record()
+        for _ in range(iters):
+            res = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1) / iters)
+    return out, res
+
+
+def timed(fn, device, blocks=5, block_ms=20.0, warmup_s=0.0):
+    """(median milliseconds per call over the blocks of samples(), last
+    result)."""
+    ms, res = samples(fn, device, blocks, block_ms, warmup_s)
+    return float(np.median(ms)), res
+
+
+def in_turns(first, second, device, blocks=5, warmup_s=0.0):
+    """Two calls timed in turns (first, second, second, first), the first
+    turn after warmup_s seconds of warm-up. Returns (first's ms, second's
+    ms, first's result, second's result), each time the mean of its two
+    turns."""
+    a1, _ = timed(first, device, blocks, warmup_s=warmup_s)
+    b1, _ = timed(second, device, blocks)
+    b2, rb = timed(second, device, blocks)
+    a2, ra = timed(first, device, blocks)
+    return (a1 + a2) / 2, (b1 + b2) / 2, ra, rb
+
+
+def pop_stats(out):
+    """Pop statistics of a counted run ("pops" and "leaf_pops" per ray in
+    launch order; a warp is 32 consecutive rays): totals over the rays,
+    means per ray, and the means over warps of each warp's largest count,
+    since a warp runs as long as its longest ray. Raises where a ray's
+    stack overflowed (K4 with pops=2 marks it -1)."""
+    pops = out["pops"].to(torch.int64)
+    leaf = out["leaf_pops"].to(torch.int64)
+    n = pops.shape[0]
+    if n and int(pops.min()) < 0:
+        raise RuntimeError("a ray's traversal stack overflowed (pops -1)")
+
+    def warp_max(x):
+        x = torch.nn.functional.pad(x, (0, (-n) % WARP))
+        return float(x.view(-1, WARP).max(1).values.double().mean())
+
+    s = {"n": n, "pops": int(pops.sum()), "leaf": int(leaf.sum())}
+    s["node"] = s["pops"] - s["leaf"]
+    s["pops_ray"] = s["pops"] / n
+    s["leaf_ray"] = s["leaf"] / n
+    s["warp_pops"] = warp_max(pops)
+    s["warp_node"] = warp_max(pops - leaf)
+    s["warp_leaf"] = warp_max(leaf)
+    return s
+
+
+def counted(dev, comps, any_hit=False, option=None):
+    """One counted launch, K3 or K4 with `option`, without synchronising
+    (pop_stats checks the counters)."""
+    kw = packet.OPTION_ARGS[option] if option else {}
+    return packet.traverse_packet_components(dev, *comps, any_hit=any_hit,
+                                             count_pops=True, **kw)
+
+
+def option_turns(dev, comps, device, options, any_hit=False, blocks=5):
+    """Each K4 option against K3 in turns (K3, option, option, K3) on the
+    same rays, counters on for both, after WARMUP_S seconds of K3 calls.
+    Returns {option: {"ms", "k3_ms", "out"}} and, under "K3", K3's mean
+    time over all turns and its result."""
+    def run(option=None):
+        return lambda: counted(dev, comps, any_hit, option)
+
+    res, k3 = {}, []
+    for i, name in enumerate(options):
+        k3_ms, ms, k3_out, out = in_turns(run(), run(name), device, blocks,
+                                          WARMUP_S if i == 0 else 0.0)
+        res[name] = {"ms": ms, "k3_ms": k3_ms, "out": out}
+        res["K3"] = {"out": k3_out}
+        k3.append(k3_ms)
+    if options:
+        res["K3"]["ms"] = float(np.mean(k3))
+    return res
+
+
+def head(comps, k):
+    """The first k rays of a ray components tuple (api.components)."""
+    return tuple(tuple(c[:k] for c in x) if isinstance(x, tuple) else x[:k]
+                 for x in comps)
+
+
+def plain_args(option):
+    """The plain version's arguments for K4's `option` (row_loads changes
+    nothing the plain version computes)."""
+    if option is None:
+        return {}
+    return {k: v for k, v in packet.OPTION_ARGS[option].items()
+            if k != "row_loads"}
+
+
+def rows_read(dev, comps, any_hit=False, option=None):
+    """(node rows, Tri rows) of the tables that a launch on these rays
+    reads at least once, counted by the plain version (count_rows=True)
+    with K4's `option`. nonodetest is not run: its rays pop the whole tree,
+    so it reads every row."""
+    if option == "nonodetest":
+        return dev["nodes"].shape[0], dev["tris"].shape[0]
+    out = api.traverse_components(dev, comps[0], comps[1], comps[2],
+                                  comps[4], comps[5], any_hit=any_hit,
+                                  count_rows=True, **plain_args(option))
+    return int(out["nodes_read"].sum()), int(out["tris_read"].sum())
+
+
+def pop_ops(arity, m, any_hit=False, option=None):
+    """(operations per node pop, per Tri row) of a traversal kernel, from
+    the counts above; option: K4's option."""
+    node = arity * (SLAB_OPS + PUSH_OPS)
+    if not any_hit and option != "nosort":
+        node += 7 * SORT_SWAPS[arity]
+    if option == "nonodetest":
+        node = arity * PUSH_OPS
+    leaf = CONT_OPS + (0 if option == "noleaftest" else m * LANE_OPS)
+    return node, leaf
+
+
+def bound_ms(dev, n_rays, node_pops, tri_rows, rows, any_hit=False,
+             option=None, counters=False):
+    """The least time the card could take for one traversal launch, and
+    what binds it: the larger of its operations (node_pops and tri_rows,
+    this run's totals over all rays, times pop_ops) over the float32 peak,
+    and its bytes over the memory rate: each ray's 11 input and 5 output
+    words, 8 bytes of counters with counters=True, and the table rows
+    read, rows = (node rows, Tri rows) from rows_read, each once. Returns
+    (ms, "operations" or "bytes")."""
+    arity = dev["nodes"].shape[1] // 7
+    m = dev["tris"].shape[1] // 14
+    node, leaf = pop_ops(arity, m, any_hit, option)
+    t_ops = (node * node_pops + leaf * tri_rows) / PEAK_OPS
+    t_bytes = (n_rays * (64 + (8 if counters else 0))
+               + rows[0] * 28 * arity + rows[1] * 56 * m) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")

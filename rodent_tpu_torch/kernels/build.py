@@ -1,11 +1,17 @@
 """nvcc build and ctypes loader for the CUDA sources in csrc/.
 
-The sources are compiled at first use with nvcc into a plain-C-ABI shared
-library under build/rodent_torch_kernels/ at the repository root; the file
+The sources are compiled at first use with nvcc into plain-C-ABI shared
+libraries under build/rodent_torch_kernels/ at the repository root; a file
 name carries a hash of the sources and flags, so an edited source builds
 anew and an unchanged one loads the built library. Only sources in the
 repository are used. Without nvcc (and without a built library) asking
-for the library raises: there is no fallback.
+for a library raises: there is no fallback.
+
+Two libraries come from the same source: "main" holds K1, K2 and K3, the
+kernels of the render and benchmark paths; "options" (-DRT_OPTIONS) holds
+K4, the options of the legacy Pallas body, built at the first use of an
+option so that it never delays K1's first launch. build_all() starts both
+nvcc runs at once.
 
 -fmad=false keeps every float operation separately rounded, as the plain
 torch versions compute them, so a kernel and its plain version agree bit
@@ -18,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -27,17 +34,25 @@ SOURCES = ("bvh_traverse.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# library -> its extra nvcc flags
+LIBRARIES = {"main": (), "options": ("-DRT_OPTIONS",)}
 
 _P = ctypes.c_void_p
 # nodes, tris, rays, n, arity, packet, any_hit, stack_cap, t, u, v, prim,
 # geom: the arguments every traversal entry starts with
 _TRAVERSE = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P]
-# name -> (restype, argtypes) of every C entry the library exports
+# library -> {name: (restype, argtypes)} of every C entry it exports
 _ENTRIES = {
-    "rt_bvh_traverse": (ctypes.c_int, _TRAVERSE + [_P]),
-    "rt_bvh_traverse_prefetch": (ctypes.c_int, _TRAVERSE + [_P]),
-    "rt_bvh_traverse_count": (ctypes.c_int, _TRAVERSE + [_P, _P, _P]),
+    "main": {
+        "rt_bvh_traverse": (ctypes.c_int, _TRAVERSE + [_P]),
+        "rt_bvh_traverse_prefetch": (ctypes.c_int, _TRAVERSE + [_P]),
+        "rt_bvh_traverse_count": (ctypes.c_int, _TRAVERSE + [_P, _P, _P]),
+    },
+    "options": {
+        "rt_bvh_traverse_option": (ctypes.c_int, _TRAVERSE + [
+            _P, _P, ctypes.c_int, _P]),
+    },
 }
 
 _libs = {}  # library path -> loaded CDLL
@@ -54,22 +69,27 @@ def find_nvcc():
     return None
 
 
-def library_path(build_dir=None):
-    """Where the library for these exact sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(kind):
+    return NVCC_FLAGS + LIBRARIES[kind]
+
+
+def library_path(build_dir=None, kind="main"):
+    """Where the library `kind` for these exact sources and flags lives."""
+    h = hashlib.sha256(" ".join(_flags(kind)).encode())
     for name in SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    name = f"librodent_torch_{h.hexdigest()[:16]}.so"
-    return Path(build_dir or BUILD_DIR) / name
+    stem = "librodent_torch" if kind == "main" else f"librodent_torch_{kind}"
+    return Path(build_dir or BUILD_DIR) / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(build_dir=None):
-    """Compiles csrc/ with nvcc unless the library for these exact sources
-    exists. Returns (path, nvcc's output) — the output, which carries
-    ptxas' per-kernel register and spill lines, is None when nothing was
-    built. Raises RuntimeError without nvcc or when nvcc fails."""
-    out = library_path(build_dir)
+def build(build_dir=None, kind="main"):
+    """Compiles csrc/ into the library `kind` with nvcc unless it exists
+    for these exact sources. Returns (path, nvcc's output) — the output,
+    which carries ptxas' per-kernel register and spill lines, is None when
+    nothing was built. Raises RuntimeError without nvcc or when nvcc
+    fails."""
+    out = library_path(build_dir, kind)
     if out.exists():
         return out, None
     nvcc = find_nvcc()
@@ -78,22 +98,32 @@ def build(build_dir=None):
                            "kernels cannot be built")
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+    cmd = [nvcc, *_flags(kind), "-o", str(tmp),
            *(str(CSRC / s) for s in SOURCES)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
+        raise RuntimeError(f"nvcc failed on the {kind} library:\n"
+                           + res.stdout + res.stderr)
     os.replace(tmp, out)
     return out, res.stdout + res.stderr
 
 
-def load_library(build_dir=None):
-    """The kernel library, built on first use and loaded with ctypes."""
-    path, _ = build(build_dir)
+def build_all(build_dir=None):
+    """Builds every library at once, one nvcc each. Returns {kind: (path,
+    nvcc's output)}."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+        futures = {k: pool.submit(build, build_dir, k) for k in LIBRARIES}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def load_library(build_dir=None, kind="main"):
+    """The kernel library `kind`, built on first use and loaded with
+    ctypes."""
+    path, _ = build(build_dir, kind)
     lib = _libs.get(path)
     if lib is None:
         lib = ctypes.CDLL(str(path))
-        for name, (res, args) in _ENTRIES.items():
+        for name, (res, args) in _ENTRIES[kind].items():
             fn = getattr(lib, name)
             fn.restype = res
             fn.argtypes = args

@@ -22,9 +22,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from rodent_tpu.accel import build_bvh
-from rodent_tpu.io import obj as obj_io
-
+from ..accel import build_bvh
+from ..io import obj as obj_io
 from ..traversal.api import BvhMeta, bvh_to_device
 from . import bsdf as bsdf_mod
 from . import light as light_mod

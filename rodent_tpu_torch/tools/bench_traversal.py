@@ -2,7 +2,7 @@
 rodent_tpu/tools/bench_traversal.py; CLI of the reference's
 tools/bench_traversal/bench_traversal.cpp).
 
-Loads a .bvh and a .rays file (rodent_tpu.io.formats, shared), runs
+Loads a .bvh and a .rays file (rodent_tpu_torch.io.formats), runs
 warm-up and timed iterations of closest-hit (intersect) or any-hit
 (occluded, -any) traversal, prints the intersection count and
 "N Mrays/sec" (the line benchmarks/benchmark.py parses), and optionally
@@ -10,9 +10,11 @@ dumps hit distances as .fbuf.
 
 --variant packet runs K1 (csrc/bvh_traverse.cu); hbm and giga run K2, K1
 with the exact next-pop L2 prefetch. The dual-queue variants (tiled,
-tiled-c; ROADMAP A10) and --sharded (ROADMAP A12) are not ported. Times are
-CUDA events on a card; --cpu runs the plain torch version on the CPU,
-timed by the host clock. Without --cpu the tool needs a CUDA card.
+tiled-c; ROADMAP A10) and --sharded (ROADMAP A12) are not ported. A
+timed iteration is a sample of rodent_tpu_torch.experiments.common: CUDA
+events around a block of back-to-back calls, about 20 ms long, on a card;
+--cpu runs the plain torch version on the CPU, one call per iteration on
+the host clock. Without --cpu the tool needs a CUDA card.
 
 Usage:
   python -m rodent_tpu_torch.tools.bench_traversal -bvh scene.bvh
@@ -28,7 +30,7 @@ import sys
 import numpy as np
 import torch
 
-from .benchmark import _device, _time
+from ..experiments import common
 
 
 def main(argv=None):
@@ -55,10 +57,10 @@ def main(argv=None):
                    help="packet: K1; hbm, giga: K2 (K1 with the next-pop "
                         "L2 prefetch)")
     args = p.parse_args(argv)
-    device = _device(args)
+    device = common.device_of(args, "bench_traversal")
 
-    from rodent_tpu.accel.layout import WideBvh
-    from rodent_tpu.io import formats
+    from ..accel.layout import WideBvh
+    from ..io import formats
     from ..traversal.api import bvh_to_device, make_rays
     from ..traversal.packet import traverse_packet
     from ..traversal.sorting import sort_rays
@@ -84,10 +86,7 @@ def main(argv=None):
 
     for _ in range(max(args.warmup, 1)):
         hit = fn()
-    times_ms = []
-    for _ in range(max(args.bench, 1)):
-        ms, hit = _time(fn, device)
-        times_ms.append(ms)
+    times_ms, hit = common.samples(fn, device, max(args.bench, 1))
     if perm is not None:
         out = {k: torch.empty_like(v) for k, v in hit.items()}
         for k, v in hit.items():

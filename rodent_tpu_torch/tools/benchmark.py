@@ -14,11 +14,14 @@ hall, crown-class, powerplant-class). Variants:
              K1 again: the no-prefetch A/B rows of the big-scene tiers
 
 The TPU's dual-queue engine (tiled, tiled-c) is not ported (ROADMAP A10)
-and is refused. A sample is CUDA events around 3 back-to-back calls on
-pre-split ray components (the kernel and its wrapper), the row the median
-of --iters samples; with --cpu the plain torch version runs on the CPU,
-one call per sample on the host clock. Without --cpu the tool needs a
-CUDA card.
+and is refused. The scenes, their full sizes (powerplant is
+powerplant-4.3M), their BVH builds, the ray distributions (sorted) and
+the timer are those of rodent_tpu_torch.experiments.common: a sample is
+CUDA events around a block of back-to-back calls on pre-split ray
+components (the kernel and its wrapper), about 20 ms long, after one
+warm-up call; the row is the median of --iters samples. With --cpu the
+plain torch version runs on the CPU, one call per sample on the host
+clock. Without --cpu the tool needs a CUDA card.
 
 --mode renderer runs render_iteration_persistent under the port's
 select_render_policy on the same scenes at the reference's benchmark
@@ -39,20 +42,9 @@ import time
 import numpy as np
 import torch
 
-_SCENES = {
-    "hall": ("make_hall", "hall_primary_rays", 260_000),
-    "crown": ("make_crown", "crown_primary_rays", 800_000),
-    "powerplant": ("make_powerplant", "powerplant_primary_rays",
-                   2_000_000),
-}
 # variant -> traverse_packet's prefetch flag (K2 when True, else K1)
 VARIANTS = {"packet": False, "hbm": True, "giga": True,
             "hbm-nopf": False, "giga-nopf": False}
-# powerplant's big-scene build (bench.py:174-175): Tri24 leaves, cheap
-# DP leaves; quality 0 keeps the multi-million-triangle build tractable
-_BIG_BVH = {"packet": 24, "quality": 0, "leaf_threshold": 12,
-            "leaf_cost": 0.45}
-_BVH = {"packet": 8, "leaf_threshold": 12}
 # camera + emitter per scene (the *_primary_rays viewpoints)
 _RENDER_CAMS = {
     "hall": ((2.5, 5.0, 5.0), (1.0, -0.12, 0.02), 60.0, "inside"),
@@ -81,35 +73,6 @@ def _sizes(text):
     return sizes
 
 
-def _device(args):
-    if args.cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        sys.exit("benchmark: no CUDA card; pass --cpu to time the plain "
-                 "version on the CPU")
-    return torch.device("cuda")
-
-
-def _time(fn, device, group=1):
-    """(milliseconds per call, last result) of `group` back-to-back calls:
-    CUDA events around them on a card (the calls queue on the stream, so
-    the host's time to issue one hides behind the previous one), the host
-    clock on the CPU."""
-    if device.type == "cuda":
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(group):
-            out = fn()
-        e1.record()
-        torch.cuda.synchronize()
-        return e0.elapsed_time(e1) / group, out
-    t0 = time.perf_counter()
-    for _ in range(group):
-        out = fn()
-    return (time.perf_counter() - t0) * 1e3 / group, out
-
-
 def main(argv=None):
     p = argparse.ArgumentParser(prog="benchmark")
     p.add_argument("--scenes", default="hall,crown,powerplant")
@@ -129,7 +92,8 @@ def main(argv=None):
     p.add_argument("--mpl", type=int, default=20,
                    help="max path length (reference bench.sh uses 20)")
     args = p.parse_args(argv)
-    device = _device(args)
+    from ..experiments import common
+    device = common.device_of(args, "benchmark")
     if args.mode == "renderer":
         for scene in args.scenes.split(","):
             _render_one(args, device, scene)
@@ -140,77 +104,48 @@ def main(argv=None):
 
 
 def _traverse_one(args, device, scene):
-    from rodent_tpu.accel import build_bvh
-    from rodent_tpu.utils import testscenes
-    from ..core.math import FLT_MAX
-    from ..traversal import api
-    from ..traversal.packet import (traverse_packet,
-                                    traverse_packet_components)
-    from ..traversal.sorting import sort_rays
+    from ..experiments import common
+    from ..traversal.packet import traverse_packet_components
 
     side = int(np.sqrt(args.rays))
     n = side * side
-    make_name, rays_name, dflt = _SCENES[scene]
-    verts, idx = getattr(testscenes, make_name)(args.sizes.get(scene, dflt))
-    bvh = build_bvh(verts, idx, arity=8,
-                    **(_BIG_BVH if scene == "powerplant" else _BVH))
-    dev = api.bvh_to_device(bvh, device)
-    lo, hi = verts.min(0), verts.max(0)
-    org, dirs = getattr(testscenes, rays_name)(side, side)
-    prim = api.make_rays(org, dirs, 0.0, FLT_MAX, device=device)
-
-    dists = {}
-    if "primary" in args.dists:
-        dists["primary"] = (prim, False)
-    secondary = [(k, ah) for k, ah in (("ao", True), ("bounces", False))
-                 if k in args.dists]
-    if secondary:
-        # hit points for the secondary distributions (ray_gen role)
-        hit = traverse_packet(dev, prim)
-        t = hit["t"].cpu().numpy()
-        pid = hit["prim_id"].cpu().numpy()
-        for kind, ah in secondary:
-            o2, d2, tmin2, tmax2 = testscenes.secondary_rays_from_trace(
-                kind, org, dirs, t, pid, verts, idx.reshape(-1, 4))
-            dists[kind] = (api.make_rays(o2, d2, tmin2, tmax2,
-                                         device=device), ah)
-
-    group = 3 if device.type == "cuda" else 1
-    for dist, (rays, ah) in dists.items():
-        comps = api.components(sort_rays(rays, lo, hi)[0])
+    verts, idx, dev, _ = common.load(scene, common.build_of(scene), device,
+                                     args.sizes.get(scene))
+    kinds = [k for k in ("primary", "ao", "bounces")
+             if k in args.dists.split(",")]
+    dists = common.distributions(scene, verts, idx, dev, side, device, kinds)
+    for dist, (comps, ah) in dists.items():
         for variant in args.variants:
             def fn(v=variant):
                 return traverse_packet_components(dev, *comps, any_hit=ah,
                                                   prefetch=VARIANTS[v])
-            _, out = _time(fn, device)             # warm-up
-            ms = np.asarray([_time(fn, device, group)[0]
-                             for _ in range(args.iters)])
-            mr = n / ms / 1e3
+            ms, out = common.samples(fn, device, args.iters)
+            mr = n / np.asarray(ms) / 1e3
             hits = int((out["prim_id"] >= 0).sum())
             print(f"{scene} : {dist} : {variant} : "
                   f"{np.median(mr):.2f} Mrays "
                   f"(avg {mr.mean():.2f}, min {mr.min():.2f}, "
-                  f"max {mr.max():.2f}, n={args.iters}; "
+                  f"max {mr.max():.2f}, n={len(ms)}; "
                   f"{hits} intersections)", flush=True)
 
 
 def _render_one(args, device, scene_name):
     """Full path-tracer throughput on one benchmark scene (the reference's
     bench.sh renderer rows)."""
-    from rodent_tpu.utils import testscenes
     from ..render import film as film_mod
     from ..render.camera import Camera
     from ..render.compiler import compile_mesh, select_render_policy
     from ..render.integrator import render_iteration_persistent
+    from ..experiments import common
+    from ..utils import testscenes
 
     w, h, spp = args.width, args.height, args.spp
-    make_name, _, dflt = _SCENES[scene_name]
     eye, dirv, fov, emitter = _RENDER_CAMS[scene_name]
-    verts, idx = getattr(testscenes, make_name)(
-        args.sizes.get(scene_name, dflt))
+    verts, idx = testscenes.SCENES[scene_name][0](
+        args.sizes.get(scene_name, common.SIZES[scene_name]))
     scene = compile_mesh(
         verts, idx, device, max_path_len=args.mpl, emitter=emitter,
-        bvh_kwargs=_BIG_BVH if scene_name == "powerplant" else None)
+        bvh_kwargs=common.TRI24 if scene_name == "powerplant" else None)
     policy = select_render_policy(scene.device)
     cam = Camera.make(eye, dirv, (0, 1, 0), fov, w, h)
     film = film_mod.new_film(w, h, device)

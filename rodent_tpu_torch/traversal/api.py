@@ -134,12 +134,6 @@ def bvh_to_device(bvh, device):
     }
 
 
-def stack_entries(dev):
-    """Stack entries a traversal of this BVH needs: the tree's worst case
-    plus two spare slots (pallas_packet.py:1556-1563)."""
-    return dev["meta"].shared_stack + 2
-
-
 def _node_step(dev, org, inv_d, tmin, t_cur, code, any_hit):
     """Slab tests of one node row per ray. Returns the children in push
     order (nearest first for closest-hit, slot order for any-hit) with
@@ -177,11 +171,13 @@ def _node_step(dev, org, inv_d, tmin, t_cur, code, any_hit):
     return torch.stack(ch, 1), torch.stack(hs, 1)
 
 
-def _leaf_step(dev, org, dirv, tmin, t_cur, code):
+def _leaf_step(dev, org, dirv, tmin, t_cur, code, t_run=None):
     """Moller-Trumbore over the M lanes of one Tri-M row per ray
-    (pallas_packet.py:352-392). Returns (take, t, u, v, prim, geom, last):
-    take marks rays whose best lane beats t_cur; last is the sentinel sign
-    bit of lane M-1."""
+    (pallas_packet.py:352-392). A lane passes `t <= t_cur` (t_cur as the
+    pop began) and the best lane is taken where it beats t_run (the
+    running t of a leaf chain; t_cur when None). Returns (take, t, u, v,
+    prim, geom, last): take marks rays whose best lane beats t_run; last
+    is the sentinel sign bit of lane M-1."""
     tris = dev["tris"]
     m = tris.shape[1] // 14
     row = tris[~code]
@@ -209,10 +205,10 @@ def _leaf_step(dev, org, dirv, tmin, t_cur, code):
           & (pid != -1))
     inv_det = 1.0 / torch.where(abs_det != 0.0, abs_det, 1.0)
     tv = tt * inv_det
-    # sequential strict `tv < t_cur` over ascending lanes == the first lane
+    # sequential strict `tv < t_run` over ascending lanes == the first lane
     # holding the minimum (torch.min returns the first index of a tie)
     best, lane = torch.min(torch.where(ok, tv, torch.inf), dim=1)
-    take = best < t_cur
+    take = best < (t_cur if t_run is None else t_run)
     lane = lane[:, None]
     return (take, best,
             torch.gather(uu * inv_det, 1, lane)[:, 0],
@@ -222,8 +218,96 @@ def _leaf_step(dev, org, dirv, tmin, t_cur, code):
             pid[:, m - 1] < 0)
 
 
+# _kernel's ablations that have a counterpart here (pallas_packet.py:548,
+# :575-578, :639-644)
+ABLATIONS = ("nonodetest", "noleaftest", "nosort")
+LEAF_CHAINS = (1, 2, 4)
+
+
+def check_options(any_hit, ablate=(), pops=1, leaf_chain=1, frustum=False):
+    """Validates the options of the legacy Pallas body _kernel
+    (pallas_packet.py:395-876) that the port carries; returns `ablate` as
+    a sorted tuple. Raises ValueError for the rest:
+
+    - "nopure" drops _kernel's octant-pure ordered slab test (:794-799);
+      a per-ray stack never takes that test, so there is nothing to drop;
+    - frustum=True tests 128-ray row intervals against one shared stack
+      (:493-550), which needs a warp-shared stack: ROADMAP B3a;
+    - "nosort" changes nothing for any-hit, which pushes in slot order;
+    - pops=2 with "nonodetest": _kernel's phased body has no such
+      ablation (node_vec always slab-tests)."""
+    ablate = tuple(sorted(set(ablate)))
+    if frustum:
+        raise ValueError("frustum=True is not ported: it needs a "
+                         "warp-shared stack (ROADMAP B3a, the next slice)")
+    for ab in ablate:
+        if ab == "nopure":
+            raise ValueError("ablate 'nopure' has no counterpart: a "
+                             "per-ray stack never takes the octant-pure "
+                             "ordered slab test")
+        if ab not in ABLATIONS:
+            raise ValueError(f"unknown ablation {ab!r}; choose from "
+                             f"{ABLATIONS}")
+    if any_hit and "nosort" in ablate:
+        raise ValueError("ablate 'nosort' applies to closest-hit only: "
+                         "any-hit pushes children in slot order")
+    if pops not in (1, 2):
+        raise ValueError(f"pops={pops}: 1 or 2")
+    if pops == 2 and "nonodetest" in ablate:
+        raise ValueError("pops=2 has no 'nonodetest': the phased body "
+                         "always slab-tests")
+    if leaf_chain not in LEAF_CHAINS:
+        raise ValueError(f"leaf_chain={leaf_chain}: one of {LEAF_CHAINS}")
+    return ablate
+
+
+def stack_entries(dev, pops=1):
+    """Stack entries a traversal of this BVH needs: the tree's worst case
+    plus two spare slots (pallas_packet.py:1556-1563). pops=2 expands the
+    second popped entry before the first one's subtree, which can hold
+    up to A - 1 more entries per level; the bound is doubled for it."""
+    need = dev["meta"].shared_stack + 2
+    return need if pops == 1 else 2 * need
+
+
+def _leaf_chain(dev, org, dirv, tmin, t_test, carry, code, chain,
+                leaftest, read=None):
+    """One leaf pop per ray: up to `chain` consecutive Tri rows of the
+    leaf starting at `code` (pallas_packet.py:651-663), every row tested
+    against t_test (t as the pop began) and folded into the running carry
+    (t, u, v, prim, geom) with the strict `<` rule. leaftest=False skips
+    the lanes and follows the continuation alone (ablation "noleaftest").
+    read: a (P,) bool tensor that marks every Tri row the pop reads, or
+    None. Returns (carry, cont): cont is the code to push (the next row of
+    a leaf longer than the chain), else 0."""
+    tris = dev["tris"]
+    m = tris.shape[1] // 14
+    carry = [c.clone() for c in carry]
+    cur = code.clone()
+    for step in range(chain):
+        idx = (torch.arange(cur.shape[0], device=cur.device) if step == 0
+               else torch.nonzero(cur < 0).squeeze(1))
+        if idx.numel() == 0:
+            break
+        cc = cur[idx]
+        if read is not None:
+            read[~cc] = True
+        if leaftest:
+            take, *vals, last = _leaf_step(
+                dev, [c[idx] for c in org], [c[idx] for c in dirv],
+                tmin[idx], t_test[idx], cc, t_run=carry[0][idx])
+            upd = idx[take]
+            for k in range(5):
+                carry[k][upd] = vals[k][take]
+        else:
+            last = tris[~cc].view(torch.int32)[:, 13 * m - 1] < 0
+        cur[idx] = torch.where(last, torch.zeros_like(cc), cc - 1)
+    return carry, cur
+
+
 def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
-                        count_pops=False):
+                        count_pops=False, ablate=(), pops=1, leaf_chain=1,
+                        frustum=False, count_rows=False):
     """Closest-hit (any_hit=False) or first-hit (any_hit=True) traversal of
     flat (B,) component rays: org, dirv, inv_d are Vec3 tuples. A ray with
     tmax < tmin is dead. Returns {t, u, v, prim_id, geom_id}; on a miss
@@ -232,13 +316,38 @@ def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
     count_pops=True adds the pop counters of the legacy Pallas body
     (pallas_packet.py:690-699) as (B,) int32: "pops", every retired stack
     entry, and "leaf_pops", the leaf entries alone (one Tri-row fetch
-    each). On the TPU they count per tile, whose rays share one stack
-    (rows 0 and 1 of each 8-row block, :870-875); here each ray has its
-    own stack, so they count per ray, and a dead ray counts 0."""
+    each, or one chain of them). On the TPU they count per tile, whose
+    rays share one stack (rows 0 and 1 of each 8-row block, :870-875);
+    here each ray has its own stack, so they count per ray, and a dead ray
+    counts 0.
+
+    count_rows=True adds "nodes_read" (N,) and "tris_read" (P,) bool: the
+    rows of the node and Tri tables that the rays' pops read at least
+    once, the least a kernel doing the same pops must load
+    (experiments.common.bound_ms).
+
+    The other options are _kernel's, with its semantics (check_options
+    lists what is refused):
+      ablate "nonodetest": a node pushes every nonzero child in slot
+          order without a slab test (:575-578): hits stay right, pops
+          grow; "noleaftest": a leaf skips its lanes and follows its
+          continuation (:639-644): every ray misses; "nosort": closest-hit
+          pushes hit children in slot order (:548, :582, :773);
+      pops=2: the phased body (:679-789): pop two entries, test both
+          against t as the iteration began, merge the two leaf folds
+          first-wins with strict <, push the second entry's children
+          first, so the first entry's nearest child ends on top;
+      leaf_chain=N: one leaf pop consumes up to N consecutive Tri rows
+          (:651-663) and still counts one pop and one leaf pop."""
+    ablate = check_options(any_hit, ablate, pops, leaf_chain, frustum)
+    nodetest = "nonodetest" not in ablate
+    leaftest = "noleaftest" not in ablate
+    sort_any = any_hit or "nosort" in ablate
     device = tmin.device
     b = tmin.shape[0]
-    stack = torch.zeros((b, stack_entries(dev)), dtype=torch.int32,
-                        device=device)
+    a = dev["nodes"].shape[1] // 7
+    cap = stack_entries(dev, pops)
+    stack = torch.zeros((b, cap), dtype=torch.int32, device=device)
     stack[:, 0] = 1                       # root node ref (1-based)
     sptr = (tmax >= tmin).to(torch.int64)  # dead rays never start
     t = tmax.to(torch.float32).clone()
@@ -247,58 +356,97 @@ def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
     prim = torch.full((b,), -1, dtype=torch.int32, device=device)
     geom = torch.full((b,), -1, dtype=torch.int32, device=device)
     if count_pops:
-        pops = torch.zeros(b, dtype=torch.int32, device=device)
-        leaf_pops = torch.zeros(b, dtype=torch.int32, device=device)
+        pops_n = torch.zeros(b, dtype=torch.int32, device=device)
+        leaf_n = torch.zeros(b, dtype=torch.int32, device=device)
+    nodes_read = tris_read = None
+    if count_rows:
+        nodes_read = torch.zeros(dev["nodes"].shape[0], dtype=torch.bool,
+                                 device=device)
+        tris_read = torch.zeros(dev["tris"].shape[0], dtype=torch.bool,
+                                device=device)
     while True:
         act = torch.nonzero(sptr > 0).squeeze(1)
         if act.numel() == 0:
             break
-        sp = sptr[act] - 1
-        code = stack[act, sp]
-        sptr[act] = sp
-        is_node = code > 0
+        n = act.numel()
+        sp = sptr[act]
+        codes = []
+        for _ in range(pops):
+            has = sp > 0
+            code = stack[act, (sp - 1).clamp(min=0)]
+            codes.append(torch.where(has, code, torch.zeros_like(code)))
+            sp = sp - has.to(torch.int64)
         if count_pops:
-            pops[act] += 1
-            leaf_pops[act[~is_node]] += 1
-
-        rays = act[is_node]
-        if rays.numel():
-            nsp = sp[is_node]
-            children, hit = _node_step(
-                dev, [c[rays] for c in org], [c[rays] for c in inv_d],
-                tmin[rays], t[rays], code[is_node], any_hit)
-            hit64 = hit.to(torch.int64)
-            k = hit64.sum(1, keepdim=True)
-            rank = torch.cumsum(hit64, 1) - hit64
-            # the first child in push order ends on top of the stack
-            pos = nsp[:, None] + k - 1 - rank
-            rr = rays[:, None].expand_as(pos)
-            stack[rr[hit], pos[hit]] = children[hit]
-            sptr[rays] = nsp + k[:, 0]
-
-        rays = act[~is_node]
-        if rays.numel():
-            lsp = sp[~is_node]
-            lcode = code[~is_node]
-            take, lt, lu, lv, lp, lg, last = _leaf_step(
-                dev, [c[rays] for c in org], [c[rays] for c in dirv],
-                tmin[rays], t[rays], lcode)
-            upd = rays[take]
-            t[upd] = lt[take]
-            u[upd] = lu[take]
-            v[upd] = lv[take]
-            prim[upd] = lp[take]
-            geom[upd] = lg[take]
-            # a leaf of several packets continues with code - 1
-            cont = ~last
-            stack[rays[cont], lsp[cont]] = lcode[cont] - 1
-            sptr[rays] = lsp + cont.to(torch.int64)
-            if any_hit:
-                sptr[upd] = 0
+            for code in codes:
+                pops_n[act] += (code != 0).to(torch.int32)
+                leaf_n[act] += (code < 0).to(torch.int32)
+        # every entry of the iteration starts from the same carry
+        start = (t[act], u[act], v[act], prim[act], geom[act])
+        merged = None
+        pushes = []
+        for code in codes:
+            carry = start
+            push = torch.zeros((n, a), dtype=torch.int32, device=device)
+            mask = torch.zeros((n, a), dtype=torch.bool, device=device)
+            nd = torch.nonzero(code > 0).squeeze(1)
+            if nd.numel():
+                rays = act[nd]
+                if count_rows:
+                    nodes_read[code[nd] - 1] = True
+                if nodetest:
+                    children, hit = _node_step(
+                        dev, [c[rays] for c in org],
+                        [c[rays] for c in inv_d], tmin[rays],
+                        start[0][nd], code[nd], sort_any)
+                else:
+                    children = dev["nodes"][code[nd] - 1][
+                        :, 6 * a:].view(torch.int32)
+                    hit = children != 0
+                push[nd] = children
+                mask[nd] = hit
+            lf = torch.nonzero(code < 0).squeeze(1)
+            if lf.numel():
+                rays = act[lf]
+                part, cont = _leaf_chain(
+                    dev, [c[rays] for c in org], [c[rays] for c in dirv],
+                    tmin[rays], start[0][lf], [c[lf] for c in start],
+                    code[lf], leaf_chain, leaftest, tris_read)
+                carry = [c.clone() for c in start]
+                for k in range(5):
+                    carry[k][lf] = part[k]
+                push[lf, 0] = cont
+                mask[lf, 0] = cont != 0
+            if merged is None:
+                merged = list(carry)
+            else:   # first-wins: a later entry replaces on a strict <
+                sel = carry[0] < merged[0]
+                merged = [torch.where(sel, c, mm)
+                          for c, mm in zip(carry, merged)]
+            pushes.append((push, mask))
+        t[act], u[act], v[act], prim[act], geom[act] = merged
+        # the last entry's children go in first, so the first entry's
+        # first child in push order ends on top
+        for push, mask in reversed(pushes):
+            m64 = mask.to(torch.int64)
+            k = m64.sum(1)
+            pos = sp[:, None] + k[:, None] - 1 - (torch.cumsum(m64, 1) - m64)
+            live = pos[mask]
+            if live.numel() and int(live.max()) >= cap:
+                raise ValueError(f"traversal stack of {cap} entries "
+                                 f"overflowed (pops={pops})")
+            rr = act[:, None].expand_as(pos)
+            stack[rr[mask], pos[mask]] = push[mask]
+            sp = sp + k
+        sptr[act] = sp
+        if any_hit:   # a ray ends at the iteration that found a hit
+            sptr[act[merged[3] >= 0]] = 0
     out = {"t": t, "u": u, "v": v, "prim_id": prim, "geom_id": geom}
     if count_pops:
-        out["pops"] = pops
-        out["leaf_pops"] = leaf_pops
+        out["pops"] = pops_n
+        out["leaf_pops"] = leaf_n
+    if count_rows:
+        out["nodes_read"] = nodes_read
+        out["tris_read"] = tris_read
     return out
 
 
@@ -312,11 +460,13 @@ def components(rays):
             cols(rays["inv_org"]), rays["tmin"], rays["tmax"])
 
 
-def traverse(dev, rays, any_hit=False, count_pops=False):
-    """traverse_components over a make_rays dict ((B, 3) org/dir)."""
+def traverse(dev, rays, any_hit=False, count_pops=False, **options):
+    """traverse_components over a make_rays dict ((B, 3) org/dir);
+    options: ablate, pops, leaf_chain, frustum, count_rows."""
     org, dirv, inv_d, _, tmin, tmax = components(rays)
     return traverse_components(dev, org, dirv, inv_d, tmin, tmax,
-                               any_hit=any_hit, count_pops=count_pops)
+                               any_hit=any_hit, count_pops=count_pops,
+                               **options)
 
 
 def occluded(dev, rays):
@@ -341,4 +491,5 @@ def intersect_bruteforce(dev, rays):
 
 __all__ = ["make_rays", "traverse", "traverse_components", "occluded",
            "bvh_to_device", "bvh_tables", "intersect_bruteforce",
-           "BvhMeta", "compute_stack_needs", "stack_entries", "components"]
+           "BvhMeta", "compute_stack_needs", "stack_entries", "components",
+           "check_options", "ABLATIONS", "LEAF_CHAINS"]

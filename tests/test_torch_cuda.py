@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2 (prefetch) and K3 (pop counters) and the port's
-slices on a CUDA card.
+"""The CUDA kernels K1, K2 (prefetch), K3 (pop counters) and K4 (the
+options of the legacy Pallas body) and the port's slices on a CUDA card.
 
 Every test here is marked `cuda` and skips where torch sees no card. The
 file imports no jax, so it also runs where jax is not installed:
@@ -12,14 +12,14 @@ import numpy as np
 import pytest
 import torch
 
-from rodent_tpu.accel import build_bvh
-from rodent_tpu.utils import testscenes
+from rodent_tpu_torch.accel import build_bvh
 from rodent_tpu_torch.render import film as film_mod
 from rodent_tpu_torch.render.camera import Camera
 from rodent_tpu_torch.render.compiler import compile_mesh
 from rodent_tpu_torch.render.integrator import (
     render_iteration, render_iteration_persistent)
 from rodent_tpu_torch.traversal import api, packet
+from rodent_tpu_torch.utils import testscenes
 
 pytestmark = pytest.mark.cuda
 
@@ -146,7 +146,8 @@ def test_prefetch_and_count_kernels(card, width):
         p = api.traverse(dev, rays, any_hit=any_hit, count_pops=True)
         assert packet.launches == {"bvh_traverse": 1,
                                    "bvh_traverse_prefetch": 1,
-                                   "bvh_traverse_count": 1}
+                                   "bvh_traverse_count": 1,
+                                   "bvh_traverse_option": 0}
         for key in ("t", "u", "v", "prim_id", "geom_id"):
             assert torch.equal(k2[key], k1[key]), key
             assert torch.equal(k3[key], k1[key]), key
@@ -197,3 +198,68 @@ def test_persistent_films_through_k1_and_k2(card):
     close = np.isclose(k1, cpu, rtol=1e-4, atol=1e-5).all(axis=1)
     assert close.mean() >= 0.99, close.mean()
     assert abs(k1.mean() / cpu.mean() - 1.0) < 5e-3
+
+
+@pytest.mark.parametrize("width", [8, 24])
+def test_option_kernels_match_plain(card, width):
+    """K4, every option, against its plain version on the same card: per
+    ray, pops, leaf pops, prim_id and geom_id equal, t/u/v within atol
+    1e-5 / rtol 1e-6 (as K1's test), closest-hit and any-hit, on BVH8
+    soups whose leaves span up to several Tri rows; noleaftest leaves every
+    ray missing; row_loads returns K3's outputs bit for bit; one launch per
+    call."""
+    verts, idx = _soup(3000, seed=70 + width)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=width,
+                                      leaf_threshold=32, leaf_cost=0.2),
+                            card)
+    for any_hit, tmax in ((False, 1e30), (True, 2.0)):
+        rays = _rays(8192, width + 3, card, tmax)
+        k3 = packet.traverse_packet(dev, rays, any_hit=any_hit,
+                                    count_pops=True)
+        for name, kw in packet.OPTION_ARGS.items():
+            if any_hit and name == "nosort":
+                continue
+            packet.reset_launches()
+            k = packet.traverse_packet(dev, rays, any_hit=any_hit,
+                                       count_pops=True, **kw)
+            assert packet.launches["bvh_traverse_option"] == 1
+            plain = {a: b for a, b in kw.items() if a != "row_loads"}
+            p = api.traverse(dev, rays, any_hit=any_hit, count_pops=True,
+                             **plain)
+            for key in ("prim_id", "geom_id", "pops", "leaf_pops"):
+                assert torch.equal(k[key], p[key]), (name, key)
+            for key in ("t", "u", "v"):
+                np.testing.assert_allclose(k[key].cpu().numpy(),
+                                           p[key].cpu().numpy(), atol=1e-5,
+                                           rtol=1e-6, err_msg=name)
+            if name == "noleaftest":
+                assert bool((k["prim_id"] < 0).all())
+            if name == "row_loads":
+                for key in k3:
+                    assert torch.equal(k[key], k3[key]), key
+            uncounted = packet.traverse_packet(dev, rays, any_hit=any_hit,
+                                               **kw)
+            assert set(uncounted) == {"t", "u", "v", "prim_id", "geom_id"}
+            assert torch.equal(uncounted["prim_id"], k["prim_id"])
+
+
+def test_option_refusals(card):
+    """K4 exists for BVH8 with Tri8/Tri24 rows and one option at a time;
+    options on CPU tensors never launch it."""
+    verts, idx = _soup(500, seed=5)
+    rays = _rays(256, 6, card, 1e30)
+    for arity, width in ((4, 8), (8, 16)):
+        dev = api.bvh_to_device(build_bvh(verts, idx, arity=arity,
+                                          packet=width), card)
+        with pytest.raises(ValueError, match="built for BVH8"):
+            packet.traverse_packet(dev, rays, pops=2)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8), card)
+    with pytest.raises(ValueError, match="one at a time"):
+        packet.traverse_packet(dev, rays, leaf_chain=2, row_loads=True)
+    with pytest.raises(ValueError, match="prefetch"):
+        packet.traverse_packet(dev, rays, prefetch=True, row_loads=True)
+    cpu = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8), "cpu")
+    packet.reset_launches()
+    for kw in packet.OPTION_ARGS.values():
+        packet.traverse_packet(cpu, _rays(256, 6, "cpu", 1e30), **kw)
+    assert set(packet.launches.values()) == {0}

@@ -1,5 +1,6 @@
-"""The port stands alone: no jax behind it, no kernel launch on the CPU,
-no silent fallback when the CUDA toolchain is missing."""
+"""The port stands alone: no jax and nothing of the JAX package behind it,
+no kernel launch on the CPU, no silent fallback when the CUDA toolchain is
+missing."""
 import os
 import pkgutil
 import shutil
@@ -11,7 +12,7 @@ import pytest
 import torch
 
 import rodent_tpu_torch
-from rodent_tpu.accel import build_bvh
+from rodent_tpu_torch.accel import build_bvh
 from rodent_tpu_torch.kernels import build
 from rodent_tpu_torch.traversal import api, packet
 
@@ -25,19 +26,26 @@ def _run(args, cwd):
 
 
 def test_port_imports_no_jax():
-    """Every rodent_tpu_torch module imports without jax (checked in a
-    fresh interpreter: the test process itself has jax loaded)."""
+    """Every rodent_tpu_torch module and chip_smoke import without jax and
+    without any module of the JAX package rodent_tpu, whose host code the
+    port keeps its own copy of (checked in a fresh interpreter: the test
+    process itself has both loaded)."""
     names = [m.name for m in pkgutil.walk_packages(
         rodent_tpu_torch.__path__, "rodent_tpu_torch.")]
     for name in ("traversal.packet", "render.integrator", "render.compiler",
-                 "tools.benchmark", "tools.bench_traversal"):
+                 "tools.benchmark", "tools.bench_traversal", "accel.builder",
+                 "accel.layout", "io.formats", "io.obj", "io.png", "native",
+                 "utils.testscenes", "experiments.common",
+                 "experiments.ablate_packet", "experiments.measure_packet",
+                 "experiments.cost_model", "experiments.attribute_bigscene"):
         assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
             "import chip_smoke\n"
-            "assert 'jax' not in sys.modules, sorted(\n"
-            "    m for m in sys.modules if m.startswith('jax'))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'rodent_tpu'))\n"
+            "assert not bad, bad\n"
             "print('clean')\n")
     res = _run(["-c", code], REPO)
     assert res.returncode == 0, res.stderr
@@ -54,12 +62,16 @@ def test_cpu_traversal_never_launches_the_kernel():
     packet.reset_launches()
     hit = packet.traverse_packet(dev, rays)
     packet.traverse_packet(dev, rays, any_hit=True)
-    for kw in (dict(prefetch=True), dict(count_pops=True)):
+    for kw in (dict(prefetch=True), dict(count_pops=True),
+               *packet.OPTION_ARGS.values()):
         for any_hit in (False, True):
+            if any_hit and kw.get("ablate") == ("nosort",):
+                continue
             packet.traverse_packet(dev, rays, any_hit=any_hit, **kw)
     assert packet.launches == {"bvh_traverse": 0,
                                "bvh_traverse_prefetch": 0,
-                               "bvh_traverse_count": 0}
+                               "bvh_traverse_count": 0,
+                               "bvh_traverse_option": 0}
     assert hit["t"].device.type == "cpu"
 
 

@@ -1,7 +1,9 @@
 """The port's tools on the CPU (--cpu: the plain traversal; a card runs the
 kernels): rodent_tpu_torch.tools.benchmark, traversal and renderer modes,
-and rodent_tpu_torch.tools.bench_traversal on a .bvh/.rays pair written
-with the shared rodent_tpu.io.formats."""
+rodent_tpu_torch.tools.bench_traversal on a .bvh/.rays pair written with
+the JAX package's rodent_tpu.io.formats (the port reads them with its own
+copy), and the traversal experiments of rodent_tpu_torch.experiments at a
+tiny size."""
 import re
 
 import numpy as np
@@ -11,6 +13,8 @@ import torch
 from rodent_tpu.accel import build_bvh
 from rodent_tpu.io import formats
 from rodent_tpu.utils import testscenes
+from rodent_tpu_torch.experiments import (ablate_packet, attribute_bigscene,
+                                          cost_model, measure_packet)
 from rodent_tpu_torch.tools import bench_traversal, benchmark
 from rodent_tpu_torch.traversal import api, packet
 
@@ -102,3 +106,45 @@ def test_bench_traversal(tmp_path, capsys):
     text, blocked = run("-any")
     np.testing.assert_array_equal(blocked, (want_t < 5000.0).astype(
         np.float32))
+
+
+# script -> (its tiny arguments, lines its output must hold)
+EXPERIMENTS = {
+    "ablate_packet": (
+        ablate_packet, ["--tris", "2000", "--rays", "1024"],
+        [r"^ +K3: ", r"^ +nonodetest: .* pops/ray +379\.00 ",
+         r"^ +noleaftest: ", r"^ +nosort: ",
+         r"^ns per pop, K3 less nonodetest: -?[\d.]+ \(the slab",
+         r"^ns per pop, K3 less noleaftest: "]),
+    "measure_packet": (
+        measure_packet, ["--tris", "2000", "--rays", "1024"],
+        [r"^ +primary +[\d.]+ ", r"^ +ao +[\d.]+ ",
+         r"^ +bounces +[\d.]+ "]),
+    "cost_model": (
+        cost_model, ["--sizes", "hall=2000,crown=2000,powerplant=5000",
+                     "--rays", "256", "--scenes", "crown,powerplant"],
+        [r"^fit on hall: ns per ray = ", r"^  crown +primary: predicted",
+         r"^  powerplant bounces-unsorted: predicted"]),
+    "attribute_bigscene": (
+        attribute_bigscene, ["--tris", "20000", "--rays", "1024"],
+        [r"^counted \(K3\): pops/ray ", r"^ +K1: ", r"^ +K2: ",
+         r"^ +pops2: ", r"^ +chain4: ", r"^ +row_loads: "]),
+}
+
+
+@pytest.mark.parametrize("name", list(EXPERIMENTS))
+def test_experiment_on_cpu(name, capsys):
+    """Each experiment runs the plain version with --cpu at a tiny size,
+    says that no number of the run is a card's, prints its rows, and
+    launches no kernel; --frustum raises as api.traverse does."""
+    mod, args, rows = EXPERIMENTS[name]
+    packet.reset_launches()
+    assert mod.main(["--cpu", "--blocks", "1", *args]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("card: cpu: the plain torch version"), out
+    for row in rows:
+        assert re.search(row, out, re.M), (row, out)
+    assert set(packet.launches.values()) == {0}
+    if name == "measure_packet":
+        with pytest.raises(ValueError, match="frustum"):
+            mod.main(["--cpu", "--frustum", *args])
