@@ -5,9 +5,10 @@ Drives the port's main path once at the size the repository's benchmark
 calls real, and checks it:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
-2. builds the BVH traversal kernels (csrc/bvh_traverse.cu) with nvcc, two
-   libraries at once: K1, its prefetching variant K2 and its pop-counting
-   variant K3; and K4, the options of the legacy Pallas body;
+2. builds the BVH traversal kernels with nvcc, three libraries at once:
+   K1, its prefetching variant K2 and its pop-counting variant K3; K4, the
+   options of the legacy Pallas body (both csrc/bvh_traverse.cu); and K5
+   and K6, the tile-shared-stack kernels (csrc/bvh_tile.cu);
 3. K1 against its plain torch version on random triangle soups, arity
    2/4/8 and Tri4/8/16 packets, closest-hit and any-hit;
 4. hall-260K: 1024x1024 sorted primary rays timed through K1 and through
@@ -33,7 +34,19 @@ calls real, and checks it:
    on hall-260K and powerplant-4.3M, every option against K3 in turns on
    1M sorted primaries and on the ao rays (nonodetest, which pops the
    whole tree, on fewer rays), with K4's launch count read around them,
-   and each option's counters and hits held against the plain version.
+   and each option's counters and hits held against the plain version;
+12. the tile-shared-stack kernels (csrc/bvh_tile.cu): K5 (_kernel's tile
+   stack: plain, frustum, nopure) and K6 (the pair layout, each ablation)
+   against their plain versions on the soups of phase 11, bit for bit in
+   hits and per-tile pops, and against K1; then the measurement path of
+   rodent_tpu_torch.experiments.measure_packet/measure_pair on hall-260K
+   (1M sorted primaries, ao and bounce rays: K5 at tile_rows 1, 2, 4, 16,
+   frustum off and on, and nopure at 16 on the primaries; K6 at tiles of
+   256, 1024, 2048 rays), each timed in
+   turns against K1, counted, beside its bound, and held against the plain
+   version on 65,536 of its rays (whole tiles of at most PLAIN_POPS pops);
+   and powerplant-4.3M's sorted primaries through K5 (Tri24) at tile_rows 2
+   and 16, frustum off and on.
 
 Every kernel's time stands beside its bound, the least time the card
 could take for the same pops and the table rows they read
@@ -46,6 +59,7 @@ Needs one CUDA card, nvcc and g++; writes only under build/. Any failed
 check raises, so the exit code is not 0; the last line of a successful
 run is a JSON object naming the device.
 """
+import itertools
 import json
 import os
 import subprocess
@@ -56,11 +70,20 @@ import numpy as np
 import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-TIE_LIMIT = 1e-4            # exact-t ties allowed in phases 4, 8, 11
+# exact-t ties allowed in phases 4, 8, 11; in phase 12, prim_id differences
+# with K1, whose pops come in another order (against_k1)
+TIE_LIMIT = 1e-4
 SUBSET = 65_536             # ao rays held against the plain version
 # powerplant rays through K4's nonodetest, which pops all of the tree's
 # 250,000 entries per ray
 NONODE_BIG = 16_384
+# phase 12: K5's tile_rows and K6's tiles on hall-260K, K5's on powerplant
+HALL_ROWS = (1, 2, 4, 16)
+PAIR_TILES = (256, 1024, 2048)
+BIG_ROWS = (2, 16)
+# the plain version steps once per pop: it checks the whole tiles that pop
+# at most this often
+PLAIN_POPS = 1000
 BIG_CAM = ((-30.0, 60.0, -30.0), (130.0, -40.0, 130.0), (0, 1, 0), 55.0)
 
 
@@ -133,11 +156,13 @@ def phase_env():
 
 
 def phase_build():
-    from rodent_tpu_torch.kernels.build import build_all, load_library
+    from rodent_tpu_torch.kernels.build import (LIBRARIES, build_all,
+                                                load_library)
     t0 = time.perf_counter()
     built = build_all()
     dt = time.perf_counter() - t0
-    what = {"main": "K1, K2 and K3", "options": "K4 (-DRT_OPTIONS)"}
+    what = {"main": "K1, K2 and K3", "options": "K4 (-DRT_OPTIONS)",
+            "tile": "K5 and K6"}
     for kind, (path, nvcc_log) in built.items():
         load_library(kind=kind)
         if nvcc_log is None:
@@ -153,10 +178,10 @@ def phase_build():
                      for line in nvcc_log.splitlines()
                      if "spill stores" in line)
         log(f"[2] built {what[kind]} from rodent_tpu_torch/csrc/"
-            f"bvh_traverse.cu: {len(regs)} kernels, registers "
+            f"{LIBRARIES[kind][0]}: {len(regs)} kernels, registers "
             f"{min(regs)}-{max(regs)}, {spills} with spills -> "
             f"{os.path.relpath(path, REPO)}")
-    log(f"[2] both libraries built at once in {dt:.1f} s")
+    log(f"[2] all {len(built)} libraries built at once in {dt:.1f} s")
 
 
 def phase_soups(device):
@@ -693,6 +718,296 @@ def phase_options(device, name, bvh, prim, ao, nonode_rays):
     return launched, runs, err
 
 
+def tile_args(mode):
+    """traverse_packet's arguments for K5's mode (packet.TILE_MODES)."""
+    return {"frustum": mode == "frustum",
+            "ablate": ("nopure",) if mode == "nopure" else ()}
+
+
+def coherent_rays(n, seed):
+    """Rays from near one point with directions in one octant: their tiles
+    are octant pure, where K5 takes the pure slab test or the frustum."""
+    r = np.random.RandomState(seed)
+    org = (np.array([[-1.0, -1.0, -9.0]], np.float32)
+           + r.randn(n, 3).astype(np.float32) * 0.05)
+    d = np.stack([r.uniform(0.01, 0.2, n), r.uniform(0.01, 0.2, n),
+                  np.ones(n)], 1).astype(np.float32)
+    return org, d
+
+
+def check_equal(k, p, what):
+    """Every output of the plain version p equal to the kernel's, bit for
+    bit."""
+    for key in p:
+        check(bool(torch.equal(k[key], p[key])),
+              f"{what}: {key} differs from the plain version")
+
+
+def brute_force(dev, comps, i):
+    """The closest hit of ray i over every Tri lane of the table, without a
+    BVH (the arithmetic of mt_lane, lanes accepted up to tmax): (t,
+    prim_id)."""
+    from rodent_tpu_torch.traversal import api
+    tris = dev["tris"]
+    m = tris.shape[1] // 14
+    o, d, _, _, tmin, tmax = comps
+
+    def fld(f):
+        return tris[:, f * m:(f + 1) * m]
+    ok, tv, _, _ = api.mt_lane(
+        [fld(0), fld(1), fld(2)], [fld(3), fld(4), fld(5)],
+        [fld(6), fld(7), fld(8)], [fld(9), fld(10), fld(11)],
+        [c[i] for c in o], [c[i] for c in d], tmin[i], tmax[i])
+    pid = tris.view(torch.int32)[:, 12 * m:13 * m]
+    tv = torch.where(ok & (pid != -1), tv, torch.inf).reshape(-1)
+    j = int(tv.argmin())
+    return float(tv[j]), int(pid.reshape(-1)[j] & 0x7FFFFFFF)
+
+
+def against_k1(k, k1, any_hit, what, dev, comps):
+    """A tile kernel's hits against K1's: any-hit hit/miss equal; closest-hit
+    prim_id equal on all but at most TIE_LIMIT of the rays, and t/u/v equal
+    where the ids agree. Which of two hits a traversal keeps can depend on
+    the order of its pops, which a tile stack changes: a tie, two triangles
+    hit at the same t or within 1e-6 of it (a ray through the shared edge
+    of two coplanar triangles gets t values a few ULPs apart), or a grazing
+    ray, whose slab test is rounded coarsely enough that a box is culled
+    at one running t and not at another. Returns (ties, others), the
+    others' first three printed beside the closest hit of a brute force
+    over the whole Tri table."""
+    if any_hit:
+        check(bool(torch.equal(k["prim_id"] >= 0, k1["prim_id"] >= 0)),
+              f"{what}: any-hit hit/miss differs from K1")
+        return 0, 0
+    diff = k["prim_id"] != k1["prim_id"]
+    near = (k["t"] - k1["t"]).abs() <= 1e-6 * k1["t"].abs()
+    ties, others = int((diff & near).sum()), int((diff & ~near).sum())
+    check(ties + others <= TIE_LIMIT * diff.shape[0],
+          f"{what}: {ties} ties and {others} other mismatches with K1")
+    for i in torch.nonzero(diff & ~near)[:3, 0].tolist():
+        bt, bp = brute_force(dev, comps, i)
+        log(f"[12] {what}: ray {i} keeps prim {int(k['prim_id'][i])} at t "
+            f"{float(k['t'][i])!r}, K1 prim {int(k1['prim_id'][i])} at t "
+            f"{float(k1['t'][i])!r}; brute force over all "
+            f"{dev['tris'].shape[0]} Tri rows: prim {bp} at t {bt!r}")
+    same = ~diff
+    for key in ("t", "u", "v", "geom_id"):
+        check(bool(torch.equal(k[key][same], k1[key][same])),
+              f"{what}: {key} differs from K1 where prim_id agrees")
+    return ties, others
+
+
+def phase_tile_soups(device):
+    """[12] K5 and K6 against their plain versions on the soups of phase 11
+    (leaves of up to 32 tris): K5 at tile_rows 1 and 2 on random rays
+    (mixed tiles, where every mode is the plain one) and in each mode on
+    coherent rays (octant-pure tiles, where the pure slab test and the
+    frustum act), K6 with each ablation at tiles of 128 and 256 rays
+    on the random rays; closest-hit and any-hit; hits and per-tile pops
+    bit for bit, and the hits against K1's."""
+    from rodent_tpu_torch.accel import build_bvh
+    from rodent_tpu_torch.traversal import api, pair
+    from rodent_tpu_torch.traversal.packet import TILE_MODES, traverse_packet
+    runs = ties = 0
+    for m in (8, 24):
+        verts, idx = random_tri_soup(3000, seed=70 + m)
+        dev = api.bvh_to_device(build_bvh(
+            verts, idx, arity=8, packet=m, leaf_threshold=32,
+            leaf_cost=0.2), device)
+        r = np.random.RandomState(80 + m)
+        org = r.randn(8192, 3).astype(np.float32) * 3.0
+        d = r.randn(8192, 3).astype(np.float32)
+        d[:64, 0] = 0.0
+        batches = {"random": (org, d), "coherent": coherent_rays(8192, m)}
+        tmax = np.full(8192, 1e30, np.float32)
+        tmax[128:160] = -1.0
+        for (batch, (o, dd)), any_hit in itertools.product(
+                batches.items(), (False, True)):
+            rays = api.make_rays(o, dd, 0.0, np.minimum(tmax, 2.0)
+                                 if any_hit else tmax, device=device)
+            k1 = traverse_packet(dev, rays, any_hit=any_hit)
+            comps = api.components(rays)
+            modes = TILE_MODES if batch == "coherent" else ("plain",)
+            for rows, mode in itertools.product((1, 2), modes):
+                what = (f"soup Tri{m} {batch} K5 rows {rows} {mode} "
+                        f"any_hit={any_hit}")
+                kw = {"any_hit": any_hit, "count_pops": True,
+                      "tile_rows": rows, **tile_args(mode)}
+                k = traverse_packet(dev, rays, **kw)
+                check_equal(k, api.traverse(dev, rays, **kw), what)
+                ties += sum(against_k1(k, k1, any_hit, what, dev, comps))
+                runs += 1
+            if m != 8 or batch != "random":
+                continue
+            for tile, ab in itertools.product(
+                    (128, 256), [()] + [(a,) for a in pair.ABLATIONS]):
+                what = f"soup K6 tile {tile} {ab} any_hit={any_hit}"
+                k = pair.traverse_pair(dev, rays, any_hit=any_hit,
+                                       tile_rays=tile, ablate=ab,
+                                       count_pops=True)
+                check_equal(k, pair.traverse_pair_components(
+                    dev, *comps[:3], *comps[4:], any_hit, tile, ab,
+                    count_pops=True), what)
+                if not ab:
+                    ties += sum(against_k1(k, k1, any_hit, what, dev,
+                                           comps))
+                runs += 1
+    log(f"[12] K5 and K6 == plain on 2 soups (Tri8, Tri24; random and "
+        f"coherent rays), {runs} runs, closest-hit and any-hit: hits and "
+        f"per-tile pops bit for bit; {ties} prim_id differences with K1")
+
+
+def tile_run(name, dev, comps, any_hit, device, k1, pure, tile_rows=None,
+             frustum=False, tile_rays=None, nopure=False, blocks=3):
+    """One configuration of the measurement path: the kernel (K5 with
+    tile_rows, K6 with tile_rays) timed in turns against K1, one counted
+    launch, its bound, its hits against K1's, and its hits and pops against
+    the plain version on SUBSET rays, the first whole tiles that pop at
+    most PLAIN_POPS times (tiles are independent), which also count the
+    table rows read for the bound's byte term (a floor there). Returns the
+    label, the numbers and the counted run."""
+    from rodent_tpu_torch.experiments import common
+    from rodent_tpu_torch.traversal import api, packet, pair
+    if tile_rays:
+        size, label = tile_rays, f"K6 tile {tile_rays}"
+
+        def kernel():
+            return pair.traverse_pair_packet_components(
+                dev, *comps, any_hit=any_hit, tile_rays=tile_rays)
+        counted = common.counted_pair(dev, comps, any_hit, tile_rays)
+    else:
+        size = 128 * tile_rows
+        ablate = ("nopure",) if nopure else ()
+        label = (f"K5 rows {tile_rows}" + (" frustum" if frustum else "")
+                 + (" nopure" if nopure else ""))
+
+        def kernel():
+            return packet.traverse_packet_components(
+                dev, *comps, any_hit=any_hit, tile_rows=tile_rows,
+                frustum=frustum, ablate=ablate)
+        counted = common.counted_tile(dev, comps, any_hit, tile_rows,
+                                      frustum, ablate)
+
+    def k1_fn():
+        return packet.traverse_packet_components(dev, *comps,
+                                                 any_hit=any_hit)
+    k1_ms, ms, _, _ = common.in_turns(k1_fn, kernel, device, blocks)
+    n = comps[-1].shape[0]
+    st = common.tile_stats(counted, size, n)
+    ties, others = against_k1(counted, k1, any_hit, f"{name} {label}",
+                              dev, comps)
+    keep = torch.nonzero(counted["pops"] <= PLAIN_POPS)[:SUBSET // size, 0]
+    if keep.numel() == 0:           # at least the tile that pops least
+        keep = counted["pops"].argmin().reshape(1)
+    idx = (keep[:, None] * size + torch.arange(size, device=keep.device)
+           ).reshape(-1)
+    o, d, inv, _, tmin, tmax = tuple(
+        tuple(c[idx] for c in x) if isinstance(x, tuple) else x[idx]
+        for x in comps)
+    if tile_rays:
+        p = pair.traverse_pair_components(dev, o, d, inv, tmin, tmax,
+                                          any_hit, tile_rays,
+                                          count_pops=True, count_rows=True)
+    else:
+        p = api.traverse_tile_components(dev, o, d, inv, tmin, tmax, any_hit,
+                                         tile_rows, frustum, ablate,
+                                         count_rows=True)
+    rows = (int(p.pop("nodes_read").sum()), int(p.pop("tris_read").sum()))
+    check_equal({k: v[keep] if k in ("pops", "leaf_pops") else v[idx]
+                 for k, v in counted.items()}, p,
+                f"{name} {label} ({idx.numel()} rays)")
+    bound = common.tile_bound_ms(dev, counted, size, n, rows, any_hit,
+                                 pure, frustum, nopure,
+                                 pair_kernel=bool(tile_rays))
+    log(f"[12] {name} {label}: {ms:.4f} ms vs K1 {k1_ms:.4f} ms in turns "
+        f"({ms / k1_ms:.2f}x) = {n / ms / 1e3:.1f} Mrays/s; pops per tile "
+        f"{st['mean']:.1f} (max {st['max']}, leaf "
+        f"{st['leaf'] / st['tiles']:.1f}), {ms * 1e6 / st['pops']:.2f} ns "
+        f"per pop, {st['ray_equiv']:.1f} pops per ray-equivalent; bound "
+        f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.1%} of it; "
+        f"against K1 {ties} ties, {others} others; {idx.numel()} rays in "
+        f"{keep.numel()} tiles == plain (rows read {rows[0]} + {rows[1]})")
+    return label, {"ms": ms, "k1_ms": k1_ms, "bound": bound, "out": counted}
+
+
+def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
+    """[12] The tile kernels' measurement path (measure_packet --rows
+    1,2,4,16 with and without --frustum, measure_pair --tiles
+    256,1024,2048) on hall-260K's 1M sorted primaries, ao and bounce rays,
+    then K5 on powerplant-4.3M's sorted primaries, with the launch counts
+    read around it; then the headline configurations' plain versions on
+    all of their rays. Returns (K5's and K6's launches, the results, the
+    plain versions' times)."""
+    from rodent_tpu_torch.experiments import common
+    from rodent_tpu_torch.traversal import api, packet, pair
+    dists = common.distributions("hall", verts, idx, hall_bvh, side, device,
+                                 ("primary", "ao", "bounces"))
+    runs = [("hall", name, comps, any_hit, hall_bvh, HALL_ROWS, PAIR_TILES)
+            for name, (comps, any_hit) in dists.items()]
+    runs.append(("powerplant", "primary", big_prim, False, big_bvh, BIG_ROWS,
+                 ()))
+    res = {}
+    packet.reset_launches()
+    t0 = time.perf_counter()
+    for scene, name, comps, any_hit, dev, rows_list, tiles in runs:
+        k1 = packet.traverse_packet_components(dev, *comps, any_hit=any_hit)
+        for rows, frustum in itertools.product(rows_list, (False, True)):
+            label, r = tile_run(f"{scene} {name}", dev, comps, any_hit,
+                                device, k1, api.tile_purity(comps[2], rows),
+                                tile_rows=rows, frustum=frustum)
+            res[(scene, name, label)] = r
+        if scene == "hall" and name == "primary":   # the nopure ablation
+            label, r = tile_run(f"{scene} {name}", dev, comps, any_hit,
+                                device, k1, api.tile_purity(comps[2], 16),
+                                tile_rows=16, nopure=True)
+            res[(scene, name, label)] = r
+        for tile in tiles:
+            label, r = tile_run(f"{scene} {name}", dev, comps, any_hit,
+                                device, k1, None, tile_rays=tile)
+            res[(scene, name, label)] = r
+    torch.cuda.synchronize()
+    launched = {k: packet.launches[k] for k in ("bvh_traverse_tile",
+                                                 "bvh_traverse_pair")}
+    log(f"[12] measurement path: {len(res)} configurations in "
+        f"{time.perf_counter() - t0:.1f} s, launches {launched} (clock, "
+        f"power after: {sm_clock()})")
+    check(launched["bvh_traverse_tile"] >= len(res) - 3 * len(PAIR_TILES)
+          and launched["bvh_traverse_pair"] >= 3 * len(PAIR_TILES),
+          f"tile phase: launches {launched}")
+    # the headline configurations' plain versions on all of their rays
+    plain = {}
+    o, d, inv, _, tmin, tmax = dists["primary"][0]
+    for key, label, fn in (
+            ("K5", "K5 rows 16", lambda: api.traverse_tile_components(
+                hall_bvh, o, d, inv, tmin, tmax, tile_rows=16)),
+            ("K6", "K6 tile 2048", lambda: pair.traverse_pair_components(
+                hall_bvh, o, d, inv, tmin, tmax, tile_rays=2048,
+                count_pops=True))):
+        ms, out = common.timed(fn, device, blocks=1)
+        check_equal(res[("hall", "primary", label)]["out"], out,
+                    f"hall primary {label} (all rays)")
+        plain[key] = ms
+        log(f"[12] plain version of hall primary {label} on all "
+            f"{tmin.shape[0]} rays: {ms:.1f} ms; hits and pops == the "
+            f"kernel's")
+    return launched, res, plain
+
+
+def tile_entry(name, replaces, launches, head, plain_ms, res, kernel):
+    """The kernels-line entry of K5 or K6 (its hits equalled the plain
+    version's bit for bit: max_abs_err 0); every configuration's times
+    under "variants"."""
+    return {"name": name, "route": "cuda",
+            "source": "rodent_tpu_torch/csrc/bvh_tile.cu",
+            "replaces": replaces, "launches": launches, "max_abs_err": 0.0,
+            "ms": head["ms"], "plain_ms": plain_ms,
+            "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
+            "library_ms": None,
+            "variants": {" ".join(k): {"ms": r["ms"], "k1_ms": r["k1_ms"],
+                                       "bound_ms": r["bound"][0]}
+                         for k, r in res.items() if k[2].startswith(kernel)}}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -742,6 +1057,11 @@ def main():
                                 for o, r in res.items() if o != "K3"}
                           for run, res in runs.items()}
     log(f"[11] the attribution phase took {time.perf_counter() - t_att:.1f} s")
+    t_tile = time.perf_counter()
+    phase_tile_soups(device)
+    tile_launches, tiles, tile_plain = phase_tiles(
+        device, hall_bvh, verts, idx, big_bvh, big_prim)
+    log(f"[12] the tile phase took {time.perf_counter() - t_tile:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     src = "rodent_tpu_torch/csrc/bvh_traverse.cu"
     pallas = "rodent_tpu/traversal/pallas_packet.py"
@@ -770,7 +1090,18 @@ def main():
          "ms": variants["powerplant-4.3M"]["primary"]["row_loads"]["ms"],
          "plain_ms": big_plain_ms, "bound_ms": bounds["K3"][0],
          "bound_by": bounds["K3"][1], "library_ms": None,
-         "variants": variants}]}))
+         "variants": variants},
+        # ms: the headline configurations on hall-260K's 1M sorted
+        # primaries (K5 tile_rows 16, K6 tiles of 2048 rays), whose plain
+        # versions ran on all of those rays
+        tile_entry("bvh_traverse_tile", f"{pallas}:395",
+                   tile_launches["bvh_traverse_tile"],
+                   tiles[("hall", "primary", "K5 rows 16")],
+                   tile_plain["K5"], tiles, "K5"),
+        tile_entry("bvh_traverse_pair", "experiments/pallas_pair.py:127",
+                   tile_launches["bvh_traverse_pair"],
+                   tiles[("hall", "primary", "K6 tile 2048")],
+                   tile_plain["K6"], tiles, "K6")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -121,7 +121,7 @@
 //                pop; it changes no bit of any output.
 // The octant-pure ordered slab test (ablation "nopure", :794-799) and the
 // row-frustum test (frustum=True, :493-550) belong to one stack shared by
-// a tile of rays and have no per-thread counterpart here. K4 is
+// a tile of rays: they are K5's (bvh_tile.cu), not K4's. K4 is
 // instantiated for BVH8 x Tri8/Tri24 x stack 64/128 x closest/any-hit
 // (kNoSort closest-hit only): 52 kernels. kPops2 takes stacks of 128/256:
 // expanding the second entry early leaves up to A more entries per level,
@@ -131,6 +131,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "bvh_common.cuh"  // Ray, sort_children, mt_lane
 
 namespace {
 
@@ -154,54 +156,9 @@ struct Args {
   int* leaf_pops;  // K3, K4: (n,) leaf entries per ray
 };
 
-// one ray's inputs, in registers
-struct Ray {
-  float ix, iy, iz, ox, oy, oz, dx, dy, dz, tmin;
-};
-
 __device__ __forceinline__ Ray load_ray(const Args& a, long long i) {
   return Ray{a.ix[i], a.iy[i], a.iz[i], a.ox[i], a.oy[i], a.oz[i],
              a.dx[i], a.dy[i], a.dz[i], a.tmin[i]};
-}
-
-template <int A>
-__device__ __forceinline__ void cswap(float (&key)[A], int (&ch)[A],
-                                      bool (&hit)[A], int i, int j) {
-  const bool s = key[i] > key[j];
-  const float ki = s ? key[j] : key[i];
-  const float kj = s ? key[i] : key[j];
-  const int ci = s ? ch[j] : ch[i];
-  const int cj = s ? ch[i] : ch[j];
-  const bool hi = s ? hit[j] : hit[i];
-  const bool hj = s ? hit[i] : hit[j];
-  key[i] = ki; key[j] = kj;
-  ch[i] = ci; ch[j] = cj;
-  hit[i] = hi; hit[j] = hj;
-}
-
-// Batcher odd-even merge networks, ascending (api._SORT_NETWORKS)
-template <int A>
-__device__ __forceinline__ void sort_children(float (&key)[A], int (&ch)[A],
-                                              bool (&hit)[A]) {
-  if constexpr (A == 2) {
-    cswap<A>(key, ch, hit, 0, 1);
-  } else if constexpr (A == 4) {
-    cswap<A>(key, ch, hit, 0, 1); cswap<A>(key, ch, hit, 2, 3);
-    cswap<A>(key, ch, hit, 0, 2); cswap<A>(key, ch, hit, 1, 3);
-    cswap<A>(key, ch, hit, 1, 2);
-  } else {
-    static_assert(A == 8, "arity must be 2, 4 or 8");
-    cswap<A>(key, ch, hit, 0, 1); cswap<A>(key, ch, hit, 2, 3);
-    cswap<A>(key, ch, hit, 4, 5); cswap<A>(key, ch, hit, 6, 7);
-    cswap<A>(key, ch, hit, 0, 2); cswap<A>(key, ch, hit, 1, 3);
-    cswap<A>(key, ch, hit, 4, 6); cswap<A>(key, ch, hit, 5, 7);
-    cswap<A>(key, ch, hit, 1, 2); cswap<A>(key, ch, hit, 5, 6);
-    cswap<A>(key, ch, hit, 0, 4); cswap<A>(key, ch, hit, 1, 5);
-    cswap<A>(key, ch, hit, 2, 6); cswap<A>(key, ch, hit, 3, 7);
-    cswap<A>(key, ch, hit, 2, 4); cswap<A>(key, ch, hit, 3, 5);
-    cswap<A>(key, ch, hit, 1, 2); cswap<A>(key, ch, hit, 3, 4);
-    cswap<A>(key, ch, hit, 5, 6);
-  }
 }
 
 // Slab tests of every child of one node row; ld(j) reads float j of the
@@ -227,38 +184,6 @@ __device__ __forceinline__ void slab_test(Ld ld, const Ray& r, float t_cur,
     hit[c] = (entry <= exit) && (ch[c] != 0);
     key[c] = hit[c] ? entry : INFINITY;
   }
-}
-
-// Sign-trick Moller-Trumbore of one Tri lane whose fields are f (v0, e1,
-// e2, n; xyz each). Where the lane passes `t <= t_test` and beats t_run
-// strictly, returns true with its t, u and v.
-__device__ __forceinline__ bool mt_lane(const float (&f)[12], const Ray& r,
-                                        float t_test, float t_run, float& t,
-                                        float& u, float& v) {
-  const float cx = f[0] - r.ox;
-  const float cy = f[1] - r.oy;
-  const float cz = f[2] - r.oz;
-  const float rx = r.dy * cz - r.dz * cy;
-  const float ry = r.dz * cx - r.dx * cz;
-  const float rz = r.dx * cy - r.dy * cx;
-  const float det = f[9] * r.dx + f[10] * r.dy + f[11] * r.dz;
-  const float abs_det = fabsf(det);
-  const float sign = det < 0.0f ? -1.0f : 1.0f;
-  const float uu = (rx * f[6] + ry * f[7] + rz * f[8]) * sign;
-  const float vv = (rx * f[3] + ry * f[4] + rz * f[5]) * sign;
-  const float tt = (cx * f[9] + cy * f[10] + cz * f[11]) * sign;
-  const bool ok = (uu >= 0.0f) && (vv >= 0.0f) && (uu + vv <= abs_det) &&
-                  (abs_det != 0.0f) && (tt >= abs_det * r.tmin) &&
-                  (tt <= abs_det * t_test);
-  const float inv_det = 1.0f / (abs_det != 0.0f ? abs_det : 1.0f);
-  const float tv = tt * inv_det;
-  if (ok && tv < t_run) {
-    t = tv;
-    u = uu * inv_det;
-    v = vv * inv_det;
-    return true;
-  }
-  return false;
 }
 
 #ifndef RT_OPTIONS

@@ -1,7 +1,8 @@
 """What the port's traversal tools share: the scenes at their full size
 and their BVH builds, the ray distributions, the card's name and power
-limit, CUDA-event timing (in turns), per-warp pop statistics, and the
-least time the card could take for a traversal launch (its bound). The
+limit, CUDA-event timing (in turns), per-warp and per-tile pop statistics,
+and the least time the card could take for a traversal launch (its bound,
+per-ray kernels and tile kernels). The
 experiments here, tools/benchmark.py and chip_smoke.py all take them from
 this module."""
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from ..accel import build_bvh
 from ..core.math import FLT_MAX
-from ..traversal import api, packet
+from ..traversal import api, packet, pair
 from ..traversal.sorting import sort_rays
 from ..utils import testscenes
 
@@ -55,6 +56,22 @@ PEAK_BYTES = 3.35e12
 #   a Tri row's continuation: its test and its push = 2.
 SLAB_OPS, PUSH_OPS, LANE_OPS, CONT_OPS = 28, 4, 59, 2
 SORT_SWAPS = {2: 1, 4: 5, 8: 19}
+# The tile kernels (csrc/bvh_tile.cu), where a node pop tests every ray of
+# the tile against every child:
+#   one ray and child, pure slab form (slab_key<true>): 6 subtracts, 6
+#     multiplies, 6 min/max into entry and exit, entry <= exit, the key's
+#     select and the tile minimum = 21; the mixed form adds the 6 min/max
+#     of the pairs = 27;
+#   one 128-ray row and child of a frustum pop: per axis 2 subtracts, 2
+#     compares, 2 selects and 2 multiplies, 4 min/max across the axes,
+#     the row's tmin and t, entry <= exit, the key's select and the
+#     minimum over rows = 33; and per ray, its t into the row's largest;
+#   any-hit: the done ray's -FLT_MAX, a compare and a select per ray and
+#     pop;
+#   K6's Tri lane: mt_test (59 less the strict < and its and), the
+#     FLT_MAX select of a failed lane and the fold's compare and 5 selects
+#     = 63.
+TILE_PURE_OPS, TILE_MIXED_OPS, FRUSTUM_OPS, PAIR_LANE_OPS = 21, 27, 33, 63
 
 
 def add_args(p):
@@ -223,6 +240,82 @@ def counted(dev, comps, any_hit=False, option=None):
     kw = packet.OPTION_ARGS[option] if option else {}
     return packet.traverse_packet_components(dev, *comps, any_hit=any_hit,
                                              count_pops=True, **kw)
+
+
+def counted_tile(dev, comps, any_hit=False, tile_rows=16, frustum=False,
+                 ablate=()):
+    """One counted launch of the tile route (K5 on the card), without
+    synchronising: per-tile "pops" and "leaf_pops" beside the hits."""
+    return packet.traverse_packet_components(
+        dev, *comps, any_hit=any_hit, count_pops=True, tile_rows=tile_rows,
+        frustum=frustum, ablate=ablate)
+
+
+def counted_pair(dev, comps, any_hit=False, tile_rays=pair.TILE_RAYS,
+                 ablate=()):
+    """One counted launch of the pair traversal (K6 on the card)."""
+    return pair.traverse_pair_packet_components(
+        dev, *comps, any_hit=any_hit, tile_rays=tile_rays, ablate=ablate,
+        count_pops=True)
+
+
+def tile_stats(out, size, n_rays):
+    """Pop statistics of a counted tile run ("pops" and "leaf_pops" per
+    tile of `size` rays): totals, the mean and the largest pops per tile,
+    and the pops per ray-equivalent, the pops a ray would make if each
+    tile pop were one per ray (total pops x size / rays,
+    experiments/measure_packet.py:125-127). Raises where a tile stopped
+    (pops -1)."""
+    pops = out["pops"].to(torch.int64)
+    leaf = out["leaf_pops"].to(torch.int64)
+    if pops.numel() and int(pops.min()) < 0:
+        raise RuntimeError("a tile's stack overflowed or reached its "
+                           "iteration guard (pops -1)")
+    s = {"tiles": pops.numel(), "pops": int(pops.sum()),
+         "leaf": int(leaf.sum())}
+    s["node"] = s["pops"] - s["leaf"]
+    s["mean"] = s["pops"] / max(s["tiles"], 1)
+    s["max"] = int(pops.max()) if pops.numel() else 0
+    s["ray_equiv"] = s["pops"] * size / max(n_rays, 1)
+    return s
+
+
+def tile_bound_ms(dev, out, size, n_rays, rows, any_hit=False, pure=None,
+                  frustum=False, nopure=False, pair_kernel=False):
+    """bound_ms for the tile kernels: the work of a tile pop is the pop
+    times the tile's `size` rays (a frustum node pop on a pure tile: its
+    tile_rows x 8 interval tests and each ray's t into its row's largest),
+    over the float32 peak, against the bytes of the rays, the per-tile
+    counters and the table rows read once (rows, as in bound_ms). out: a
+    counted run ("pops", "leaf_pops" per tile); pure: the tiles' octant
+    purity (api.tile_purity), where K5 takes the pure slab form or, with
+    frustum, the frustum test; pair_kernel: K6 (mixed form, no any-hit
+    deactivation, its lane fold). Returns (ms, "operations" or
+    "bytes")."""
+    a = dev["nodes"].shape[1] // 7
+    m = dev["tris"].shape[1] // 14
+    node = (out["pops"] - out["leaf_pops"]).double()
+    leaf = out["leaf_pops"].double()
+    ah = 2 if any_hit and not pair_kernel else 0
+    per_pop = a * PUSH_OPS + (0 if any_hit else 7 * SORT_SWAPS[a])
+    mixed = size * (a * TILE_MIXED_OPS + ah) + per_pop
+    if pair_kernel:
+        node_ops = torch.full_like(node, float(mixed))
+        leaf_ops = size * m * PAIR_LANE_OPS + CONT_OPS
+    else:
+        if frustum:
+            fast = size // 128 * a * FRUSTUM_OPS + size * (1 + ah) + per_pop
+        else:
+            fast = size * (a * TILE_PURE_OPS + ah) + per_pop
+        use = pure.to(node.device) & (not nopure)
+        node_ops = torch.where(use, float(fast), float(mixed))
+        leaf_ops = size * (m * LANE_OPS + ah) + CONT_OPS
+    ops = float((node * node_ops).sum()) + float(leaf.sum()) * leaf_ops
+    t_ops = ops / PEAK_OPS
+    t_bytes = (n_rays * 64 + node.numel() * 8 + rows[0] * 28 * a
+               + rows[1] * 56 * m) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def option_turns(dev, comps, device, options, any_hit=False, blocks=5):

@@ -7,11 +7,13 @@ anew and an unchanged one loads the built library. Only sources in the
 repository are used. Without nvcc (and without a built library) asking
 for a library raises: there is no fallback.
 
-Two libraries come from the same source: "main" holds K1, K2 and K3, the
-kernels of the render and benchmark paths; "options" (-DRT_OPTIONS) holds
-K4, the options of the legacy Pallas body, built at the first use of an
-option so that it never delays K1's first launch. build_all() starts both
-nvcc runs at once.
+Three libraries: "main" (bvh_traverse.cu) holds K1, K2 and K3, the kernels
+of the render and benchmark paths; "options" (the same source with
+-DRT_OPTIONS) holds K4, the options of the legacy Pallas body; "tile"
+(bvh_tile.cu) holds K5 and K6, the traversals whose stack is shared by a
+tile of rays. Each is built at its first use, so that none delays K1's
+first launch; build_all() starts the three nvcc runs at once. A library's
+hash covers its source and the header it includes (bvh_common.cuh).
 
 -fmad=false keeps every float operation separately rounded, as the plain
 torch versions compute them, so a kernel and its plain version agree bit
@@ -30,12 +32,14 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "rodent_torch_kernels"
-SOURCES = ("bvh_traverse.cu",)
+HEADERS = ("bvh_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-# library -> its extra nvcc flags
-LIBRARIES = {"main": (), "options": ("-DRT_OPTIONS",)}
+# library -> (its source in csrc/, its extra nvcc flags)
+LIBRARIES = {"main": ("bvh_traverse.cu", ()),
+             "options": ("bvh_traverse.cu", ("-DRT_OPTIONS",)),
+             "tile": ("bvh_tile.cu", ())}
 
 _P = ctypes.c_void_p
 # nodes, tris, rays, n, arity, packet, any_hit, stack_cap, t, u, v, prim,
@@ -52,6 +56,20 @@ _ENTRIES = {
     "options": {
         "rt_bvh_traverse_option": (ctypes.c_int, _TRAVERSE + [
             _P, _P, ctypes.c_int, _P]),
+    },
+    "tile": {
+        # nodes, tris, rays, n, packet, any_hit, tile_rows, mode,
+        # stack_cap, t, u, v, prim, geom, pops, leaf_pops, stream
+        "rt_bvh_traverse_tile": (ctypes.c_int, [
+            _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P,
+            _P, _P, _P]),
+        # nodes, tris, rays, n, tile_rays, any_hit, stack_cap, ablate,
+        # max_iters, t, u, v, prim, geom, pops, leaf_pops, stream
+        "rt_bvh_traverse_pair": (ctypes.c_int, [
+            _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P,
+            _P, _P, _P, _P]),
     },
 }
 
@@ -70,13 +88,13 @@ def find_nvcc():
 
 
 def _flags(kind):
-    return NVCC_FLAGS + LIBRARIES[kind]
+    return NVCC_FLAGS + LIBRARIES[kind][1]
 
 
 def library_path(build_dir=None, kind="main"):
     """Where the library `kind` for these exact sources and flags lives."""
     h = hashlib.sha256(" ".join(_flags(kind)).encode())
-    for name in SOURCES:
+    for name in (LIBRARIES[kind][0], *HEADERS):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     stem = "librodent_torch" if kind == "main" else f"librodent_torch_{kind}"
@@ -99,7 +117,7 @@ def build(build_dir=None, kind="main"):
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc, *_flags(kind), "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
+           str(CSRC / LIBRARIES[kind][0])]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on the {kind} library:\n"

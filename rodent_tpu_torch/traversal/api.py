@@ -27,6 +27,10 @@ semantics exactly, so the two agree hit for hit on the same device:
 
 The rays advance in lockstep: each step pops one entry for every ray whose
 stack is not empty, and only those rays are touched.
+
+`traverse_tile_components` is the plain version of K5 (csrc/bvh_tile.cu):
+_kernel's own contract, in which a tile of rays shares ONE stack
+(pallas_packet.py:1-24); `traverse(..., tile_rows=...)` takes it.
 """
 from __future__ import annotations
 
@@ -222,29 +226,53 @@ def _leaf_step(dev, org, dirv, tmin, t_cur, code, t_run=None):
 # :575-578, :639-644)
 ABLATIONS = ("nonodetest", "noleaftest", "nosort")
 LEAF_CHAINS = (1, 2, 4)
+# the tile route: 128-ray rows per tile, and its one ablation (:794-799)
+TILE_ROWS = (1, 2, 4, 8, 16, 32)
+TILE_ABLATIONS = ("nopure",)
 
 
-def check_options(any_hit, ablate=(), pops=1, leaf_chain=1, frustum=False):
+def check_options(any_hit, ablate=(), pops=1, leaf_chain=1, frustum=False,
+                  tile_rows=None):
     """Validates the options of the legacy Pallas body _kernel
     (pallas_packet.py:395-876) that the port carries; returns `ablate` as
-    a sorted tuple. Raises ValueError for the rest:
+    a sorted tuple. tile_rows=None is the per-ray route, which raises
+    ValueError for:
 
-    - "nopure" drops _kernel's octant-pure ordered slab test (:794-799);
-      a per-ray stack never takes that test, so there is nothing to drop;
-    - frustum=True tests 128-ray row intervals against one shared stack
-      (:493-550), which needs a warp-shared stack: ROADMAP B3a;
-    - "nosort" changes nothing for any-hit, which pushes in slot order;
+    - "nopure" and frustum=True: both belong to one stack shared by a
+      tile of rays (_kernel's octant-pure ordered slab test, :794-799,
+      and its 128-ray row intervals, :493-550); pass tile_rows= for them;
+    - "nosort" with any-hit, which pushes in slot order anyway;
     - pops=2 with "nonodetest": _kernel's phased body has no such
-      ablation (node_vec always slab-tests)."""
+      ablation (node_vec always slab-tests).
+
+    With tile_rows (one of TILE_ROWS), the tile route takes frustum or
+    "nopure", one at a time (with "nopure", _kernel never reaches the
+    frustum test), and none of the per-ray options."""
     ablate = tuple(sorted(set(ablate)))
+    if tile_rows is not None:
+        if tile_rows not in TILE_ROWS:
+            raise ValueError(f"tile_rows={tile_rows}: one of {TILE_ROWS}")
+        for ab in ablate:
+            if ab not in TILE_ABLATIONS:
+                raise ValueError(f"ablate {ab!r} with tile_rows: the tile "
+                                 f"route takes {TILE_ABLATIONS} only")
+        if frustum and ablate:
+            raise ValueError("frustum and ablate 'nopure' at once: with "
+                             "'nopure', _kernel never reaches the frustum "
+                             "test; ask for one")
+        if pops != 1 or leaf_chain != 1:
+            raise ValueError("pops and leaf_chain belong to the per-ray "
+                             "route; the tile route pops one entry a time")
+        return ablate
     if frustum:
-        raise ValueError("frustum=True is not ported: it needs a "
-                         "warp-shared stack (ROADMAP B3a, the next slice)")
+        raise ValueError("frustum=True tests 128-ray rows against one stack "
+                         "shared by a tile: pass tile_rows= (the tile "
+                         "route)")
     for ab in ablate:
         if ab == "nopure":
-            raise ValueError("ablate 'nopure' has no counterpart: a "
-                             "per-ray stack never takes the octant-pure "
-                             "ordered slab test")
+            raise ValueError("ablate 'nopure' drops the octant-pure slab "
+                             "test of a tile: pass tile_rows= (the tile "
+                             "route)")
         if ab not in ABLATIONS:
             raise ValueError(f"unknown ablation {ab!r}; choose from "
                              f"{ABLATIONS}")
@@ -450,6 +478,315 @@ def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
     return out
 
 
+_F32_MAX = 3.402823466e38   # a miss's key in the tile kernels
+
+
+def tile_pad(x, nt, size, fill=0.0):
+    """(B,) -> (nt, size): the rays of each tile in a row, padded as
+    pack_rays pads (pallas_packet.py:1462-1484): zeros, tmax = -1."""
+    pad = nt * size - x.shape[0]
+    if pad:
+        x = torch.cat([x, x.new_full((pad,), fill)])
+    return x.reshape(nt, size)
+
+
+def mt_lane(v0, e1, e2, nn, o, d, tmin, t_test):
+    """Sign-trick Moller-Trumbore of one Tri lane against rays, in the
+    float operation order of _mt_lanes (pallas_packet.py:368-383): returns
+    (ok, t, u, v); ok where the lane passes `t <= t_test`. Each argument
+    broadcasts against the rays' shape."""
+    cx, cy, cz = v0[0] - o[0], v0[1] - o[1], v0[2] - o[2]
+    rx = d[1] * cz - d[2] * cy
+    ry = d[2] * cx - d[0] * cz
+    rz = d[0] * cy - d[1] * cx
+    det = nn[0] * d[0] + nn[1] * d[1] + nn[2] * d[2]
+    abs_det = torch.abs(det)
+    sign = torch.where(det < 0, -1.0, 1.0)
+    uu = (rx * e2[0] + ry * e2[1] + rz * e2[2]) * sign
+    vv = (rx * e1[0] + ry * e1[1] + rz * e1[2]) * sign
+    tt = (cx * nn[0] + cy * nn[1] + cz * nn[2]) * sign
+    ok = ((uu >= 0.0) & (vv >= 0.0) & (uu + vv <= abs_det)
+          & (abs_det != 0.0) & (tt >= abs_det * tmin)
+          & (tt <= abs_det * t_test))
+    inv_det = 1.0 / torch.where(abs_det != 0.0, abs_det, 1.0)
+    return ok, tt * inv_det, uu * inv_det, vv * inv_det
+
+
+def tile_leaf_lanes(tris, code, o, d, tmin, t_test, miss):
+    """Moller-Trumbore of one Tri row per tile (code: (k,) leaf refs)
+    against the tile's rays ((k, T) components), all M lanes at once. A
+    lane counts where it passes `t <= t_test` and its pid is not -1; of
+    those the leftmost with the smallest t is kept, which is what a
+    sequential fold over the lanes with the strict `<` keeps (_mt_lanes,
+    pallas_packet.py:352-392; pallas_pair.py:246-261). Returns (best t,
+    with `miss` where no lane counts, lane, u, v, pid, geom) per ray, the
+    attributes those of the kept lane (of lane 0 where none counts)."""
+    m = tris.shape[1] // 14
+    row = tris[~code]
+    rowi = row.view(torch.int32)
+
+    def fld(f):
+        return row[:, f * m:(f + 1) * m][:, None, :]
+
+    def at(x, lane):
+        return x.expand(lane.shape + (m,)).gather(2, lane[..., None])[..., 0]
+
+    ok, tv, uv, vv = mt_lane(
+        [fld(0), fld(1), fld(2)], [fld(3), fld(4), fld(5)],
+        [fld(6), fld(7), fld(8)], [fld(9), fld(10), fld(11)],
+        [c[:, :, None] for c in o], [c[:, :, None] for c in d],
+        tmin[:, :, None], t_test[:, :, None])
+    pid = rowi[:, 12 * m:13 * m][:, None, :]
+    best, lane = torch.where(ok & (pid != -1), tv, miss).min(2)
+    return (best, lane, at(uv, lane), at(vv, lane), at(pid, lane),
+            at(rowi[:, 13 * m:14 * m][:, None, :], lane))
+
+
+def _tile_signs(inv):
+    """Per tile ((nt, size) tiles of inv_dir components): whether all its
+    rays' components are >= 0, per axis, and whether the tile is octant
+    pure, all its rays sharing their signs on every axis
+    (pallas_packet.py:487-491). Returns (pos, pure)."""
+    pos = [(c >= 0.0).all(1) for c in inv]
+    neg = [(c < 0.0).all(1) for c in inv]
+    return pos, (pos[0] | neg[0]) & (pos[1] | neg[1]) & (pos[2] | neg[2])
+
+
+def tile_purity(inv_d, tile_rows):
+    """(nt,) bool: the tiles of tile_rows * 128 rays (padded as pack_rays
+    pads) that are octant pure, where the tile route takes the pure slab
+    test or, with frustum=True, the row-frustum test."""
+    size = 128 * tile_rows
+    nt = -(-inv_d[0].shape[0] // size)
+    return _tile_signs([tile_pad(c, nt, size) for c in inv_d])[1]
+
+
+def _tile_slab_keys(rows, a, o, inv, tmin, t_test, pos=None):
+    """Per-child tile-min entry keys (k, A) of k node rows against their
+    tiles' rays (k, T): _slab_parts + the reduction of _finalize_children
+    (pallas_packet.py:237-329), in the unfused form (b - o) * inv. pos:
+    the tiles' per-axis direction signs, (k,) bool each, for the pure form
+    (a per-tile near/far select); None for the mixed form (per-ray
+    min/max)."""
+    def bnd(j):
+        return rows[:, j * a:(j + 1) * a][:, :, None]
+
+    o = [c[:, None, :] for c in o]
+    inv = [c[:, None, :] for c in inv]
+    if pos is not None:
+        p = [q[:, None, None] for q in pos]
+        bs = [torch.where(p[k], bnd(2 * k), bnd(2 * k + 1)) for k in range(3)]
+        bf = [torch.where(p[k], bnd(2 * k + 1), bnd(2 * k)) for k in range(3)]
+        ent = torch.maximum(
+            torch.maximum((bs[0] - o[0]) * inv[0], (bs[1] - o[1]) * inv[1]),
+            torch.maximum((bs[2] - o[2]) * inv[2], tmin[:, None, :]))
+        ext = torch.minimum(
+            torch.minimum((bf[0] - o[0]) * inv[0], (bf[1] - o[1]) * inv[1]),
+            torch.minimum((bf[2] - o[2]) * inv[2], t_test[:, None, :]))
+    else:
+        ts = [(bnd(j) - o[j // 2]) * inv[j // 2] for j in range(6)]
+        ent = torch.maximum(
+            torch.maximum(torch.minimum(ts[0], ts[1]),
+                          torch.minimum(ts[2], ts[3])),
+            torch.maximum(torch.minimum(ts[4], ts[5]), tmin[:, None, :]))
+        ext = torch.minimum(
+            torch.minimum(torch.maximum(ts[0], ts[1]),
+                          torch.maximum(ts[2], ts[3])),
+            torch.minimum(torch.maximum(ts[4], ts[5]), t_test[:, None, :]))
+    return torch.where(ent <= ext, ent, _F32_MAX).amin(2)
+
+
+def _tile_frustum_keys(rows, pos, fr, t_test, tile_rows):
+    """Per-child conservative keys (k, 8) of node_step_frustum
+    (pallas_packet.py:511-539): each child's box against each 128-ray
+    row's interval box in sign-mirrored coordinates (fr: the rows'
+    o2_lo/hi, i2_lo/hi per axis and tmin_row, (k, R) each), the same
+    float operations in the same order, then the minimum over the rows."""
+    k = rows.shape[0]
+    t_ub = t_test.reshape(k, tile_rows, 128).amax(2)[:, :, None]
+    ent = ext = None
+    for ax in range(3):
+        lo = rows[:, 16 * ax:16 * ax + 8][:, None, :]
+        hi = rows[:, 16 * ax + 8:16 * ax + 16][:, None, :]
+        p = pos[ax][:, None, None]
+        b_n = torch.where(p, lo, -hi)
+        b_f = torch.where(p, hi, -lo)
+        o2_lo, o2_hi, i2_lo, i2_hi = [x[:, :, None] for x in fr[ax]]
+        a_ = b_n - o2_hi
+        e_k = a_ * torch.where(a_ >= 0.0, i2_lo, i2_hi)
+        b_ = b_f - o2_lo
+        x_k = b_ * torch.where(b_ >= 0.0, i2_hi, i2_lo)
+        ent = e_k if ent is None else torch.maximum(ent, e_k)
+        ext = x_k if ext is None else torch.minimum(ext, x_k)
+    ent = torch.maximum(ent, fr[3][:, :, None])
+    ext = torch.minimum(ext, t_ub)
+    return torch.where(ent <= ext, ent, _F32_MAX).amin(1)
+
+
+def traverse_tile_components(dev, org, dirv, inv_d, tmin, tmax,
+                             any_hit=False, tile_rows=16, frustum=False,
+                             ablate=(), count_rows=False):
+    """The tile route: _kernel's own contract (pallas_packet.py:1-24,
+    :395-876, pops=1), the plain version of K5. The rays, flat (B,)
+    components, go in tiles of tile_rows * 128 consecutive rays (the last
+    one padded with zero rays whose tmax is -1); each tile walks the union
+    of its rays' node sets from ONE stack, and every live tile pops one
+    entry per step:
+
+    - a node row is slab-tested against every ray of the tile: in the
+      pure form (one near/far select for the tile) where all of the
+      tile's rays share their direction signs on every axis, padding
+      included, else in the mixed form (per-ray min/max); a child's key
+      is its minimum entry distance over the tile; closest-hit pushes the
+      hit children sorted near-first (Batcher network), any-hit in slot
+      order;
+    - frustum=True: on pure tiles, each child is tested against every
+      128-ray row's interval box instead (node_step_frustum, a
+      conservative push set; the hits stay exact);
+    - ablate=("nopure",): every tile takes the mixed form;
+    - a leaf row runs Moller-Trumbore over its lanes for every ray, lanes
+      tested against t as the pop began and kept on a strict <; the next
+      row of the leaf is pushed unless lane M-1's pid sign bit is set;
+    - any-hit tests a ray that has its hit at t = -FLT_MAX, and a tile
+      stops when every ray has its hit or is dead.
+
+    Returns {t, u, v, prim_id, geom_id} per ray (t = tmax on a miss) and
+    "pops" and "leaf_pops" per tile, (nt,) int32, as _kernel's count_pops
+    (rows 0 and 1 of each tile's 8-row block, :870-875); count_rows=True
+    adds "nodes_read" and "tris_read" (traverse_components)."""
+    ablate = check_options(any_hit, ablate, frustum=frustum,
+                           tile_rows=tile_rows)
+    nodes, tris = dev["nodes"], dev["tris"]
+    a = nodes.shape[1] // 7
+    m = tris.shape[1] // 14
+    if frustum and a != 8:
+        raise ValueError(f"frustum=True reads BVH8 rows (16 floats per "
+                         f"axis, pallas_packet.py:525-526); got BVH{a}")
+    device = tmin.device
+    b = tmin.shape[0]
+    size = 128 * tile_rows
+    nt = -(-b // size)
+    o = [tile_pad(c, nt, size) for c in org]
+    d = [tile_pad(c, nt, size) for c in dirv]
+    inv = [tile_pad(c, nt, size) for c in inv_d]
+    tmn = tile_pad(tmin, nt, size)
+    tmx = tile_pad(tmax.to(torch.float32), nt, size, -1.0)
+    pos, pure = _tile_signs(inv)
+    if "nopure" in ablate:
+        pure = torch.zeros_like(pure)
+    fr = None
+    if frustum:
+        def rows_of(x):
+            return x.reshape(nt, tile_rows, 128)
+        fr = []
+        for ax in range(3):
+            o2 = rows_of(torch.where(pos[ax][:, None], o[ax], -o[ax]))
+            i2 = rows_of(inv[ax].abs())
+            fr.append((o2.amin(2), o2.amax(2), i2.amin(2), i2.amax(2)))
+        fr.append(rows_of(tmn).amin(2))
+
+    t = tmx.clone()
+    u = torch.zeros_like(t)
+    v = torch.zeros_like(t)
+    prim = torch.full((nt, size), -1, dtype=torch.int32, device=device)
+    geom = torch.full_like(prim, -1)
+    cap = stack_entries(dev)
+    stack = torch.zeros((nt, cap), dtype=torch.int32, device=device)
+    stack[:, 0] = 1
+    sp = torch.ones(nt, dtype=torch.int64, device=device)
+    done = torch.zeros(nt, dtype=torch.bool, device=device)
+    pops = torch.zeros(nt, dtype=torch.int32, device=device)
+    leaf_pops = torch.zeros_like(pops)
+    if count_rows:
+        nodes_read = torch.zeros(nodes.shape[0], dtype=torch.bool,
+                                 device=device)
+        tris_read = torch.zeros(tris.shape[0], dtype=torch.bool,
+                                device=device)
+    while True:
+        act = torch.nonzero((sp > 0) & ~done).squeeze(1)
+        if act.numel() == 0:
+            break
+        spa = sp[act] - 1
+        code = stack[act, spa]
+        pops[act] += 1
+        leaf_pops[act] += (code < 0).to(torch.int32)
+        t_test = t[act]
+        if any_hit:   # done rays stop widening the push sets (:706-709)
+            t_test = torch.where(prim[act] >= 0, -_F32_MAX, t_test)
+        push = torch.zeros((act.numel(), a), dtype=torch.int32,
+                           device=device)
+        nd = torch.nonzero(code > 0).squeeze(1)
+        if nd.numel():
+            tl = act[nd]
+            rows = nodes[code[nd] - 1]
+            if count_rows:
+                nodes_read[code[nd] - 1] = True
+            tt = t_test[nd]
+            args = ([c[tl] for c in o], [c[tl] for c in inv], tmn[tl], tt)
+            keys = _tile_slab_keys(rows, a, *args)
+            pt = torch.nonzero(pure[tl]).squeeze(1)
+            if pt.numel():
+                if frustum:
+                    kp = _tile_frustum_keys(
+                        rows[pt], [q[tl[pt]] for q in pos],
+                        [tuple(x[tl[pt]] for x in f) for f in fr[:3]]
+                        + [fr[3][tl[pt]]], tt[pt], tile_rows)
+                else:
+                    kp = _tile_slab_keys(rows[pt], a,
+                                         *[[c[pt] for c in x] for x in
+                                           args[:2]], args[2][pt], tt[pt],
+                                         [q[tl[pt]] for q in pos])
+                keys[pt] = kp
+            ch = rows[:, 6 * a:].view(torch.int32)
+            valid = (ch != 0) & (keys < _F32_MAX)
+            keys = list(torch.where(valid, keys, _F32_MAX).unbind(1))
+            ch = list(torch.where(valid, ch, 0).unbind(1))
+            if not any_hit:
+                for i, j in _SORT_NETWORKS[a]:
+                    swap = keys[i] > keys[j]
+                    keys[i], keys[j] = (torch.where(swap, keys[j], keys[i]),
+                                        torch.where(swap, keys[i], keys[j]))
+                    ch[i], ch[j] = (torch.where(swap, ch[j], ch[i]),
+                                    torch.where(swap, ch[i], ch[j]))
+            push[nd] = torch.stack(ch, 1)
+        lf = torch.nonzero(code < 0).squeeze(1)
+        if lf.numel():
+            tl = act[lf]
+            lc = code[lf]
+            if count_rows:
+                tris_read[~lc] = True
+            rowi = tris[~lc].view(torch.int32)
+            best, lane, uv, vv, pid, gid = tile_leaf_lanes(
+                tris, lc, [c[tl] for c in o], [c[tl] for c in d], tmn[tl],
+                t_test[lf], torch.inf)
+            upd = best < t[tl]
+            t[tl] = torch.where(upd, best, t[tl])
+            u[tl] = torch.where(upd, uv, u[tl])
+            v[tl] = torch.where(upd, vv, v[tl])
+            prim[tl] = torch.where(upd, pid & 0x7FFFFFFF, prim[tl])
+            geom[tl] = torch.where(upd, gid, geom[tl])
+            last = rowi[:, 13 * m - 1] < 0
+            push[lf, 0] = torch.where(last, torch.zeros_like(lc), lc - 1)
+        # the last child first, so child 0 ends on top (:836-840)
+        for r in range(a - 1, -1, -1):
+            ok = push[:, r] != 0
+            if bool(ok.any()) and int(spa[ok].max()) >= cap:
+                raise ValueError(f"tile stack of {cap} entries overflowed")
+            stack[act[ok], spa[ok]] = push[ok, r]
+            spa = spa + ok.to(torch.int64)
+        sp[act] = spa
+        if any_hit:
+            done[act] = ((tmx[act] < tmn[act]) | (prim[act] >= 0)).all(1)
+    out = {"t": t.reshape(-1)[:b], "u": u.reshape(-1)[:b],
+           "v": v.reshape(-1)[:b], "prim_id": prim.reshape(-1)[:b],
+           "geom_id": geom.reshape(-1)[:b], "pops": pops,
+           "leaf_pops": leaf_pops}
+    if count_rows:
+        out["nodes_read"] = nodes_read
+        out["tris_read"] = tris_read
+    return out
+
+
 def components(rays):
     """make_rays dict ((B, 3) org/dir) -> the traversal contract's
     arguments: (org, dir, inv_dir, inv_org) Vec3 tuples of contiguous (B,)
@@ -462,8 +799,20 @@ def components(rays):
 
 def traverse(dev, rays, any_hit=False, count_pops=False, **options):
     """traverse_components over a make_rays dict ((B, 3) org/dir);
-    options: ablate, pops, leaf_chain, frustum, count_rows."""
+    options: ablate, pops, leaf_chain, frustum, count_rows. With
+    tile_rows=, traverse_tile_components instead (options frustum, ablate,
+    count_rows; its per-tile counters with count_pops=True)."""
     org, dirv, inv_d, _, tmin, tmax = components(rays)
+    if options.get("tile_rows") is not None:
+        check_options(any_hit, options.get("ablate", ()),
+                      options.pop("pops", 1), options.pop("leaf_chain", 1),
+                      options.get("frustum", False), options["tile_rows"])
+        out = traverse_tile_components(dev, org, dirv, inv_d, tmin, tmax,
+                                       any_hit=any_hit, **options)
+        if not count_pops:
+            del out["pops"], out["leaf_pops"]
+        return out
+    options.pop("tile_rows", None)
     return traverse_components(dev, org, dirv, inv_d, tmin, tmax,
                                any_hit=any_hit, count_pops=count_pops,
                                **options)
@@ -492,4 +841,6 @@ def intersect_bruteforce(dev, rays):
 __all__ = ["make_rays", "traverse", "traverse_components", "occluded",
            "bvh_to_device", "bvh_tables", "intersect_bruteforce",
            "BvhMeta", "compute_stack_needs", "stack_entries", "components",
-           "check_options", "ABLATIONS", "LEAF_CHAINS"]
+           "check_options", "ABLATIONS", "LEAF_CHAINS",
+           "traverse_tile_components", "TILE_ROWS", "TILE_ABLATIONS",
+           "tile_pad", "tile_purity", "tile_leaf_lanes", "mt_lane"]

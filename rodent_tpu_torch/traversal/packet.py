@@ -13,6 +13,13 @@ rodent_tpu/traversal/pallas_packet.py.
                             ("noleaftest",) or ("nosort",), pops=2,
                             leaf_chain=2 or 4, or row_loads=True (the
                             counterpart of scalar_reads)
+  K5 bvh_traverse_tile      _kernel's own contract (csrc/bvh_tile.cu): a
+                            tile of tile_rows * 128 rays walks the BVH
+                            from ONE shared stack: tile_rows=1-32, with
+                            frustum=True or ablate=("nopure",)
+
+K6, bvh_traverse_pair (experiments/pallas_pair.py's tile stack of whole
+nodes), has its wrapper in traversal/pair.py; its launches are counted here.
 
 Contract (pallas_packet.py:1394-1459): rays in as flat (B,) components,
 {t, u, v, prim_id, geom_id} out; a ray with tmax < tmin is dead; on a miss
@@ -21,16 +28,19 @@ adds "pops" and "leaf_pops", (B,) int32 per ray. K4 follows the option's
 semantics (api.traverse_components), row_loads changes no bit of K3's
 output, and count_pops=True adds K4's counters, where a pops=2 ray whose
 stack would have overflowed reads -1 (without the counters, that call
-raises).
+raises). K5 follows api.traverse_tile_components; count_pops=True adds its
+"pops" and "leaf_pops" per tile, (nt,) int32.
 
 The device of the tensors decides the route and nothing else: CUDA
 tensors launch the variant's kernel (or raise), CPU tensors take the plain
 torch version (api.traverse_components, which follows the kernels' rules
-exactly and counts the same pops). The kernels take one option at a time
-and none with prefetch, on either route. The Pallas wrapper's TPU tuning
-knobs (tile_rows, multi, carry_top, select, fma_slab, tris_hbm, nodes_hbm,
-interpret, ...) have no meaning for a one-thread-per-ray kernel and are not
-accepted; frustum and ablate "nopure" raise (api.check_options).
+exactly and counts the same pops; api.traverse_tile_components for
+tile_rows=). The kernels take one option at a time and none with prefetch,
+on either route. tile_rows= (1, 2, 4, 8, 16 or 32) asks for the tile route,
+which alone takes frustum=True and ablate "nopure" (api.check_options). The
+Pallas wrapper's other TPU tuning knobs (multi, carry_top, select,
+fma_slab, tris_hbm, nodes_hbm, interpret, ...) have no meaning on the card
+and are not accepted.
 """
 from __future__ import annotations
 
@@ -39,7 +49,8 @@ import ctypes
 import torch
 
 from ..kernels.build import load_library
-from .api import check_options, components, stack_entries, traverse_components
+from .api import (check_options, components, stack_entries,
+                  traverse_components, traverse_tile_components)
 
 ARITIES = (2, 4, 8)
 PACKETS = (1, 4, 8, 16, 24)
@@ -61,10 +72,17 @@ OPTIONS = tuple(OPTION_ARGS)
 OPTION_PACKETS = (8, 24)
 POPS2_STACK_CAPS = (128, 256)
 
+# K5's modes, in the order of csrc/bvh_tile.cu (kPlain, kFrustum, kNoPure),
+# the Tri rows it is built for and its largest stack
+TILE_MODES = ("plain", "frustum", "nopure")
+TILE_PACKETS = (8, 24)
+TILE_STACK_MAX = 256
+
 # launches per kernel since the last reset_launches(); raised by one where
 # the kernel is launched and nowhere else
 launches = {"bvh_traverse": 0, "bvh_traverse_prefetch": 0,
-            "bvh_traverse_count": 0, "bvh_traverse_option": 0}
+            "bvh_traverse_count": 0, "bvh_traverse_option": 0,
+            "bvh_traverse_tile": 0, "bvh_traverse_pair": 0}
 
 _ENTRY = {"bvh_traverse": "rt_bvh_traverse",
           "bvh_traverse_prefetch": "rt_bvh_traverse_prefetch",
@@ -105,6 +123,25 @@ def option_name(ablate=(), pops=1, leaf_chain=1, row_loads=False):
     return picked[0] if picked else None
 
 
+def check_inputs(kernel, comps, nodes, tris):
+    """Raises unless the tables and the 11 ray components are contiguous
+    float32 on one device and the components share one shape (n,); returns
+    n."""
+    n = comps[-1].shape[0]
+    device = nodes.device
+    for x in [*comps, nodes, tris]:
+        if x.device != device or x.dtype != torch.float32:
+            raise ValueError(f"{kernel}: every input must be float32 on "
+                             f"{device}, got {x.dtype} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{kernel}: inputs must be contiguous")
+    for x in comps:
+        if x.shape != (n,):
+            raise ValueError(f"{kernel}: ray component of shape "
+                             f"{tuple(x.shape)}, expected ({n},)")
+    return n
+
+
 def _launch(dev, comps, any_hit, kernel, option=None):
     """One of K1-K4 on CUDA tensors. comps: the 11 (n,) ray components in
     the C entry's order (inv_dir xyz, org xyz, dir xyz, tmin, tmax);
@@ -124,18 +161,8 @@ def _launch(dev, comps, any_hit, kernel, option=None):
         raise ValueError(f"{kernel} is built for BVH{WIDE_ARITY} with Tri-M "
                          f"rows, M in {packets}; got BVH{arity}, Tri{m}")
     cap = stack_cap(dev, 2 if option == "pops2" else 1)
-    n = comps[-1].shape[0]
+    n = check_inputs(kernel, comps, nodes, tris)
     device = nodes.device
-    for x in [*comps, nodes, tris]:
-        if x.device != device or x.dtype != torch.float32:
-            raise ValueError(f"{kernel}: every input must be float32 on "
-                             f"{device}, got {x.dtype} on {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{kernel}: inputs must be contiguous")
-    for x in comps:
-        if x.shape != (n,):
-            raise ValueError(f"{kernel}: ray component of shape "
-                             f"{tuple(x.shape)}, expected ({n},)")
     if option == "row_loads" and (nodes.data_ptr() % 16
                                   or tris.data_ptr() % 16):
         raise ValueError(f"{kernel}: row_loads needs 16-byte aligned "
@@ -171,17 +198,96 @@ def _launch(dev, comps, any_hit, kernel, option=None):
     return out
 
 
+def tile_mode(frustum=False, ablate=()):
+    """K5's entry of TILE_MODES for these (checked) tile options."""
+    return ("frustum" if frustum else
+            "nopure" if "nopure" in ablate else "plain")
+
+
+def _launch_tile(dev, comps, any_hit, tile_rows, mode):
+    """K5 on CUDA tensors; comps as in _launch. Returns the hits and the
+    per-tile "pops" and "leaf_pops"; a tile whose stack would have
+    overflowed (never within BvhMeta's worst case) stops with pops -1."""
+    nodes, tris = dev["nodes"], dev["tris"]
+    arity = nodes.shape[1] // 7
+    m = tris.shape[1] // 14
+    if nodes.shape[1] != 56 or m not in TILE_PACKETS or \
+            tris.shape[1] != 14 * m:
+        raise ValueError(f"bvh_traverse_tile is built for BVH8 with Tri-M "
+                         f"rows, M in {TILE_PACKETS}; got BVH{arity}, "
+                         f"Tri{m}")
+    cap = stack_entries(dev)
+    if cap > TILE_STACK_MAX:
+        raise ValueError(f"BVH needs {cap} stack entries; "
+                         f"bvh_traverse_tile holds at most {TILE_STACK_MAX}")
+    n = check_inputs("bvh_traverse_tile", comps, nodes, tris)
+    nt = -(-n // (128 * tile_rows))
+    device = nodes.device
+
+    def empty(dtype, size=n):
+        return torch.empty(size, dtype=dtype, device=device)
+
+    out = {"t": empty(torch.float32), "u": empty(torch.float32),
+           "v": empty(torch.float32), "prim_id": empty(torch.int32),
+           "geom_id": empty(torch.int32), "pops": empty(torch.int32, nt),
+           "leaf_pops": empty(torch.int32, nt)}
+    if n == 0:
+        return out
+    lib = load_library(kind="tile")
+    ptrs = (ctypes.c_void_p * 11)(*(x.data_ptr() for x in comps))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.rt_bvh_traverse_tile(
+        nodes.data_ptr(), tris.data_ptr(), ptrs, n, m, int(bool(any_hit)),
+        tile_rows, TILE_MODES.index(mode), cap,
+        *(out[k].data_ptr() for k in ("t", "u", "v", "prim_id", "geom_id",
+                                      "pops", "leaf_pops")), stream)
+    if err != 0:
+        raise RuntimeError(f"bvh_traverse_tile launch failed with CUDA "
+                           f"error {err}")
+    launches["bvh_traverse_tile"] += 1
+    return out
+
+
+def _traverse_tile(dev, org, dirv, inv_d, tmin, tmax, any_hit, count_pops,
+                   ablate, tile_rows, frustum):
+    """The tile route of traverse_packet_components: K5 on CUDA tensors,
+    its plain version on CPU tensors."""
+    if tmin.device.type == "cuda":
+        out = _launch_tile(dev, [*inv_d, *org, *dirv, tmin, tmax], any_hit,
+                           tile_rows, tile_mode(frustum, ablate))
+    elif tmin.device.type == "cpu":
+        out = traverse_tile_components(dev, org, dirv, inv_d, tmin, tmax,
+                                       any_hit, tile_rows, frustum, ablate)
+    else:
+        raise ValueError(f"traverse_packet: unsupported device "
+                         f"{tmin.device}")
+    if not count_pops:
+        del out["pops"], out["leaf_pops"]
+    return out
+
+
 def traverse_packet_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
                                any_hit=False, prefetch=False,
                                count_pops=False, ablate=(), pops=1,
-                               leaf_chain=1, row_loads=False, frustum=False):
+                               leaf_chain=1, row_loads=False, frustum=False,
+                               tile_rows=None):
     """Component-level traversal: Vec3 tuples of (B,) tensors in, hit dict
     of (B,) tensors out. prefetch=True takes K2, count_pops=True takes K3
     (and adds "pops"/"leaf_pops"); one of ablate, pops=2, leaf_chain=2/4
     or row_loads takes K4 (its counters with count_pops=True). prefetch
-    excludes the others. inv_o belongs to the contract but is not read:
-    the kernels slab-test in the NaN-free (bound - org) * inv_dir form."""
+    excludes the others. tile_rows= takes the tile route, K5, with
+    frustum=True or ablate=("nopure",) at most, and per-tile counters with
+    count_pops=True. inv_o belongs to the contract but is not read: the
+    kernels slab-test in the NaN-free (bound - org) * inv_dir form."""
     del inv_o
+    if tile_rows is not None:
+        if prefetch or row_loads:
+            raise ValueError("traverse_packet: the tile route (tile_rows=) "
+                             "has no prefetch and no row_loads")
+        ablate = check_options(any_hit, ablate, pops, leaf_chain, frustum,
+                               tile_rows)
+        return _traverse_tile(dev, org, dirv, inv_d, tmin, tmax, any_hit,
+                              count_pops, ablate, tile_rows, frustum)
     ablate = check_options(any_hit, ablate, pops, leaf_chain, frustum)
     option = option_name(ablate, pops, leaf_chain, row_loads)
     if prefetch and (count_pops or option):
@@ -215,7 +321,7 @@ def traverse_packet_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
 def traverse_packet(dev, rays, any_hit=False, prefetch=False,
                     count_pops=False, **options):
     """traverse_packet_components over a make_rays dict ((B, 3) org/dir);
-    options: ablate, pops, leaf_chain, row_loads, frustum."""
+    options: ablate, pops, leaf_chain, row_loads, frustum, tile_rows."""
     return traverse_packet_components(dev, *components(rays),
                                       any_hit=any_hit, prefetch=prefetch,
                                       count_pops=count_pops, **options)

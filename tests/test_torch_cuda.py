@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2 (prefetch), K3 (pop counters) and K4 (the
-options of the legacy Pallas body) and the port's slices on a CUDA card.
+"""The CUDA kernels K1, K2 (prefetch), K3 (pop counters), K4 (the
+options of the legacy Pallas body), K5 (the tile-shared stack) and K6 (the
+pair layout) and the port's slices on a CUDA card.
 
 Every test here is marked `cuda` and skips where torch sees no card. The
 file imports no jax, so it also runs where jax is not installed:
@@ -18,7 +19,7 @@ from rodent_tpu_torch.render.camera import Camera
 from rodent_tpu_torch.render.compiler import compile_mesh
 from rodent_tpu_torch.render.integrator import (
     render_iteration, render_iteration_persistent)
-from rodent_tpu_torch.traversal import api, packet
+from rodent_tpu_torch.traversal import api, packet, pair
 from rodent_tpu_torch.utils import testscenes
 
 pytestmark = pytest.mark.cuda
@@ -147,7 +148,9 @@ def test_prefetch_and_count_kernels(card, width):
         assert packet.launches == {"bvh_traverse": 1,
                                    "bvh_traverse_prefetch": 1,
                                    "bvh_traverse_count": 1,
-                                   "bvh_traverse_option": 0}
+                                   "bvh_traverse_option": 0,
+                                   "bvh_traverse_tile": 0,
+                                   "bvh_traverse_pair": 0}
         for key in ("t", "u", "v", "prim_id", "geom_id"):
             assert torch.equal(k2[key], k1[key]), key
             assert torch.equal(k3[key], k1[key]), key
@@ -263,3 +266,101 @@ def test_option_refusals(card):
     for kw in packet.OPTION_ARGS.values():
         packet.traverse_packet(cpu, _rays(256, 6, "cpu", 1e30), **kw)
     assert set(packet.launches.values()) == {0}
+
+
+def _coherent(n, seed, device, tmax):
+    """Rays from near one point with directions in one octant: their tiles
+    are octant pure, where K5 takes the pure slab test or the frustum."""
+    r = np.random.RandomState(seed)
+    org = (np.array([[-1.0, -1.0, -9.0]], np.float32)
+           + r.randn(n, 3).astype(np.float32) * 0.05)
+    d = np.stack([r.uniform(0.01, 0.2, n), r.uniform(0.01, 0.2, n),
+                  np.ones(n)], 1).astype(np.float32)
+    tm = np.full(n, tmax, np.float32)
+    tm[64:96] = -1.0
+    return api.make_rays(org, d, 0.0, tm, device=device)
+
+
+def _equal(k, p, what):
+    for key in p:
+        assert torch.equal(k[key], p[key]), (what, key)
+
+
+@pytest.mark.parametrize("width", [8, 24])
+def test_tile_kernel_matches_plain(card, width):
+    """K5 against its plain version on the card, bit for bit: hits and
+    per-tile pops and leaf pops, modes plain, frustum and nopure,
+    closest-hit and any-hit, tile_rows 1, 2 and 16, on coherent (octant
+    pure) and random rays whose count fills no whole number of tiles; its
+    closest hits equal K1's; one launch per call."""
+    verts, idx = _soup(3000, seed=90 + width)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=width,
+                                      leaf_threshold=32, leaf_cost=0.2),
+                            card)
+    for any_hit, tmax in ((False, 1e30), (True, 2.0)):
+        for rays in (_coherent(5000, width, card, tmax),
+                     _rays(5000, width + 1, card, tmax)):
+            k1 = packet.traverse_packet(dev, rays, any_hit=any_hit)
+            for rows in (1, 2, 16):
+                for mode in packet.TILE_MODES:
+                    kw = {"frustum": mode == "frustum",
+                          "ablate": ("nopure",) if mode == "nopure" else ()}
+                    packet.reset_launches()
+                    k = packet.traverse_packet(dev, rays, any_hit=any_hit,
+                                               count_pops=True,
+                                               tile_rows=rows, **kw)
+                    assert packet.launches["bvh_traverse_tile"] == 1
+                    p = api.traverse(dev, rays, any_hit=any_hit,
+                                     count_pops=True, tile_rows=rows, **kw)
+                    _equal(k, p, (rows, mode, any_hit))
+                    assert k["pops"].shape == (-(-5000 // (128 * rows)),)
+                    if any_hit:
+                        assert torch.equal(k["prim_id"] >= 0,
+                                           k1["prim_id"] >= 0)
+                    else:
+                        assert torch.equal(k["prim_id"], k1["prim_id"])
+
+
+def test_pair_kernel_matches_plain(card):
+    """K6 against its plain version on the card, bit for bit: hits and
+    per-tile pops and leaf pops, tiles of 128, 256 and 2048 rays, each
+    ablation, closest-hit and any-hit; its closest hits equal K1's."""
+    verts, idx = _soup(3000, seed=97)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8,
+                                      leaf_threshold=32, leaf_cost=0.2),
+                            card)
+    for any_hit, tmax in ((False, 1e30), (True, 2.0)):
+        rays = _rays(5000, 98, card, tmax)
+        k1 = packet.traverse_packet(dev, rays, any_hit=any_hit)
+        for tile in (128, 256, 2048):
+            for ab in ((), *((a,) for a in pair.ABLATIONS)):
+                packet.reset_launches()
+                k = pair.traverse_pair(dev, rays, any_hit=any_hit,
+                                       tile_rays=tile, ablate=ab,
+                                       count_pops=True)
+                assert packet.launches["bvh_traverse_pair"] == 1
+                p = pair.traverse_pair_components(
+                    dev, *api.components(rays)[:3], rays["tmin"],
+                    rays["tmax"], any_hit, tile, ab, count_pops=True)
+                _equal(k, p, (tile, ab, any_hit))
+                if ab:
+                    continue
+                if any_hit:
+                    assert torch.equal(k["prim_id"] >= 0, k1["prim_id"] >= 0)
+                else:
+                    assert torch.equal(k["prim_id"], k1["prim_id"])
+
+
+def test_tile_and_pair_refusals(card):
+    """K5 is built for BVH8 with Tri8/Tri24 rows, K6 for BVH8 with Tri8."""
+    verts, idx = _soup(500, seed=11)
+    rays = _rays(256, 12, card, 1e30)
+    dev4 = api.bvh_to_device(build_bvh(verts, idx, arity=4, packet=8), card)
+    with pytest.raises(ValueError, match="built for BVH8"):
+        packet.traverse_packet(dev4, rays, tile_rows=2)
+    dev16 = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=16),
+                              card)
+    with pytest.raises(ValueError, match="built for BVH8"):
+        packet.traverse_packet(dev16, rays, tile_rows=2)
+    with pytest.raises(ValueError, match="Tri8 rows only"):
+        pair.traverse_pair(dev16, rays)

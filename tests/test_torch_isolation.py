@@ -14,7 +14,7 @@ import torch
 import rodent_tpu_torch
 from rodent_tpu_torch.accel import build_bvh
 from rodent_tpu_torch.kernels import build
-from rodent_tpu_torch.traversal import api, packet
+from rodent_tpu_torch.traversal import api, packet, pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -37,7 +37,9 @@ def test_port_imports_no_jax():
                  "accel.layout", "io.formats", "io.obj", "io.png", "native",
                  "utils.testscenes", "experiments.common",
                  "experiments.ablate_packet", "experiments.measure_packet",
-                 "experiments.cost_model", "experiments.attribute_bigscene"):
+                 "experiments.cost_model", "experiments.attribute_bigscene",
+                 "traversal.pair", "experiments.measure_pair",
+                 "experiments.ablate_pair"):
         assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
@@ -68,10 +70,17 @@ def test_cpu_traversal_never_launches_the_kernel():
             if any_hit and kw.get("ablate") == ("nosort",):
                 continue
             packet.traverse_packet(dev, rays, any_hit=any_hit, **kw)
+    for kw in ({}, {"frustum": True}, {"ablate": ("nopure",)}):
+        packet.traverse_packet(dev, rays, tile_rows=1, count_pops=True, **kw)
+    dev8 = api.bvh_to_device(build_bvh(verts, idx.reshape(-1), arity=8,
+                                       packet=8), "cpu")
+    pair.traverse_pair(dev8, rays, tile_rays=128, count_pops=True)
     assert packet.launches == {"bvh_traverse": 0,
                                "bvh_traverse_prefetch": 0,
                                "bvh_traverse_count": 0,
-                               "bvh_traverse_option": 0}
+                               "bvh_traverse_option": 0,
+                               "bvh_traverse_tile": 0,
+                               "bvh_traverse_pair": 0}
     assert hit["t"].device.type == "cpu"
 
 

@@ -130,14 +130,16 @@ def test_rows_read_are_the_rays_rows(soup, option):
 
 
 def test_refused_options(soup):
-    """nopure and frustum have no per-ray counterpart; nosort is
-    closest-hit only; pops is 1 or 2 and a chain 1, 2 or 4."""
+    """nopure and frustum belong to a stack shared by a tile: the per-ray
+    route refuses them and names tile_rows, the tile route's argument
+    (tests/test_torch_tile.py runs them); nosort is closest-hit only; pops
+    is 1 or 2 and a chain 1, 2 or 4."""
     _, tdev, org, d = soup
     rays = tapi.make_rays(org, d, 0.0, 1e30)
     for call in (tapi.traverse, tpacket.traverse_packet):
-        with pytest.raises(ValueError, match="nopure"):
+        with pytest.raises(ValueError, match="nopure.*tile_rows="):
             call(tdev, rays, ablate=("nopure",))
-        with pytest.raises(ValueError, match="frustum"):
+        with pytest.raises(ValueError, match="frustum.*tile_rows="):
             call(tdev, rays, frustum=True)
         with pytest.raises(ValueError, match="closest-hit only"):
             call(tdev, rays, any_hit=True, ablate=("nosort",))

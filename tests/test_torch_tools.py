@@ -13,8 +13,9 @@ import torch
 from rodent_tpu.accel import build_bvh
 from rodent_tpu.io import formats
 from rodent_tpu.utils import testscenes
-from rodent_tpu_torch.experiments import (ablate_packet, attribute_bigscene,
-                                          cost_model, measure_packet)
+from rodent_tpu_torch.experiments import (ablate_packet, ablate_pair,
+                                          attribute_bigscene, cost_model,
+                                          measure_packet, measure_pair)
 from rodent_tpu_torch.tools import bench_traversal, benchmark
 from rodent_tpu_torch.traversal import api, packet
 
@@ -117,9 +118,21 @@ EXPERIMENTS = {
          r"^ns per pop, K3 less nonodetest: -?[\d.]+ \(the slab",
          r"^ns per pop, K3 less noleaftest: "]),
     "measure_packet": (
-        measure_packet, ["--tris", "2000", "--rays", "1024"],
-        [r"^ +primary +[\d.]+ ", r"^ +ao +[\d.]+ ",
-         r"^ +bounces +[\d.]+ "]),
+        measure_packet, ["--tris", "2000", "--rays", "1024", "--rows", "1,2"],
+        [r"^ +primary +K1 +[\d.]+ ", r"^ +ao +K1 +[\d.]+ ",
+         r"^ +bounces +K1 +[\d.]+ ", r"^ +primary +1 +[\d.]+ ",
+         r"^ +ao +2 +[\d.]+ +[\d.]+ +[\d.]+ +\d+ ",
+         r"^ +bounces +2 +[\d.]+ "]),
+    "measure_pair": (
+        measure_pair, ["--tris", "2000", "--rays", "1024", "--tiles",
+                       "128,256", "--dists", "primary,ao"],
+        [r"^ +primary +128 +[\d.]+ +[\d.]+ +[\d.]+ +\d+ ",
+         r"^ +ao +256 +[\d.]+ "]),
+    "ablate_pair": (
+        ablate_pair, ["--tris", "2000", "--rays", "1024", "--tile", "256"],
+        [r"^ +baseline: .* ns/pop \(\d+ pops; [\d.]+x K6\)$",
+         r"^ +nonode: .*\(4 pops;", r"^ +noleaf,nonode: ",
+         r"^ +nostrip: ", r"^ +nosort: "]),
     "cost_model": (
         cost_model, ["--sizes", "hall=2000,crown=2000,powerplant=5000",
                      "--rays", "256", "--scenes", "crown,powerplant"],
@@ -136,7 +149,8 @@ EXPERIMENTS = {
 def test_experiment_on_cpu(name, capsys):
     """Each experiment runs the plain version with --cpu at a tiny size,
     says that no number of the run is a card's, prints its rows, and
-    launches no kernel; --frustum raises as api.traverse does."""
+    launches no kernel; measure_packet --frustum runs the tile route's
+    frustum test, which the per-ray route refuses."""
     mod, args, rows = EXPERIMENTS[name]
     packet.reset_launches()
     assert mod.main(["--cpu", "--blocks", "1", *args]) == 0
@@ -146,5 +160,11 @@ def test_experiment_on_cpu(name, capsys):
         assert re.search(row, out, re.M), (row, out)
     assert set(packet.launches.values()) == {0}
     if name == "measure_packet":
-        with pytest.raises(ValueError, match="frustum"):
-            mod.main(["--cpu", "--frustum", *args])
+        assert mod.main(["--cpu", "--blocks", "1", "--tris", "2000",
+                         "--rays", "1024", "--dists", "primary", "--rows",
+                         "1", "--frustum"]) == 0
+        out = capsys.readouterr().out
+        assert "K5 frustum=True" in out
+        assert re.search(r"^ +primary +1 +[\d.]+ ", out, re.M), out
+        with pytest.raises(ValueError, match="frustum.*tile_rows="):
+            api.check_options(False, frustum=True)
