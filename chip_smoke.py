@@ -5,10 +5,11 @@ Drives the port's main path once at the size the repository's benchmark
 calls real, and checks it:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
-2. builds the BVH traversal kernels with nvcc, three libraries at once:
-   K1, its prefetching variant K2 and its pop-counting variant K3; K4, the
-   options of the legacy Pallas body (both csrc/bvh_traverse.cu); and K5
-   and K6, the tile-shared-stack kernels (csrc/bvh_tile.cu);
+2. builds the kernels with nvcc, four libraries at once: K1, its
+   prefetching variant K2 and its pop-counting variant K3; K4, the options
+   of the legacy Pallas body (both csrc/bvh_traverse.cu); K5 and K6, the
+   tile-shared-stack kernels (csrc/bvh_tile.cu); and the micro-probes
+   (csrc/probes.cu);
 3. K1 against its plain torch version on random triangle soups, arity
    2/4/8 and Tri4/8/16 packets, closest-hit and any-hit;
 4. hall-260K: 1024x1024 sorted primary rays timed through K1 and through
@@ -46,7 +47,15 @@ calls real, and checks it:
    turns against K1, counted, beside its bound, and held against the plain
    version on 65,536 of its rays (whole tiles of at most PLAIN_POPS pops);
    and powerplant-4.3M's sorted primaries through K5 (Tri24) at tile_rows 2
-   and 16, frustum off and on.
+   and 16, frustum off and on;
+13. the micro-probes (csrc/probes.cu, rodent_tpu_torch.experiments.probe_*
+   and vpu_dtype_bench, the ports of the TPU probes of experiments/): every
+   body of the eight probe files through its kernel as its main() drives
+   it, with the launch counts read around them, the timed probes at one
+   copy (the TPU's one program) and at the copies that fill the card; every
+   copy's output held bit for bit against the plain version; a table of
+   their times beside the card's SM clock, and the vpu kernels' op counts
+   read from their SASS.
 
 Every kernel's time stands beside its bound, the least time the card
 could take for the same pops and the table rows they read
@@ -162,7 +171,7 @@ def phase_build():
     built = build_all()
     dt = time.perf_counter() - t0
     what = {"main": "K1, K2 and K3", "options": "K4 (-DRT_OPTIONS)",
-            "tile": "K5 and K6"}
+            "tile": "K5 and K6", "probes": "the micro-probes"}
     for kind, (path, nvcc_log) in built.items():
         load_library(kind=kind)
         if nvcc_log is None:
@@ -1008,6 +1017,125 @@ def tile_entry(name, replaces, launches, head, plain_ms, res, kernel):
                          for k, r in res.items() if k[2].startswith(kernel)}}
 
 
+# probe module -> its JAX file's pallas_call site (probe_mosaic3.py has a
+# second, :108, for its dep- modes)
+PROBE_SITES = {"probe_mosaic": "experiments/probe_mosaic.py:16",
+               "probe_mosaic2": "experiments/probe_mosaic2.py:13",
+               "probe_gather": "experiments/probe_gather.py:29",
+               "probe_mosaic3": "experiments/probe_mosaic3.py:56",
+               "probe_chain": "experiments/probe_chain.py:80",
+               "probe_body": "experiments/probe_body.py:107",
+               "probe_dyn_cost": "experiments/probe_dyn_cost.py:37",
+               "vpu_dtype_bench": "experiments/vpu_dtype_bench.py:31"}
+
+
+def probe_key(key):
+    """A probe result's key as a label: 'chase S=1', 'cond+carry5', ..."""
+    if isinstance(key, tuple) and key and isinstance(key[-1], int):
+        return f"{key[0]} {'S' if 'chase' in key[0] else 'rows'}={key[1]}"
+    if isinstance(key, tuple):
+        return "+".join(key) or "base"
+    return key
+
+
+def probe_plain(name, m, device):
+    """The plain version of a probe's headline body on the card's tensors,
+    as a call."""
+    from rodent_tpu_torch.experiments import probe_gather
+    if name in ("probe_mosaic", "probe_mosaic2"):
+        x = m.inputs(device)
+        return lambda: m.PLAIN[m.HEAD](x)
+    if name == "probe_gather":
+        tbl, idx = (torch.from_numpy(a).to(device)
+                    for a in probe_gather.timed_inputs("fields"))
+        return lambda: probe_gather.plain_fields(tbl, idx)
+    if name == "probe_mosaic3":
+        tab = m.inputs(m.HEAD, device)
+        return lambda: m.plain(m.HEAD, tab)
+    if name == "vpu_dtype_bench":
+        x = m.inputs(*m.HEAD, device)
+        return lambda: m.plain(m.HEAD[0], x)
+    tab = m.inputs(device)
+    if name == "probe_chain":
+        return lambda: m.plain(*m.HEAD, tab)
+    return lambda: m.plain(m.HEAD, tab)
+
+
+def phase_probes(device):
+    """[13] The micro-probes: each probe file's main path (measure(): the
+    correctness probes once, the timed ones at one copy and at the copies
+    that fill the card), launch counts read around it; then every copy's
+    output against the plain version, bit for bit; the headline bodies'
+    plain versions timed on the card; the vpu kernels' SASS op counts.
+    Returns the kernels-line entries."""
+    import importlib
+    from rodent_tpu_torch.experiments import common, vpu_dtype_bench
+    mods = {n: importlib.import_module(f"rodent_tpu_torch.experiments.{n}")
+            for n in PROBE_SITES}
+    clock0 = sm_clock()
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    res = {n: m.measure(device, blocks=3) for n, m in mods.items()}
+    torch.cuda.synchronize()
+    launched = {n: m.launches for n, m in mods.items()}
+    t_main = time.perf_counter() - t0
+    clock1 = sm_clock()
+    for n in mods:
+        check(launched[n] >= len(res[n]), f"{n}: {launched[n]} launches for "
+              f"{len(res[n])} bodies")
+    log(f"[13] the probes' main path: {sum(len(r) for r in res.values())} "
+        f"bodies in {t_main:.1f} s, launches {launched} (SM clock, power "
+        f"before: {clock0}; after: {clock1})")
+    sass = vpu_dtype_bench.sass_counts()
+    for dtype, (per_word, ops) in sass.items():
+        log(f"[13] vpu {dtype}: {per_word:g} SASS instructions per 32-bit "
+            f"word and iteration {dict(ops)}")
+    check(sass["float32"][0] == 4, f"vpu float32: {sass['float32']} "
+          "instructions per iteration, not the probe's 4")
+    entries = []
+    for n, m in mods.items():
+        ok = m.check(res[n])
+        bad = [probe_key(k) for k, v in ok.items() if not v]
+        check(not bad, f"{n}: {bad} differ from the plain version")
+        for k, r in res[n].items():
+            if "ms" not in r:
+                continue
+            extra = f" ({r['memory']} memory)" if "memory" in r else ""
+            rate = (f"; {r['tops1']:.3f} Top/s one copy, {r['tops']:.3f} "
+                    f"with the card full" if "tops" in r else "")
+            log(f"[13] {n} {probe_key(k)}{extra}: one copy {r['ms1']:.4f} "
+                f"ms = {r['ns1']:.1f} ns/iter; {r['copies']} copies "
+                f"{r['ms']:.4f} ms = {r['ns_sm']:.3f} ns/iter per SM; bound "
+                f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+                f"{r['bound'][0] / r['ms']:.1%} of it{rate}")
+        plain_ms, _ = common.timed(probe_plain(n, m, device), device,
+                                   blocks=1)
+        head = m.HEAD
+        if n in ("probe_mosaic", "probe_mosaic2"):
+            x = m.inputs(device)
+            ms, _ = common.launch_ms(lambda: m.run(head, x), device)
+            bound = m.bound(head)
+            variants = {b: {"equal": ok[b]} for b in res[n]}
+        else:
+            ms, bound = res[n][head]["ms"], res[n][head]["bound"]
+            variants = {probe_key(k): {kk: r[kk] for kk in (
+                "ms1", "ns1", "ms", "copies", "ns_sm")}
+                | {"bound_ms": r["bound"][0]}
+                for k, r in res[n].items() if "ms" in r}
+        log(f"[13] {n}: every body == plain bit for bit ({len(ok)} "
+            f"checked); headline {probe_key(head)} {ms:.4f} ms, plain "
+            f"{plain_ms:.1f} ms on the card")
+        entries.append({
+            "name": n, "route": "cuda",
+            "source": "rodent_tpu_torch/csrc/probes.cu",
+            "replaces": PROBE_SITES[n], "launches": launched[n],
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "variants": variants})
+    return entries
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -1062,6 +1190,9 @@ def main():
     tile_launches, tiles, tile_plain = phase_tiles(
         device, hall_bvh, verts, idx, big_bvh, big_prim)
     log(f"[12] the tile phase took {time.perf_counter() - t_tile:.1f} s")
+    t_probe = time.perf_counter()
+    probe_entries = phase_probes(device)
+    log(f"[13] the probe phase took {time.perf_counter() - t_probe:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     src = "rodent_tpu_torch/csrc/bvh_traverse.cu"
     pallas = "rodent_tpu/traversal/pallas_packet.py"
@@ -1101,7 +1232,7 @@ def main():
         tile_entry("bvh_traverse_pair", "experiments/pallas_pair.py:127",
                    tile_launches["bvh_traverse_pair"],
                    tiles[("hall", "primary", "K6 tile 2048")],
-                   tile_plain["K6"], tiles, "K6")]}))
+                   tile_plain["K6"], tiles, "K6")] + probe_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,1014 @@
+// The micro-probes for Hopper (sm_90a), built into the "probes" library
+// (kernels/build.py): one kernel family per TPU probe of experiments/, one
+// plain-C entry per probe file, the body chosen by an int argument.
+//
+// The TPU probes asked what a Pallas body costs on one TensorCore: a
+// dependent VMEM load, a lane extracted from a row, a gather, an async copy,
+// a loop body's features, the element-wise rate per type. Their ports put
+// the same questions to the H100, in two launch shapes: one copy (the TPU's
+// one program: ns per iteration of a single dependent chain) and as many
+// independent copies as fill every SM at the kernel's occupancy (what the
+// card does when latency is hidden across warps: ns per iteration per SM).
+// Every copy computes the same function and writes its own output.
+//
+// What bounds them here: the correctness probes (mosaic, mosaic2) are one
+// block and bound by nothing worth timing. The chains (chain, body,
+// mosaic3's dep- modes, dyn_cost, gather's chain) are bound by the latency
+// of one dependent load or barrier per step with one copy, and by L1/shared
+// bandwidth or issue slots with the card full. vpu is bound by the CUDA
+// cores' issue rate per type.
+//
+// Numbers stay bit-exact against the plain torch versions: every float sum
+// is taken in the JAX body's order, and the library is built with
+// -fmad=false so no multiply is contracted into an add.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kInfv = 3.4e38f;   // probe_mosaic2's INFV
+
+// Python's floor modulo, which jnp's % follows
+__device__ __forceinline__ int floor_mod(int a, int b) {
+  const int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o; o >>= 1) v = fminf(v, __shfl_xor_sync(~0u, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_min(int v) {
+  for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(~0u, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+  for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float fold(float a, float b, bool) {
+  return fminf(a, b);
+}
+__device__ __forceinline__ int fold(int a, int b, bool sum) {
+  return sum ? a + b : min(a, b);
+}
+
+// The minimum (or sum) over the block, returned to every thread: warp
+// shuffles, then each thread folds the warps' results from shared memory.
+// Called by every thread of the block; sh holds 32 values.
+template <typename T>
+__device__ T block_reduce(T v, T* sh, bool sum) {
+  v = sum ? (T)warp_sum((int)v) : warp_min(v);
+  __syncthreads();                       // sh is free from the last call
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+  __syncthreads();
+  T r = sh[0];
+  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = fold(r, sh[w], sum);
+  return r;
+}
+
+__device__ __forceinline__ float block_min(float v, float* sh) {
+  return block_reduce(v, sh, false);
+}
+__device__ __forceinline__ int block_min(int v, int* sh) {
+  return block_reduce(v, sh, false);
+}
+__device__ __forceinline__ int block_sum(int v, int* sh) {
+  return block_reduce(v, sh, true);
+}
+
+// ---------------------------------------------------------------------------
+// probe_mosaic: experiments/probe_mosaic.py:31-103, run at :14-24 on the
+// (16, 128) input arange/7. Correctness probes of the pair kernel's Mosaic
+// constructs; here one block of 128 threads, thread j owning lane j of
+// every row. Scratch (the TPU's VMEM and SMEM) is shared memory; pltpu.roll
+// is jnp.roll (lane j takes lane (j - shift) mod 128), done through shared
+// memory. Nothing to bound: one launch, untimed.
+enum { kDot, kDynRoll, kDynStore, kDynStoreOdd, kSmemDyn, kNested,
+       kArgminLane };
+
+__global__ void __launch_bounds__(128) mosaic_kernel(
+    int body, const float* __restrict__ x, float* __restrict__ out) {
+  __shared__ float scr[34 * 128];
+  __shared__ int sm[34];
+  __shared__ float redf[32];
+  __shared__ int redi[32];
+  const int j = threadIdx.x;
+  const int* xi = reinterpret_cast<const int*>(x);
+  switch (body) {
+    case kDot:                 // k_dot :31-43, the product as a loop
+      for (int r = 0; r < 16; ++r) {
+        float acc = 0.f;
+        for (int k = 0; k < 128; ++k) {
+          const float lhs = (k / 8 == r) ? x[k] : 0.f;
+          const float sel = (k % 8 == j / 16) ? 1.f : 0.f;
+          acc = acc + lhs * sel;
+        }
+        out[r * 128 + j] = acc;
+      }
+      break;
+    case kDynRoll: {           // k_dynroll :46-50
+      int* sh = reinterpret_cast<int*>(scr);
+      const int s = floor_mod(xi[0], 8) + 1;
+      for (int e = j; e < 16 * 128; e += 128) sh[e] = xi[e];
+      __syncthreads();
+      for (int r = 0; r < 16; ++r)
+        out[r * 128 + j] = __int_as_float(sh[r * 128 + ((j - s) & 127)]);
+      break;
+    }
+    case kDynStore:            // k_dynstore :53-56, scratch (8, 128)
+    case kDynStoreOdd: {       // k_dynstore_odd :59-63, scratch (34, 128)
+      const int idx = floor_mod(xi[1], body == kDynStore ? 8 : 34);
+      scr[idx * 128 + j] = x[j] * 2.f;
+      __syncthreads();
+      for (int r = 0; r < 16; ++r) out[r * 128 + j] = scr[idx * 128 + j];
+      break;
+    }
+    case kSmemDyn: {           // k_smem_dyn :66-69, 34 int32 of SMEM
+      const int idx = floor_mod(xi[1], 34);
+      if (j == 0) sm[idx] = 7;
+      __syncthreads();
+      for (int r = 0; r < 16; ++r)
+        out[r * 128 + j] = x[r * 128 + j] + (float)sm[idx];
+      break;
+    }
+    case kNested:              // k_nested :72-95
+      for (int r = 0; r < 16; ++r) {
+        float acc = 0.f;
+        for (int i = 0; i < 4; ++i) {
+          if (i % 2 == 0) {
+            for (int s = 0; s < 3; ++s) acc = acc + x[r * 128 + j];
+          } else {
+            acc = acc + 1.f;
+          }
+        }
+        out[r * 128 + j] = acc;
+      }
+      break;
+    case kArgminLane: {        // k_argmin_lane :98-103, the first minimum
+      const float kr = x[j];
+      const float minv = block_min(kr, redf);
+      const int lane = block_min(kr <= minv ? j : 128, redi);
+      for (int r = 0; r < 16; ++r) out[r * 128 + j] = (float)lane;
+      break;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// probe_mosaic2: experiments/probe_mosaic2.py:30-174, the same input and
+// block shape. k_stack_machine (:75-135) is pallas_pair's skeleton: an
+// argmin pop over a stack row, a code read through a roll, a conditional
+// push. It maps as K6 does: thread 0 keeps the scalar state (the SMEM
+// counts) in shared memory, every thread owns one lane of the stack rows,
+// and block barriers order the pop, the reductions and the push. acc is a
+// (16, 128) value that every branch changes by one scalar, so each thread
+// keeps one float for its lane's 16 rows.
+enum { kDotInLoop, kDynRollInLoop, kDynStoreInWhile, kStackMachine,
+       kDynStore8InWhile };
+
+__global__ void __launch_bounds__(128) mosaic2_kernel(
+    int body, const float* __restrict__ x, float* __restrict__ out) {
+  __shared__ float scr[64 * 128];
+  __shared__ int nst[8 * 128];
+  __shared__ int sm[8];
+  __shared__ int roll[128];
+  __shared__ float redf[32];
+  __shared__ int redi[32];
+  const int j = threadIdx.x;
+  const int* xi = reinterpret_cast<const int*>(x);
+  float acc = 0.f;
+  switch (body) {
+    case kDotInLoop: {         // :30-40, 50 products of (16,128)x(128,128)
+      float rows[16];
+      for (int r = 0; r < 16; ++r) rows[r] = 0.f;
+      for (int it = 0; it < 50; ++it) {
+        __syncthreads();
+        scr[j] = x[j] + rows[0];
+        __syncthreads();
+        for (int r = 0; r < 16; ++r) {
+          float dot = 0.f;
+          for (int k = 0; k < 128; ++k)
+            dot = dot + scr[k] * ((k % 8 == j / 16) ? 1.f : 0.f);
+          rows[r] = rows[r] + dot * 1e-6f;
+        }
+      }
+      for (int r = 0; r < 16; ++r) out[r * 128 + j] = rows[r];
+      return;
+    }
+    case kDynRollInLoop: {     // :43-49
+      int* sh = reinterpret_cast<int*>(scr);
+      float rows[16];
+      for (int r = 0; r < 16; ++r) rows[r] = 0.f;
+      for (int e = j; e < 16 * 128; e += 128) sh[e] = xi[e];
+      __syncthreads();
+      for (int it = 0; it < 50; ++it) {
+        const int s = it % 8 + 1;
+        for (int r = 0; r < 16; ++r)
+          rows[r] = rows[r]
+                    + __int_as_float(sh[r * 128 + ((j - s) & 127)]) * 0.f;
+      }
+      for (int r = 0; r < 16; ++r) out[r * 128 + j] = rows[r];
+      return;
+    }
+    case kDynStoreInWhile:     // :52-72, one row per entry
+    case kDynStore8InWhile: {  // :153-174, (8, 128) per entry
+      const int h = body == kDynStoreInWhile ? 1 : 8;
+      for (int r = 0; r < h; ++r) {
+        scr[r * 128 + j] = x[j];
+        scr[(h + r) * 128 + j] = x[128 + j];
+      }
+      if (j == 0) { sm[0] = 2; sm[1] = 3; }
+      int sp = 2;
+      __syncthreads();
+      while (sp > 0) {
+        const float row = scr[(sp - 1) * h * 128 + j];
+        __syncthreads();
+        if (j == 0) sm[sp - 1] = sm[sp - 1] - 1;
+        __syncthreads();
+        const int rem = sm[sp - 1];
+        for (int r = 0; r < h; ++r)
+          scr[((sp - 1) * h + r) * 128 + j] =
+              scr[((sp - 1) * h + r) * 128 + j] + 1.f;
+        acc = acc + row;
+        sp = rem > 0 ? sp : sp - 1;
+        __syncthreads();
+      }
+      break;
+    }
+    case kStackMachine: {      // :75-135
+      float* kst = scr;                  // (8, 128) keys
+      const int lane_j = j;
+      kst[j] = j == 0 ? 0.f : kInfv;
+      nst[j] = j == 120 ? 1 : 0;
+      if (j == 0) sm[0] = 1;
+      int sp = 1, it = 0;
+      __syncthreads();
+      while (sp > 0 && it < 64) {
+        const float kr = kst[(sp - 1) * 128 + j];
+        roll[j] = nst[(sp - 1) * 128 + j];
+        const float minv = block_min(kr, redf);
+        const int lane = block_min(kr <= minv ? lane_j : 128, redi);
+        const int cslot = lane / 16;
+        // roll(nri, 8 - cslot)[0, 0]: the lane that lands on lane 0
+        const int code = roll[floor_mod(-(8 - cslot), 128)];
+        const int rem = sm[sp - 1] - 1;
+        __syncthreads();
+        kst[(sp - 1) * 128 + j] = j == lane ? kInfv : kr;
+        if (j == 0) sm[sp - 1] = rem;
+        sp = rem > 0 ? sp : sp - 1;
+        if (code > 0) {                  // do_push :102-115
+          const float krow = ((j % 16 == 0) && (j < 32 * code))
+                                 ? x[0] * 0.f + (float)j : kInfv;
+          const int nhit = block_sum(krow < kInfv ? 1 : 0, redi);
+          const bool push = nhit > 0 && code < 3;
+          const int idx = push ? sp : 7;
+          kst[idx * 128 + j] = krow;
+          nst[idx * 128 + j] = j == 120 ? code + 1
+                               : (j == 121 ? -(code + 1) : 0);
+          if (j == 0) sm[idx] = nhit;
+          acc = acc + 1.f;
+          sp = push ? sp + 1 : sp;
+        } else {                         // do_leaf :117-127
+          bool done = false;
+          int cc = code, k = 0;
+          while (!done && k < 4) {
+            done = cc <= -2;
+            cc -= 1;
+            k += 1;
+            acc = acc + 2.f;
+          }
+        }
+        it += 1;
+        __syncthreads();
+      }
+      break;
+    }
+  }
+  for (int r = 0; r < 16; ++r) out[r * 128 + j] = acc;
+}
+
+
+// ---------------------------------------------------------------------------
+// probe_gather: experiments/probe_gather.py, run at :28-35. A take_along_axis
+// per element: thread (r, j) of an (8, 128) block reads word idx of its row
+// r (axis 1) or row idx of its column j (axis 0).
+//   kCorrect (:38-57 f32, :60-75 int32): one block, any (rows, 128), untimed.
+//   kChain (:92-108): K = 2048 dependent lane gathers of an int32 (8, 128)
+//     table, idx = (tbl[r, idx] + 1) & 127.
+//   kFields (:113-130): a 56-field (8, 128) f32 block, 256 iterations; each
+//     sums its 56 gathers in field order and moves idx by the sum.
+//   kPages (:133-162): P = 1, 2, 4, 8 pages of 28 fields; the TPU selects a
+//     page with a chain of P where()s, the card indexes the page directly
+//     (the same value: hi < P always).
+// The question for the card: does a ray fetch its node's fields from a page
+// held in shared memory faster than from global memory through __ldg, as
+// K1 does? With smem=1 the table goes in shared memory (56 x 4 KB = 224 KB
+// and 2 pages x 28 x 4 KB = 224 KB fit the 227 KB a block may have; 4 and 8
+// pages do not, and the wrapper refuses smem there); with smem=0 every
+// gather is an __ldg. Bound with one copy: the latency of one gather per
+// step (a dependent chain); with the card full, shared-memory or L1
+// bandwidth. One block of 1024 threads per copy.
+enum { kCorrect, kChain, kFields, kPages };
+constexpr int kChainSteps = 2048, kFieldIters = 256, kFields56 = 56,
+              kPageFields = 28;
+
+__global__ void __launch_bounds__(1024) gather_correct_kernel(
+    const int* __restrict__ tbl, const int* __restrict__ idx,
+    int* __restrict__ out, int rows, int axis) {
+  for (int e = threadIdx.x; e < rows * 128; e += blockDim.x) {
+    const int r = e >> 7, j = e & 127;
+    out[e] = axis == 1 ? tbl[r * 128 + idx[e]] : tbl[idx[e] * 128 + j];
+  }
+}
+
+template <int kBody, bool kSmem>
+__global__ void __launch_bounds__(1024) gather_kernel(
+    const float* __restrict__ tbl, const int* __restrict__ idx0,
+    int* __restrict__ out, int pages) {
+  extern __shared__ float4 shm4[];
+  float* sh = reinterpret_cast<float*>(shm4);
+  const int t = threadIdx.x, r = t >> 7;
+  const int words = kBody == kChain ? 1024
+                    : kBody == kFields ? kFields56 * 1024
+                                       : kPageFields * pages * 1024;
+  if (kSmem) {
+    const float4* src = reinterpret_cast<const float4*>(tbl);
+    for (int w = t; w < words / 4; w += blockDim.x) shm4[w] = src[w];
+    __syncthreads();
+  }
+  const float* T = kSmem ? sh : tbl;
+  int idx = idx0[t];
+  if (kBody == kChain) {
+    for (int k = 0; k < kChainSteps; ++k) {
+      const int v = __float_as_int(kSmem ? T[r * 128 + idx]
+                                         : __ldg(T + r * 128 + idx));
+      idx = (v + 1) & 127;
+    }
+  } else if (kBody == kFields) {
+    for (int it = 0; it < kFieldIters; ++it) {
+      float acc = 0.f;
+      for (int f = 0; f < kFields56; ++f)
+        acc = acc + (kSmem ? T[(f * 8 + r) * 128 + idx]
+                           : __ldg(T + (f * 8 + r) * 128 + idx));
+      idx = (idx + (int)acc) & 127;
+    }
+  } else {
+    for (int it = 0; it < kFieldIters; ++it) {
+      const int lo = idx & 127, hi = idx >> 7;
+      float acc = 0.f;
+      for (int f = 0; f < kPageFields; ++f) {
+        const int w = ((f * pages + hi) * 8 + r) * 128 + lo;
+        acc = acc + (kSmem ? T[w] : __ldg(T + w));
+      }
+      idx = (idx + (int)acc) & (pages * 128 - 1);
+    }
+  }
+  out[blockIdx.x * 1024 + t] = idx;
+}
+
+// ---------------------------------------------------------------------------
+// probe_mosaic3: experiments/probe_mosaic3.py, _kernel :28-51 (run :54-71)
+// and _kernel2 :78-98 (run2 :101-124). N = 4096 iterations add K = 24 words
+// of one table row (lanes j * 5 % 128) to a (64, 128) accumulator; the row
+// is (i * 7 + 3) % 1024, or, in the dep- modes, the int32 bits of lane 0 of
+// the last row (a pop's chase). One block of 1024 threads per copy, 8 of
+// the 8,192 values each.
+//   extract: each thread loads each word itself (K1's per-field __ldg);
+//   slice: each warp loads the row once with 16-byte loads (4 words a lane)
+//     and passes the words on with __shfl_sync (K4's row_loads).
+// Bound with one copy: a row load's latency (dep- modes) or the 24 x 8
+// adds per thread; with the card full, the adds (float32 issue) against the
+// loads or shuffles.
+enum { kNone, kExtract, kSlice, kDepExtract, kDepSlice };
+constexpr int kM3Iters = 4096, kM3Words = 24;
+
+template <int kMode>
+__global__ void __launch_bounds__(1024) mosaic3_kernel(
+    const float* __restrict__ tab, float* __restrict__ out) {
+  const int t = threadIdx.x;
+  // a start of 0 that the compilers cannot see (tab is never null): from a
+  // known start, nvcc and ptxas fold mode none's 4096 adds of 1.0 into one
+  // constant, even when the add is written as inline PTX
+  const float zero = tab == nullptr ? 1.f : 0.f;
+  float acc[8];
+  for (int k = 0; k < 8; ++k) acc[k] = zero;
+  int idx = 0;
+  for (int i = 0; i < kM3Iters; ++i) {
+    if (kMode < kDepExtract) idx = (i * 7 + 3) % 1024;
+    const float* row = tab + idx * 128;
+    if (kMode == kNone) {
+      for (int k = 0; k < 8; ++k) acc[k] = acc[k] + 1.f;
+    } else if (kMode == kExtract || kMode == kDepExtract) {
+#pragma unroll
+      for (int w = 0; w < kM3Words; ++w) {
+        const float v = __ldg(row + w * 5 % 128);
+        for (int k = 0; k < 8; ++k) acc[k] = acc[k] + v;
+      }
+      if (kMode == kDepExtract) idx = __float_as_int(__ldg(row));
+    } else {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(row)
+                             + (t & 31));
+#pragma unroll
+      for (int w = 0; w < kM3Words; ++w) {
+        const int lane = w * 5 % 128;
+        const float c = (lane & 3) == 0 ? q.x : (lane & 3) == 1 ? q.y
+                        : (lane & 3) == 2 ? q.z : q.w;
+        const float v = __shfl_sync(~0u, c, lane >> 2);
+        for (int k = 0; k < 8; ++k) acc[k] = acc[k] + v;
+      }
+      if (kMode == kDepSlice) idx = __float_as_int(__shfl_sync(~0u, q.x, 0));
+    }
+  }
+  for (int k = 0; k < 8; ++k)
+    out[blockIdx.x * 8192 + k * 1024 + t] = acc[k];
+}
+
+// ---------------------------------------------------------------------------
+// probe_chain: experiments/probe_chain.py, _kernel :36-70 (run :73-96).
+// S = 1, 2, 4 chains interleaved in one loop of N = 2048 steps; a step loads
+// row idx of a (1024, 128) table and takes the int32 bits of its lane 0 as
+// the next idx (a permutation), K1's pop-to-load chain. The chase touches
+// one 128-byte line per row, 128 KB in all: after one lap it runs from L1.
+//   chase, chase+smem: one thread per copy (the TPU's scalar chain).
+//     chase+smem stores each step's idx to a stack and reads it back: a
+//     per-thread local-memory array indexed by a running slot, as K1's
+//     stack (kChaseLocal), or the thread's words of a shared array
+//     (kChaseShared, the TPU's SMEM).
+//   chase+vec: one block of 1024 threads per copy: the (64, 128) vector
+//     stage of each step (8 values a thread) and its minimum over the
+//     block (shuffles, shared memory, two barriers) feed the next idx: K5's
+//     block-synchronous pop.
+// Bound with one copy: the latency of a load (plus a local or shared store
+// and load, or the block's reduction) per step; with the card full, the
+// loads' L1 bandwidth.
+enum { kChase, kChaseLocal, kChaseShared, kChaseVec };
+constexpr int kChainN = 2048, kChainNN = 1024, kScalarBlock = 128;
+
+template <int kMode, int kS>
+__global__ void __launch_bounds__(kScalarBlock) chain_scalar_kernel(
+    const float* __restrict__ tab, int* __restrict__ out, int copies) {
+  __shared__ volatile int shstack[kScalarBlock * 4];
+  volatile int stack[4];
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= copies) return;
+  int idx[kS];
+  for (int s = 0; s < kS; ++s) idx[s] = s * 37 % kChainNN;
+  for (int i = 0; i < kChainN; ++i) {
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      int nxt = __float_as_int(__ldg(tab + idx[s] * 128));
+      if (kMode == kChaseLocal) {
+        const int slot = (i + s) & 3;     // a dynamic index, as K1's stack
+        stack[slot] = nxt;
+        nxt = stack[slot];
+      } else if (kMode == kChaseShared) {
+        shstack[threadIdx.x * 4 + s] = nxt;
+        nxt = shstack[threadIdx.x * 4 + s];
+      }
+      idx[s] = nxt;
+    }
+  }
+  int acc = 0;
+  for (int s = 0; s < kS; ++s) acc = acc + idx[s];
+  out[c] = acc;
+}
+
+template <int kS>
+__global__ void __launch_bounds__(1024) chain_vec_kernel(
+    const float* __restrict__ tab, int* __restrict__ out) {
+  __shared__ float red[32];
+  const int t = threadIdx.x, j = t & 127;
+  int idx[kS];
+  float acc[kS][8];
+  for (int s = 0; s < kS; ++s) {
+    idx[s] = s * 37 % kChainNN;
+    for (int k = 0; k < 8; ++k) acc[s][k] = 0.f;
+  }
+  for (int i = 0; i < kChainN; ++i) {
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      const float* row = tab + idx[s] * 128;
+      const float rj = __ldg(row + j);
+      const int r0 = __float_as_int(__ldg(row));
+      float m = kInfv;
+      for (int k = 0; k < 8; ++k) {
+        float v = rj * 1.000001f;
+        v = fminf(v * 1.5f, v + acc[s][k]);
+        acc[s][k] = v;
+        m = fminf(m, v);
+      }
+      m = block_min(m, red);
+      idx[s] = r0 + (m > 1e30f ? 1 : 0);
+    }
+  }
+  if (t == 0) {
+    int a = 0;
+    for (int s = 0; s < kS; ++s) a = a + idx[s];
+    out[blockIdx.x] = a;
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// probe_body: experiments/probe_body.py, _kernel :33-95 (run :98-123). The
+// loop body of the packet kernel, feature by feature, around probe_chain's
+// chase+vec step (N = 2048 steps, the (64, 128) vector stage):
+//   carry5 (1): five (64, 128) buffers carried through the loop, not one;
+//   cond (2): the vector stage inside a data-dependent branch (idx >= 0);
+//   datacond (4): the loop also ends on a value of the body (idx < 1024);
+//   sort (8): the 19-exchange Batcher network on 8 keys with their codes
+//     (lanes 8-15 and 16-23 of the row; K1's sort_children);
+//   push8 (16): 8 predicated pushes of lanes 32-39 onto an 8-entry stack in
+//     per-thread local memory (K1's stack).
+// One block of 1024 threads per copy; each (64, 128) operand is spread 8
+// values a thread, so the five buffers (40 registers) stay in registers.
+// Every thread runs the scalar features itself, as K1's threads do. The
+// JAX body's dead values (kids[0] & 0, sp & 0, the buffers and stack, which
+// the output does not read) are kept alive the card's way: the masks take
+// a runtime zero, and the thread whose index is that zero writes its
+// first value of every buffer and a stack word to `aux`.
+enum { kCarry5 = 1, kCond = 2, kDataCond = 4, kSort = 8, kPush8 = 16 };
+__device__ constexpr int kSortPairs[19][2] = {
+    {0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2}, {1, 3}, {4, 6}, {5, 7},
+    {1, 2}, {5, 6}, {0, 4}, {1, 5}, {2, 6}, {3, 7}, {2, 4}, {3, 5},
+    {1, 2}, {3, 4}, {5, 6}};
+
+template <int kF>
+__global__ void __launch_bounds__(1024) body_kernel(
+    const float* __restrict__ tab, int* __restrict__ out,
+    float* __restrict__ aux, int zero) {
+  __shared__ float red[32];
+  constexpr int kNC = (kF & kCarry5) ? 5 : 1;
+  const int t = threadIdx.x, j = t & 127;
+  float buf[kNC][8];
+  for (int c = 0; c < kNC; ++c)
+    for (int k = 0; k < 8; ++k) buf[c][k] = (float)c;
+  volatile int stack[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  int sp_word = 0;                     // smem[8] of the JAX body
+  int i = 0, idx = 0;
+  while (i < kChainN && (!(kF & kDataCond) || idx < kChainNN)) {
+    const float* row = tab + idx * 128;
+    int nxt;
+    if (!(kF & kCond) || idx >= 0) {
+      const float rj = __ldg(row + j);
+      float v[8];
+      float m = kInfv;
+      for (int k = 0; k < 8; ++k) {
+        v[k] = rj * 1.000001f;
+        v[k] = fminf(v[k] * 1.5f, v[k] + buf[0][k]);
+        m = fminf(m, v[k]);
+      }
+      m = block_min(m, red);
+      nxt = __float_as_int(__ldg(row)) + (m > 1e30f ? 1 : 0);
+      for (int c = 0; c < kNC; ++c)
+        for (int k = 0; k < 8; ++k) buf[c][k] = v[k] < 0.5f ? v[k] : buf[c][k];
+    } else {
+      nxt = idx + 1;
+    }
+    if (kF & kSort) {
+      float key[8];
+      int kid[8];
+      for (int k = 0; k < 8; ++k) {
+        key[k] = __ldg(row + 8 + k);
+        kid[k] = __float_as_int(__ldg(row + 16 + k));
+      }
+#pragma unroll
+      for (int p = 0; p < 19; ++p) {
+        const int a = kSortPairs[p][0], b = kSortPairs[p][1];
+        const bool sw = key[a] > key[b];
+        const float ka = sw ? key[b] : key[a], kb = sw ? key[a] : key[b];
+        const int ia = sw ? kid[b] : kid[a], ib = sw ? kid[a] : kid[b];
+        key[a] = ka; key[b] = kb; kid[a] = ia; kid[b] = ib;
+      }
+      nxt = nxt + (kid[0] & zero);
+    }
+    if (kF & kPush8) {
+      int sp = sp_word;
+      for (int k = 0; k < 8; ++k) {
+        const int val = __float_as_int(__ldg(row + 32 + k));
+        const bool ok = val != 0;
+        stack[ok ? min(sp, 7) : 7] = val;
+        sp = sp + (ok ? 1 : 0);
+      }
+      sp_word = sp - 8;
+      nxt = nxt + (sp & zero);
+    }
+    idx = nxt;
+    i += 1;
+  }
+  if (t == 0) out[blockIdx.x] = idx + i;
+  if (t == zero) {
+    for (int c = 0; c < 5; ++c) aux[blockIdx.x * 6 + c] = c < kNC ? buf[c][0] : 0.f;
+    aux[blockIdx.x * 6 + 5] = (kF & kPush8) ? __int_as_float(stack[zero & 7])
+                                            : 0.f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// probe_dyn_cost: experiments/probe_dyn_cost.py, make :28-42 and the bodies
+// :45-83. N_IT = 2000 iterations add (8, 128) tiles of a (4096, 128) f32
+// table (2 MB: it stays in L2) to an (8, 128) accumulator; the tile's row
+// is int(acc[0, 0]) % 64 + i % 64 (% 512 for dynrow1), so each load depends
+// on the last sum.
+//   static: tab[0:8] every iteration, loaded with an asm volatile load so
+//     that nvcc cannot hoist it out of the loop (no dependence, no barrier);
+//   dyn1, dyn4: one, or four (64 rows apart), 4 KB tiles at the index;
+//   dynrow1: one 512-byte row broadcast over the 8 rows;
+//   async4: the four tiles of dyn4 as four bulk copies in flight at once
+//     (cp.async.bulk global -> shared, the TMA's bulk form, completing on
+//     one mbarrier with complete_tx), the card's counterpart of
+//     make_async_copy with DMA semaphores.
+// One block of 256 threads per copy, each owning 4 consecutive values (a
+// 16-byte load); acc[0, 0] reaches every thread through shared memory and
+// one barrier per iteration. Bound with one copy: an L2 load's latency plus
+// the barrier per iteration; with the card full, L2 bandwidth.
+enum { kStatic, kDyn1, kDyn4, kDynRow1, kAsync4 };
+constexpr int kDynIters = 2000;
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 load_volatile(const float4* p) {
+  float4 v;
+  asm volatile("ld.global.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int kB>
+__global__ void __launch_bounds__(256) dyn_cost_kernel(
+    const float* __restrict__ tab, float* __restrict__ out) {
+  __shared__ __align__(128) float4 buf[4 * 256];
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ float a00[2];
+  const int t = threadIdx.x, r = t >> 5, c4 = t & 31;
+  const float4* tab4 = reinterpret_cast<const float4*>(tab);
+  if (kB == kAsync4 && t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 :: "r"(smem_addr(&bar)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < kDynIters; ++i) {
+    if (kB == kStatic) {
+      acc = add4(acc, load_volatile(tab4 + r * 32 + c4));
+      continue;
+    }
+    if (t == 0) a00[i & 1] = acc.x;          // acc[0, 0]
+    __syncthreads();
+    const int idx = floor_mod((int)a00[i & 1], kB == kDynRow1 ? 512 : 64)
+                    + i % 64;
+    if (kB == kDyn1) {
+      acc = add4(acc, tab4[(idx * 8 + r) * 32 + c4]);
+    } else if (kB == kDyn4) {
+      const float4 a = tab4[(idx * 8 + r) * 32 + c4];
+      const float4 b = tab4[(idx * 8 + 64 + r) * 32 + c4];
+      const float4 c = tab4[(idx * 8 + 128 + r) * 32 + c4];
+      const float4 d = tab4[(idx * 8 + 192 + r) * 32 + c4];
+      acc = add4(add4(add4(add4(acc, a), b), c), d);
+    } else if (kB == kDynRow1) {
+      acc = add4(acc, tab4[idx * 32 + c4]);
+    } else {                                 // kAsync4
+      const uint32_t b = smem_addr(&bar);
+      if (t == 0) {
+        // the barrier above ordered every read of buf before these writes
+        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                     :: "r"(b), "r"(4 * 4096) : "memory");
+        for (int s = 0; s < 4; ++s)
+          asm volatile(
+              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+              "::bytes [%0], [%1], %2, [%3];"
+              :: "r"(smem_addr(buf + s * 256)),
+                 "l"(tab + (idx * 8 + s * 64) * 128), "r"(4096), "r"(b)
+              : "memory");
+      }
+      uint32_t done = 0;
+      while (!done)
+        asm volatile(
+            "{\n .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            " selp.u32 %0, 1, 0, p;\n}"
+            : "=r"(done) : "r"(b), "r"(i & 1) : "memory");
+      for (int s = 0; s < 4; ++s) acc = add4(acc, buf[s * 256 + t]);
+    }
+  }
+  reinterpret_cast<float4*>(out)[blockIdx.x * 256 + t] = acc;
+}
+
+// ---------------------------------------------------------------------------
+// vpu_dtype_bench: experiments/vpu_dtype_bench.py, make :19-35. ITERS =
+// 2000 rounds of x = min(max(x * c1 - c2, x), c3) (mul, sub, max, min: the
+// slab test's op mix) on a (rows, 128) array of one type. Bound: the CUDA
+// cores' issue rate for the type. One thread per 32-bit word: float32 and
+// int32 one value, bfloat16 a packed __nv_bfloat162 (__hmul2, __hsub2,
+// __hmax2, __hmin2), int16 a packed pair: the subtract, max and min through
+// the SIMD intrinsics __vsub2, __vmaxs2, __vmins2; the multiply, which has
+// no 16-bit SIMD form, in 32-bit registers (each half's product, masked and
+// joined). The constants come in as arguments (their bits, packed pairs
+// for the 16-bit types): in the int types and bfloat16, 1.000001 and 0.5
+// round to 1 and 0, and as literals nvcc would fold x * 1 and x - 0 away.
+// The loop is unrolled by 8 (kVpuUnroll), which the op count read from the
+// SASS divides by.
+enum { kF32, kBF16, kI32, kI16 };
+constexpr int kVpuIters = 2000, kVpuUnroll = 8;
+
+template <int kT>
+__global__ void __launch_bounds__(256) vpu_kernel(
+    const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+    long long words, long long total, uint32_t c1, uint32_t c2,
+    uint32_t c3) {
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= total) return;
+  uint32_t v = x[w % words];
+#pragma unroll kVpuUnroll
+  for (int it = 0; it < kVpuIters; ++it) {
+    if (kT == kF32) {
+      const float f = __uint_as_float(v);
+      const float a = f * __uint_as_float(c1);
+      const float b = a - __uint_as_float(c2);
+      const float c = fmaxf(b, f);
+      v = __float_as_uint(fminf(c, __uint_as_float(c3)));
+    } else if (kT == kBF16) {
+      const __nv_bfloat162 f = *reinterpret_cast<const __nv_bfloat162*>(&v);
+      const __nv_bfloat162 a = __hmul2(
+          f, *reinterpret_cast<const __nv_bfloat162*>(&c1));
+      const __nv_bfloat162 b = __hsub2(
+          a, *reinterpret_cast<const __nv_bfloat162*>(&c2));
+      const __nv_bfloat162 c = __hmax2(b, f);
+      const __nv_bfloat162 d = __hmin2(
+          c, *reinterpret_cast<const __nv_bfloat162*>(&c3));
+      v = *reinterpret_cast<const uint32_t*>(&d);
+    } else if (kT == kI32) {
+      const int f = (int)v;
+      const int a = f * (int)c1;
+      const int b = a - (int)c2;
+      v = (uint32_t)min(max(b, f), (int)c3);
+    } else {
+      const int m = (int)(int16_t)(c1 & 0xffff);
+      const uint32_t a = ((v * (uint32_t)m) & 0xffffu)
+                         | ((v & 0xffff0000u) * (uint32_t)m);
+      const uint32_t b = __vsub2(a, c2);
+      v = __vmins2(__vmaxs2(b, v), c3);
+    }
+  }
+  out[w] = v;
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// The C entries. Each launches on `stream`, one block (or one grid) per copy
+// of its probe, and returns cudaGetLastError(): a refused launch (too much
+// shared memory, a bad body) never runs. Each timed family also has its
+// launch shape in `Launch`, which rt_probe_occupancy turns into resident
+// blocks per SM, so that the wrappers can size a launch that fills the card.
+namespace {
+
+enum { kProbeGather, kProbeMosaic3, kProbeChain, kProbeBody, kProbeDynCost,
+       kProbeVpu };
+
+struct Launch {
+  const void* fn = nullptr;
+  int threads = 0;
+  int smem = 0;                 // dynamic shared memory, bytes
+};
+
+template <typename K>
+Launch launch_of(K* fn, int threads, int smem = 0) {
+  Launch l;
+  l.fn = reinterpret_cast<const void*>(fn);
+  l.threads = threads;
+  l.smem = smem;
+  return l;
+}
+
+Launch gather_launch(int body, int smem, int pages) {
+  const int words = body == kChain ? 1024
+                    : body == kFields ? kFields56 * 1024
+                                      : kPageFields * pages * 1024;
+  const int bytes = smem ? words * 4 : 0;
+  if (body == kChain)
+    return smem ? launch_of(gather_kernel<kChain, true>, 1024, bytes)
+                : launch_of(gather_kernel<kChain, false>, 1024);
+  if (body == kFields)
+    return smem ? launch_of(gather_kernel<kFields, true>, 1024, bytes)
+                : launch_of(gather_kernel<kFields, false>, 1024);
+  if (body == kPages && (pages == 1 || pages == 2 || pages == 4
+                         || pages == 8) && !(smem && pages > 2))
+    return smem ? launch_of(gather_kernel<kPages, true>, 1024, bytes)
+                : launch_of(gather_kernel<kPages, false>, 1024);
+  return Launch();
+}
+
+Launch mosaic3_launch(int mode) {
+  switch (mode) {
+    case kNone: return launch_of(mosaic3_kernel<kNone>, 1024);
+    case kExtract: return launch_of(mosaic3_kernel<kExtract>, 1024);
+    case kSlice: return launch_of(mosaic3_kernel<kSlice>, 1024);
+    case kDepExtract: return launch_of(mosaic3_kernel<kDepExtract>, 1024);
+    case kDepSlice: return launch_of(mosaic3_kernel<kDepSlice>, 1024);
+  }
+  return Launch();
+}
+
+template <int kS>
+Launch chain_launch_s(int mode) {
+  switch (mode) {
+    case kChase:
+      return launch_of(chain_scalar_kernel<kChase, kS>, kScalarBlock);
+    case kChaseLocal:
+      return launch_of(chain_scalar_kernel<kChaseLocal, kS>, kScalarBlock);
+    case kChaseShared:
+      return launch_of(chain_scalar_kernel<kChaseShared, kS>, kScalarBlock);
+    case kChaseVec: return launch_of(chain_vec_kernel<kS>, 1024);
+  }
+  return Launch();
+}
+
+Launch chain_launch(int mode, int streams) {
+  if (streams == 1) return chain_launch_s<1>(mode);
+  if (streams == 2) return chain_launch_s<2>(mode);
+  if (streams == 4) return chain_launch_s<4>(mode);
+  return Launch();
+}
+
+// the nine feature sets of experiments/probe_body.py:126-136
+Launch body_launch(int feats) {
+  switch (feats) {
+    case 0: return launch_of(body_kernel<0>, 1024);
+    case kCarry5: return launch_of(body_kernel<kCarry5>, 1024);
+    case kCond: return launch_of(body_kernel<kCond>, 1024);
+    case kDataCond: return launch_of(body_kernel<kDataCond>, 1024);
+    case kSort: return launch_of(body_kernel<kSort>, 1024);
+    case kPush8: return launch_of(body_kernel<kPush8>, 1024);
+    case kCond | kCarry5: return launch_of(body_kernel<kCond | kCarry5>, 1024);
+    case kSort | kPush8: return launch_of(body_kernel<kSort | kPush8>, 1024);
+    case 31: return launch_of(body_kernel<31>, 1024);
+  }
+  return Launch();
+}
+
+Launch dyn_cost_launch(int body) {
+  switch (body) {
+    case kStatic: return launch_of(dyn_cost_kernel<kStatic>, 256);
+    case kDyn1: return launch_of(dyn_cost_kernel<kDyn1>, 256);
+    case kDyn4: return launch_of(dyn_cost_kernel<kDyn4>, 256);
+    case kDynRow1: return launch_of(dyn_cost_kernel<kDynRow1>, 256);
+    case kAsync4: return launch_of(dyn_cost_kernel<kAsync4>, 256);
+  }
+  return Launch();
+}
+
+Launch vpu_launch(int dtype) {
+  switch (dtype) {
+    case kF32: return launch_of(vpu_kernel<kF32>, 256);
+    case kBF16: return launch_of(vpu_kernel<kBF16>, 256);
+    case kI32: return launch_of(vpu_kernel<kI32>, 256);
+    case kI16: return launch_of(vpu_kernel<kI16>, 256);
+  }
+  return Launch();
+}
+
+Launch probe_launch(int probe, int body, int arg, int arg2) {
+  switch (probe) {
+    case kProbeGather: return gather_launch(body, arg, arg2);
+    case kProbeMosaic3: return mosaic3_launch(body);
+    case kProbeChain: return chain_launch(body, arg);
+    case kProbeBody: return body_launch(body);
+    case kProbeDynCost: return dyn_cost_launch(body);
+    case kProbeVpu: return vpu_launch(body);
+  }
+  return Launch();
+}
+
+// Launches l on `blocks` blocks with `args`; above 48 KB of shared memory
+// the kernel is first allowed that much.
+int launch(const Launch& l, int blocks, void** args, void* stream) {
+  if (!l.fn || blocks <= 0) return (int)cudaErrorInvalidValue;
+  if (l.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const cudaError_t e = cudaLaunchKernel(
+      l.fn, dim3(blocks), dim3(l.threads), args, l.smem,
+      static_cast<cudaStream_t>(stream));
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Resident blocks per SM of a timed probe's kernel (probe: 0 gather, 1
+// mosaic3, 2 chain, 3 body, 4 dyn_cost, 5 vpu; body, arg and arg2 as the
+// probe's entry takes them: gather smem and pages, chain streams).
+extern "C" int rt_probe_occupancy(int probe, int body, int arg, int arg2,
+                                  int* blocks_per_sm) {
+  const Launch l = probe_launch(probe, body, arg, arg2);
+  if (!l.fn) return (int)cudaErrorInvalidValue;
+  if (l.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        l.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, l.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, l.fn, l.threads, l.smem);
+}
+
+// probe_mosaic: x (16, 128) f32, out (16, 128) f32, one block.
+extern "C" int rt_probe_mosaic(int body, const float* x, float* out,
+                               void* stream) {
+  if (body < kDot || body > kArgminLane) return (int)cudaErrorInvalidValue;
+  mosaic_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(body, x,
+                                                                   out);
+  return (int)cudaGetLastError();
+}
+
+// probe_mosaic2: the same shapes.
+extern "C" int rt_probe_mosaic2(int body, const float* x, float* out,
+                                void* stream) {
+  if (body < kDotInLoop || body > kDynStore8InWhile)
+    return (int)cudaErrorInvalidValue;
+  mosaic2_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(body, x,
+                                                                    out);
+  return (int)cudaGetLastError();
+}
+
+// probe_gather. kCorrect: tbl and out (rows, 128) 32-bit words, idx (rows,
+// 128) int32, axis 0 or 1, one block. kChain: tbl (8, 128) int32; kFields:
+// (56, 8, 128) f32; kPages: (28, pages, 8, 128) f32; idx (8, 128) int32,
+// out (copies, 8, 128) int32; smem: the table in shared memory.
+extern "C" int rt_probe_gather(int body, const void* tbl, const int* idx,
+                               void* out, int rows, int axis, int pages,
+                               int smem, int copies, void* stream) {
+  if (body == kCorrect) {
+    if (rows < 1 || (axis != 0 && axis != 1))
+      return (int)cudaErrorInvalidValue;
+    gather_correct_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(tbl), idx, static_cast<int*>(out), rows,
+        axis);
+    return (int)cudaGetLastError();
+  }
+  const float* t = static_cast<const float*>(tbl);
+  int* o = static_cast<int*>(out);
+  void* args[] = {&t, &idx, &o, &pages};
+  return launch(gather_launch(body, smem, pages), copies, args, stream);
+}
+
+// probe_mosaic3: tab (1024, 128) f32, out (copies, 64, 128) f32.
+extern "C" int rt_probe_mosaic3(int mode, const float* tab, float* out,
+                                int copies, void* stream) {
+  void* args[] = {&tab, &out};
+  return launch(mosaic3_launch(mode), copies, args, stream);
+}
+
+// probe_chain: tab (1024, 128) f32, out (copies,) int32; streams 1, 2, 4.
+extern "C" int rt_probe_chain(int mode, int streams, const float* tab,
+                              int* out, int copies, void* stream) {
+  const Launch l = chain_launch(mode, streams);
+  void* args[] = {&tab, &out, &copies};
+  const int blocks = mode == kChaseVec
+                         ? copies : (copies + kScalarBlock - 1) / kScalarBlock;
+  return launch(l, blocks, args, stream);
+}
+
+// probe_body: feats a bit set of kCarry5 ... kPush8; tab (1024, 128) f32,
+// out (copies,) int32, aux (copies, 6) f32; zero must be 0.
+extern "C" int rt_probe_body(int feats, const float* tab, int* out,
+                             float* aux, int zero, int copies,
+                             void* stream) {
+  void* args[] = {&tab, &out, &aux, &zero};
+  return launch(body_launch(feats), copies, args, stream);
+}
+
+// probe_dyn_cost: tab (4096, 128) f32, out (copies, 8, 128) f32.
+extern "C" int rt_probe_dyn_cost(int body, const float* tab, float* out,
+                                 int copies, void* stream) {
+  void* args[] = {&tab, &out};
+  return launch(dyn_cost_launch(body), copies, args, stream);
+}
+
+// vpu_dtype_bench: x `words` 32-bit words (rows x 128 values), out (copies,
+// words) words; c1, c2, c3: the constants' bits (packed pairs for bf16 and
+// int16).
+extern "C" int rt_probe_vpu(int dtype, const void* x, void* out,
+                            long long words, int copies, unsigned c1,
+                            unsigned c2, unsigned c3, void* stream) {
+  if (words < 1 || words % 256) return (int)cudaErrorInvalidValue;
+  long long total = words * copies;
+  const uint32_t* xp = static_cast<const uint32_t*>(x);
+  uint32_t* op = static_cast<uint32_t*>(out);
+  void* args[] = {&xp, &op, &words, &total, &c1, &c2, &c3};
+  return launch(vpu_launch(dtype), (int)(total / 256), args, stream);
+}

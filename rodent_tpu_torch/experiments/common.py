@@ -2,11 +2,13 @@
 and their BVH builds, the ray distributions, the card's name and power
 limit, CUDA-event timing (in turns), per-warp and per-tile pop statistics,
 and the least time the card could take for a traversal launch (its bound,
-per-ray kernels and tile kernels). The
-experiments here, tools/benchmark.py and chip_smoke.py all take them from
-this module."""
+per-ray kernels and tile kernels); and, for the micro-probes (probe_*.py,
+vpu_dtype_bench.py), the call into their library, the launch that fills
+the card and their bound. The experiments here, tools/benchmark.py and
+chip_smoke.py all take them from this module."""
 from __future__ import annotations
 
+import ctypes
 import subprocess
 import sys
 import time
@@ -16,6 +18,7 @@ import torch
 
 from ..accel import build_bvh
 from ..core.math import FLT_MAX
+from ..kernels.build import load_library
 from ..traversal import api, packet, pair
 from ..traversal.sorting import sort_rays
 from ..utils import testscenes
@@ -395,3 +398,83 @@ def bound_ms(dev, n_rays, node_pops, tri_rows, rows, any_hit=False,
                + rows[0] * 28 * arity + rows[1] * 56 * m) / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+# The micro-probes. Peaks for their bounds: the H100 SXM5's rates outside
+# the tensor cores from NVIDIA's Hopper architecture white paper, per type
+# (int16 has no published rate: its packed pairs are counted against the
+# int32 rate), and device memory.
+PROBE_PEAKS = {"float32": 66.9e12, "bfloat16": 133.8e12, "int32": 33.5e12,
+               "int16": 33.5e12}
+# probe -> its number in rt_probe_occupancy (csrc/probes.cu)
+PROBE_IDS = {"gather": 0, "mosaic3": 1, "chain": 2, "body": 3,
+             "dyn_cost": 4, "vpu": 5}
+
+
+def probe_call(entry, *args):
+    """Calls the C entry `entry` of the probes library on the current
+    stream (pointers as ints: tensor.data_ptr()); raises where the launch
+    was refused."""
+    fn = getattr(load_library(kind="probes"), entry)
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")
+
+
+def full_copies(probe, body, arg=0, arg2=0, per_block=1.0):
+    """(copies, copies per SM) of a probe's launch that fills every SM at
+    its kernel's occupancy: SMs x resident blocks per SM x copies per block
+    (per_block < 1 where a copy spans several blocks)."""
+    n = ctypes.c_int(0)
+    rc = load_library(kind="probes").rt_probe_occupancy(
+        PROBE_IDS[probe], body, arg, arg2, ctypes.byref(n))
+    if rc != 0 or n.value < 1:
+        raise RuntimeError(f"rt_probe_occupancy({probe}, {body}): CUDA "
+                           f"error {rc}, {n.value} blocks per SM")
+    per_sm = n.value * per_block
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return int(sms * per_sm), per_sm
+
+
+def probe_bound_ms(ops, nbytes, dtype="float32"):
+    """The least time for a probe launch: its operations over the type's
+    peak against its bytes (inputs read once, outputs written once) over
+    the memory rate. Returns (ms, "operations" or "bytes")."""
+    t_ops, t_bytes = ops / PROBE_PEAKS[dtype], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+# launches captured in one CUDA graph to time a probe (launch_ms)
+GRAPH_LAUNCHES = 20
+
+
+def launch_ms(fn, device, blocks=3):
+    """(ms per call of fn, its last output). On a card: GRAPH_LAUNCHES
+    calls captured in one CUDA graph, whose replays are timed (timed()),
+    so that a kernel shorter than the host's time per call (the wrapper's,
+    tens of microseconds) is not timed as that; the wrappers count the
+    captured calls, not the replays. On the CPU: timed()."""
+    if device.type != "cuda":
+        return timed(fn, device, blocks)
+    out = fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(GRAPH_LAUNCHES):
+            out = fn()
+    ms, _ = timed(graph.replay, device, blocks)
+    return ms / GRAPH_LAUNCHES, out
+
+
+def probe_shapes(fn, device, full, per_sm, iters, blocks=3):
+    """One timed probe at both launch shapes (launch_ms): fn(copies)
+    launches it without synchronising. Returns {"ms1", "ns1" (ns per
+    iteration of the single copy), "ms", "copies", "ns_sm" (ns per
+    iteration per SM at the full shape), "out1", "out"} (the outputs of
+    the two shapes)."""
+    ms1, out1 = launch_ms(lambda: fn(1), device, blocks)
+    ms, out = launch_ms(lambda: fn(full), device, blocks)
+    return {"ms1": ms1, "ns1": ms1 * 1e6 / iters, "ms": ms,
+            "copies": full, "ns_sm": ms * 1e6 / iters / per_sm,
+            "out1": out1, "out": out}

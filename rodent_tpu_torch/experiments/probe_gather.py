@@ -1,0 +1,300 @@
+"""Per-element gathers from a table held on chip (port of
+experiments/probe_gather.py, which asked whether a TPU lane gather is fast
+enough for a traversal in which each ray fetches its own node's fields
+from 128-node pages).
+
+The question for the card: does a ray fetch its fields faster from a page
+held in shared memory than from global memory through __ldg, as K1 does?
+The timed cases run both ways where the table fits a block's 227 KB of
+shared memory (the dependent chain, the 56-field block, 1 and 2 pages of
+28 fields) and through global memory alone where it does not (4 and 8
+pages); each line says which.
+
+Cases, with the JAX file's inputs (RandomState(0) and RandomState(1)):
+  axis1, axis0: take_along_axis of an arange table at (8|16|32, 128) and
+      (8|64|512, 128), float32 (:38-57); i32: int32 at (8, 128) (:60-75);
+  chain: K = 2048 dependent int32 lane gathers (:89-108);
+  fields: 56 fields of an (8, 128) block per iteration, 256 iterations
+      (:110-130);
+  pages1..pages8: P pages of 28 fields (:133-162).
+The timed cases run at two launch shapes: one copy (one block of 1,024
+threads, the TPU's one program) and as many copies as fill the card.
+
+On a CUDA tensor run() launches the case's kernel (csrc/probes.cu); on a
+CPU tensor it takes the plain version.
+
+Usage: python -m rodent_tpu_torch.experiments.probe_gather [--cpu]
+    [--blocks 3]
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from . import common
+
+CORRECT = [((8, 128), 1), ((16, 128), 1), ((32, 128), 1),
+           ((8, 128), 0), ((64, 128), 0), ((512, 128), 0)]
+K_CHAIN, ITERS, F56, F28 = 2048, 256, 56, 28
+PAGES = (1, 2, 4, 8)
+# timed case -> (body number in csrc/probes.cu, pages, dependent steps)
+TIMED = {"chain": (1, 0, K_CHAIN), "fields": (2, 0, ITERS),
+         **{f"pages{p}": (3, p, ITERS) for p in PAGES}}
+HEAD = "fields shared"
+SHARED_MAX = 232_448             # bytes of shared memory a block may have
+launches = 0
+
+
+def correct_inputs(shape, axis):
+    """probe_correct's table and indices (:41-43)."""
+    tbl = np.arange(shape[0] * shape[1], dtype=np.float32).reshape(shape)
+    idx = np.random.RandomState(0).randint(0, shape[axis], shape)
+    return tbl, idx.astype(np.int32)
+
+
+def i32_inputs():
+    """probe_i32's (:62-63)."""
+    tbl = np.arange(1024, dtype=np.int32).reshape(8, 128)
+    idx = np.random.RandomState(1).randint(0, 128, (8, 128))
+    return tbl, idx.astype(np.int32)
+
+
+def timed_inputs(case):
+    """The table and start indices of a timed case (:101-102, :123-124,
+    :155-157)."""
+    idx = np.zeros((8, 128), np.int32)
+    if case == "chain":
+        return (np.random.RandomState(0).randint(0, 128, (8, 128))
+                .astype(np.int32), idx)
+    if case == "fields":
+        return np.random.RandomState(0).rand(F56, 8, 128).astype(
+            np.float32), idx
+    p = TIMED[case][1]
+    return np.random.RandomState(0).rand(F28, p, 8, 128).astype(
+        np.float32), idx
+
+
+def table_bytes(case):
+    return {"chain": 4096, "fields": F56 * 4096}.get(
+        case, F28 * TIMED[case][1] * 4096)
+
+
+def fits_shared(case):
+    return table_bytes(case) <= SHARED_MAX
+
+
+def plain_take(tbl, idx, axis):
+    """take_along_axis (probe_correct, probe_i32)."""
+    return torch.take_along_dim(tbl, idx.long(), dim=axis)
+
+
+def plain_chain(tbl, idx):
+    """probe_throughput's chain: idx = (tbl[r, idx] + 1) & 127, K times."""
+    for _ in range(K_CHAIN):
+        idx = (torch.take_along_dim(tbl, idx.long(), dim=1) + 1) & 127
+    return idx
+
+
+def _rows(idx):
+    return torch.arange(8, device=idx.device)[:, None].expand(8, 128)
+
+
+def plain_fields(tbl, idx):
+    """probe_throughput's 56-field block: each iteration adds the 56
+    gathered fields in order and moves idx by the sum's integer part."""
+    r = _rows(idx)
+    for _ in range(ITERS):
+        vals = tbl[:, r, idx.long()]
+        acc = torch.zeros(8, 128, dtype=torch.float32, device=idx.device)
+        for f in range(F56):
+            acc = acc + vals[f]
+        idx = (idx + acc.to(torch.int32)) & 127
+    return idx
+
+
+def plain_pages(tbl, idx):
+    """probe_pages: field f of idx is word idx & 127 of page idx >> 7 (the
+    JAX body's chain of where()s over the pages picks that page)."""
+    p, r = tbl.shape[1], _rows(idx)
+    for _ in range(ITERS):
+        vals = tbl[:, (idx >> 7).long(), r, (idx & 127).long()]
+        acc = torch.zeros(8, 128, dtype=torch.float32, device=idx.device)
+        for f in range(F28):
+            acc = acc + vals[f]
+        idx = (idx + acc.to(torch.int32)) & (p * 128 - 1)
+    return idx
+
+
+PLAIN = {1: plain_chain, 2: plain_fields, 3: plain_pages}
+
+
+def _check(x, dtype, shape, what):
+    if (x.device.type != "cuda" or x.dtype != dtype
+            or tuple(x.shape) != shape or not x.is_contiguous()):
+        raise ValueError(f"probe_gather {what}: a contiguous {dtype} "
+                         f"{shape} CUDA tensor, not {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def run_take(tbl, idx, axis):
+    """take_along_axis through the kernel (one block) on CUDA tensors, the
+    plain version on CPU ones."""
+    global launches
+    if tbl.device.type == "cpu":
+        return plain_take(tbl, idx, axis)
+    rows = tbl.shape[0]
+    _check(tbl, tbl.dtype, (rows, 128), "table")
+    if tbl.dtype not in (torch.float32, torch.int32) or axis not in (0, 1):
+        raise ValueError(f"probe_gather: {tbl.dtype} table, axis {axis}")
+    _check(idx, torch.int32, (rows, 128), "indices")
+    out = torch.empty_like(tbl)
+    common.probe_call("rt_probe_gather", 0, tbl.data_ptr(), idx.data_ptr(),
+                      out.data_ptr(), rows, axis, 0, 0, 1)
+    launches += 1
+    return out
+
+
+def run(case, tbl, idx, copies=1, shared=True):
+    """A timed case: (copies, 8, 128) int32, every copy the same indices.
+    On CUDA tensors the kernel with the table in shared memory (shared,
+    where it fits) or read through __ldg; on CPU tensors the plain
+    version."""
+    global launches
+    body, pages, _ = TIMED[case]
+    if tbl.device.type == "cpu":
+        return PLAIN[body](tbl, idx)[None].expand(copies, 8, 128)
+    want = {1: (8, 128), 2: (F56, 8, 128), 3: (F28, pages, 8, 128)}[body]
+    _check(tbl, torch.int32 if body == 1 else torch.float32, want, "table")
+    _check(idx, torch.int32, (8, 128), "indices")
+    if shared and not fits_shared(case):
+        raise ValueError(f"probe_gather {case}: {table_bytes(case)} bytes "
+                         "do not fit a block's shared memory")
+    out = torch.empty(copies, 8, 128, dtype=torch.int32, device=tbl.device)
+    common.probe_call("rt_probe_gather", body, tbl.data_ptr(),
+                      idx.data_ptr(), out.data_ptr(), 8, 1, pages,
+                      int(shared), copies)
+    launches += 1
+    return out
+
+
+def bound(case, copies):
+    """The full launch's bound: per element and dependent step, an int
+    add and an and (chain), or the float adds of the fields and the three
+    int operations that move idx, over the type's peak; the table and
+    indices read once and the outputs written."""
+    _, _, steps = TIMED[case]
+    if case == "chain":
+        ops, dtype = 2 * 1024 * steps * copies, "int32"
+    else:
+        f = F56 if case == "fields" else F28
+        ops, dtype = (f + 3) * 1024 * steps * copies, "float32"
+    return common.probe_bound_ms(
+        ops, table_bytes(case) + 4096 + copies * 4096, dtype)
+
+
+def variants(device):
+    """(case, shared) of every timed run: shared memory and global memory
+    where the table fits, global memory alone where it does not; only the
+    plain version on the CPU."""
+    if device.type != "cuda":
+        return [(c, False) for c in TIMED]
+    return [(c, s) for c in TIMED for s in ((True, False) if fits_shared(c)
+                                            else (False,))]
+
+
+def measure(device, blocks=3):
+    """The correctness cases once each, then every timed case at both
+    launch shapes. Returns {name: result}: correctness results hold "out";
+    timed ones common.probe_shapes()'s keys, "memory", "bound" and
+    "iters"."""
+    res = {}
+    for shape, axis in CORRECT:
+        tbl, idx = correct_inputs(shape, axis)
+        res[f"axis{axis} {shape}"] = {"out": run_take(
+            torch.from_numpy(tbl).to(device), torch.from_numpy(idx).to(device),
+            axis)}
+    tbl, idx = i32_inputs()
+    res["i32 (8, 128)"] = {"out": run_take(torch.from_numpy(tbl).to(device),
+                                           torch.from_numpy(idx).to(device),
+                                           1)}
+    for case, shared in variants(device):
+        tbl, idx = (torch.from_numpy(a).to(device) for a in
+                    timed_inputs(case))
+        body, pages, steps = TIMED[case]
+        if device.type == "cuda":
+            full, per_sm = common.full_copies("gather", body, int(shared),
+                                              pages)
+        else:
+            full, per_sm = 1, 1.0
+        r = common.probe_shapes(lambda c: run(case, tbl, idx, c, shared),
+                                device, full, per_sm, steps, blocks)
+        r.update(memory=("shared" if shared else "global")
+                 if device.type == "cuda" else "plain", iters=steps,
+                 bound=bound(case, full))
+        res[f"{case} {r['memory']}"] = r
+    return res
+
+
+def plain_outputs(device):
+    """{name: the plain version's output} of every case of measure()."""
+    out = {}
+    for shape, axis in CORRECT:
+        tbl, idx = correct_inputs(shape, axis)
+        out[f"axis{axis} {shape}"] = plain_take(
+            torch.from_numpy(tbl).to(device),
+            torch.from_numpy(idx).to(device), axis)
+    tbl, idx = i32_inputs()
+    out["i32 (8, 128)"] = plain_take(torch.from_numpy(tbl).to(device),
+                                     torch.from_numpy(idx).to(device), 1)
+    for case in TIMED:
+        tbl, idx = (torch.from_numpy(a).to(device) for a in
+                    timed_inputs(case))
+        out[case] = PLAIN[TIMED[case][0]](tbl, idx)
+    return out
+
+
+def check(res):
+    """{name: True where every copy's output equals the plain version's
+    bit for bit}."""
+    device = next(iter(res.values()))["out"].device
+    plain = plain_outputs(device)
+    ok = {}
+    for name, r in res.items():
+        outs = [r["out"]] + ([r["out1"]] if "out1" in r else [])
+        want = plain[name if "ms" not in r else name.split(" ")[0]]
+        ok[name] = all(bool(torch.equal(o, want.expand_as(o))) for o in outs)
+    return ok
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="probe_gather")
+    common.add_args(p)
+    p.set_defaults(blocks=3)
+    args = p.parse_args(argv)
+    device = common.device_of(args, "probe_gather")
+    print(f"card: {common.card(device)}", flush=True)
+    res = measure(device, args.blocks)
+    ok = check(res)
+    print("== correctness")
+    for name, r in res.items():
+        if "ms" not in r:
+            what, shape = name.split(" ", 1)
+            label = (f"i32 lane gather {shape}" if what == "i32" else
+                     f"take_along_axis axis={what[-1]} {shape}")
+            print(f"  {label}: {'OK' if ok[name] else 'WRONG VALUES'}")
+    print("== throughput and page loops (one copy; the card full)")
+    for name, r in res.items():
+        if "ms" in r:
+            print(f"  {name}: {r['ns1']:.1f} ns/iter one copy (1024 rays); "
+                  f"{r['ns_sm']:.2f} ns/iter per SM with {r['copies']} "
+                  f"copies; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+                  f"{r['ms']:.4f} ms; {'OK' if ok[name] else 'WRONG'}",
+                  flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

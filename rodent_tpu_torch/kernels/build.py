@@ -7,12 +7,14 @@ anew and an unchanged one loads the built library. Only sources in the
 repository are used. Without nvcc (and without a built library) asking
 for a library raises: there is no fallback.
 
-Three libraries: "main" (bvh_traverse.cu) holds K1, K2 and K3, the kernels
+Four libraries: "main" (bvh_traverse.cu) holds K1, K2 and K3, the kernels
 of the render and benchmark paths; "options" (the same source with
 -DRT_OPTIONS) holds K4, the options of the legacy Pallas body; "tile"
 (bvh_tile.cu) holds K5 and K6, the traversals whose stack is shared by a
-tile of rays. Each is built at its first use, so that none delays K1's
-first launch; build_all() starts the three nvcc runs at once. A library's
+tile of rays; "probes" (probes.cu) holds the micro-probes of
+rodent_tpu_torch.experiments.probe_* and vpu_dtype_bench. Each is built at
+its first use, so that none delays K1's first launch; build_all() starts
+the four nvcc runs at once. A library's
 hash covers its source and the header it includes (bvh_common.cuh).
 
 -fmad=false keeps every float operation separately rounded, as the plain
@@ -39,9 +41,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library -> (its source in csrc/, its extra nvcc flags)
 LIBRARIES = {"main": ("bvh_traverse.cu", ()),
              "options": ("bvh_traverse.cu", ("-DRT_OPTIONS",)),
-             "tile": ("bvh_tile.cu", ())}
+             "tile": ("bvh_tile.cu", ()),
+             "probes": ("probes.cu", ())}
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
 # nodes, tris, rays, n, arity, packet, any_hit, stack_cap, t, u, v, prim,
 # geom: the arguments every traversal entry starts with
 _TRAVERSE = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -71,9 +75,32 @@ _ENTRIES = {
             ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P,
             _P, _P, _P, _P]),
     },
+    "probes": {
+        # probe, body, arg, arg2, blocks_per_sm (out)
+        "rt_probe_occupancy": (ctypes.c_int, [_I, _I, _I, _I, _P]),
+        # body, x, out, stream
+        "rt_probe_mosaic": (ctypes.c_int, [_I, _P, _P, _P]),
+        "rt_probe_mosaic2": (ctypes.c_int, [_I, _P, _P, _P]),
+        # body, tbl, idx, out, rows, axis, pages, smem, copies, stream
+        "rt_probe_gather": (ctypes.c_int, [_I, _P, _P, _P, _I, _I, _I, _I,
+                                           _I, _P]),
+        # mode, tab, out, copies, stream
+        "rt_probe_mosaic3": (ctypes.c_int, [_I, _P, _P, _I, _P]),
+        # mode, streams, tab, out, copies, stream
+        "rt_probe_chain": (ctypes.c_int, [_I, _I, _P, _P, _I, _P]),
+        # feats, tab, out, aux, zero, copies, stream
+        "rt_probe_body": (ctypes.c_int, [_I, _P, _P, _P, _I, _I, _P]),
+        # body, tab, out, copies, stream
+        "rt_probe_dyn_cost": (ctypes.c_int, [_I, _P, _P, _I, _P]),
+        # dtype, x, out, words, copies, c1, c2, c3, stream
+        "rt_probe_vpu": (ctypes.c_int, [_I, _P, _P, ctypes.c_longlong, _I,
+                                        ctypes.c_uint, ctypes.c_uint,
+                                        ctypes.c_uint, _P]),
+    },
 }
 
 _libs = {}  # library path -> loaded CDLL
+_loaded = {}  # (build directory, kind) -> loaded CDLL
 
 
 def find_nvcc():
@@ -136,7 +163,13 @@ def build_all(build_dir=None):
 
 def load_library(build_dir=None, kind="main"):
     """The kernel library `kind`, built on first use and loaded with
-    ctypes."""
+    ctypes. Its sources are hashed at the first call for each build
+    directory and kind only, since every launch asks for its library: a
+    source edited after that call is built by the next process."""
+    key = (str(build_dir or BUILD_DIR), kind)
+    lib = _loaded.get(key)
+    if lib is not None:
+        return lib
     path, _ = build(build_dir, kind)
     lib = _libs.get(path)
     if lib is None:
@@ -146,4 +179,5 @@ def load_library(build_dir=None, kind="main"):
             fn.restype = res
             fn.argtypes = args
         _libs[path] = lib
+    _loaded[key] = lib
     return lib

@@ -1,6 +1,7 @@
 """The CUDA kernels K1, K2 (prefetch), K3 (pop counters), K4 (the
-options of the legacy Pallas body), K5 (the tile-shared stack) and K6 (the
-pair layout) and the port's slices on a CUDA card.
+options of the legacy Pallas body), K5 (the tile-shared stack), K6 (the
+pair layout) and the micro-probes (csrc/probes.cu) and the port's slices
+on a CUDA card.
 
 Every test here is marked `cuda` and skips where torch sees no card. The
 file imports no jax, so it also runs where jax is not installed:
@@ -14,6 +15,10 @@ import pytest
 import torch
 
 from rodent_tpu_torch.accel import build_bvh
+from rodent_tpu_torch.experiments import (common, probe_body, probe_chain,
+                                          probe_dyn_cost, probe_gather,
+                                          probe_mosaic, probe_mosaic2,
+                                          probe_mosaic3, vpu_dtype_bench)
 from rodent_tpu_torch.render import film as film_mod
 from rodent_tpu_torch.render.camera import Camera
 from rodent_tpu_torch.render.compiler import compile_mesh
@@ -364,3 +369,55 @@ def test_tile_and_pair_refusals(card):
         packet.traverse_packet(dev16, rays, tile_rows=2)
     with pytest.raises(ValueError, match="Tri8 rows only"):
         pair.traverse_pair(dev16, rays)
+
+
+PROBES = {m.__name__.rsplit(".", 1)[1]: m for m in (
+    probe_mosaic, probe_mosaic2, probe_gather, probe_mosaic3, probe_chain,
+    probe_body, probe_dyn_cost, vpu_dtype_bench)}
+
+
+@pytest.mark.parametrize("name", list(PROBES))
+def test_probe_kernels_match_plain(card, name):
+    """Every body of the probe through its kernel, as its main() drives it
+    (the timed ones at one copy and at the copies that fill the card),
+    equal bit for bit to its plain version on the card, every copy."""
+    m = PROBES[name]
+    m.launches = 0
+    res = m.measure(card, blocks=1)
+    torch.cuda.synchronize()
+    assert m.launches >= len(res)
+    ok = m.check(res)
+    assert all(ok.values()), [k for k, v in ok.items() if not v]
+
+
+def test_vpu_sass_counts(card):
+    """The SASS of the vpu kernels holds a loop, and float32's body is the
+    probe's 4 operations per value and iteration."""
+    from rodent_tpu_torch.kernels.build import load_library
+    load_library(kind="probes")
+    counts = vpu_dtype_bench.sass_counts()
+    assert set(counts) == set(vpu_dtype_bench.DTYPES)
+    assert counts["float32"][0] == 4, counts["float32"]
+
+
+def test_probe_refusals(card):
+    x = probe_mosaic.inputs(card)
+    with pytest.raises(ValueError):
+        probe_mosaic.run("dot", x[:8].contiguous())
+    with pytest.raises(ValueError):
+        probe_mosaic2.run("dot_in_loop", x.double())
+    tbl, idx = (torch.from_numpy(a).to(card)
+                for a in probe_gather.timed_inputs("pages4"))
+    with pytest.raises(ValueError, match="shared memory"):
+        probe_gather.run("pages4", tbl, idx, shared=True)
+    out = torch.empty(1, 8, 128, dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        common.probe_call("rt_probe_gather", 3, tbl.data_ptr(),
+                          idx.data_ptr(), out.data_ptr(), 8, 1, 4, 1, 1)
+    with pytest.raises(ValueError):
+        probe_body.run(("push8", "sort"), probe_body.inputs(card))
+    with pytest.raises(ValueError):
+        probe_chain.run("chase", 3, probe_chain.inputs(card))
+    with pytest.raises(ValueError):
+        vpu_dtype_bench.run("float32", vpu_dtype_bench.inputs("float32", 1,
+                                                              card))

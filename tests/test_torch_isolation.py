@@ -26,10 +26,12 @@ def _run(args, cwd):
 
 
 def test_port_imports_no_jax():
-    """Every rodent_tpu_torch module and chip_smoke import without jax and
-    without any module of the JAX package rodent_tpu, whose host code the
-    port keeps its own copy of (checked in a fresh interpreter: the test
-    process itself has both loaded)."""
+    """Every rodent_tpu_torch module and chip_smoke import without jax,
+    without any module of the JAX package rodent_tpu (whose host code the
+    port keeps its own copy of) and without experiments/, and importing
+    them loads no kernel library, so no micro-probe runs at import
+    (checked in a fresh interpreter: the test process itself has both
+    packages loaded)."""
     names = [m.name for m in pkgutil.walk_packages(
         rodent_tpu_torch.__path__, "rodent_tpu_torch.")]
     for name in ("traversal.packet", "render.integrator", "render.compiler",
@@ -39,15 +41,21 @@ def test_port_imports_no_jax():
                  "experiments.ablate_packet", "experiments.measure_packet",
                  "experiments.cost_model", "experiments.attribute_bigscene",
                  "traversal.pair", "experiments.measure_pair",
-                 "experiments.ablate_pair"):
+                 "experiments.ablate_pair", "experiments.probe_mosaic",
+                 "experiments.probe_mosaic2", "experiments.probe_gather",
+                 "experiments.probe_mosaic3", "experiments.probe_chain",
+                 "experiments.probe_body", "experiments.probe_dyn_cost",
+                 "experiments.vpu_dtype_bench"):
         assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
             "import chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "             ('jax', 'jaxlib', 'rodent_tpu'))\n"
+            "             ('jax', 'jaxlib', 'rodent_tpu', 'experiments'))\n"
             "assert not bad, bad\n"
+            "from rodent_tpu_torch.kernels import build\n"
+            "assert not build._libs, build._libs\n"
             "print('clean')\n")
     res = _run(["-c", code], REPO)
     assert res.returncode == 0, res.stderr

@@ -1,0 +1,351 @@
+"""The port's micro-probes (rodent_tpu_torch.experiments.probe_*,
+vpu_dtype_bench) against the JAX probes of experiments/ on the CPU.
+
+Each case puts the JAX file's own inputs (its seeds) through the unchanged
+JAX body in Pallas interpret mode and through the port's plain version,
+and asks for equality, bit for bit, except where a test says that XLA
+contracts a multiply into the add after it (ROADMAP C2).
+
+The JAX files are not imported: three of them run their TPU measurements
+at import, and all of them point jax's persistent compilation cache at a
+directory outside the repository. Each is parsed instead, and its imports,
+assignments and function definitions are executed (load_probe); the
+bodies are then called through pl.pallas_call with the specs of the file's
+own run function plus interpret=True.
+
+On a CUDA card the kernels are held against the plain versions by
+tests/test_torch_cuda.py and chip_smoke.py phase 13.
+"""
+import ast
+import functools
+import os
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from rodent_tpu_torch.experiments import (probe_body, probe_chain,
+                                          probe_dyn_cost, probe_gather,
+                                          probe_mosaic, probe_mosaic2,
+                                          probe_mosaic3, vpu_dtype_bench)
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_LOADED = {}
+
+
+def load_probe(name):
+    """The namespace of experiments/<name>.py after its imports,
+    assignments and function definitions alone."""
+    if name not in _LOADED:
+        path = os.path.join(REPO, "experiments", f"{name}.py")
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        keep = [n for n in tree.body
+                if isinstance(n, (ast.Import, ast.ImportFrom, ast.Assign,
+                                  ast.FunctionDef))]
+        ns = {"__name__": f"jax_{name}"}
+        exec(compile(ast.Module(keep, []), path, "exec"), ns)
+        _LOADED[name] = ns
+    return _LOADED[name]
+
+
+def _mosaic_x():
+    return jnp.arange(128 * 16, dtype=jnp.float32).reshape(16, 128) / 7.0
+
+
+# probe_mosaic.py main (:106-115): body -> (kernel, scratch)
+MOSAIC = {"dot": ("k_dot", []), "dynroll": ("k_dynroll", []),
+          "dynstore": ("k_dynstore", [pltpu.VMEM((8, 128), jnp.float32)]),
+          "dynstore_odd": ("k_dynstore_odd",
+                           [pltpu.VMEM((34, 128), jnp.float32)]),
+          "smem_dyn": ("k_smem_dyn", [pltpu.SMEM((34,), jnp.int32)]),
+          "nested": ("k_nested", []), "argmin_lane": ("k_argmin_lane", [])}
+
+
+@pytest.mark.parametrize("body", list(probe_mosaic.BODIES))
+def test_mosaic_matches_jax(body):
+    ns = load_probe("probe_mosaic")
+    kern, scratch = MOSAIC[body]
+    want = np.asarray(pl.pallas_call(
+        ns[kern], out_shape=ns["O"], scratch_shapes=list(scratch),
+        interpret=True)(_mosaic_x()))
+    x = probe_mosaic.inputs()
+    np.testing.assert_array_equal(x.numpy(), np.asarray(_mosaic_x()))
+    got = probe_mosaic.run(body, x).numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+# probe_mosaic2.py main and main2 (:138-179): body -> (kernel, scratch)
+MOSAIC2 = {
+    "dot_in_loop": ("k_dot_in_loop", []),
+    "dynroll_in_loop": ("k_dynroll_in_loop", []),
+    "dynstore_in_while": ("k_dynstore_in_while", [
+        pltpu.VMEM((8, 128), jnp.float32), pltpu.SMEM((8,), jnp.int32)]),
+    "stack_machine": ("k_stack_machine", [
+        pltpu.VMEM((8, 128), jnp.float32), pltpu.VMEM((8, 128), jnp.float32),
+        pltpu.SMEM((8,), jnp.int32)]),
+    "dynstore8_in_while": ("k_dynstore8_in_while", [
+        pltpu.VMEM((64, 128), jnp.float32), pltpu.SMEM((8,), jnp.int32)])}
+
+
+@pytest.mark.parametrize("body", list(probe_mosaic2.BODIES))
+def test_mosaic2_matches_jax(body):
+    """Bit for bit, but dot_in_loop: XLA's CPU backend may contract the
+    dot's products into its sum and `dot * 1e-6` into `acc +` (ROADMAP
+    C2), where the port rounds each operation, so it is held to rtol
+    1e-6."""
+    ns = load_probe("probe_mosaic2")
+    kern, scratch = MOSAIC2[body]
+    want = np.asarray(pl.pallas_call(
+        ns[kern], out_shape=jax.ShapeDtypeStruct((16, 128), jnp.float32),
+        scratch_shapes=list(scratch), interpret=True)(_mosaic_x()))
+    got = probe_mosaic2.run(body, probe_mosaic.inputs()).numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if body == "dot_in_loop":
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    else:
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+
+
+def _interpret_recording(calls):
+    """pl.pallas_call with interpret=True whose calls outside jit append
+    their outputs to `calls`."""
+    orig = pl.pallas_call
+
+    def call(*a, **k):
+        fn = orig(*a, **{**k, "interpret": True})
+
+        def rec(*args):
+            out = fn(*args)
+            if not isinstance(out, jax.core.Tracer):   # not under jit
+                calls.append(np.asarray(out))
+            return out
+        return rec
+    return call
+
+
+def _jax_gather():
+    """Every output of probe_gather.py's probes in order: probe_correct's
+    six, probe_i32's, probe_throughput's chain and 56-field block,
+    probe_pages' four (its bench() kept to one call)."""
+    if "gather" not in _LOADED:
+        ns = load_probe("probe_gather")
+        calls = []
+
+        def bench(fn, *args, iters=20):
+            calls.append(np.asarray(fn(*args)))
+            return 1.0
+        with mock.patch.object(pl, "pallas_call",
+                               _interpret_recording(calls)), \
+                mock.patch.dict(ns, {"bench": bench}):
+            for probe in ("probe_correct", "probe_i32", "probe_throughput",
+                          "probe_pages"):
+                ns[probe]()
+        _LOADED["gather"] = calls
+    return _LOADED["gather"]
+
+
+GATHER = ([f"axis{a} {s}" for s, a in probe_gather.CORRECT]
+          + ["i32 (8, 128)"] + list(probe_gather.TIMED))
+
+
+@pytest.mark.parametrize("case", GATHER)
+def test_gather_matches_jax(case):
+    want = _jax_gather()[GATHER.index(case)]
+    if case in probe_gather.TIMED:
+        tbl, idx = probe_gather.timed_inputs(case)
+        got = probe_gather.run(case, torch.from_numpy(tbl),
+                               torch.from_numpy(idx), copies=2)
+        assert got.shape == (2, 8, 128)
+        got = got[1]
+    elif case.startswith("i32"):
+        tbl, idx = probe_gather.i32_inputs()
+        got = probe_gather.run_take(torch.from_numpy(tbl),
+                                    torch.from_numpy(idx), 1)
+    else:
+        shape, axis = probe_gather.CORRECT[GATHER.index(case)]
+        tbl, idx = probe_gather.correct_inputs(shape, axis)
+        got = probe_gather.run_take(torch.from_numpy(tbl),
+                                    torch.from_numpy(idx), axis)
+    got = got.numpy()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def _jax_mosaic3(mode):
+    """_kernel (modes none, extract, slice) or _kernel2 (the dep- modes)
+    with the specs of run (:56-61) or run2 (:108-113)."""
+    ns = load_probe("probe_mosaic3")
+    dep = mode.startswith("dep")
+    fn = pl.pallas_call(
+        functools.partial(ns["_kernel2" if dep else "_kernel"], mode=mode),
+        out_shape=jax.ShapeDtypeStruct((ns["R"], 128), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM), interpret=True)
+    return np.asarray(fn(jnp.asarray(probe_mosaic3.inputs(mode).numpy())))
+
+
+@pytest.mark.parametrize("mode", probe_mosaic3.MODES)
+def test_mosaic3_matches_jax(mode):
+    """Bit for bit. The dep- modes add lane 0 of the permutation table,
+    int32 bits read as float32: subnormals, which XLA's CPU backend
+    flushes to zero (ROADMAP C6) and torch and the card keep; the plain
+    version runs here with torch's flush on to match (torch's default,
+    and the kernel's, is to keep them)."""
+    want = _jax_mosaic3(mode)
+    tab = probe_mosaic3.inputs(mode)
+    flush = mode.startswith("dep")
+    if flush:
+        assert torch.set_flush_denormal(True)
+    try:
+        got = probe_mosaic3.run(mode, tab, copies=2).numpy()
+    finally:
+        torch.set_flush_denormal(False)
+    assert got.shape == (2,) + want.shape
+    np.testing.assert_array_equal(got[1].view(np.int32), want.view(np.int32))
+
+
+def _jax_scalar_out(ns, kernel, tab, scratch):
+    """A probe whose output is one int32 in SMEM, with run's specs
+    (probe_chain.py:80-86, probe_body.py:107-113)."""
+    fn = pl.pallas_call(
+        kernel, out_shape=jax.ShapeDtypeStruct((1,), jnp.int32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.SMEM),
+        scratch_shapes=scratch, interpret=True)
+    return np.asarray(fn(jnp.asarray(tab.numpy())))
+
+
+@pytest.mark.parametrize("mode", probe_chain.MODES)
+@pytest.mark.parametrize("streams", probe_chain.STREAMS)
+def test_chain_matches_jax(mode, streams):
+    """All 2,048 steps, bit for bit. chase+smem-shared is the card's second
+    form of the JAX mode chase+smem (the stack in shared memory rather
+    than per-thread local memory): the same JAX body."""
+    ns = load_probe("probe_chain")
+    want = _jax_scalar_out(
+        ns, functools.partial(ns["_kernel"], streams=streams,
+                              mode=mode.replace("-shared", "")),
+        probe_chain.inputs(), [pltpu.SMEM((max(streams, 1),), jnp.int32)])
+    got = probe_chain.run(mode, streams, probe_chain.inputs(), copies=3)
+    assert got.shape == (3,) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy()[2:], want)
+
+
+def test_body_sort_network_is_the_jax_bodys():
+    """probe_body's network is the port's _SORT_NETWORKS[8], the one the
+    JAX body imports from rodent_tpu.traversal.tiled."""
+    from rodent_tpu.traversal.tiled import _SORT_NETWORKS
+    from rodent_tpu_torch.traversal import api
+    assert [tuple(p) for p in api._SORT_NETWORKS[8]] == [
+        tuple(p) for p in _SORT_NETWORKS[8]]
+
+
+@pytest.mark.parametrize("feats", probe_body.CASES,
+                         ids=[probe_body.name(f) for f in probe_body.CASES])
+def test_body_matches_jax(feats):
+    """All 2,048 steps, bit for bit: the output (idx + i) of the JAX body,
+    whose buffers and stack the output does not read."""
+    ns = load_probe("probe_body")
+    want = _jax_scalar_out(ns, functools.partial(ns["_kernel"], feats=feats),
+                           probe_body.inputs(),
+                           [pltpu.SMEM((16,), jnp.int32)])
+    out, aux = probe_body.run(feats, probe_body.inputs(), copies=2)
+    assert out.shape == (2,) and aux.shape == (2, 6)
+    np.testing.assert_array_equal(out.numpy()[1:], want)
+
+
+def _interpret(*a, _orig=pl.pallas_call, **k):
+    return _orig(*a, **{**k, "interpret": True})
+
+
+# probe_dyn_cost.py main (:86-94): body -> (body function, scratch)
+DYN = {"static": ("b_static", []), "dyn1": ("b_dyn1", []),
+       "dyn4": ("b_dyn4", []), "dynrow1": ("b_dynrow1", []),
+       "async4": ("b_async4", [pltpu.VMEM((32, 128), jnp.float32),
+                               pltpu.SemaphoreType.DMA((4,))])}
+
+
+@pytest.mark.parametrize("body", list(probe_dyn_cost.BODIES))
+def test_dyn_cost_matches_jax(body):
+    """All 2,000 iterations, bit for bit (adds only, in the same order)."""
+    ns = load_probe("probe_dyn_cost")
+    fn, scratch = DYN[body]
+    tab = probe_dyn_cost.inputs()
+    with mock.patch.object(pl, "pallas_call", _interpret):
+        want = np.asarray(ns["make"](ns[fn], scratch)(jnp.asarray(
+            tab.numpy())))
+    np.testing.assert_array_equal(
+        tab.numpy(), np.asarray(jnp.arange(4096 * 128, dtype=jnp.float32)
+                                .reshape(4096, 128) * 1e-9))
+    got = probe_dyn_cost.run(body, tab, copies=2).numpy()
+    assert got.shape == (2, 8, 128)
+    np.testing.assert_array_equal(got[1].view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("dtype,rows", vpu_dtype_bench.CASES)
+def test_vpu_matches_jax(dtype, rows):
+    """All 2,000 rounds, bit for bit. On this input every value stays 1 in
+    every type (x * c1 - c2 is 1.000001 - 0.5 or 1 - 0, below x, and x is
+    below 100), so torch's bfloat16, which rounds each operation through
+    float32, and the card's __hmul2 family, which rounds once, agree."""
+    ns = load_probe("vpu_dtype_bench")
+    jdt = getattr(jnp, dtype)
+    with mock.patch.object(pl, "pallas_call", _interpret):
+        want = np.asarray(ns["make"](jdt, rows)(jnp.ones((rows, 128), jdt)))
+    assert [float(c) for c in vpu_dtype_bench.constants(dtype)] == [
+        float(jnp.asarray(c, jdt)) for c in vpu_dtype_bench.CONSTS]
+    got = vpu_dtype_bench.run(dtype, vpu_dtype_bench.inputs(dtype, rows),
+                              copies=2)
+    assert got.shape == (2, rows, 128)
+    got = got[1].float().numpy() if dtype == "bfloat16" else got[1].numpy()
+    np.testing.assert_array_equal(got, want.astype(got.dtype))
+
+
+MODULES = (probe_mosaic, probe_mosaic2, probe_gather, probe_mosaic3,
+           probe_chain, probe_body, probe_dyn_cost, vpu_dtype_bench)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On CPU tensors every wrapper returns its plain version's output and
+    launches nothing: each module's counter stays 0."""
+    for m in MODULES:
+        m.launches = 0
+    x = probe_mosaic.inputs()
+    for b in probe_mosaic.BODIES:
+        assert torch.equal(probe_mosaic.run(b, x), probe_mosaic.PLAIN[b](x))
+    for b in probe_mosaic2.BODIES:
+        assert torch.equal(probe_mosaic2.run(b, x),
+                           probe_mosaic2.PLAIN[b](x))
+    tbl, idx = probe_gather.i32_inputs()
+    probe_gather.run_take(torch.from_numpy(tbl), torch.from_numpy(idx), 1)
+    tbl, idx = probe_gather.timed_inputs("pages4")
+    out = probe_gather.run("pages4", torch.from_numpy(tbl),
+                           torch.from_numpy(idx), copies=2, shared=False)
+    assert torch.equal(out[0], probe_gather.plain_pages(
+        torch.from_numpy(tbl), torch.from_numpy(idx)))
+    probe_mosaic3.run("none", probe_mosaic3.inputs("none"))
+    probe_chain.run("chase", 1, probe_chain.inputs())
+    probe_dyn_cost.run("dyn1", probe_dyn_cost.inputs())
+    vpu_dtype_bench.run("int16", vpu_dtype_bench.inputs("int16", 256))
+    assert [m.launches for m in MODULES] == [0] * len(MODULES)
+
+
+def test_mosaic_main_on_the_cpu(capsys):
+    """main() --cpu runs the plain versions and prints the JAX file's
+    lines (the cheaper probes; the others' plain versions take seconds at
+    their full sizes)."""
+    assert probe_mosaic.main(["--cpu"]) == 0
+    assert probe_mosaic2.main(["--cpu"]) == 0
+    assert probe_dyn_cost.main(["--cpu", "--blocks", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "dot_broadcast: OK" in out and "stack_machine: OK  19.000" in out
+    assert "async copy x4 overlap:" in out and "WRONG" not in out
