@@ -29,7 +29,8 @@ calls real, and checks it:
    path length 20 under the port's select_render_policy (K2, pool sort),
    three iterations, with every kernel's launch count read around them,
    then one iteration with a 16x larger pool for comparison;
-10. the hall golden gate through render_iteration_persistent (K1);
+10. the hall and crown golden gates through render_iteration_persistent
+   (K1);
 11. the attribution path (rodent_tpu_torch.experiments): K4 against the
    plain version on two soups with multi-row leaves, every option; then
    on hall-260K and powerplant-4.3M, every option against K3 in turns on
@@ -55,7 +56,19 @@ calls real, and checks it:
    copy (the TPU's one program) and at the copies that fill the card; every
    copy's output held bit for bit against the plain version; a table of
    their times beside the card's SM clock, and the vpu kernels' op counts
-   read from their SASS.
+   read from their SASS;
+14. K1/K2/K3's two bodies, built together into the "group" library
+   (-DRT_GROUP; rodent_tpu_torch.experiments.ab_body), which no renderer
+   runs: the group stack and the first body held bit for bit against the
+   plain version on the soups of phase 3, the tie scenes, hall-260K's 1M
+   primaries and powerplant-4.3M's primaries and ao rays (K2 equal to K1,
+   K3's counters equal to the plain counters), then timed in turns at the
+   widths the port launches them: hall's primaries, ao and bounce rays,
+   the launches of one render_iteration sample of phase 5 (each of the
+   first three, and all of them back to back), powerplant's primaries (K1,
+   K2, K3) and one step of phase 9's 32K pool (K2: its closest-hit and
+   any-hit launch, and the two back to back), with their registers, local
+   memory and resident warps.
 
 Every kernel's time stands beside its bound, the least time the card
 could take for the same pops and the table rows they read
@@ -93,7 +106,6 @@ BIG_ROWS = (2, 16)
 # the plain version steps once per pop: it checks the whole tiles that pop
 # at most this often
 PLAIN_POPS = 1000
-BIG_CAM = ((-30.0, 60.0, -30.0), (130.0, -40.0, 130.0), (0, 1, 0), 55.0)
 
 
 def log(msg):
@@ -171,6 +183,7 @@ def phase_build():
     built = build_all()
     dt = time.perf_counter() - t0
     what = {"main": "K1, K2 and K3", "options": "K4 (-DRT_OPTIONS)",
+            "group": "K1-K3's two bodies (-DRT_GROUP, phase 14)",
             "tile": "K5 and K6", "probes": "the micro-probes"}
     for kind, (path, nvcc_log) in built.items():
         load_library(kind=kind)
@@ -193,11 +206,12 @@ def phase_build():
     log(f"[2] all {len(built)} libraries built at once in {dt:.1f} s")
 
 
-def phase_soups(device):
+def soups(device):
+    """Phase 3's soups: (name, device tables, closest-hit rays, any-hit
+    rays) for BVH2/4/8 with Tri4/8/16 rows, 8,192 rays each (axis-parallel
+    and dead ones among them; any-hit rays end at t 2)."""
     from rodent_tpu_torch.accel import build_bvh
     from rodent_tpu_torch.traversal import api
-    from rodent_tpu_torch.traversal.packet import traverse_packet
-    err = 0.0
     for arity in (2, 4, 8):
         for m in (4, 8, 16):
             verts, idx = random_tri_soup(2000, seed=10 * arity + m)
@@ -210,18 +224,25 @@ def phase_soups(device):
             d[64:128, 1:] = 0.0
             tmax = np.full(8192, 1e30, np.float32)
             tmax[128:160] = -1.0     # dead rays
-            rays = api.make_rays(org, d, 0.0, tmax, device=device)
-            k = traverse_packet(dev, rays)
-            p = api.traverse(dev, rays)
-            ties, e = compare_hits(k, p, f"soup A{arity} M{m}")
-            check(ties == 0, f"soup A{arity} M{m}: {ties} prim_id ties")
-            err = max(err, e)
-            short = api.make_rays(org, d, 0.0, np.minimum(tmax, 2.0),
-                                  device=device)
-            ka = traverse_packet(dev, short, any_hit=True)["prim_id"] >= 0
-            pa = api.traverse(dev, short, any_hit=True)["prim_id"] >= 0
-            check(bool(torch.equal(ka, pa)),
-                  f"soup A{arity} M{m}: any-hit hit/miss differs")
+            yield (f"soup A{arity} M{m}", dev,
+                   api.make_rays(org, d, 0.0, tmax, device=device),
+                   api.make_rays(org, d, 0.0, np.minimum(tmax, 2.0),
+                                 device=device))
+
+
+def phase_soups(device):
+    from rodent_tpu_torch.traversal import api
+    from rodent_tpu_torch.traversal.packet import traverse_packet
+    err = 0.0
+    for name, dev, rays, short in soups(device):
+        k = traverse_packet(dev, rays)
+        p = api.traverse(dev, rays)
+        ties, e = compare_hits(k, p, name)
+        check(ties == 0, f"{name}: {ties} prim_id ties")
+        err = max(err, e)
+        ka = traverse_packet(dev, short, any_hit=True)["prim_id"] >= 0
+        pa = api.traverse(dev, short, any_hit=True)["prim_id"] >= 0
+        check(bool(torch.equal(ka, pa)), f"{name}: any-hit hit/miss differs")
     log(f"[3] K1 == plain on 9 soups (A 2/4/8 x M 4/8/16), closest-hit "
         f"and any-hit: prim_id identical, max |dt,du,dv| {err:.3g}")
 
@@ -478,6 +499,12 @@ def phase_bigscene_traversal(device, scene, side=1024):
 
 
 def phase_bigscene_render(device, scene, w=1920, h=1088):
+    """[9] The persistent render of powerplant-4.3M under the policy (K2
+    alone). Returns K2's launches and the two launches of iteration 0's
+    step ab_body.POOL_STEP (ab_body.pool_launches), which phase 14
+    times."""
+    import contextlib
+    from rodent_tpu_torch.experiments import ab_body, common
     from rodent_tpu_torch.render import film as film_mod
     from rodent_tpu_torch.render.camera import Camera
     from rodent_tpu_torch.render.compiler import select_render_policy
@@ -488,16 +515,18 @@ def phase_bigscene_render(device, scene, w=1920, h=1088):
     policy = select_render_policy(scene.device)
     check(policy == {"packet": "hbm", "sort": "pool"},
           f"powerplant policy {policy}")
-    cam = Camera.make(*BIG_CAM, w, h)
+    cam = Camera.make(*common.BIG_CAM, w, h)
     film = film_mod.new_film(w, h, device)
     secs, steps = [], []
     packet.reset_launches()
+    capture = ab_body.pool_capture()
     for it in range(iters):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        film, n_steps = render_iteration_persistent(
-            scene.device, cam, film, w, h, spp, it, return_steps=True,
-            **policy)
+        with capture if it == 0 else contextlib.nullcontext():
+            film, n_steps = render_iteration_persistent(
+                scene.device, cam, film, w, h, spp, it, return_steps=True,
+                **policy)
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         steps.append(n_steps)
@@ -531,10 +560,14 @@ def phase_bigscene_render(device, scene, w=1920, h=1088):
     check(bool(torch.isfinite(film2).all()), "pool comparison: not finite")
     log(f"[9] the same at pool {big_pool}: {dt:.3f} s = "
         f"{w * h * spp / dt / 1e6:.3f} Msamples/s, {n_steps} steps")
-    return launches["bvh_traverse_prefetch"]
+    return (launches["bvh_traverse_prefetch"],
+            ab_body.pool_launches(capture))
 
 
 def phase_golden_persistent(device):
+    """[10] The golden gates of hall and crown (experiments/make_goldens.py's
+    configurations) through render_iteration_persistent with packet=True,
+    on the routed K1."""
     from rodent_tpu_torch.io import png
     from rodent_tpu_torch.utils import testscenes
     from rodent_tpu_torch.render import film as film_mod
@@ -545,33 +578,40 @@ def phase_golden_persistent(device):
     from rodent_tpu_torch.traversal import packet
     gdir = os.path.join(REPO, "tests", "golden")
     with open(os.path.join(gdir, "golden_meta.json")) as f:
-        m = json.load(f)["hall"]
-    verts, idx = testscenes.make_hall(m["tris"])
-    scene = compile_mesh(verts, idx, device, max_path_len=8,
-                         emitter="inside")
-    w, h = m["w"], m["h"]
-    cam = Camera.make((2.5, 5.0, 5.0), (1.0, -0.12, 0.02), (0, 1, 0), 60.0,
-                      w, h)
-    film = film_mod.new_film(w, h, device)
-    packet.reset_launches()
-    for it in range(m["test_iters"]):
-        film = render_iteration_persistent(scene.device, cam, film, w, h,
-                                           m["spp"], it, packet=True)
-    check(packet.launches["bvh_traverse"] > 0
-          and packet.launches["bvh_traverse_prefetch"] == 0,
-          f"persistent golden: launches {packet.launches}")
-    img = film_mod.tonemap(film, w, h, m["test_iters"])
-    golden = png.read_png(os.path.join(gdir, "hall.png"))[..., :3]
-    mse = film_mod.mse_u8(golden, img)
-    gate = 3.0 * m["calib_mse_u8"] + 1.0
-    check(mse <= gate, f"persistent golden: MSE {mse:.1f} over the gate "
-          f"{gate:.1f}")
-    check(abs(float(img.mean()) - m["mean_u8"]) < 0.5 * m["mean_u8"],
-          f"persistent golden: image mean {img.mean():.1f} vs "
-          f"{m['mean_u8']}")
-    log(f"[10] hall golden gate through render_iteration_persistent "
-        f"(K1, {packet.launches['bvh_traverse']} launches): MSE "
-        f"{mse:.2f} <= {gate:.2f}")
+        meta = json.load(f)
+    scenes = {"hall": (testscenes.make_hall, "inside",
+                       ((2.5, 5.0, 5.0), (1.0, -0.12, 0.02))),
+              "crown": (testscenes.make_crown, "above",
+                        ((4.2, 1.8, 1.2), (-4.2, -1.4, -1.2)))}
+    fovs = {"hall": 60.0, "crown": 42.0}
+    for name, (make, emitter, (eye, look)) in scenes.items():
+        m = meta[name]
+        verts, idx = make(m["tris"])
+        scene = compile_mesh(verts, idx, device, max_path_len=8,
+                             emitter=emitter)
+        w, h = m["w"], m["h"]
+        cam = Camera.make(eye, look, (0, 1, 0), fovs[name], w, h)
+        film = film_mod.new_film(w, h, device)
+        packet.reset_launches()
+        for it in range(m["test_iters"]):
+            film = render_iteration_persistent(scene.device, cam, film, w, h,
+                                               m["spp"], it, packet=True)
+        check(packet.launches["bvh_traverse"] > 0
+              and packet.launches["bvh_traverse_prefetch"] == 0,
+              f"persistent golden {name}: launches {packet.launches}")
+        img = film_mod.tonemap(film, w, h, m["test_iters"])
+        golden = png.read_png(os.path.join(gdir, f"{name}.png"))[..., :3]
+        mse = film_mod.mse_u8(golden, img)
+        gate = 3.0 * m["calib_mse_u8"] + 1.0
+        check(mse <= gate, f"persistent golden {name}: MSE {mse:.1f} over "
+              f"the gate {gate:.1f}")
+        check(abs(float(img.mean()) - m["mean_u8"]) < 0.5 * m["mean_u8"],
+              f"persistent golden {name}: image mean {img.mean():.1f} vs "
+              f"{m['mean_u8']}")
+        log(f"[10] {name} golden gate through render_iteration_persistent "
+            f"(K1, {packet.launches['bvh_traverse']} launches): MSE {mse:.2f} <= "
+            f"{gate:.2f}, image mean {img.mean():.2f} (golden "
+            f"{m['mean_u8']})")
 
 
 def options_for(any_hit, nonodetest=True):
@@ -1136,6 +1176,70 @@ def phase_probes(device):
     return entries
 
 
+def phase_bodies(device, hall, verts, idx, big_bvh, big_prim, big_ao, pool):
+    """[14] K1/K2/K3's two bodies, from the group library: every check of
+    ab_body (both bodies bit for bit against the plain version) on the
+    soups of phase 3, the tie scenes, hall's primaries and powerplant's
+    primaries and ao; then the A/B in turns at the render and benchmark
+    widths: hall's distributions, the launches of one render_iteration
+    sample of phase 5 (captured here) and the pool step of phase 9
+    (`pool`). Returns {kernel name: {width: both bodies' ms, the bound,
+    their resources}}, the kernels line's "variants"."""
+    from rodent_tpu_torch.experiments import ab_body, common
+    from rodent_tpu_torch.traversal import api
+    t0 = time.perf_counter()
+    ab_body.reset_launches()
+    hall_bvh = hall.device["bvh"]
+    hall_dists = common.distributions("hall", verts, idx, hall_bvh, 1024,
+                                      device, ("primary", "ao", "bounces"))
+    runs = 0
+    for name, dev, rays, short in soups(device):
+        for any_hit, r in ((False, rays), (True, short)):
+            ab_body.check_bodies(dev, api.components(r), any_hit, name)
+            runs += 1
+    ties = ab_body.check_ties(device)
+    ab_body.check_bodies(hall_bvh, hall_dists["primary"][0], False,
+                         "hall primary")
+    ab_body.check_bodies(big_bvh, big_prim, False, "powerplant primary")
+    ab_body.check_bodies(big_bvh, big_ao, True, "powerplant ao")
+    log(f"[14] both bodies == plain bit for bit (K2 == K1, K3's counters == "
+        f"plain) on {runs} soup runs, the tie scenes (rays that hit: "
+        f"{ties}; the first of two equal hits kept), hall's "
+        f"{hall_dists['primary'][0][4].shape[0]} primaries, powerplant's "
+        f"{big_prim[4].shape[0]} primaries and {big_ao[4].shape[0]} ao rays "
+        f"({time.perf_counter() - t0:.1f} s)")
+    widths = ab_body.widths_of(hall_bvh, hall_dists,
+                               ab_body.hall_render_rays(hall), big_bvh,
+                               big_prim, pool)
+    caps = ab_body.caps_of(hall_bvh)
+    check(caps == ab_body.caps_of(big_bvh),
+          f"powerplant takes other stacks than hall: "
+          f"{ab_body.caps_of(big_bvh)}")
+    table = ab_body.resource_table(caps)
+    clock0 = sm_clock()
+    t0 = time.perf_counter()
+    res = ab_body.measure(device, widths, blocks=3)
+    log(f"[14] A/B of {len(res)} widths in {time.perf_counter() - t0:.1f} s "
+        f"(SM clock, power before: {clock0}; after: {sm_clock()}); group "
+        f"library launches in this phase: {ab_body.launches}")
+    check(all(ab_body.launches.values()),
+          f"a body or kernel was never launched: {ab_body.launches}")
+    for line in ab_body.report(res, table, {"hall": 8, "powerplant": 24}):
+        log(f"[14] {line}")
+    variants = {}
+    for (scene, label, var), r in res.items():
+        name = {"K1": "bvh_traverse", "K2": "bvh_traverse_prefetch",
+                "K3": "bvh_traverse_count"}[var]
+        entry = {body: r[body] for body in ab_body.BODIES}
+        entry.update(bound_ms=r["bound"][0], rays=r["n"],
+                     pops_ray=r["pops_ray"])
+        entry["resources"] = {
+            body: table[(body, var, 8, 8 if scene == "hall" else 24,
+                         r["any_hit"])] for body in ab_body.BODIES}
+        variants.setdefault(name, {})[f"{scene} {label}"] = entry
+    return variants
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -1163,12 +1267,12 @@ def main():
                                                                   scene)
     launches = phase_render(device, scene)
     phase_golden(device)
-    hall_bvh = bvh
+    hall, hall_bvh = scene, bvh          # phase 14 renders hall once more
     del scene, bvh
     big = phase_bigscene(device)
     (big_ms, big_plain_ms, big_err, k3_launches, bounds, big_prim,
      big_ao) = phase_bigscene_traversal(device, big)
-    k2_launches = phase_bigscene_render(device, big)
+    k2_launches, pool = phase_bigscene_render(device, big)
     big_bvh = big.device["bvh"]
     del big
     phase_golden_persistent(device)
@@ -1193,26 +1297,35 @@ def main():
     t_probe = time.perf_counter()
     probe_entries = phase_probes(device)
     log(f"[13] the probe phase took {time.perf_counter() - t_probe:.1f} s")
+    t_bodies = time.perf_counter()
+    bodies = phase_bodies(device, hall, verts, idx, big_bvh, big_prim,
+                          big_ao, pool)
+    log(f"[14] the body phase took {time.perf_counter() - t_bodies:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     src = "rodent_tpu_torch/csrc/bvh_traverse.cu"
     pallas = "rodent_tpu/traversal/pallas_packet.py"
-    # no PyTorch call computes a BVH traversal: library_ms is null
+    # no PyTorch call computes a BVH traversal: library_ms is null. K1-K3
+    # run the first body; "variants" holds both bodies' times from phase
+    # 14
     log(json.dumps({"kernels": [
         {"name": "bvh_traverse", "route": "cuda", "source": src,
          "replaces": f"{pallas}:878", "launches": launches,
          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
-         "library_ms": None},
+         "library_ms": None,
+         "variants": bodies["bvh_traverse"]},
         {"name": "bvh_traverse_prefetch", "route": "cuda", "source": src,
          "replaces": f"{pallas}:96", "launches": k2_launches,
          "max_abs_err": big_err, "ms": big_ms["K2"],
          "plain_ms": big_plain_ms, "bound_ms": bounds["K2"][0],
-         "bound_by": bounds["K2"][1], "library_ms": None},
+         "bound_by": bounds["K2"][1], "library_ms": None,
+         "variants": bodies["bvh_traverse_prefetch"]},
         {"name": "bvh_traverse_count", "route": "cuda", "source": src,
          "replaces": f"{pallas}:395", "launches": k3_launches,
          "max_abs_err": big_err, "ms": big_ms["K3"],
          "plain_ms": big_plain_ms, "bound_ms": bounds["K3"][0],
-         "bound_by": bounds["K3"][1], "library_ms": None},
+         "bound_by": bounds["K3"][1], "library_ms": None,
+         "variants": bodies["bvh_traverse_count"]},
         # ms: row_loads on the powerplant primaries, which does K3's work
         # (so K3's bound); every variant's time is under "variants"
         {"name": "bvh_traverse_option", "route": "cuda", "source": src,

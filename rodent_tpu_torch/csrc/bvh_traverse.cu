@@ -1,7 +1,8 @@
 // K1: BVH traversal for Hopper (sm_90a), one thread per ray, and its
 // compile-time variants K2 (next-pop L2 prefetch), K3 (pop counters) and
 // K4 (the options of the legacy Pallas body, built with -DRT_OPTIONS into
-// a second library).
+// a second library), and a second body of K1-K3, the group stack (built
+// with -DRT_GROUP into a library of the measurements only).
 //
 // K1 replaces the Pallas bodies _kernel_ct and _kernel_multi of
 // rodent_tpu/traversal/pallas_packet.py (:878-1131, :1132-1391), which
@@ -29,16 +30,36 @@
 // order; built with -fmad=false, the two agree bit for bit.
 //
 // The stack holds STACK entries, a compile-time cap the wrapper picks from
-// the tree's worst case (BvhMeta.shared_stack + 2) and never exceeds.
+// the tree's worst case (BvhMeta.shared_stack + 2) and never exceeds: one
+// int entry per hit child and per leaf continuation.
 //
 // What bounds it on this card: the pops of a ray form a chain of dependent
-// row loads (each row's address comes from the previous pop), so a warp
-// waits on memory latency rather than bandwidth; and the 32 rays of a warp
-// take different paths through the tree, so their node and leaf pops
-// serialize (divergence). Sorting the rays (traversal/sorting.py) makes
-// neighbouring threads walk similar paths. This first version keeps the
-// stack in local memory (L1-resident) and reads rows through the
-// read-only cache; there is no matrix product here, so no wgmma.
+// row loads (each row's address comes from the previous pop), and the 32
+// rays of a warp take different paths through the tree, so their node and
+// leaf pops serialize (divergence); sorting the rays (traversal/sorting.py)
+// makes neighbouring threads walk similar paths. Registers bind
+// occupancy: 47-48 a thread hold 40 warps per SM. The stack is indexed
+// dynamically, so it lives in local memory (L1-resident): one 4-byte store
+// and load per pop. There is no matrix product here, so no wgmma.
+//
+// The group stack (bvh_group_kernel, -DRT_GROUP) is a second body of K1,
+// K2 and K3 that pops the same entries in the same order, so it returns
+// the same bits and counts the same pops, with one stack entry per
+// expanded node instead of one per hit child. A node's first hit child,
+// whose code rides through the sort beside its slot, and a leaf's next row
+// are the next pop through a register. The node's other hit children form
+// the current group: the node's row index and their slots, 3 bits each in
+// visit order, with their count, kept in registers; a pop takes the next
+// slot and re-reads that child's code from the node row (most often an L1
+// hit). Expanding a node with two or more hit children pushes the current
+// group, if it still has slots, as one 64-bit word. The stack holds proper
+// ancestors of the current group's node, one entry each, so the tree's
+// depth bounds it exactly (experiments/ab_body.py group_cap: 16 or 64
+// entries). Its library holds both bodies, which experiments/ab_body.py
+// and chip_smoke.py phase 14 time in turns. On the card the group stack
+// ran within a few percent of the first body, ahead on incoherent rays and
+// behind at both render widths (PERF.md): the stack's traffic is not
+// what bounds K1, and the renderers keep the first body.
 //
 // K2 (kPrefetch) replaces _pf_helpers (pallas_packet.py:96-219) and the
 // tris_hbm / nodes_hbm transport of the three Pallas bodies. On the TPU a
@@ -55,7 +76,9 @@
 //   after a node: the nearest hit child (the one pushed last, popped
 //                 next), else the peek -- known after the slab tests, so
 //                 the fetch overlaps the push and the next pop's set-up;
-// and, when that pop is a leaf, prefetches its whole Tri row into L2 with
+// (in the group stack: the register `next`, else the current group's next
+// slot, else the top group's first slot), and, when that pop is a leaf,
+// prefetches its whole Tri row into L2 with
 // one `prefetch.global.L2` per 128-byte line (12 for a 1,344 B Tri24 row),
 // as the tris_hbm transport fetches Tri rows only. The TPU's two-slot VMEM
 // buffer is not carried over: one Tri24 row per thread in shared memory
@@ -193,6 +216,10 @@ constexpr int kPlain = 0;     // K1
 constexpr int kPrefetch = 1;  // K2: exact next-pop L2 prefetch
 constexpr int kCount = 2;     // K3: per-ray pop counters
 
+// the two bodies of K1, K2 and K3 (experiments/ab_body.py BODIES)
+constexpr int kGroup = 0;     // one stack entry per expanded node
+constexpr int kStackV1 = 1;   // the first body: one entry per hit child
+
 // Prefetches the `bytes` at p into L2, one `prefetch.global.L2` per
 // 128-byte line (the last one covers a row that ends on a fresh line); the
 // thread does not wait for them.
@@ -301,56 +328,271 @@ __global__ void __launch_bounds__(kBlock) bvh_traverse_kernel(Args a) {
   }
 }
 
-template <int VAR, bool AH, int A, int M, int S>
-int launch(const Args& a, cudaStream_t stream) {
+#ifdef RT_GROUP
+
+// The child code in `slot` of node row `node` (0-based).
+template <int A>
+__device__ __forceinline__ int child_code(const Args& a, int node,
+                                          unsigned slot) {
+  return __float_as_int(
+      __ldg(a.nodes + (long long)node * (7 * A) + 6 * A + slot));
+}
+
+// A group: a node's row index and the hit slots of its children still to
+// visit, in visit order, 3 bits a slot from the low end (at most 8 x 3 =
+// 24 bits) with their count in bits 24-27 of `hi`; on the stack as one
+// 64-bit word, the row index low. hi == 0 is the empty group.
+struct Group {
+  int node;
+  unsigned hi;
+};
+
+__device__ __forceinline__ unsigned long long pack_group(const Group& g) {
+  return (unsigned long long)(unsigned)g.node |
+         (unsigned long long)g.hi << 32;
+}
+
+__device__ __forceinline__ Group unpack_group(unsigned long long e) {
+  return Group{(int)(unsigned)e, (unsigned)(e >> 32)};
+}
+
+// Takes a group's next slot: the low 3 bits go, the count drops by one.
+__device__ __forceinline__ unsigned take_slot(unsigned& hi) {
+  const unsigned slot = hi & 7u;
+  hi = ((hi & 0xFFFFFFu) >> 3) | (((hi >> 24) - 1u) << 24);
+  return slot;
+}
+
+// K2: the code of the pop that follows when no register holds it: the
+// current group's next slot, else the top group's first one; 0 if none.
+template <int A, int STACK>
+__device__ __forceinline__ int peek_group(
+    const Args& a, const Group& g, const unsigned long long (&stack)[STACK],
+    int sp) {
+  if (g.hi != 0) return child_code<A>(a, g.node, g.hi & 7u);
+  if (sp == 0) return 0;
+  const Group top = unpack_group(stack[sp - 1]);
+  return child_code<A>(a, top.node, top.hi & 7u);
+}
+
+// The group-stack body. Pops come from three places, in this order: the
+// register `next` (the root; a node's first hit child, whose code the sort
+// carried; a leaf's next row), the current group (registers: a pop takes
+// its next slot and re-reads that child's code from the node row, most
+// often still in L1) and the stack of groups. Expanding a node with k hit
+// children makes the first the next pop and, for k > 1, pushes the current
+// group if it still has slots and makes the other k - 1 the current group.
+// The entries popped, and their order, are the first body's, so the two
+// return the same bits and count the same pops. The stack holds proper
+// ancestors of the node whose group is current, one entry each, so it
+// never holds more than the tree's depth (ab_body.compute_depth),
+// which the wrapper's cap holds.
+template <bool ANY_HIT, int A, int M, int STACK, int VAR>
+__global__ void __launch_bounds__(kBlock) bvh_group_kernel(Args a) {
+  constexpr bool PF = VAR == kPrefetch;
+  constexpr bool COUNT = VAR == kCount;
+  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
+  if (i >= a.n) return;
+  const Ray r = load_ray(a, i);
+  const float tmax = a.tmax[i];
+
+  float t = tmax, u = 0.0f, v = 0.0f;
+  int prim = -1, geom = -1;
+  unsigned long long stack[STACK];
+  int sp = 0;
+  Group g{0, 0u};                       // the current group
+  int next = tmax >= r.tmin ? 1 : 0;    // root ref; dead rays never start
+  int pops = 0, leaf_pops = 0;          // K3's counters
+
+  while (true) {
+    int code = next;
+    next = 0;
+    if (code == 0) {
+      if (g.hi == 0) {
+        if (sp == 0) break;
+        g = unpack_group(stack[--sp]);
+      }
+      code = child_code<A>(a, g.node, take_slot(g.hi));
+    }
+    if constexpr (COUNT) {
+      ++pops;
+      leaf_pops += code < 0 ? 1 : 0;
+    }
+    if (code > 0) {
+      const float* row = a.nodes + (long long)(code - 1) * (7 * A);
+      float key[A];
+      int ch[A];
+      bool hit[A];
+      slab_test<A>([&](int j) { return __ldg(row + j); }, r, t, key, ch,
+                   hit);
+      // each child's code and slot in one word (|code| < 2^28, host-checked)
+#pragma unroll
+      for (int c = 0; c < A; ++c) ch[c] = ch[c] * 8 + c;
+      if (!ANY_HIT) sort_children<A>(key, ch, hit);
+      // the hit slots in visit order, the first one lowest, and the first
+      // hit child's code
+      unsigned hi = 0u;
+      int k = 0, first = 0;
+#pragma unroll
+      for (int c = A - 1; c >= 0; --c) {
+        if (hit[c]) {
+          hi = (hi << 3) | (unsigned)(ch[c] & 7);
+          first = ch[c];
+          ++k;
+        }
+      }
+      if (k > 0) next = first >> 3;
+      if (k > 1) {
+        if (g.hi != 0) stack[sp++] = pack_group(g);
+        g = Group{code - 1, (hi >> 3) | ((unsigned)(k - 1) << 24)};
+      }
+      if constexpr (PF)
+        prefetch_entry<M>(a, next != 0 ? next
+                                       : peek_group<A>(a, g, stack, sp));
+    } else {
+      const float* row = a.tris + (long long)(~code) * (14 * M);
+      const int* rowi = reinterpret_cast<const int*>(row);
+      const float t_test = t;
+      bool found = false;
+      if constexpr (PF) {
+        // the continuation is known from lane M-1's pid alone: start the
+        // next row's fetch before the M-lane intersection loop
+        const bool last = __ldg(rowi + 12 * M + M - 1) < 0;
+        prefetch_entry<M>(a, !last ? code - 1
+                                   : peek_group<A>(a, g, stack, sp));
+      }
+#pragma unroll 4
+      for (int l = 0; l < M; ++l) {
+        const int pid = __ldg(rowi + 12 * M + l);
+        if (pid == -1) continue;
+        float f[12];
+#pragma unroll
+        for (int k = 0; k < 12; ++k) f[k] = __ldg(row + k * M + l);
+        if (mt_lane(f, r, t_test, t, t, u, v)) {
+          prim = pid & 0x7FFFFFFF;
+          geom = __ldg(rowi + 13 * M + l);
+          found = true;
+        }
+      }
+      if (__ldg(rowi + 12 * M + M - 1) >= 0) next = code - 1;
+      if (ANY_HIT && found) break;
+    }
+  }
+  a.t[i] = t;
+  a.u[i] = u;
+  a.v[i] = v;
+  a.prim[i] = prim;
+  a.geom[i] = geom;
+  if constexpr (COUNT) {
+    a.pops[i] = pops;
+    a.leaf_pops[i] = leaf_pops;
+  }
+}
+
+#endif  // RT_GROUP
+
+// Launches one instantiation of body BODY on a.n rays, or, with occ,
+// writes its resident blocks per SM there instead and launches nothing.
+template <int BODY, int VAR, bool AH, int A, int M, int S>
+int launch(const Args& a, cudaStream_t stream, int* occ) {
+  void (*kernel)(Args);
+#ifdef RT_GROUP
+  if constexpr (BODY == kGroup)
+    kernel = bvh_group_kernel<AH, A, M, S, VAR>;
+  else
+#endif
+    kernel = bvh_traverse_kernel<AH, A, M, S, VAR>;
+  if (occ)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kernel,
+                                                              kBlock, 0);
   const unsigned grid = (unsigned)((a.n + kBlock - 1) / kBlock);
-  bvh_traverse_kernel<AH, A, M, S, VAR><<<grid, kBlock, 0, stream>>>(a);
+  kernel<<<grid, kBlock, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int VAR, bool AH, int A, int M>
-int by_stack(const Args& a, int cap, cudaStream_t s) {
-  switch (cap) {
-    case 64: return launch<VAR, AH, A, M, 64>(a, s);
-    case 128: return launch<VAR, AH, A, M, 128>(a, s);
-    default: return (int)cudaErrorInvalidValue;
+// the compiled stacks: the first body's entries (traversal/packet.py
+// STACK_CAPS), groups (experiments/ab_body.py GROUP_CAPS)
+template <int BODY, int VAR, bool AH, int A, int M>
+int by_stack(const Args& a, int cap, cudaStream_t s, int* occ) {
+  if constexpr (BODY == kGroup) {
+    switch (cap) {
+      case 16: return launch<BODY, VAR, AH, A, M, 16>(a, s, occ);
+      case 64: return launch<BODY, VAR, AH, A, M, 64>(a, s, occ);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch (cap) {
+      case 64: return launch<BODY, VAR, AH, A, M, 64>(a, s, occ);
+      case 128: return launch<BODY, VAR, AH, A, M, 128>(a, s, occ);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 }
 
 // K1: every arity and packet width the builder makes
-template <bool AH, int A>
-int by_packet(const Args& a, int m, int cap, cudaStream_t s) {
+template <int BODY, bool AH, int A>
+int by_packet(const Args& a, int m, int cap, cudaStream_t s, int* occ) {
   switch (m) {
-    case 1: return by_stack<kPlain, AH, A, 1>(a, cap, s);
-    case 4: return by_stack<kPlain, AH, A, 4>(a, cap, s);
-    case 8: return by_stack<kPlain, AH, A, 8>(a, cap, s);
-    case 16: return by_stack<kPlain, AH, A, 16>(a, cap, s);
-    case 24: return by_stack<kPlain, AH, A, 24>(a, cap, s);
+    case 1: return by_stack<BODY, kPlain, AH, A, 1>(a, cap, s, occ);
+    case 4: return by_stack<BODY, kPlain, AH, A, 4>(a, cap, s, occ);
+    case 8: return by_stack<BODY, kPlain, AH, A, 8>(a, cap, s, occ);
+    case 16: return by_stack<BODY, kPlain, AH, A, 16>(a, cap, s, occ);
+    case 24: return by_stack<BODY, kPlain, AH, A, 24>(a, cap, s, occ);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool AH>
-int by_arity(const Args& a, int arity, int m, int cap, cudaStream_t s) {
+template <int BODY, bool AH>
+int by_arity(const Args& a, int arity, int m, int cap, cudaStream_t s,
+             int* occ) {
   switch (arity) {
-    case 2: return by_packet<AH, 2>(a, m, cap, s);
-    case 4: return by_packet<AH, 4>(a, m, cap, s);
-    case 8: return by_packet<AH, 8>(a, m, cap, s);
+    case 2: return by_packet<BODY, AH, 2>(a, m, cap, s, occ);
+    case 4: return by_packet<BODY, AH, 4>(a, m, cap, s, occ);
+    case 8: return by_packet<BODY, AH, 8>(a, m, cap, s, occ);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // K2 and K3: BVH8 with Tri4/8/16/24 rows only
-template <int VAR, bool AH>
-int wide(const Args& a, int arity, int m, int cap, cudaStream_t s) {
+template <int BODY, int VAR, bool AH>
+int wide(const Args& a, int arity, int m, int cap, cudaStream_t s,
+         int* occ) {
   if (arity != 8) return (int)cudaErrorInvalidValue;
   switch (m) {
-    case 4: return by_stack<VAR, AH, 8, 4>(a, cap, s);
-    case 8: return by_stack<VAR, AH, 8, 8>(a, cap, s);
-    case 16: return by_stack<VAR, AH, 8, 16>(a, cap, s);
-    case 24: return by_stack<VAR, AH, 8, 24>(a, cap, s);
+    case 4: return by_stack<BODY, VAR, AH, 8, 4>(a, cap, s, occ);
+    case 8: return by_stack<BODY, VAR, AH, 8, 8>(a, cap, s, occ);
+    case 16: return by_stack<BODY, VAR, AH, 8, 16>(a, cap, s, occ);
+    case 24: return by_stack<BODY, VAR, AH, 8, 24>(a, cap, s, occ);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <int BODY, bool AH>
+int by_variant(const Args& a, int var, int arity, int m, int cap,
+               cudaStream_t s, int* occ) {
+  switch (var) {
+    case kPlain: return by_arity<BODY, AH>(a, arity, m, cap, s, occ);
+    case kPrefetch:
+      return wide<BODY, kPrefetch, AH>(a, arity, m, cap, s, occ);
+    case kCount: return wide<BODY, kCount, AH>(a, arity, m, cap, s, occ);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// one instantiation of K1, K2 or K3 (var) in body `body`; the main library
+// holds the first body only
+int dispatch(const Args& a, int body, int var, int arity, int m, int any_hit,
+             int cap, cudaStream_t s, int* occ) {
+#ifdef RT_GROUP
+  if (body == kGroup)
+    return any_hit ? by_variant<kGroup, true>(a, var, arity, m, cap, s, occ)
+                   : by_variant<kGroup, false>(a, var, arity, m, cap, s, occ);
+#endif
+  if (body == kStackV1)
+    return any_hit
+               ? by_variant<kStackV1, true>(a, var, arity, m, cap, s, occ)
+               : by_variant<kStackV1, false>(a, var, arity, m, cap, s, occ);
+  return (int)cudaErrorInvalidValue;
 }
 
 #else  // RT_OPTIONS: K4
@@ -633,7 +875,35 @@ Args make_args(const float* nodes, const float* tris,
 // `stream`, never synchronizes or allocates, and returns
 // cudaGetLastError() after the launch (0 = success).
 
-#ifndef RT_OPTIONS
+#if defined(RT_GROUP)
+
+// K1 (variant kPlain), K2 (kPrefetch) or K3 (kCount, which writes pops
+// and leaf_pops; null for the others) in body kGroup or kStackV1
+extern "C" int rt_group_traverse(
+    const float* nodes, const float* tris, const float* const* rays,
+    long long n, int arity, int packet, int any_hit, int stack_cap,
+    float* t, float* u, float* v, int* prim, int* geom, int* pops,
+    int* leaf_pops, int variant, int body, void* stream) {
+  if (n <= 0) return 0;
+  const Args a = make_args(nodes, tris, rays, n, t, u, v, prim, geom,
+                           pops, leaf_pops);
+  return dispatch(a, body, variant, arity, packet, any_hit, stack_cap,
+                  static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// Resident 128-thread blocks per SM of one instantiation (body; variant
+// kPlain, kPrefetch or kCount; K1's arguments otherwise), from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor: launches nothing.
+extern "C" int rt_group_traverse_occupancy(int body, int variant, int arity,
+                                           int packet, int any_hit,
+                                           int stack_cap,
+                                           int* blocks_per_sm) {
+  const Args a{};
+  return dispatch(a, body, variant, arity, packet, any_hit, stack_cap,
+                  nullptr, blocks_per_sm);
+}
+
+#elif !defined(RT_OPTIONS)
 
 // K1
 extern "C" int rt_bvh_traverse(const float* nodes, const float* tris,
@@ -644,9 +914,8 @@ extern "C" int rt_bvh_traverse(const float* nodes, const float* tris,
   if (n <= 0) return 0;
   const Args a = make_args(nodes, tris, rays, n, t, u, v, prim, geom,
                            nullptr, nullptr);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return any_hit ? by_arity<true>(a, arity, packet, stack_cap, s)
-                 : by_arity<false>(a, arity, packet, stack_cap, s);
+  return dispatch(a, kStackV1, kPlain, arity, packet, any_hit, stack_cap,
+                  static_cast<cudaStream_t>(stream), nullptr);
 }
 
 // K2: K1's arguments
@@ -657,9 +926,8 @@ extern "C" int rt_bvh_traverse_prefetch(
   if (n <= 0) return 0;
   const Args a = make_args(nodes, tris, rays, n, t, u, v, prim, geom,
                            nullptr, nullptr);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return any_hit ? wide<kPrefetch, true>(a, arity, packet, stack_cap, s)
-                 : wide<kPrefetch, false>(a, arity, packet, stack_cap, s);
+  return dispatch(a, kStackV1, kPrefetch, arity, packet, any_hit, stack_cap,
+                  static_cast<cudaStream_t>(stream), nullptr);
 }
 
 // K3: K1's arguments plus two (n,) int32 counter outputs
@@ -671,9 +939,8 @@ extern "C" int rt_bvh_traverse_count(
   if (n <= 0) return 0;
   const Args a = make_args(nodes, tris, rays, n, t, u, v, prim, geom,
                            pops, leaf_pops);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return any_hit ? wide<kCount, true>(a, arity, packet, stack_cap, s)
-                 : wide<kCount, false>(a, arity, packet, stack_cap, s);
+  return dispatch(a, kStackV1, kCount, arity, packet, any_hit, stack_cap,
+                  static_cast<cudaStream_t>(stream), nullptr);
 }
 
 #else

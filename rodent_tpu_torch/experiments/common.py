@@ -33,6 +33,9 @@ SIZES = {"hall": 260_000, "crown": 800_000, "powerplant": 5_000_000}
 TRI8 = {"packet": 8, "leaf_threshold": 12}
 TRI24 = {"packet": 24, "quality": 0, "leaf_threshold": 12,
          "leaf_cost": 0.45}
+# powerplant-4.3M's render camera (eye, look at, up, fov): chip_smoke.py
+# phase 9's persistent render and the pool step ab_body times
+BIG_CAM = ((-30.0, 60.0, -30.0), (130.0, -40.0, 130.0), (0, 1, 0), 55.0)
 DISTS = ("primary", "primary-unsorted", "ao", "bounces", "bounces-unsorted")
 WARP = 32
 # seconds of calls before a run's first timed turn: a card left idle, as

@@ -7,15 +7,17 @@ anew and an unchanged one loads the built library. Only sources in the
 repository are used. Without nvcc (and without a built library) asking
 for a library raises: there is no fallback.
 
-Four libraries: "main" (bvh_traverse.cu) holds K1, K2 and K3, the kernels
+Five libraries: "main" (bvh_traverse.cu) holds K1, K2 and K3, the kernels
 of the render and benchmark paths; "options" (the same source with
--DRT_OPTIONS) holds K4, the options of the legacy Pallas body; "tile"
-(bvh_tile.cu) holds K5 and K6, the traversals whose stack is shared by a
-tile of rays; "probes" (probes.cu) holds the micro-probes of
-rodent_tpu_torch.experiments.probe_* and vpu_dtype_bench. Each is built at
-its first use, so that none delays K1's first launch; build_all() starts
-the four nvcc runs at once. A library's
-hash covers its source and the header it includes (bvh_common.cuh).
+-DRT_OPTIONS) holds K4, the options of the legacy Pallas body; "group"
+(the same source with -DRT_GROUP) holds K1-K3 in two bodies, the group
+stack and the first body, for experiments/ab_body.py, which times them
+against each other; "tile" (bvh_tile.cu) holds K5 and K6, the traversals
+whose stack is shared by a tile of rays; "probes" (probes.cu) holds the
+micro-probes of rodent_tpu_torch.experiments.probe_* and vpu_dtype_bench.
+Each is built at its first use, so that none delays K1's first launch;
+build_all() starts the five nvcc runs at once. A library's hash covers
+its source and the header it includes (bvh_common.cuh).
 
 -fmad=false keeps every float operation separately rounded, as the plain
 torch versions compute them, so a kernel and its plain version agree bit
@@ -41,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library -> (its source in csrc/, its extra nvcc flags)
 LIBRARIES = {"main": ("bvh_traverse.cu", ()),
              "options": ("bvh_traverse.cu", ("-DRT_OPTIONS",)),
+             "group": ("bvh_traverse.cu", ("-DRT_GROUP",)),
              "tile": ("bvh_tile.cu", ()),
              "probes": ("probes.cu", ())}
 
@@ -56,6 +59,15 @@ _ENTRIES = {
         "rt_bvh_traverse": (ctypes.c_int, _TRAVERSE + [_P]),
         "rt_bvh_traverse_prefetch": (ctypes.c_int, _TRAVERSE + [_P]),
         "rt_bvh_traverse_count": (ctypes.c_int, _TRAVERSE + [_P, _P, _P]),
+    },
+    "group": {
+        # ..., pops, leaf_pops, variant, body, stream
+        "rt_group_traverse": (ctypes.c_int, _TRAVERSE + [_P, _P, _I, _I,
+                                                         _P]),
+        # body, variant, arity, packet, any_hit, stack_cap, blocks_per_sm
+        # (out)
+        "rt_group_traverse_occupancy": (ctypes.c_int, [_I, _I, _I, _I, _I,
+                                                       _I, _P]),
     },
     "options": {
         "rt_bvh_traverse_option": (ctypes.c_int, _TRAVERSE + [

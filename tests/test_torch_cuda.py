@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2 (prefetch), K3 (pop counters), K4 (the
-options of the legacy Pallas body), K5 (the tile-shared stack), K6 (the
+"""The CUDA kernels K1, K2 (prefetch), K3 (pop counters), each in both
+bodies (the group stack and the first body), K4 (the options of the
+legacy Pallas body), K5 (the tile-shared stack), K6 (the
 pair layout) and the micro-probes (csrc/probes.cu) and the port's slices
 on a CUDA card.
 
@@ -15,10 +16,11 @@ import pytest
 import torch
 
 from rodent_tpu_torch.accel import build_bvh
-from rodent_tpu_torch.experiments import (common, probe_body, probe_chain,
-                                          probe_dyn_cost, probe_gather,
-                                          probe_mosaic, probe_mosaic2,
-                                          probe_mosaic3, vpu_dtype_bench)
+from rodent_tpu_torch.experiments import (ab_body, common, probe_body,
+                                          probe_chain, probe_dyn_cost,
+                                          probe_gather, probe_mosaic,
+                                          probe_mosaic2, probe_mosaic3,
+                                          vpu_dtype_bench)
 from rodent_tpu_torch.render import film as film_mod
 from rodent_tpu_torch.render.camera import Camera
 from rodent_tpu_torch.render.compiler import compile_mesh
@@ -163,6 +165,27 @@ def test_prefetch_and_count_kernels(card, width):
             assert torch.equal(k3[key], p[key]), key
         np.testing.assert_array_equal(k1["prim_id"].cpu().numpy() >= 0,
                                       p["prim_id"].cpu().numpy() >= 0)
+
+
+@pytest.mark.parametrize("arity,width", CASES)
+def test_both_bodies_match_plain(card, arity, width):
+    """K1's two bodies (the group stack and the first body) against the
+    plain version bit for bit on the soups of test_kernel_matches_plain,
+    closest-hit and any-hit; where K2 and K3 are built (BVH8, Tri4-24),
+    K2 equal to K1 and K3's counters equal to the plain counters."""
+    verts, idx = _soup(2000, seed=arity * 100 + width)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=arity,
+                                      packet=width), card)
+    for any_hit, tmax in ((False, 1e30), (True, 2.0)):
+        rays = _rays(4096, width, card, tmax)
+        ab_body.check_bodies(dev, api.components(rays), any_hit,
+                             f"A{arity} M{width}")
+
+
+def test_both_bodies_on_ties(card):
+    """Both bodies keep the first of two coincident triangles, in one Tri
+    row and in two leaves, as the plain version does."""
+    assert ab_body.check_ties(card) == {"row": 177, "leaves": 177}
 
 
 def test_prefetch_refusals(card):

@@ -5,8 +5,8 @@ The slice (camera -> traversal -> shading -> film) is held against the
 JAX renderer on the same tables: XLA fuses multiply-adds and evaluates
 sqrt/sin/cos/pow its own way, and a one-ULP difference can flip a Russian
 roulette draw, so films agree pixel by pixel only up to those flips
-(tolerance below). The hall golden-image gate of test_golden_scenes.py
-holds the port's film on its own.
+(tolerance below). The hall and crown golden-image gates of
+test_golden_scenes.py hold the port's films on their own.
 """
 import json
 import os
@@ -28,7 +28,8 @@ from rodent_tpu_torch.render import bsdf as tbsdf
 from rodent_tpu_torch.render import film as film_mod
 from rodent_tpu_torch.render.camera import Camera
 from rodent_tpu_torch.render.compiler import compile_mesh, from_jax_device
-from rodent_tpu_torch.render.integrator import render_iteration
+from rodent_tpu_torch.render.integrator import (
+    render_iteration, render_iteration_persistent)
 from rodent_tpu_torch.traversal import packet
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
@@ -134,6 +135,33 @@ def test_hall_golden_gate():
         film = render_iteration(scene.device, cam, film, w, h, m["spp"], it)
     img = film_mod.tonemap(film, w, h, m["test_iters"])
     golden = png.read_png(os.path.join(GOLDEN, "hall.png"))[..., :3]
+    mse = film_mod.mse_u8(golden, img)
+    assert mse <= 3.0 * m["calib_mse_u8"] + 1.0, mse
+    assert abs(float(img.mean()) - m["mean_u8"]) < 0.5 * m["mean_u8"]
+
+
+def test_crown_golden_gate():
+    """Crown's gate of test_golden_scenes.py (mse_u8 <= 3 x calib + 1,
+    image mean within 50%) through the port on the CPU, in the
+    configuration of experiments/make_goldens.py (crown-60K, emitter above,
+    160x90, spp 2, 2 iterations). The golden was rendered with the
+    dual-queue engine (packet=False, compact=5), which the port does not
+    carry; the port's persistent renderer with packet=True is held to the
+    same 40-iteration golden."""
+    with open(os.path.join(GOLDEN, "golden_meta.json")) as f:
+        m = json.load(f)["crown"]
+    verts, idx = testscenes.make_crown(m["tris"])
+    scene = compile_mesh(verts, idx, "cpu", max_path_len=8,
+                         emitter="above")
+    w, h = m["w"], m["h"]
+    cam = Camera.make((4.2, 1.8, 1.2), (-4.2, -1.4, -1.2), (0, 1, 0), 42.0,
+                      w, h)
+    film = film_mod.new_film(w, h, "cpu")
+    for it in range(m["test_iters"]):
+        film = render_iteration_persistent(scene.device, cam, film, w, h,
+                                           m["spp"], it, packet=True)
+    img = film_mod.tonemap(film, w, h, m["test_iters"])
+    golden = png.read_png(os.path.join(GOLDEN, "crown.png"))[..., :3]
     mse = film_mod.mse_u8(golden, img)
     assert mse <= 3.0 * m["calib_mse_u8"] + 1.0, mse
     assert abs(float(img.mean()) - m["mean_u8"]) < 0.5 * m["mean_u8"]
