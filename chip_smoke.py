@@ -68,7 +68,20 @@ calls real, and checks it:
    first three, and all of them back to back), powerplant's primaries (K1,
    K2, K3) and one step of phase 9's 32K pool (K2: its closest-hit and
    any-hit launch, and the two back to back), with their registers, local
-   memory and resident warps.
+   memory and resident warps;
+15. the OBJ scene path: mathall-260K (every BSDF kind, two procedural
+   textures) through compile_mesh, rendered by render_iteration at
+   1920x1088, spp 4, max path length 20 (K1, launches counted around it)
+   and by one render_iteration_persistent under select_render_policy; a
+   torch.profiler split of one textured iteration (bank lookups, K1, the
+   rest, device idle share); the mathall golden gate through both
+   renderers; then the scene written as OBJ + MTL + PNG textures under
+   build/phase15: converter -> load_data_dir equal to compile_obj tensor
+   for tensor on the card, tools.render at 1920x1088 spp 4 through its
+   policy (K1) and --traversal hybrid-hbm (K2), and the traversal file
+   pipeline ray_gen (1024x1024 primaries) -> bvh_extractor ->
+   bench_traversal (K1) -> fbuf2png, whose intersection count and t equal
+   K1's on the rays and BVH read back from the files.
 
 Every kernel's time stands beside its bound, the least time the card
 could take for the same pops and the table rows they read
@@ -1240,6 +1253,353 @@ def phase_bodies(device, hall, verts, idx, big_bvh, big_prim, big_ao, pool):
     return variants
 
 
+HALL_VIEW = ((2.5, 5.0, 5.0), (1.0, -0.12, 0.02), (0, 1, 0), 60.0)
+
+
+def profile_split(fn):
+    """Runs fn() once under torch.profiler and splits the device time of
+    its kernels: the texture-bank lookups (the kernels launched inside
+    integrator._sample_bank, marked with a record_function range here),
+    the traversal kernels (bvh_traverse_kernel: K1, K2) and the rest; the
+    device idle share is 1 - (union of the kernel intervals) / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from rodent_tpu_torch.render import integrator
+    bank = integrator._sample_bank
+
+    def marked(*args):
+        with record_function("rt_sample_bank"):
+            return bank(*args)
+
+    integrator._sample_bank = marked
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        integrator._sample_bank = bank
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and e.name != "rt_sample_bank"]
+    total = sum(e.time_range.elapsed_us() for e in dev) * 1e-3
+    trav = sum(e.time_range.elapsed_us() for e in dev
+               if "bvh_traverse_kernel" in e.name) * 1e-3
+    ranges = [e for e in events if e.name == "rt_sample_bank"
+              and e.device_type == DeviceType.CPU]
+    bank_ms = sum(getattr(e, "device_time_total", None)
+                  or getattr(e, "cuda_time_total", 0) for e in ranges) * 1e-3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"wall_ms": wall * 1e3, "kernel_ms": total, "busy_ms": busy * 1e-3,
+            "idle": 1.0 - busy * 1e-3 / (wall * 1e3), "kernels": len(dev),
+            "bank_ms": bank_ms, "bank_calls": len(ranges),
+            "traversal_ms": trav, "rest_ms": total - trav - bank_ms}
+
+
+def phase_mathall(device):
+    """[15a] mathall-260K (every BSDF kind, two textures) through
+    compile_mesh: render_iteration at 1920x1088 spp 4 mpl 20 (K1), one
+    persistent iteration under select_render_policy, the profile split of
+    a textured iteration, and the mathall golden gate through both
+    renderers. Returns (K1 launches of render_iteration, the scene, its
+    materials, its textures)."""
+    from rodent_tpu_torch.experiments import common
+    from rodent_tpu_torch.io import png
+    from rodent_tpu_torch.render import film as film_mod
+    from rodent_tpu_torch.render.camera import Camera
+    from rodent_tpu_torch.render.compiler import (
+        compile_mesh, packet_mode, select_render_policy)
+    from rodent_tpu_torch.render.integrator import (
+        render_iteration, render_iteration_persistent)
+    from rodent_tpu_torch.traversal import packet
+    from rodent_tpu_torch.utils import testscenes
+    t0 = time.perf_counter()
+    verts, idx = testscenes.make_hall(common.SIZES["hall"], rich_mats=True)
+    mats, texs = testscenes.mat_hall_materials()
+    scene = compile_mesh(verts, idx, device, max_path_len=20,
+                         emitter="inside", materials=mats, tex_images=texs,
+                         bvh_kwargs=common.TRI8)
+    mode = packet_mode(scene.device)
+    check(mode == "hybrid", f"mathall tier {mode}")
+    log(f"[15a] mathall-260K: {scene.mesh.num_tris} tris, bank "
+        f"{tuple(scene.device['textures'].shape)}, kinds "
+        f"{scene.device['mat_kinds']}, tier {mode}; compiled in "
+        f"{time.perf_counter() - t0:.1f} s")
+    w, h, spp, iters = 1920, 1088, 4, 3
+    cam = Camera.make(*HALL_VIEW, w, h)
+    film = film_mod.new_film(w, h, device)
+    stats, secs = {}, []
+    packet.reset_launches()
+    for it in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = render_iteration(scene.device, cam, film, w, h, spp, it,
+                                stats=stats)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = dict(packet.launches)
+    k1, bounces = launches["bvh_traverse"], stats["bounces"]
+    check(k1 >= 2 * bounces > 0 and launches["bvh_traverse_prefetch"] == 0,
+          f"mathall render: launches {launches} for {bounces} bounces")
+    check(bool(torch.isfinite(film).all()) and float(film.min()) >= 0.0,
+          "mathall render: film not finite or negative")
+    img = film_mod.tonemap(film, w, h, iters)
+    check(img.mean() > 1.0, "mathall render: black image")
+    msps = w * h * spp / float(np.mean(secs[1:])) / 1e6
+    log(f"[15a] render_iteration mathall-260K {w}x{h} spp {spp} mpl 20: "
+        f"iterations {', '.join(f'{x:.3f}' for x in secs)} s (first warms "
+        f"up) -> {msps:.3f} Msamples/s; {bounces} bounces, {k1} K1 "
+        f"launches; image mean {img.mean():.1f}/255")
+
+    pol = select_render_policy(scene.device)
+    packet.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film2, steps = render_iteration_persistent(
+        scene.device, cam, film_mod.new_film(w, h, device), w, h, spp, 0,
+        return_steps=True, **pol)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(packet.launches["bvh_traverse"] > 0
+          and bool(torch.isfinite(film2).all()),
+          f"mathall persistent: launches {packet.launches}")
+    log(f"[15a] render_iteration_persistent under {pol}: one iteration "
+        f"{dt:.3f} s = {w * h * spp / dt / 1e6:.3f} Msamples/s, {steps} "
+        f"steps, {packet.launches['bvh_traverse']} K1 launches")
+
+    split = profile_split(lambda: render_iteration(
+        scene.device, cam, film_mod.new_film(w, h, device), w, h, 1, 0))
+    check(split["bank_calls"] > 0 and split["kernel_ms"] > 0.0,
+          f"profile: {split}")
+    log(f"[15a] profile of one textured render_iteration ({w}x{h}, spp 1): "
+        f"wall {split['wall_ms']:.1f} ms, {split['kernels']} kernels, "
+        f"kernel time {split['kernel_ms']:.1f} ms = bank lookups "
+        f"{split['bank_ms']:.1f} ({split['bank_calls']} calls) + "
+        f"traversal (K1) {split['traversal_ms']:.1f} + the rest "
+        f"{split['rest_ms']:.1f}; device busy {split['busy_ms']:.1f} ms, "
+        f"idle share {split['idle']:.3f}")
+
+    with open(os.path.join(REPO, "tests", "golden", "golden_meta.json")) as f:
+        m = json.load(f)["mathall"]
+    gv, gi = testscenes.make_hall(m["tris"], rich_mats=True)
+    gscene = compile_mesh(gv, gi, device, max_path_len=8, emitter="inside",
+                          materials=mats, tex_images=texs)
+    gw, gh = m["w"], m["h"]
+    gcam = Camera.make(*HALL_VIEW, gw, gh)
+    golden = png.read_png(os.path.join(REPO, "tests", "golden",
+                                       "mathall.png"))[..., :3]
+    gate = 3.0 * m["calib_mse_u8"] + 1.0
+    for render in (render_iteration, render_iteration_persistent):
+        film = film_mod.new_film(gw, gh, device)
+        packet.reset_launches()
+        for it in range(m["test_iters"]):
+            film = render(gscene.device, gcam, film, gw, gh, m["spp"], it,
+                          packet=True)
+        gimg = film_mod.tonemap(film, gw, gh, m["test_iters"])
+        mse = film_mod.mse_u8(golden, gimg)
+        check(packet.launches["bvh_traverse"] > 0,
+              f"mathall golden: launches {packet.launches}")
+        check(mse <= gate, f"mathall golden ({render.__name__}): MSE "
+              f"{mse:.1f} over the gate {gate:.1f}")
+        check(abs(float(gimg.mean()) - m["mean_u8"]) < 0.5 * m["mean_u8"],
+              f"mathall golden ({render.__name__}): image mean "
+              f"{gimg.mean():.1f} vs {m['mean_u8']}")
+        log(f"[15a] mathall golden gate through {render.__name__} (K1, "
+            f"{packet.launches['bvh_traverse']} launches): MSE {mse:.2f} <= "
+            f"{gate:.2f}, image mean {gimg.mean():.2f} (golden "
+            f"{m['mean_u8']})")
+    return k1, scene, mats, texs
+
+
+def run_tool(main, argv):
+    """Runs a tool's main (or run) with its standard output captured,
+    logs that output and returns (its return value, the output)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main([str(a) for a in argv])
+    text = buf.getvalue()
+    for line in text.strip().splitlines():
+        log(f"    | {line}")
+    return out, text
+
+
+def phase_obj_files(device, scene, mats, texs):
+    """[15b, 15c] mathall-260K written as OBJ + MTL + PNG textures under
+    build/: converter -> load_data_dir against compile_obj, tensor for
+    tensor on the card; tools.render at 1920x1088 spp 4 through K1 (its
+    policy) and K2 (--traversal hybrid-hbm); the traversal file pipeline
+    ray_gen -> bvh_extractor -> bench_traversal (K1) -> fbuf2png, held
+    against K1 on the rays and BVH read back from the files. Returns
+    tools.render's K2 launches."""
+    import re
+    import shutil
+    from rodent_tpu_torch.accel import WideBvh
+    from rodent_tpu_torch.io import formats, png
+    from rodent_tpu_torch.io.obj import Material
+    from rodent_tpu_torch.render.compiler import compile_obj, load_data_dir
+    from rodent_tpu_torch.tools import (bench_traversal, bvh_extractor,
+                                        converter, fbuf2png, ray_gen)
+    from rodent_tpu_torch.tools import render as render_tool
+    from rodent_tpu_torch.traversal import api, packet
+    out = os.path.join(REPO, "build", "phase15")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    emitter = Material(name="emitter", ke=scene.mat_params[-1]["ke"])
+    obj = write_obj_scene(scene.mesh, list(mats) + [emitter], texs, out,
+                          "mathall")
+    log(f"[15b] wrote {obj} ({os.path.getsize(obj) / 1e6:.1f} MB) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    direct = compile_obj(obj, device, max_path_len=20)
+    check(direct.tex_files == ["checker.png", "plaster.png"]
+          and direct.mesh.num_tris == scene.mesh.num_tris,
+          f"compile_obj: {direct.tex_files}, {direct.mesh.num_tris} tris")
+    t1 = time.perf_counter()
+    data = os.path.join(out, "data")
+    run_tool(converter.main, [obj, "-d", data, "--max-path-len", 20])
+    t2 = time.perf_counter()
+    loaded = load_data_dir(data, device)
+
+    def same(a, b, path):
+        if isinstance(a, dict):
+            check(set(a) == set(b), f"load_data_dir {path}: keys differ")
+            return sum(same(a[k], b[k], f"{path}/{k}") for k in a)
+        if isinstance(a, torch.Tensor):
+            # bytes, not values: the node table's NaN slots are unequal
+            check(b.device == a.device and a.dtype == b.dtype
+                  and a.shape == b.shape
+                  and bool(torch.equal(a.flatten().view(torch.uint8),
+                                       b.flatten().view(torch.uint8))),
+                  f"load_data_dir {path} differs from compile_obj")
+            return 1
+        check(a == b, f"load_data_dir {path}: {a} != {b}")
+        return 0
+
+    n = same(direct.device, loaded.device, "device")
+    log(f"[15b] compile_obj {t1 - t0:.1f} s, converter {t2 - t1:.1f} s, "
+        f"load_data_dir {time.perf_counter() - t2:.1f} s: {n} tensors on "
+        f"the card equal bit for bit")
+    del direct, loaded
+
+    view = ["--eye", *HALL_VIEW[0], "--dir", *HALL_VIEW[1], "--fov",
+            HALL_VIEW[3]]
+    k2 = 0
+    for traversal, key in ((None, "bvh_traverse"),
+                           ("hybrid-hbm", "bvh_traverse_prefetch")):
+        png_path = os.path.join(out, f"render-{traversal or 'auto'}.png")
+        argv = [obj, "--width", 1920, "--height", 1088, "--spp", 4,
+                "--bench", 3, "--max-path-len", 20, *view, "-o", png_path]
+        if traversal:
+            argv += ["--traversal", traversal]
+        packet.reset_launches()
+        t0 = time.perf_counter()
+        film, text = run_tool(render_tool.run, argv)
+        dt = time.perf_counter() - t0
+        n = packet.launches[key]
+        check(re.search(r"^# [\d.]+/[\d.]+/[\d.]+ \(min/med/max "
+                        r"Msamples/s\)$", text, re.M) is not None,
+              f"tools.render printed no Msamples line: {text!r}")
+        check(n > 0, f"tools.render {traversal}: launches {packet.launches}")
+        check(bool(torch.isfinite(film).all()), "tools.render: film not finite")
+        img = png.read_png(png_path)
+        check(img.mean() > 0.0, "tools.render: black PNG")
+        if key == "bvh_traverse_prefetch":
+            k2 = n
+        log(f"[15b] tools.render --traversal {traversal or 'auto'}: {n} "
+            f"{'K2' if traversal else 'K1'} launches, PNG mean "
+            f"{img.mean():.1f}, "
+            f"{dt:.1f} s with compile_obj")
+
+    t0 = time.perf_counter()
+    rays_f = os.path.join(out, "cam.rays")
+    bvh_f = os.path.join(out, "mathall.bvh")
+    fbuf_f = os.path.join(out, "cam.fbuf")
+    run_tool(ray_gen.main, ["primary", *HALL_VIEW[0], *HALL_VIEW[1],
+                            *HALL_VIEW[2], HALL_VIEW[3], 1024, 1024, rays_f])
+    run_tool(bvh_extractor.main, [obj, bvh_f, "--width", 8])
+    packet.reset_launches()
+    _, text = run_tool(bench_traversal.main, ["-bvh", bvh_f, "-ray", rays_f,
+                                              "--bench", 3, "-o", fbuf_f])
+    check(packet.launches["bvh_traverse"] > 0,
+          f"bench_traversal: launches {packet.launches}")
+    count = int(re.search(r"^(\d+) intersection\(s\)$", text, re.M)[1])
+    bvh = WideBvh.from_block(formats.read_bvh(bvh_f, formats.BVH8_TRI4))
+    r = formats.read_rays(rays_f)
+    hit = packet.traverse_packet(
+        api.bvh_to_device(bvh, device),
+        api.make_rays(r["org"], r["dir"], r["tmin"], r["tmax"],
+                      device=device))
+    k1_count = int((hit["prim_id"] >= 0).sum())
+    t = formats.read_fbuf(fbuf_f)
+    check(count == k1_count, f"pipeline: {count} intersections, K1 "
+          f"{k1_count}")
+    check(np.array_equal(t, hit["t"].cpu().numpy()),
+          "pipeline: the .fbuf's t differ from K1's")
+    png_f = os.path.join(out, "cam.png")
+    run_tool(fbuf2png.main, ["-n", "-sx", 1024, "-sy", 1024, fbuf_f, png_f])
+    img = png.read_png(png_f)
+    check(img.shape == (1024, 1024, 4) and img[..., 0].std() > 1.0,
+          "fbuf2png: flat image")
+    log(f"[15c] file pipeline on {len(t)} primaries: {count} "
+        f"intersections, equal to K1's on the rays and BVH read back, t "
+        f"bit for bit; {time.perf_counter() - t0:.1f} s")
+    return k2
+
+
+def write_obj_scene(mesh, materials, tex_images, out_dir, name="scene"):
+    """Writes a compiled mesh as OBJ + MTL + PNG textures into out_dir: its
+    vertices and texture coordinates as `v`/`vt`, its triangles grouped by
+    material (`usemtl`), `materials` (obj Materials indexed by the mesh's
+    material ids) as the MTL, and each linear texture of `tex_images`
+    (name -> (H, W, 3)) gamma-encoded to 8 bits as <name>.png, which the
+    materials' map_Kd/map_Ks/map_Ke then name. Returns the OBJ's path."""
+    from rodent_tpu_torch.io import png
+    os.makedirs(out_dir, exist_ok=True)
+    for tex, img in tex_images.items():
+        u8 = np.round(np.power(np.clip(img, 0.0, 1.0), 1.0 / 2.2) * 255.0)
+        png.write_png(os.path.join(out_dir, f"{tex}.png"),
+                      u8.astype(np.uint8))
+    lines = []
+    for m in materials:
+        lines += [f"newmtl {m.name}", "Kd %r %r %r" % tuple(m.kd),
+                  "Ks %r %r %r" % tuple(m.ks), "Ke %r %r %r" % tuple(m.ke),
+                  f"Ns {m.ns!r}", f"Ni {m.ni!r}", "Tf %r %r %r" % tuple(m.tf),
+                  f"illum {m.illum}"]
+        for tag, tex in (("map_Kd", m.map_kd), ("map_Ks", m.map_ks),
+                         ("map_Ke", m.map_ke)):
+            if tex:
+                lines.append(f"{tag} {tex}.png")
+    with open(os.path.join(out_dir, f"{name}.mtl"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    tri = mesh.tri_indices + 1
+    mat = mesh.tri_materials
+    order = np.argsort(mat, kind="stable")
+    with open(os.path.join(out_dir, f"{name}.obj"), "w") as f:
+        f.write(f"mtllib {name}.mtl\n")
+        f.write("".join("v %.9g %.9g %.9g\n" % tuple(v)
+                        for v in mesh.vertices.tolist()))
+        f.write("".join("vt %.9g %.9g\n" % tuple(t)
+                        for t in mesh.texcoords.tolist()))
+        cur = None
+        for t in order.tolist():
+            if mat[t] != cur:
+                cur = mat[t]
+                f.write(f"usemtl {materials[cur].name}\n")
+            a, b, c = tri[t].tolist()
+            f.write(f"f {a}/{a} {b}/{b} {c}/{c}\n")
+    return os.path.join(out_dir, f"{name}.obj")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -1301,21 +1661,28 @@ def main():
     bodies = phase_bodies(device, hall, verts, idx, big_bvh, big_prim,
                           big_ao, pool)
     log(f"[14] the body phase took {time.perf_counter() - t_bodies:.1f} s")
+    t_obj = time.perf_counter()
+    mathall_k1, mathall, mats, texs = phase_mathall(device)
+    obj_k2 = phase_obj_files(device, mathall, mats, texs)
+    del mathall
+    log(f"[15] the OBJ scene phase took {time.perf_counter() - t_obj:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     src = "rodent_tpu_torch/csrc/bvh_traverse.cu"
     pallas = "rodent_tpu/traversal/pallas_packet.py"
     # no PyTorch call computes a BVH traversal: library_ms is null. K1-K3
     # run the first body; "variants" holds both bodies' times from phase
-    # 14
+    # 14. K1's launches: hall's render (phase 5) and mathall's (15a); K2's:
+    # powerplant's persistent render (phase 9) and tools.render's hbm run
+    # on the mathall OBJ (15b)
     log(json.dumps({"kernels": [
         {"name": "bvh_traverse", "route": "cuda", "source": src,
-         "replaces": f"{pallas}:878", "launches": launches,
+         "replaces": f"{pallas}:878", "launches": launches + mathall_k1,
          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "library_ms": None,
          "variants": bodies["bvh_traverse"]},
         {"name": "bvh_traverse_prefetch", "route": "cuda", "source": src,
-         "replaces": f"{pallas}:96", "launches": k2_launches,
+         "replaces": f"{pallas}:96", "launches": k2_launches + obj_k2,
          "max_abs_err": big_err, "ms": big_ms["K2"],
          "plain_ms": big_plain_ms, "bound_ms": bounds["K2"][0],
          "bound_by": bounds["K2"][1], "library_ms": None,

@@ -13,6 +13,10 @@ on a CUDA device the kernel K1 (packet=True) or its prefetching variant K2
 (packet="hbm"/"giga", the big-scene tiers), on the CPU their plain torch
 version.
 
+Textured scenes (a texture bank in the scene, compiler.compile_obj or
+compile_mesh with tex_images) take kd/ks from the bank at the hit's uv,
+and textured lights their radiance, on hit and in NEE (_sample_bank).
+
 Two renderers: render_iteration (spp wavefront passes, each traced to
 completion over the whole image) and render_iteration_persistent (a fixed
 pool of ray slots; a slot whose path ends is splatted and re-emitted with
@@ -53,7 +57,7 @@ def _engine(packet):
     kernel serves both of the TPU's HBM transports); the hybrid tiers take
     their full-packet flavour: the TPU traces their bounces on the
     dual-queue engine, which is not ported. False (the dual-queue engine,
-    ROADMAP A10) and "dense" (ROADMAP A9) raise NotImplementedError."""
+    ROADMAP A4) and "dense" (ROADMAP A3) raise NotImplementedError."""
     packet = _HYBRID.get(packet, packet)
     if packet is True:
         return False
@@ -62,11 +66,11 @@ def _engine(packet):
     if packet is False:
         raise NotImplementedError(
             "packet=False is the dual-queue engine (traversal/tiled.py, "
-            "ROADMAP A10), which is not ported; use packet=True")
+            "ROADMAP A4), which is not ported; use packet=True")
     if packet == "dense":
         raise NotImplementedError(
             "packet='dense' is the brute-force engine (traversal/dense.py, "
-            "ROADMAP A9), which is not ported; use packet=True")
+            "ROADMAP A3), which is not ported; use packet=True")
     raise ValueError(f"unknown packet engine {packet!r}")
 
 
@@ -74,7 +78,7 @@ def _no_dual_queue(compact, sub):
     if compact or sub:
         raise NotImplementedError(
             "compact and sub configure the dual-queue engine "
-            "(traversal/tiled.py, ROADMAP A10), which is not ported")
+            "(traversal/tiled.py, ROADMAP A4), which is not ported")
 
 
 def _traverse(scene, rays, any_hit=False, packet=True, sort=False,
@@ -113,10 +117,14 @@ def surface_element(scene, rays, hit):
     """make_tri_mesh_geometry's surface element (geometry.impala:21-54):
     one row gather from the pre-joined per-triangle shading table, or the
     4-gather path (tri row + 3 vertex rows) for scenes without it; both
-    give the same values. Texture coordinates are left out until textures
-    are ported."""
+    give the same values. The interpolated texture coordinates ("uv") are
+    computed where the scene has a texture bank, the only place they are
+    read (XLA drops them from the JAX package's untextured programs)."""
     prim = torch.clamp(hit["prim_id"], min=0).long()
     u, v = hit["u"], hit["v"]
+    textured = "textures" in scene
+    w = 1.0 - u - v if textured else None
+    uv = None
     if "tri_shade" in scene:
         ts = scene["tri_shade"][prim]                     # (B, 20)
         mat_id = _i32(ts[:, 0])
@@ -126,6 +134,9 @@ def surface_element(scene, rays, hit):
         n1 = (ts[:, 8], ts[:, 9], ts[:, 10])
         n2 = (ts[:, 11], ts[:, 12], ts[:, 13])
         normal = vm.normalize(vm.lerp2(n0, n1, n2, u, v))
+        if textured:
+            uv = (w * ts[:, 14] + u * ts[:, 16] + v * ts[:, 18],
+                  w * ts[:, 15] + u * ts[:, 17] + v * ts[:, 19])
     else:
         tg = scene["tri_geo"][prim]                       # (B, 8)
         tgi = _i32(tg)
@@ -137,6 +148,9 @@ def surface_element(scene, rays, hit):
             (vg[0][:, 0], vg[0][:, 1], vg[0][:, 2]),
             (vg[1][:, 0], vg[1][:, 1], vg[1][:, 2]),
             (vg[2][:, 0], vg[2][:, 1], vg[2][:, 2]), u, v))
+        if textured:
+            uv = (w * vg[0][:, 3] + u * vg[1][:, 3] + v * vg[2][:, 3],
+                  w * vg[0][:, 4] + u * vg[1][:, 4] + v * vg[2][:, 4])
 
     is_entering = vm.dot(rays["dir"], face_n) <= 0.0
     point = vm.add(rays["org"], vm.scale(rays["dir"], hit["t"]))
@@ -144,7 +158,7 @@ def surface_element(scene, rays, hit):
     shade_n = vm.where(vm.dot(rays["dir"], normal) <= 0.0,
                        normal, vm.neg(normal))
     t_, b_, n_ = vm.onb(shade_n)
-    return {
+    surf = {
         "is_entering": is_entering,
         "point": point,
         "face_normal": face_normal,
@@ -152,19 +166,61 @@ def surface_element(scene, rays, hit):
         "mat_id": mat_id,
         "light_id": light_id,
     }
+    if uv is not None:
+        surf["uv"] = uv
+    return surf
+
+
+_MAT_KEYS = ("kind", "kd", "ks", "ns", "ni", "tf", "mix_k", "emissive")
 
 
 def gather_material(scene, mat_id):
     """Per-ray material parameters from the scene's material table (the
     converter's per-material shader closures, converter.cpp:859-927, as
-    data)."""
+    data), with the kd/ks texture ids where the scene has a bank."""
     mt = scene["mat_table"]
     idx = mat_id.long()
+    keys = _MAT_KEYS + (("kd_tex", "ks_tex") if "textures" in scene else ())
     out = {}
-    for key in ("kind", "kd", "ks", "ns", "ni", "tf", "mix_k", "emissive"):
+    for key in keys:
         c = mt[key][idx]
         out[key] = (c[:, 0], c[:, 1], c[:, 2]) if c.ndim == 2 else c
     return out
+
+
+def _sample_bank(scene, tex_id, uv):
+    """Per-ray texture-bank lookup, bilinear with the repeat border
+    (integrator.py:239-272; render.texture's semantics, the blend written
+    as vm.lerp). Texel indices are int64, so a bank of many large
+    textures cannot overflow them; negative ids read texture 0 (mask the
+    result)."""
+    bank = scene["textures"]
+    hw = scene["tex_hw"]
+    T, HM, WM, _ = bank.shape
+    flat = bank.reshape(T * HM * WM, 3)
+    tid = torch.clamp(tex_id.long(), min=0)
+    h = hw[:, 0][tid].long()
+    w = hw[:, 1][tid].long()
+    u = uv[0] - torch.floor(uv[0])
+    v = uv[1] - torch.floor(uv[1])
+    x = u * w.to(torch.float32)
+    y = v * h.to(torch.float32)
+    # the reference's corner convention (image.impala:65-84): x0 = trunc,
+    # weight = frac; u - floor(u) may round to 1.0, the min() keeps it in
+    x0 = torch.minimum(x.long(), w - 1)
+    y0 = torch.minimum(y.long(), h - 1)
+    fx = x - torch.floor(x)
+    fy = y - torch.floor(y)
+    x1 = torch.minimum(x0 + 1, w - 1)
+    y1 = torch.minimum(y0 + 1, h - 1)
+
+    def fetch(xi, yi):
+        g = flat[tid * (HM * WM) + yi * WM + xi]
+        return (g[:, 0], g[:, 1], g[:, 2])
+
+    top = vm.lerp(fetch(x0, y0), fetch(x1, y0), fx)
+    bot = vm.lerp(fetch(x0, y1), fetch(x1, y1), fx)
+    return vm.lerp(top, bot, fy)
 
 
 def _shade(scene, rays, hit, state, packet=True, sort=False,
@@ -178,6 +234,14 @@ def _shade(scene, rays, hit, state, packet=True, sort=False,
     alive = state["alive"] & (hit["prim_id"] >= 0)
     surf = surface_element(scene, rays, hit)
     mat = gather_material(scene, surf["mat_id"])
+    textured = "textures" in scene
+    ke_textured = textured and "ke_tex" in scene["lights"]
+    if textured:
+        # textured kd/ks replace the constants (converter.cpp:877-895)
+        kd_t = _sample_bank(scene, mat["kd_tex"], surf["uv"])
+        ks_t = _sample_bank(scene, mat["ks_tex"], surf["uv"])
+        mat["kd"] = vm.where(mat["kd_tex"] >= 0, kd_t, mat["kd"])
+        mat["ks"] = vm.where(mat["ks_tex"] >= 0, ks_t, mat["ks"])
     rnd = state["rnd"]
     out_dir = vm.neg(rays["dir"])
     num_lights = scene["num_lights"]
@@ -186,6 +250,13 @@ def _shade(scene, rays, hit, state, packet=True, sort=False,
 
     # ---- on_hit: emissive surface seen by the path ----
     emit = light_mod.emission(scene["lights"], surf["light_id"], out_dir)
+    if ke_textured:
+        # textured emission (converter.cpp:794-806): the radiance is the
+        # Ke texture at the hit point's uv
+        ket = emit["ke_tex"]
+        emit["intensity"] = vm.where(
+            (ket >= 0) & emit["valid"], _sample_bank(scene, ket, surf["uv"]),
+            emit["intensity"])
     cos_o = vm.dot(out_dir, surf["n"])
     next_mis = state["mis"] * hit["t"] * hit["t"] / torch.where(
         cos_o != 0.0, cos_o, 1.0)
@@ -201,6 +272,11 @@ def _shade(scene, rays, hit, state, packet=True, sort=False,
     lidx, rnd = light_mod.pick_uniform(num_lights, rnd)
     ls, rnd = light_mod.sample_direct(scene["lights"], lidx, rnd,
                                       surf["point"])
+    if ke_textured:
+        ket = ls["ke_tex"]
+        ls["intensity"] = vm.where(
+            (ket >= 0) & ls["valid"], _sample_bank(scene, ket, ls["uv"]),
+            ls["intensity"])
     light_vec = vm.sub(ls["pos"], surf["point"])
     vis = vm.dot(light_vec, surf["n"])
     nee_ok = do_nee & (vis > 0.0) & (ls["cos"] > 0.0)

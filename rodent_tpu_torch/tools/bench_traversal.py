@@ -10,7 +10,7 @@ dumps hit distances as .fbuf.
 
 --variant packet runs K1 (csrc/bvh_traverse.cu); hbm and giga run K2, K1
 with the exact next-pop L2 prefetch. The dual-queue variants (tiled,
-tiled-c; ROADMAP A10) and --sharded (ROADMAP A12) are not ported. A
+tiled-c; ROADMAP A4) and --sharded (ROADMAP A6) are not ported. A
 timed iteration is a sample of rodent_tpu_torch.experiments.common: CUDA
 events around a block of back-to-back calls, about 20 ms long, on a card;
 --cpu runs the plain torch version on the CPU, one call per iteration on

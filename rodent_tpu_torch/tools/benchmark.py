@@ -13,7 +13,7 @@ hall, crown-class, powerplant-class). Variants:
   hbm-nopf, giga-nopf
              K1 again: the no-prefetch A/B rows of the big-scene tiers
 
-The TPU's dual-queue engine (tiled, tiled-c) is not ported (ROADMAP A10)
+The TPU's dual-queue engine (tiled, tiled-c) is not ported (ROADMAP A4)
 and is refused. The scenes, their full sizes (powerplant is
 powerplant-4.3M), their BVH builds, the ray distributions (sorted) and
 the timer are those of rodent_tpu_torch.experiments.common: a sample is
@@ -60,7 +60,7 @@ def _variants(text):
         if v not in VARIANTS:
             raise argparse.ArgumentTypeError(
                 f"variant {v!r}: choose from {', '.join(VARIANTS)} (the "
-                "dual-queue tiled variants are not ported, ROADMAP A10)")
+                "dual-queue tiled variants are not ported, ROADMAP A4)")
     return names
 
 

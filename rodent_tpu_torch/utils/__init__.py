@@ -1,1 +1,1 @@
-"""Host-side helpers of the port (copies of rodent_tpu.utils modules)."""
+"""Host-side helpers of the port (counterparts of rodent_tpu.utils modules)."""

@@ -22,6 +22,7 @@ from rodent_tpu_torch.experiments import (ab_body, common, probe_body,
                                           probe_mosaic2, probe_mosaic3,
                                           vpu_dtype_bench)
 from rodent_tpu_torch.render import film as film_mod
+from rodent_tpu_torch.render import integrator, texture
 from rodent_tpu_torch.render.camera import Camera
 from rodent_tpu_torch.render.compiler import compile_mesh
 from rodent_tpu_torch.render.integrator import (
@@ -123,6 +124,54 @@ def test_render_on_card_matches_cpu(card):
     for device in ("cpu", card):
         scene = compile_mesh(verts, idx, device, max_path_len=4,
                              emitter="inside")
+        packet.reset_launches()
+        film = render_iteration(scene.device, cam,
+                                film_mod.new_film(32, 24, device), 32, 24,
+                                2, 0)
+        films.append(film.cpu().numpy())
+    assert packet.launches["bvh_traverse"] > 0
+    cpu, gpu = films
+    close = np.isclose(gpu, cpu, rtol=1e-4, atol=1e-5).all(axis=1)
+    assert close.mean() >= 0.99, close.mean()
+    assert abs(gpu.mean() / cpu.mean() - 1.0) < 5e-3
+
+
+@pytest.mark.parametrize("flt", ["nearest", "bilinear"])
+@pytest.mark.parametrize("border", ["clamp", "repeat"])
+def test_sample_bank_on_card_equals_cpu(card, border, flt):
+    """texture.sample_bank and the integrator's bank lookup on the card
+    give the CPU's values bit for bit (one elementwise torch op at a time:
+    nothing to contract)."""
+    r = np.random.RandomState(21)
+    imgs = [r.rand(*s, 3).astype(np.float32) for s in ((7, 5), (64, 32))]
+    bank, hw = texture.build_bank(imgs)
+    uv = r.uniform(-3, 3, (100_000, 2)).astype(np.float32)
+    tid = r.randint(-1, 2, 100_000).astype(np.int32)
+    out = []
+    for device in ("cpu", card):
+        b, h, t, u = (torch.from_numpy(x).to(device)
+                      for x in (bank, hw, tid, uv))
+        got = texture.sample_bank(b, h, t, u, border, flt)
+        scene = {"textures": b, "tex_hw": h}
+        lookup = integrator._sample_bank(scene, t, (u[:, 0], u[:, 1]))
+        out.append([got.cpu().numpy()] + [c.cpu().numpy() for c in lookup])
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(b, a)
+
+
+def test_textured_render_on_card_matches_cpu(card):
+    """mathall-6K (textures, every BSDF kind) through K1 on the card
+    against the plain traversal on the CPU, with the rule of
+    test_render_on_card_matches_cpu."""
+    verts, idx = testscenes.make_hall(6_000, rich_mats=True)
+    mats, texs = testscenes.mat_hall_materials()
+    cam = Camera.make((2.5, 5.0, 5.0), (1.0, -0.12, 0.02), (0, 1, 0), 60.0,
+                      32, 24)
+    films = []
+    for device in ("cpu", card):
+        scene = compile_mesh(verts, idx, device, max_path_len=4,
+                             emitter="inside", materials=mats,
+                             tex_images=texs)
         packet.reset_launches()
         film = render_iteration(scene.device, cam,
                                 film_mod.new_film(32, 24, device), 32, 24,

@@ -45,7 +45,10 @@ def test_port_imports_no_jax():
                  "experiments.probe_mosaic2", "experiments.probe_gather",
                  "experiments.probe_mosaic3", "experiments.probe_chain",
                  "experiments.probe_body", "experiments.probe_dyn_cost",
-                 "experiments.vpu_dtype_bench"):
+                 "experiments.vpu_dtype_bench", "io.jpg", "render.texture",
+                 "render.light", "utils.profiling", "tools.render",
+                 "tools.converter", "tools.ray_gen", "tools.bvh_extractor",
+                 "tools.fbuf2png"):
         assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"

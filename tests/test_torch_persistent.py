@@ -191,8 +191,8 @@ def test_sharding_hooks(hall, base_film):
 
 
 def test_unported_engines_raise(hall):
-    """The dual-queue engine (packet=False, compact, sub; ROADMAP A10) and
-    the dense engine (ROADMAP A9) are not ported: asking for them raises
+    """The dual-queue engine (packet=False, compact, sub; ROADMAP A4) and
+    the dense engine (ROADMAP A3) are not ported: asking for them raises
     instead of falling back, in both renderers, and launches nothing."""
     scene = hall[1]
     cam = Camera.make(*HALL_CAM, 8, 8)

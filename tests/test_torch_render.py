@@ -168,11 +168,28 @@ def test_crown_golden_gate():
 
 
 def test_textured_scene_not_ported():
+    """Named for the NotImplementedError this call raised before textures
+    were ported; now materials naming a procedural texture compile, bind
+    it to bank id 0 (kd_tex), get triplanar uvs, and render lit and
+    finite."""
     verts, idx = testscenes.make_hall(2_000)
     mats = [obj_io.Material(name=f"m{i}", kd=(1.0, 1.0, 1.0),
                             map_kd="checker") for i in range(4)]
-    with pytest.raises(NotImplementedError):
-        compile_mesh(verts, idx, "cpu", materials=mats)
+    g = (np.indices((16, 16)).sum(0) // 4) % 2
+    checker = np.where(g[..., None] == 0, np.float32([0.7, 0.6, 0.5]),
+                       np.float32([0.2, 0.2, 0.2])).astype(np.float32)
+    scene = compile_mesh(verts, idx, "cpu", materials=mats,
+                         tex_images={"checker": checker}, max_path_len=3,
+                         emitter="inside")
+    dev = scene.device
+    assert scene.tex_files == ["checker"]
+    assert dev["textures"].shape == (1, 16, 16, 3)
+    assert dev["tex_hw"].tolist() == [[16, 16]]
+    assert dev["mat_table"]["kd_tex"].tolist() == [0, 0, 0, 0, -1]
+    assert float(dev["texcoords"].abs().max()) > 0.5
+    film = render_iteration(dev, Camera.make(*HALL_CAM, 16, 12),
+                            film_mod.new_film(16, 12, "cpu"), 16, 12, 1, 0)
+    assert bool(torch.isfinite(film).all()) and float(film.mean()) > 0.0
 
 
 def _rand_surface(r, n):

@@ -50,7 +50,7 @@ def test_benchmark_traversal_rows(capsys):
 
 
 def test_benchmark_refusals(monkeypatch):
-    """The dual-queue variants are refused by argparse (ROADMAP A10), and
+    """The dual-queue variants are refused by argparse (ROADMAP A4), and
     without --cpu the tool needs a card."""
     with pytest.raises(SystemExit) as e:
         benchmark.main(["--cpu", "--variants", "packet,tiled"])
