@@ -81,7 +81,17 @@ calls real, and checks it:
    policy (K1) and --traversal hybrid-hbm (K2), and the traversal file
    pipeline ray_gen (1024x1024 primaries) -> bvh_extractor ->
    bench_traversal (K1) -> fbuf2png, whose intersection count and t equal
-   K1's on the rays and BVH read back from the files.
+   K1's on the rays and BVH read back from the files;
+16. the engines that are torch ops, not kernels (rodent_tpu_torch/
+   traversal/tiled.py and dense.py): the dual-queue engine on hall-260K's
+   1M sorted primaries, ao and bounce rays without and with staged
+   compaction, timed in turns against K1 with its trips, hits equal to
+   K1's; the dense engine on a box of 6 Tri8 packets (1M rays) against
+   K1; crown's golden gate in the golden's configuration (packet=False,
+   compact=5); one persistent hall-260K iteration under the JAX package's
+   hybrid-tier policy at 480x272 spp 1; tools.render --traversal tiled and
+   dense, quality_gate and a scripted view session on the box (written
+   under build/phase16). The engines' routes must launch no kernel.
 
 Every kernel's time stands beside its bound, the least time the card
 could take for the same pops and the table rows they read
@@ -1261,7 +1271,8 @@ def profile_split(fn):
     its kernels: the texture-bank lookups (the kernels launched inside
     integrator._sample_bank, marked with a record_function range here),
     the traversal kernels (bvh_traverse_kernel: K1, K2) and the rest; the
-    device idle share is 1 - (union of the kernel intervals) / wall."""
+    device idle share is 1 - (union of the kernel intervals) / wall;
+    "top": the six kernel names with the most device time (ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from rodent_tpu_torch.render import integrator
@@ -1292,6 +1303,11 @@ def profile_split(fn):
               and e.device_type == DeviceType.CPU]
     bank_ms = sum(getattr(e, "device_time_total", None)
                   or getattr(e, "cuda_time_total", 0) for e in ranges) * 1e-3
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = (by_name.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() * 1e-3)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy, end = 0.0, -1.0
     for a, b in spans:
@@ -1301,7 +1317,8 @@ def profile_split(fn):
     return {"wall_ms": wall * 1e3, "kernel_ms": total, "busy_ms": busy * 1e-3,
             "idle": 1.0 - busy * 1e-3 / (wall * 1e3), "kernels": len(dev),
             "bank_ms": bank_ms, "bank_calls": len(ranges),
-            "traversal_ms": trav, "rest_ms": total - trav - bank_ms}
+            "traversal_ms": trav, "rest_ms": total - trav - bank_ms,
+            "top": top}
 
 
 def phase_mathall(device):
@@ -1600,6 +1617,363 @@ def write_obj_scene(mesh, materials, tex_images, out_dir, name="scene"):
     return os.path.join(out_dir, f"{name}.obj")
 
 
+# phase 16: a closed box with a ceiling lamp (14 triangles, the dense
+# tier), and the same box open at z = +1 for quality_gate's fixed camera
+BOX_OBJ = """mtllib box.mtl
+v -1 0 -1
+v  1 0 -1
+v  1 2 -1
+v -1 2 -1
+v -1 0  1
+v  1 0  1
+v  1 2  1
+v -1 2  1
+v -0.3 1.99 -0.3
+v  0.3 1.99 -0.3
+v  0.3 1.99  0.3
+v -0.3 1.99  0.3
+usemtl wall
+f 1 2 3 4
+f 5 8 7 6
+f 1 5 6 2
+f 4 3 7 8
+usemtl red
+f 1 4 8 5
+usemtl green
+f 2 6 7 3
+usemtl lamp
+f 9 10 11 12
+"""
+BOX_MTL = """newmtl wall
+Kd 0.8 0.8 0.8
+newmtl red
+Kd 0.6 0.1 0.1
+newmtl green
+Kd 0.1 0.6 0.1
+Ks 0.2 0.2 0.2
+Ns 20
+newmtl lamp
+Ke 6 6 6
+"""
+BOX_FRONT = "f 5 8 7 6\n"
+BOX_VIEW = ((0.0, 1.0, 0.9), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0), 60.0)
+
+
+def write_boxes(out_dir):
+    """Writes the closed and the open box (OBJ + MTL) into out_dir and
+    returns their paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "box.mtl"), "w") as f:
+        f.write(BOX_MTL)
+    paths = []
+    for name, text in (("box", BOX_OBJ),
+                       ("open", BOX_OBJ.replace(BOX_FRONT, ""))):
+        paths.append(os.path.join(out_dir, f"{name}.obj"))
+        with open(paths[-1], "w") as f:
+            f.write(text)
+    return paths
+
+
+def no_k1(before, what):
+    """The dual-queue and dense routes launch no traversal kernel."""
+    from rodent_tpu_torch.traversal import packet
+    check(packet.launches == before,
+          f"{what}: kernel launches {before} -> {packet.launches}")
+
+
+def phase_dual_queue(device, bvh, verts, idx, side=1024):
+    """[16a] The dual-queue engine on hall-260K's sorted primaries, ao and
+    bounce rays, without and with staged compaction (compact_stages=5),
+    each timed in turns against K1 on the same rays; hits equal K1's up to
+    exact-t ties (any-hit: hit/miss exact), compaction's equal the single
+    stage's bit for bit; trips from debug_counters. Returns the rows."""
+    from rodent_tpu_torch.experiments import common
+    from rodent_tpu_torch.traversal import packet, tiled
+    from rodent_tpu_torch.traversal.packet import traverse_packet_components
+    dists = common.distributions("hall", verts, idx, bvh, side, device,
+                                 ("primary", "ao", "bounces"))
+    rows = {}
+    for name, (comps, ah) in dists.items():
+        n = comps[4].shape[0]
+
+        def k1(comps=comps, ah=ah):
+            return traverse_packet_components(bvh, *comps, any_hit=ah)
+
+        def dq(compact, comps=comps, ah=ah):
+            return lambda: tiled.traverse_components(
+                bvh, *comps, any_hit=ah, compact_stages=compact)
+
+        before = dict(packet.launches)
+        cnt = tiled.traverse_components(bvh, *comps, any_hit=ah,
+                                        debug_counters=True)
+        tiled.reset_trips()
+        plain = dq(0)()
+        trips0 = dict(tiled.trips)
+        tiled.reset_trips()
+        staged = dq(5)()
+        trips5 = dict(tiled.trips)
+        no_k1(before, f"dual-queue {name}")
+        check(all(bool(torch.equal(cnt[k], plain[k])) for k in plain)
+              and all(bool(torch.equal(staged[k], plain[k]))
+                      for k in plain),
+              f"dual-queue {name}: compaction or counters change the hits")
+        k_ms, d_ms, k_hit, _ = common.in_turns(k1, dq(0), device, blocks=3)
+        k_ms2, c_ms, _, _ = common.in_turns(k1, dq(5), device, blocks=3)
+        if ah:
+            check(bool(torch.equal(plain["prim_id"] >= 0,
+                                   k_hit["prim_id"] >= 0)),
+                  f"dual-queue {name}: any-hit hit/miss differs from K1")
+            ties, err = 0, 0.0
+        else:
+            ties, err = compare_hits(plain, k_hit, f"dual-queue {name}")
+            check(ties < TIE_LIMIT * n, f"dual-queue {name}: {ties} ties")
+        c = cnt["counters"]
+        if name == "primary":
+            rows["profile"] = profile_engine(dq(0), c["iters"],
+                                             "dual-queue primary")
+        rows[name] = {"rays": n, "any_hit": ah, "k1_ms": (k_ms + k_ms2) / 2,
+                      "ms": d_ms, "compact_ms": c_ms, "iters": c["iters"],
+                      "leaf_iters": c["leaf_iters"],
+                      "live_share": float(c["live_sum"]) / c["iters"] / n,
+                      "compact_trips": trips5["trips"], "ties": ties,
+                      "max_abs_err": err}
+        log(f"[16a] hall-260K {name} ({n} rays, "
+            f"{'any' if ah else 'closest'}-hit): dual-queue "
+            f"{d_ms:.2f} ms, with compaction {c_ms:.2f} ms, K1 "
+            f"{rows[name]['k1_ms']:.4f} ms (in turns) -> "
+            f"{d_ms / rows[name]['k1_ms']:.0f}x / "
+            f"{c_ms / rows[name]['k1_ms']:.0f}x K1; trips {c['iters']} "
+            f"(leaf unit {c['leaf_iters']}, {trips0['trips']} without "
+            f"counters, {trips5['trips']} in the compacted stages), live "
+            f"share {rows[name]['live_share']:.3f}; {ties} exact-t ties "
+            f"with K1, max |dt,du,dv| {err:.3g}; compaction bit for bit")
+    return rows
+
+
+def profile_engine(fn, trips, what):
+    """[16] One call of an engine under torch.profiler (profile_split):
+    its wall and device time, kernels per trip, the device's idle share
+    and the kernels that take the most device time."""
+    split = profile_split(fn)
+    top = ", ".join(f"{name[:48]} {ms:.1f}" for name, ms in split["top"])
+    log(f"[16] profile of one {what} traversal: wall "
+        f"{split['wall_ms']:.1f} ms, {split['kernels']} kernels "
+        f"({split['kernels'] / max(trips, 1):.0f} per trip), kernel time "
+        f"{split['kernel_ms']:.1f} ms, device idle share "
+        f"{split['idle']:.3f}; most device time (ms): {top}")
+    return {k: split[k] for k in ("wall_ms", "kernel_ms", "idle", "kernels",
+                                  "top")}
+
+
+def box_rays(device, side, tmax):
+    """side x side pinhole rays from BOX_VIEW's eye, jittered in their
+    pixels (seed 16) so that no ray runs exactly through a quad's
+    diagonal, where its two triangles tie."""
+    from rodent_tpu_torch.traversal import api
+    eye, d, up, fov = (np.asarray(x, np.float32) for x in BOX_VIEW)
+    right = np.cross(d, up)
+    u2 = np.cross(right, d)
+    scale = np.tan(np.radians(fov) / 2)
+    jitter = np.random.RandomState(16).rand(2, side, side)
+    kx, ky = np.meshgrid(np.arange(side), np.arange(side))
+    kx = (kx + jitter[0]) / side * 2 - 1
+    ky = 1 - (ky + jitter[1]) / side * 2
+    dirs = (d + kx[..., None] * scale * right
+            + ky[..., None] * scale * u2).reshape(-1, 3)
+    org = np.tile(eye, (dirs.shape[0], 1))
+    return api.components(api.make_rays(org, dirs, 0.0, tmax,
+                                        device=device))
+
+
+def phase_dense(device, box_obj, side=1024):
+    """[16b] The dense engine on the closed box (the dense tier): 1M
+    pinhole rays closest-hit, timed in turns against K1, hits equal up to
+    exact-t ties; any-hit rays ending at t 1.8 hit/miss equal. Returns the
+    row."""
+    from rodent_tpu_torch.experiments import common
+    from rodent_tpu_torch.render.compiler import compile_obj, packet_mode
+    from rodent_tpu_torch.traversal import dense, packet
+    from rodent_tpu_torch.traversal.packet import traverse_packet_components
+    scene = compile_obj(box_obj, device, max_path_len=8)
+    bvh = scene.device["bvh"]
+    packets = bvh["tris"].shape[0]
+    check(packets <= dense.DENSE_MAX_PACKETS
+          and packet_mode(scene.device) == "dense",
+          f"box: {packets} packets, tier {packet_mode(scene.device)}")
+    comps = box_rays(device, side, 1e30)
+    short = box_rays(device, side, 1.8)
+    n = comps[4].shape[0]
+    before = dict(packet.launches)
+    hit = dense.traverse_dense_components(bvh, *comps)
+    blocked = dense.traverse_dense_components(bvh, *short, any_hit=True)
+    no_k1(before, "dense")
+    k_ms, d_ms, k_hit, _ = common.in_turns(
+        lambda: traverse_packet_components(bvh, *comps),
+        lambda: dense.traverse_dense_components(bvh, *comps), device)
+    split = profile_engine(
+        lambda: dense.traverse_dense_components(bvh, *comps), packets,
+        "dense (a trip: a packet)")
+    ties, err = compare_hits(hit, k_hit, "dense box")
+    check(ties < TIE_LIMIT * n, f"dense box: {ties} ties")
+    check(bool((hit["prim_id"] >= 0).all()),
+          "dense box: a ray left the box")
+    kb = traverse_packet_components(bvh, *short, any_hit=True)
+    frac = float((blocked["prim_id"] >= 0).float().mean())
+    check(bool(torch.equal(blocked["prim_id"] >= 0, kb["prim_id"] >= 0))
+          and 0.0 < frac < 1.0,
+          f"dense box: any-hit hit/miss differs from K1 ({frac})")
+    log(f"[16b] dense engine, the box ({packets} Tri8 packets), {n} rays: "
+        f"{d_ms:.4f} ms against K1 {k_ms:.4f} ms (in turns) -> "
+        f"{d_ms / k_ms:.1f}x K1; {ties} exact-t ties, max |dt,du,dv| "
+        f"{err:.3g}; any-hit to t 1.8: hit/miss equal, blocked fraction "
+        f"{frac:.4f}")
+    return {"rays": n, "packets": packets, "ms": d_ms, "k1_ms": k_ms,
+            "ties": ties, "max_abs_err": err, "profile": split}
+
+
+def phase_golden_tiled(device):
+    """[16c] Crown's golden gate in the golden's own configuration
+    (experiments/make_goldens.py): render_iteration_persistent with
+    packet=False, compact=5, on the dual-queue engine alone."""
+    from rodent_tpu_torch.io import png
+    from rodent_tpu_torch.render import film as film_mod
+    from rodent_tpu_torch.render.camera import Camera
+    from rodent_tpu_torch.render.compiler import compile_mesh
+    from rodent_tpu_torch.render.integrator import (
+        render_iteration_persistent)
+    from rodent_tpu_torch.traversal import packet, tiled
+    from rodent_tpu_torch.utils import testscenes
+    gdir = os.path.join(REPO, "tests", "golden")
+    with open(os.path.join(gdir, "golden_meta.json")) as f:
+        m = json.load(f)["crown"]
+    verts, idx = testscenes.make_crown(m["tris"])
+    scene = compile_mesh(verts, idx, device, max_path_len=8,
+                         emitter="above")
+    w, h = m["w"], m["h"]
+    cam = Camera.make((4.2, 1.8, 1.2), (-4.2, -1.4, -1.2), (0, 1, 0), 42.0,
+                      w, h)
+    film = film_mod.new_film(w, h, device)
+    before = dict(packet.launches)
+    tiled.reset_trips()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for it in range(m["test_iters"]):
+        film = render_iteration_persistent(scene.device, cam, film, w, h,
+                                           m["spp"], it, packet=False,
+                                           compact=5)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    no_k1(before, "crown golden (dual-queue)")
+    img = film_mod.tonemap(film, w, h, m["test_iters"])
+    golden = png.read_png(os.path.join(gdir, "crown.png"))[..., :3]
+    mse = film_mod.mse_u8(golden, img)
+    gate = 3.0 * m["calib_mse_u8"] + 1.0
+    check(mse <= gate, f"crown golden (dual-queue): MSE {mse:.1f} over the "
+          f"gate {gate:.1f}")
+    check(abs(float(img.mean()) - m["mean_u8"]) < 0.5 * m["mean_u8"],
+          f"crown golden (dual-queue): image mean {img.mean():.1f}")
+    log(f"[16c] crown golden gate through render_iteration_persistent("
+        f"packet=False, compact=5): MSE {mse:.2f} <= {gate:.2f}, image "
+        f"mean {img.mean():.2f} (golden {m['mean_u8']}); {dt:.1f} s, "
+        f"{tiled.trips['trips']} trips, no kernel launch")
+    return mse, dt
+
+
+def phase_hybrid_policy(device, scene, w=480, h=272):
+    """[16d] One persistent iteration on hall-260K under the JAX package's
+    hybrid-tier policy (packet=False, compact=5, 64K pool), at a reduced
+    image (480x272, spp 1; the bench's is 1920x1088 spp 4)."""
+    from rodent_tpu_torch.render import film as film_mod
+    from rodent_tpu_torch.render.camera import Camera
+    from rodent_tpu_torch.render.integrator import (
+        render_iteration_persistent)
+    from rodent_tpu_torch.traversal import packet, tiled
+    cam = Camera.make(*HALL_VIEW, w, h)
+    before = dict(packet.launches)
+    tiled.reset_trips()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film, steps = render_iteration_persistent(
+        scene.device, cam, film_mod.new_film(w, h, device), w, h, 1, 0,
+        packet=False, compact=5, pool=1 << 16, return_steps=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    no_k1(before, "hybrid policy (dual-queue)")
+    check(bool(torch.isfinite(film).all()) and float(film.mean()) > 0.0,
+          "hybrid policy: film not finite or black")
+    msps = w * h / dt / 1e6
+    log(f"[16d] render_iteration_persistent(packet=False, compact=5, pool "
+        f"65536) on hall-260K {w}x{h} spp 1: {dt:.2f} s = {msps:.4f} "
+        f"Msamples/s, {steps} steps, {tiled.trips['trips']} trips "
+        f"({tiled.trips['leaf_trips']} with the leaf unit), no kernel "
+        f"launch")
+    return {"s": dt, "msamples": msps, "steps": steps,
+            "trips": tiled.trips["trips"]}
+
+
+def phase_engine_tools(device):
+    """[16e] The tools on the engines: tools.render --traversal tiled and
+    --traversal dense on the box (no kernel launch), quality_gate on the
+    open box against a reference PNG rendered here (K1, 8 iterations), and
+    a scripted view session."""
+    import re
+    import shutil
+    from rodent_tpu_torch.io import png
+    from rodent_tpu_torch.render import film as film_mod
+    from rodent_tpu_torch.render.camera import Camera
+    from rodent_tpu_torch.render.compiler import compile_obj
+    from rodent_tpu_torch.render.integrator import (
+        render_iteration_persistent)
+    from rodent_tpu_torch.tools import quality_gate, view
+    from rodent_tpu_torch.tools import render as render_tool
+    from rodent_tpu_torch.traversal import packet
+    out = os.path.join(REPO, "build", "phase16")
+    shutil.rmtree(out, ignore_errors=True)
+    box, open_box = write_boxes(out)
+    args = [box, "--width", 160, "--height", 120, "--spp", 2, "--bench", 2,
+            "--max-path-len", 8, "--eye", *BOX_VIEW[0], "--dir",
+            *BOX_VIEW[1]]
+    for traversal in ("tiled", "dense"):
+        png_path = os.path.join(out, f"render-{traversal}.png")
+        before = dict(packet.launches)
+        t0 = time.perf_counter()
+        film, text = run_tool(render_tool.run, args + [
+            "--traversal", traversal, "-o", png_path])
+        no_k1(before, f"tools.render --traversal {traversal}")
+        check(re.search(r"^# [\d.]+/[\d.]+/[\d.]+ \(min/med/max "
+                        r"Msamples/s\)$", text, re.M) is not None
+              and bool(torch.isfinite(film).all())
+              and png.read_png(png_path).mean() > 1.0,
+              f"tools.render --traversal {traversal}: {text!r}")
+        log(f"[16e] tools.render --traversal {traversal} on the box: no "
+            f"kernel launch, {time.perf_counter() - t0:.1f} s")
+
+    w, h = 64, 48
+    scene = compile_obj(open_box, device, max_path_len=64)
+    cam = Camera.make(*quality_gate.CAMERA, w, h)
+    film = film_mod.new_film(w, h, device)
+    for it in range(8):
+        film = render_iteration_persistent(scene.device, cam, film, w, h, 4,
+                                           it)
+    ref = os.path.join(out, "ref.png")
+    png.write_png(ref, film_mod.tonemap(film, w, h, 8))
+    code, text = run_tool(quality_gate.main, [
+        "--scene", open_box, "--ref", ref, "--iters", 2,
+        "-o", os.path.join(out, "gate.png")])
+    check(code == 0 and text.strip().endswith("PASS"),
+          f"quality_gate: exit {code}: {text!r}")
+    view_png = os.path.join(out, "view.png")
+    code, _ = run_tool(view.main, [
+        box, "--eye", *BOX_VIEW[0], "--dir", *BOX_VIEW[1], "--width", 64,
+        "--height", 48, "--keys", "Upq", "--quiet", "--iters", 4, "-o",
+        view_png])
+    img = png.read_png(view_png)
+    check(code == 0 and img.shape == (48, 64, 3) and img.mean() > 1.0,
+          f"view: exit {code}, PNG {img.shape} mean {img.mean():.1f}")
+    log(f"[16e] quality_gate on the open box and a scripted view session "
+        f"on the box passed; view PNG mean {img.mean():.1f}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
@@ -1666,6 +2040,15 @@ def main():
     obj_k2 = phase_obj_files(device, mathall, mats, texs)
     del mathall
     log(f"[15] the OBJ scene phase took {time.perf_counter() - t_obj:.1f} s")
+    t_eng = time.perf_counter()
+    engines = phase_dual_queue(device, hall_bvh, verts, idx)
+    box, _ = write_boxes(os.path.join(REPO, "build", "phase16"))
+    engines["dense"] = phase_dense(device, box)
+    engines["crown_mse"], engines["crown_s"] = phase_golden_tiled(device)
+    engines["hybrid_policy"] = phase_hybrid_policy(device, hall)
+    phase_engine_tools(device)
+    log(f"[16] engines {json.dumps(engines)}")
+    log(f"[16] the engine phase took {time.perf_counter() - t_eng:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     src = "rodent_tpu_torch/csrc/bvh_traverse.cu"
     pallas = "rodent_tpu/traversal/pallas_packet.py"

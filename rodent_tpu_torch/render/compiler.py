@@ -33,6 +33,7 @@ from ..accel import WideBvh, build_bvh
 from ..io import formats
 from ..io import obj as obj_io
 from ..traversal.api import BvhMeta, bvh_to_device
+from ..traversal.dense import DENSE_MAX_PACKETS
 from . import bsdf as bsdf_mod
 from . import light as light_mod
 from . import texture as tx
@@ -464,9 +465,6 @@ def load_data_dir(data_dir, device):
                          tex_files=tex_files)
 
 
-# copy of rodent_tpu/traversal/dense.py:36 (that module imports jax): the
-# packet count up to which a scene is "dense" (brute-force tier)
-DENSE_MAX_PACKETS = 16
 # the JAX package's VMEM budget; the fast-memory size the tier rule uses
 # for tables that lie on the CPU, so CPU runs pick the JAX package's tiers
 _CPU_FAST_BYTES = 80 * 1024 * 1024
@@ -515,10 +513,12 @@ def packet_mode(device, limit_bytes=None):
 
 def select_packet(device, limit_bytes=None):
     """The single-call traversal policy (compiler.py:536-550), TPU branch:
-    dense scenes go to the packet kernel (the dense engine, ROADMAP A3, is
-    not ported), every other tier keeps packet_mode's word, which
-    integrator._traverse maps onto K1 ("hybrid") or K2 ("hybrid-hbm",
-    "hybrid-giga")."""
+    dense scenes go to the packet kernel, every other tier keeps
+    packet_mode's word, which integrator._traverse maps onto K1 ("hybrid")
+    or K2 ("hybrid-hbm", "hybrid-giga"). The JAX package's CPU branch
+    sends dense scenes to the dense engine (packet="dense",
+    traversal/dense.py); the port keeps K1 for them until a measurement on
+    the card says otherwise (chip_smoke.py phase 16 times both)."""
     mode = packet_mode(device, limit_bytes=limit_bytes)
     return True if mode == "dense" else mode
 
@@ -551,11 +551,15 @@ def select_render_policy(device, limit_bytes=None):
     compiler.py:583-630.
 
     - dense: packet=True, retire_every=2 (the TPU's packet kernel on
-      cornell-class scenes);
+      cornell-class scenes; the JAX CPU branch takes packet="dense");
     - hybrid (tables fit L2): packet=True, with the shell_coverage pool
       rule (a 64K pool for enclosed interiors). The TPU sends this tier to
-      the dual-queue engine (packet=False, tiled.py); that engine's role
-      is ROADMAP A4 and not ported, so the port keeps K1;
+      the dual-queue engine with staged compaction (packet=False,
+      compact=5, traversal/tiled.py), which spares its bounce rays the
+      packet kernel's tile-union tax; K1 keeps one stack per ray and pays
+      no such tax, so the port keeps K1 until the card's numbers say
+      otherwise (chip_smoke.py phase 16 times the dual-queue engine
+      against K1 on hall);
     - hbm / giga (San-Miguel-class, the Tri table exceeds L2): the
       prefetching kernel K2 with the pool sort, packet="hbm" or "giga"."""
     mode = packet_mode(device, limit_bytes=limit_bytes)

@@ -8,10 +8,13 @@ and BSDF-sampled bounces with Russian roulette clamped at 0.75.
 Per-ray state is a set of flat (B,) tensors, Vec3s as tuples of them
 (core.vmath). The JAX `while_loop`s are Python loops that read one boolean
 back per step. Every traversal (camera and bounce rays closest-hit, shadow
-rays any-hit) goes through traversal.packet.traverse_packet_components:
-on a CUDA device the kernel K1 (packet=True) or its prefetching variant K2
-(packet="hbm"/"giga", the big-scene tiers), on the CPU their plain torch
-version.
+rays any-hit) goes to the engine the packet argument names (_engine):
+traversal.packet.traverse_packet_components, on a CUDA device the kernel
+K1 (packet=True, the default) or its prefetching variant K2
+(packet="hbm"/"giga", the big-scene tiers) and on the CPU their plain
+torch version; the dual-queue engine of traversal/tiled.py (packet=False,
+with compact and sub) or the dense engine of traversal/dense.py
+(packet="dense"), torch ops on either device.
 
 Textured scenes (a texture bank in the scene, compiler.compile_obj or
 compile_mesh with tex_images) take kd/ks from the bank at the hit's uv,
@@ -29,8 +32,10 @@ import torch
 from ..core import vmath as vm
 from ..core.math import FLT_MAX, safe_rcp
 from ..core.rng import randf, seed_camera_rays
+from ..traversal.dense import traverse_dense_components
 from ..traversal.packet import traverse_packet_components
 from ..traversal.sorting import ray_sort_keys
+from ..traversal.tiled import traverse_components
 from . import bsdf as bsdf_mod
 from . import light as light_mod
 
@@ -52,43 +57,35 @@ _HYBRID = {"hybrid": True, "hybrid-hbm": "hbm", "hybrid-giga": "giga"}
 
 
 def _engine(packet):
-    """The renderer's packet argument -> traverse_packet's prefetch flag.
-    True takes K1; "hbm" and "giga" take K2 (on the card one prefetching
-    kernel serves both of the TPU's HBM transports); the hybrid tiers take
-    their full-packet flavour: the TPU traces their bounces on the
-    dual-queue engine, which is not ported. False (the dual-queue engine,
-    ROADMAP A4) and "dense" (ROADMAP A3) raise NotImplementedError."""
+    """The renderer's packet argument -> the engine that traces a bundle:
+    "packet" (True: K1), "hbm" or "giga" (K2: on the card one prefetching
+    kernel serves both of the TPU's HBM transports), "tiled" (False: the
+    dual-queue engine, traversal/tiled.py) or "dense" (the brute-force
+    engine, traversal/dense.py). The hybrid tiers take their full-packet
+    flavour: the TPU peels their depth-0 rays onto its packet kernel and
+    traces the bounces on the dual-queue engine to spare the bounces the
+    packet kernel's tile-union tax, which K1 (one stack per ray) does not
+    pay."""
     packet = _HYBRID.get(packet, packet)
     if packet is True:
-        return False
-    if packet in ("hbm", "giga"):
-        return True
+        return "packet"
     if packet is False:
-        raise NotImplementedError(
-            "packet=False is the dual-queue engine (traversal/tiled.py, "
-            "ROADMAP A4), which is not ported; use packet=True")
-    if packet == "dense":
-        raise NotImplementedError(
-            "packet='dense' is the brute-force engine (traversal/dense.py, "
-            "ROADMAP A3), which is not ported; use packet=True")
+        return "tiled"
+    if packet in ("hbm", "giga", "dense"):
+        return packet
     raise ValueError(f"unknown packet engine {packet!r}")
-
-
-def _no_dual_queue(compact, sub):
-    if compact or sub:
-        raise NotImplementedError(
-            "compact and sub configure the dual-queue engine "
-            "(traversal/tiled.py, ROADMAP A4), which is not ported")
 
 
 def _traverse(scene, rays, any_hit=False, packet=True, sort=False,
               compact=0, sub=0):
-    """Traversal of a ray bundle (integrator.py:68-140): packet=True
-    through K1, packet="hbm"/"giga" through K2 (see _engine). sort=True
-    traces the bundle in octant+Morton key order (dead rays, tmax <= 0, to
-    the tail) and scatters the hits back to slot order."""
-    _no_dual_queue(compact, sub)
-    prefetch = _engine(packet)
+    """Traversal of a ray bundle (integrator.py:68-140) on the engine that
+    `packet` names (see _engine): K1, K2, the dual-queue engine (with its
+    staged compaction `compact` and sub-batches `sub`) or the dense engine.
+    sort=True traces the bundle in octant+Morton key order (dead rays,
+    tmax <= 0, to the tail) and scatters the hits back to slot order; the
+    dense engine is order-insensitive and is never sorted."""
+    engine = _engine(packet)
+    sort = sort and engine != "dense"
     if sort:
         keys = ray_sort_keys(rays["org"], rays["dir"], scene["scene_lo"],
                              scene["scene_hi"])
@@ -97,10 +94,18 @@ def _traverse(scene, rays, any_hit=False, packet=True, sort=False,
         rays = make_rays_c(tuple(x[perm] for x in rays["org"]),
                            tuple(x[perm] for x in rays["dir"]),
                            rays["tmin"][perm], rays["tmax"][perm])
-    hit = traverse_packet_components(
-        scene["bvh"], rays["org"], rays["dir"], rays["inv_dir"],
-        rays["inv_org"], rays["tmin"], rays["tmax"], any_hit=any_hit,
-        prefetch=prefetch)
+    args = (rays["org"], rays["dir"], rays["inv_dir"], rays["inv_org"],
+            rays["tmin"], rays["tmax"])
+    if engine == "dense":
+        hit = traverse_dense_components(scene["bvh"], *args,
+                                        any_hit=any_hit)
+    elif engine == "tiled":
+        hit = traverse_components(scene["bvh"], *args, any_hit=any_hit,
+                                  compact_stages=compact, sub_batches=sub)
+    else:
+        hit = traverse_packet_components(scene["bvh"], *args,
+                                         any_hit=any_hit,
+                                         prefetch=engine != "packet")
     if not sort:
         return hit
     out = {k: torch.empty_like(v) for k, v in hit.items()}
@@ -224,11 +229,12 @@ def _sample_bank(scene, tex_id, uv):
 
 
 def _shade(scene, rays, hit, state, packet=True, sort=False,
-           shadow_packet=None):
+           shadow_packet=None, compact=0, sub=0):
     """One shading stage: on_hit accumulation, NEE shadow rays, bounce
     sampling (integrator.py:297-409). Returns (next_rays, next_state).
     shadow_packet (default: packet) is the engine of the NEE shadow
-    traversal alone."""
+    traversal alone; compact and sub configure it where it is the
+    dual-queue engine (integrator.py:380-382)."""
     if shadow_packet is None:
         shadow_packet = packet
     alive = state["alive"] & (hit["prim_id"] >= 0)
@@ -301,7 +307,8 @@ def _shade(scene, rays, hit, state, packet=True, sort=False,
     shadow_rays = make_rays_c(surf["point"], light_vec, off,
                               torch.where(nee_ok, 1.0 - OFFSET, -1.0))
     shadow_hit = _traverse(scene, shadow_rays, any_hit=True,
-                           packet=shadow_packet, sort=sort)
+                           packet=shadow_packet, sort=sort, compact=compact,
+                           sub=sub)
     add_shadow = nee_ok & (shadow_hit["prim_id"] < 0)
     acc = vm.add(acc, vm.where(add_shadow, shadow_color, zero3))
 
@@ -352,8 +359,11 @@ def render_sample(scene, camera, film, width, height, sample, iteration,
                   packet=True, sort=False, stats=None):
     """Traces one sample per pixel to completion (one wavefront pass) and
     returns film + the pass's radiance (integrator.py:432-500). packet
-    picks the traversal kernel (_engine); the hybrid tiers run their
-    full-packet flavour for every depth. sort="pool" exists only in the
+    picks the traversal engine of every depth (_engine): True K1, "hbm"/
+    "giga" K2, False the dual-queue engine, "dense" the dense engine; the
+    hybrid tiers run their full-packet flavour for every depth, where the
+    JAX renderer peels depth 0 onto its packet kernel and traces the
+    bounces on the dual-queue engine. sort="pool" exists only in the
     persistent renderer and means sort=True here. The bounce loop runs
     until no path is alive; stats, a dict, counts the bounces under
     "bounces"."""
@@ -468,21 +478,22 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
     padding slots, so the JAX package's carried real-slot mask is not
     needed.
 
-    packet / bounce_packet / shadow_packet pick the kernel of the whole
+    packet / bounce_packet / shadow_packet pick the engine of the whole
     pool's traversal, of the bounce rays and of the NEE shadow rays (see
-    _engine); depth_split traces the depth-0 rays on `packet` and the rest
-    on `bounce_packet`. pixel_lo / n_pixels restrict the pass to a strip
-    of the image, sample_lo offsets the sample ids and spp_weight
+    _engine: K1, K2, the dual-queue engine with packet=False, the dense
+    engine with "dense"); depth_split traces the depth-0 rays on `packet`
+    and the rest on `bounce_packet`. compact (staged row compaction) and
+    sub (sequential sub-batches) configure the dual-queue traversals of
+    the bounce and shadow rays. pixel_lo / n_pixels restrict the pass to a
+    strip of the image, sample_lo offsets the sample ids and spp_weight
     overrides the 1/spp film weight (the sharding hooks); a film of
-    n_pixels rows is taken as the strip's own. compact and sub belong to
-    the dual-queue engine, which is not ported, and raise. Returns the
-    film, and with return_steps=True (film, steps)."""
-    _no_dual_queue(compact, sub)
+    n_pixels rows is taken as the strip's own. Returns the film, and with
+    return_steps=True (film, steps)."""
     packet = _HYBRID.get(packet, packet)
     bounce_packet = packet if bounce_packet is None else bounce_packet
     shadow_packet = packet if shadow_packet is None else shadow_packet
     for p in (packet, bounce_packet, shadow_packet):
-        _engine(p)                     # refuse unported engines up front
+        _engine(p)                     # refuse unknown engines up front
     depth_split = depth_split and bounce_packet != packet
     device = film.device
     n_pixels = n_pixels or width * height
@@ -579,13 +590,14 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
                 d0, rays["tmax"], -1.0)), packet=packet, sort=call_sort)
             hb = _traverse(scene, dict(rays, tmax=torch.where(
                 d0, -1.0, rays["tmax"])), packet=bounce_packet,
-                sort=call_sort)
+                sort=call_sort, compact=compact, sub=sub)
             hit = {k: torch.where(d0, h0[k], hb[k]) for k in h0}
         else:
             hit = _traverse(scene, rays, packet=bounce_packet,
-                            sort=call_sort)
+                            sort=call_sort, compact=compact, sub=sub)
         rays, state = _shade(scene, rays, hit, state, packet=packet,
-                             sort=call_sort, shadow_packet=shadow_packet)
+                             sort=call_sort, shadow_packet=shadow_packet,
+                             compact=compact, sub=sub)
         step += 1
         # deferred retirement: every retire_every-th step, or whenever no
         # slot is alive (else the loop could spin with samples pending)

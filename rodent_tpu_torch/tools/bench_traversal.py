@@ -9,8 +9,9 @@ warm-up and timed iterations of closest-hit (intersect) or any-hit
 dumps hit distances as .fbuf.
 
 --variant packet runs K1 (csrc/bvh_traverse.cu); hbm and giga run K2, K1
-with the exact next-pop L2 prefetch. The dual-queue variants (tiled,
-tiled-c; ROADMAP A4) and --sharded (ROADMAP A6) are not ported. A
+with the exact next-pop L2 prefetch; tiled runs the dual-queue engine
+(traversal/tiled.py, torch ops), tiled-c the same with staged row
+compaction (compact_stages=5). --sharded (ROADMAP A6) is not ported. A
 timed iteration is a sample of rodent_tpu_torch.experiments.common: CUDA
 events around a block of back-to-back calls, about 20 ms long, on a card;
 --cpu runs the plain torch version on the CPU, one call per iteration on
@@ -19,7 +20,8 @@ the host clock. Without --cpu the tool needs a CUDA card.
 Usage:
   python -m rodent_tpu_torch.tools.bench_traversal -bvh scene.bvh
       -ray cam.rays [--tmin T] [--tmax T] [-any] [--bench N] [--warmup N]
-      [-o out.fbuf] [--bvh-width 8] [--sort] [--variant packet|hbm|giga]
+      [-o out.fbuf] [--bvh-width 8] [--sort]
+      [--variant packet|hbm|giga|tiled|tiled-c]
       [--cpu]
 """
 from __future__ import annotations
@@ -52,10 +54,12 @@ def main(argv=None):
                    help="octant+Morton ray reordering before traversal")
     p.add_argument("--cpu", action="store_true",
                    help="run the plain torch version on the CPU")
-    p.add_argument("--variant", choices=("packet", "hbm", "giga"),
+    p.add_argument("--variant", choices=("packet", "hbm", "giga", "tiled",
+                                         "tiled-c"),
                    default="packet",
                    help="packet: K1; hbm, giga: K2 (K1 with the next-pop "
-                        "L2 prefetch)")
+                        "L2 prefetch); tiled: the dual-queue engine, "
+                        "tiled-c with staged row compaction")
     args = p.parse_args(argv)
     device = common.device_of(args, "bench_traversal")
 
@@ -64,6 +68,7 @@ def main(argv=None):
     from ..traversal.api import bvh_to_device, make_rays
     from ..traversal.packet import traverse_packet
     from ..traversal.sorting import sort_rays
+    from ..traversal.tiled import traverse_tiled
 
     btype = {2: formats.BVH2_TRI1, 4: formats.BVH4_TRI4,
              8: formats.BVH8_TRI4}.get(args.bvh_width)
@@ -81,6 +86,10 @@ def main(argv=None):
         rays, perm = sort_rays(rays, lo, hi)
 
     def fn():
+        if args.variant in ("tiled", "tiled-c"):
+            return traverse_tiled(
+                dev, rays, any_hit=args.any,
+                compact_stages=5 if args.variant == "tiled-c" else 0)
         return traverse_packet(dev, rays, any_hit=args.any,
                                prefetch=args.variant in ("hbm", "giga"))
 

@@ -12,9 +12,10 @@ hall, crown-class, powerplant-class). Variants:
              tiers; on the card one kernel serves both TPU transports)
   hbm-nopf, giga-nopf
              K1 again: the no-prefetch A/B rows of the big-scene tiers
+  tiled      the dual-queue engine (traversal/tiled.py, torch ops)
+  tiled-c    the same with staged row compaction (compact_stages=5)
 
-The TPU's dual-queue engine (tiled, tiled-c) is not ported (ROADMAP A4)
-and is refused. The scenes, their full sizes (powerplant is
+The scenes, their full sizes (powerplant is
 powerplant-4.3M), their BVH builds, the ray distributions (sorted) and
 the timer are those of rodent_tpu_torch.experiments.common: a sample is
 CUDA events around a block of back-to-back calls on pre-split ray
@@ -42,9 +43,12 @@ import time
 import numpy as np
 import torch
 
-# variant -> traverse_packet's prefetch flag (K2 when True, else K1)
-VARIANTS = {"packet": False, "hbm": True, "giga": True,
-            "hbm-nopf": False, "giga-nopf": False}
+# variant -> (engine, option): traverse_packet's prefetch flag (K2 when
+# True, else K1), or the dual-queue engine's compact_stages
+VARIANTS = {"packet": ("packet", False), "hbm": ("packet", True),
+            "giga": ("packet", True), "hbm-nopf": ("packet", False),
+            "giga-nopf": ("packet", False), "tiled": ("tiled", 0),
+            "tiled-c": ("tiled", 5)}
 # camera + emitter per scene (the *_primary_rays viewpoints)
 _RENDER_CAMS = {
     "hall": ((2.5, 5.0, 5.0), (1.0, -0.12, 0.02), 60.0, "inside"),
@@ -59,8 +63,7 @@ def _variants(text):
     for v in names:
         if v not in VARIANTS:
             raise argparse.ArgumentTypeError(
-                f"variant {v!r}: choose from {', '.join(VARIANTS)} (the "
-                "dual-queue tiled variants are not ported, ROADMAP A4)")
+                f"variant {v!r}: choose from {', '.join(VARIANTS)}")
     return names
 
 
@@ -105,6 +108,7 @@ def main(argv=None):
 
 def _traverse_one(args, device, scene):
     from ..experiments import common
+    from ..traversal import tiled
     from ..traversal.packet import traverse_packet_components
 
     side = int(np.sqrt(args.rays))
@@ -116,9 +120,14 @@ def _traverse_one(args, device, scene):
     dists = common.distributions(scene, verts, idx, dev, side, device, kinds)
     for dist, (comps, ah) in dists.items():
         for variant in args.variants:
-            def fn(v=variant):
+            engine, opt = VARIANTS[variant]
+
+            def fn(engine=engine, opt=opt):
+                if engine == "tiled":
+                    return tiled.traverse_components(
+                        dev, *comps, any_hit=ah, compact_stages=opt)
                 return traverse_packet_components(dev, *comps, any_hit=ah,
-                                                  prefetch=VARIANTS[v])
+                                                  prefetch=opt)
             ms, out = common.samples(fn, device, args.iters)
             mr = n / np.asarray(ms) / 1e3
             hits = int((out["prim_id"] >= 0).sum())

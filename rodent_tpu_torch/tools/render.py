@@ -9,10 +9,11 @@ iteration left out of the statistics when there is more than one.
 
 It runs on the CUDA card (K1, or K2 for the hbm/giga tiers); --cpu runs the
 plain torch version on the CPU. Under --traversal auto the persistent
-renderer takes select_render_policy's engine and pool. The dual-queue
-engine (--traversal tiled, --no-packet; ROADMAP A4) and the dense engine
-(--traversal dense; ROADMAP A3) are not ported and raise
-NotImplementedError; --sharded (ROADMAP A6) is not ported.
+renderer takes select_render_policy's engine and pool; --no-packet (with
+auto) and --traversal tiled take the dual-queue engine
+(traversal/tiled.py), --traversal dense the dense engine
+(traversal/dense.py), both torch ops on either device. --sharded (ROADMAP
+A6) is not ported.
 
 Usage:
   python -m rodent_tpu_torch.tools.render scene.obj --bench 50 \
@@ -26,11 +27,10 @@ import time
 
 from ..utils.profiling import StageProfiler, synchronize
 
-_PACKET = {"packet": True, "hybrid": "hybrid", "hybrid-hbm": "hybrid-hbm",
+# --traversal -> the renderers' packet argument (render.py:93-96)
+_PACKET = {"tiled": False, "packet": True, "dense": "dense",
+           "hybrid": "hybrid", "hybrid-hbm": "hybrid-hbm",
            "hybrid-giga": "hybrid-giga"}
-_UNPORTED = {"tiled": "the dual-queue engine (traversal/tiled.py, ROADMAP "
-                      "A4)",
-             "dense": "the dense engine (traversal/dense.py, ROADMAP A3)"}
 
 
 def parse_args(argv=None):
@@ -53,7 +53,8 @@ def parse_args(argv=None):
                    help="eye-light debug renderer (make_debug_renderer, "
                         "renderer.impala:42-60): no NEE/bounces, spp 1")
     p.add_argument("--no-packet", action="store_true",
-                   help="the dual-queue engine (not ported: raises)")
+                   help="with --traversal auto: the dual-queue engine "
+                        "(traversal/tiled.py) for every traversal")
     p.add_argument("--progressive", action="store_true",
                    help="full-width progressive wavefront instead of the "
                         "persistent regeneration pool (the same film)")
@@ -70,9 +71,11 @@ def parse_args(argv=None):
                                            "dense", "hybrid", "hybrid-hbm",
                                            "hybrid-giga"),
                    default="auto",
-                   help="kernel policy: packet (K1) for everything, "
-                        "hybrid-hbm/hybrid-giga (K2) for everything, or "
-                        "auto: the scene's tier and select_render_policy")
+                   help="engine policy: packet (K1) for everything, "
+                        "hybrid-hbm/hybrid-giga (K2) for everything, "
+                        "tiled (the dual-queue engine) or dense (the "
+                        "dense engine) for everything, or auto: the "
+                        "scene's tier and select_render_policy")
     return p.parse_args(argv)
 
 
@@ -82,9 +85,6 @@ def run(argv=None):
     args = parse_args(argv)
     from ..experiments import common
     device = common.device_of(args, "render")
-    if args.no_packet or args.traversal in _UNPORTED:
-        what = _UNPORTED.get(args.traversal, _UNPORTED["tiled"])
-        raise NotImplementedError(f"{what} is not ported")
     from ..io import png
     from ..render import film as film_mod
     from ..render.camera import Camera
@@ -99,8 +99,11 @@ def run(argv=None):
     # progressive/debug renderers take the single-engine knob
     policy = None
     if args.traversal == "auto":
-        policy = dict(select_render_policy(scene.device))
-        packet = select_packet(scene.device)
+        if args.no_packet:
+            packet = False
+        else:
+            policy = dict(select_render_policy(scene.device))
+            packet = select_packet(scene.device)
     else:
         packet = _PACKET[args.traversal]
     num_tris = scene.device["tri_geo"].shape[0]

@@ -48,7 +48,8 @@ def test_port_imports_no_jax():
                  "experiments.vpu_dtype_bench", "io.jpg", "render.texture",
                  "render.light", "utils.profiling", "tools.render",
                  "tools.converter", "tools.ray_gen", "tools.bvh_extractor",
-                 "tools.fbuf2png"):
+                 "tools.fbuf2png", "traversal.dense", "traversal.tiled",
+                 "tools.quality_gate", "tools.view"):
         assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"

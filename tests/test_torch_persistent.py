@@ -190,27 +190,66 @@ def test_sharding_hooks(hall, base_film):
     assert all(n > 0 for n in steps)
 
 
-def test_unported_engines_raise(hall):
-    """The dual-queue engine (packet=False, compact, sub; ROADMAP A4) and
-    the dense engine (ROADMAP A3) are not ported: asking for them raises
-    instead of falling back, in both renderers, and launches nothing."""
-    scene = hall[1]
-    cam = Camera.make(*HALL_CAM, 8, 8)
+def test_unported_engines_raise(hall, monkeypatch):
+    """The arguments that raised until the dual-queue engine (packet=False,
+    compact, sub) and the dense engine (packet="dense") were ported now run
+    in both renderers on the CPU: each reaches its own engine, with no
+    fallback to the packet route, launches no kernel, and gives the packet
+    route's film bit for bit (the engines share the slab test and the
+    Moller-Trumbore float operations). The dense engine, which tests every
+    Tri packet, runs on a dense-tier scene (the 40-triangle soup) instead
+    of hall-20K's thousands of packets. compact and sub with the packet
+    route change nothing, as in the JAX package. An unknown engine still
+    raises."""
+    soup_v, soup_i = next(_scenes())[1:3]
+    scenes = {"tiled": hall[1],
+              "dense": tcomp.compile_mesh(soup_v, soup_i, "cpu",
+                                          max_path_len=4,
+                                          emitter="inside").device}
+    assert tcomp.packet_mode(scenes["dense"]) == "dense"
+    cams = {"tiled": Camera.make(*HALL_CAM, 8, 8),
+            "dense": Camera.make((0, 0, 4), (0, 0, -1), (0, 1, 0), 60.0, 8,
+                                 8)}
+    calls = {"tiled": 0, "dense": 0}
+
+    def spy(name, fn):
+        def counted(*args, **kw):
+            calls[name] += 1
+            return fn(*args, **kw)
+        return counted
+
+    monkeypatch.setattr(integrator, "traverse_components",
+                        spy("tiled", integrator.traverse_components))
+    monkeypatch.setattr(integrator, "traverse_dense_components",
+                        spy("dense", integrator.traverse_dense_components))
     packet.reset_launches()
-    for kw in (dict(packet=False), dict(packet="dense"),
-               dict(bounce_packet=False), dict(shadow_packet="dense"),
-               dict(compact=5), dict(sub=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            integrator.render_iteration_persistent(
-                scene, cam, film_mod.new_film(8, 8, "cpu"), 8, 8, 1, 0, **kw)
-    for p in (False, "dense"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            integrator.render_iteration(
-                scene, cam, film_mod.new_film(8, 8, "cpu"), 8, 8, 1, 0,
-                packet=p)
+
+    def film(render, engine, **kw):
+        engine = engine or "tiled"
+        return render(scenes[engine], cams[engine],
+                      film_mod.new_film(8, 8, "cpu"), 8, 8, 1, 0,
+                      **kw).numpy()
+
+    for render, cases in (
+            (integrator.render_iteration_persistent,
+             ((dict(packet=False), "tiled"), (dict(packet="dense"), "dense"),
+              (dict(bounce_packet=False), "tiled"),
+              (dict(shadow_packet="dense"), "dense"),
+              (dict(compact=5), None), (dict(sub=2), None))),
+            (integrator.render_iteration,
+             ((dict(packet=False), "tiled"),
+              (dict(packet="dense"), "dense")))):
+        for kw, engine in cases:
+            want = film(render, engine)
+            assert want.mean() > 0.0
+            before = dict(calls)
+            np.testing.assert_array_equal(film(render, engine, **kw), want)
+            assert {k: calls[k] > before[k] for k in calls} == {
+                k: k == engine for k in calls}, kw
     with pytest.raises(ValueError, match="unknown packet engine"):
-        integrator.render_debug(scene, cam, film_mod.new_film(8, 8, "cpu"),
-                                8, 8, 0, packet="tiled")
+        integrator.render_debug(hall[1], cams["tiled"],
+                                film_mod.new_film(8, 8, "cpu"), 8, 8, 0,
+                                packet="tiled")
     assert set(packet.launches.values()) == {0}
 
 

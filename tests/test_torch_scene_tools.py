@@ -20,6 +20,7 @@ from rodent_tpu.tools import fbuf2png as jfbuf2png
 from rodent_tpu.tools import ray_gen as jray_gen
 from rodent_tpu_torch.accel import WideBvh
 from rodent_tpu_torch.io import formats, png
+from rodent_tpu_torch.render import integrator
 from rodent_tpu_torch.render.compiler import compile_obj, load_data_dir
 from rodent_tpu_torch.tools import (bench_traversal, bvh_extractor,
                                     converter, fbuf2png, ray_gen, render)
@@ -203,8 +204,11 @@ def test_traversal_file_pipeline(tmp_path, box, capsys):
 def test_render_tool(tmp_path, box, capsys, monkeypatch):
     """tools.render --cpu at 16x12 prints the driver's Msamples line,
     writes a lit PNG and, with --profile, the stage report; every
-    renderer and engine it offers runs; the unported engines raise, and
-    without --cpu it needs a card."""
+    renderer and engine it offers runs, the dual-queue engine (--traversal
+    tiled, --no-packet) and the dense engine (--traversal dense) among
+    them, with their own engines and no kernel launch, and each gives the
+    policy's film up to the tolerance of ROADMAP's film rule; without
+    --cpu it needs a card."""
     out = tmp_path / "o.png"
     common = [box, "--cpu", "--width", "16", "--height", "12", "--eye", "0",
               "1", "0.9", "--dir", "0", "0", "-1", "--spp", "1",
@@ -224,10 +228,23 @@ def test_render_tool(tmp_path, box, capsys, monkeypatch):
                                                   "--sort", "pool"]):
         assert render.main(common + extra) == 0
     assert capsys.readouterr().out.count("Msamples/s") == 4
-    for extra in (["--traversal", "tiled"], ["--traversal", "dense"],
-                  ["--no-packet"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP A[34]"):
-            render.main(common + extra)
+    packet.reset_launches()
+    for extra, engine in ((["--traversal", "tiled"], "traverse_components"),
+                          (["--traversal", "dense"],
+                           "traverse_dense_components"),
+                          (["--no-packet"], "traverse_components")):
+        calls = []
+        fn = getattr(integrator, engine)
+        monkeypatch.setattr(integrator, engine,
+                            lambda *a, fn=fn, **k: calls.append(1) or fn(
+                                *a, **k))
+        got = render.run(common + ["--bench", "2"] + extra)
+        monkeypatch.undo()
+        assert calls, extra
+        np.testing.assert_allclose(got.numpy(), film.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+    assert capsys.readouterr().out.count("Msamples/s") == 3
+    assert set(packet.launches.values()) == {0}
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA card"):
         render.main([box])

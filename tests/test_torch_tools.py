@@ -49,11 +49,25 @@ def test_benchmark_traversal_rows(capsys):
     assert set(packet.launches.values()) == {0}
 
 
-def test_benchmark_refusals(monkeypatch):
-    """The dual-queue variants are refused by argparse (ROADMAP A4), and
-    without --cpu the tool needs a card."""
+def test_benchmark_refusals(monkeypatch, capsys):
+    """The dual-queue variants, which argparse refused until the engine was
+    ported, run: tiled and tiled-c find the packet route's intersections
+    on hall-2K's primaries and ao rays; an unknown variant is refused by
+    argparse, and without --cpu the tool needs a card."""
+    assert benchmark.main([
+        "--cpu", "--scenes", "hall", "--sizes", "hall=2000", "--rays",
+        "1024", "--dists", "primary,ao", "--variants",
+        "packet,tiled,tiled-c", "--iters", "1"]) == 0
+    rows = [ROW.match(line)
+            for line in capsys.readouterr().out.strip().splitlines()]
+    assert len(rows) == 6 and all(rows)
+    for dist in ("primary", "ao"):
+        mine = [r for r in rows if r.group(2) == dist]
+        assert [r.group(3) for r in mine] == ["packet", "tiled", "tiled-c"]
+        assert len({r.group(5) for r in mine}) == 1
+    assert int(rows[0].group(5)) > 0
     with pytest.raises(SystemExit) as e:
-        benchmark.main(["--cpu", "--variants", "packet,tiled"])
+        benchmark.main(["--cpu", "--variants", "packet,tiled-x"])
     assert e.value.code == 2
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA card"):
@@ -77,7 +91,8 @@ def test_benchmark_renderer_row(capsys):
 def test_bench_traversal(tmp_path, capsys):
     """A BVH8/Tri4 .bvh and 2,048 primary rays of hall-2K: the
     intersection count and the dumped hit distances equal the port's
-    traversal; --variant hbm and --sort change neither; -any dumps the
+    traversal; --variant hbm, tiled, tiled-c and --sort change neither;
+    -any dumps the
     occlusion mask."""
     verts, idx = testscenes.make_hall(2_000)
     bvh = build_bvh(verts, idx, arity=8)
@@ -99,7 +114,9 @@ def test_bench_traversal(tmp_path, capsys):
         text = capsys.readouterr().out
         return text, formats.read_fbuf(out_f)
 
-    for extra in ((), ("--variant", "hbm"), ("--variant", "giga", "--sort")):
+    for extra in ((), ("--variant", "hbm"), ("--variant", "giga", "--sort"),
+                  ("--variant", "tiled"), ("--variant", "tiled-c",
+                                           "--sort")):
         text, t = run(*extra)
         assert f"{n_hit} intersection(s)" in text
         assert re.search(r"^[\d.]+ Mrays/sec$", text, re.M)
