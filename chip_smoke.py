@@ -91,7 +91,20 @@ calls real, and checks it:
    compact=5); one persistent hall-260K iteration under the JAX package's
    hybrid-tier policy at 480x272 spp 1; tools.render --traversal tiled and
    dense, quality_gate and a scripted view session on the box (written
-   under build/phase16). The engines' routes must launch no kernel.
+   under build/phase16). The engines' routes must launch no kernel;
+17. the sharded paths (rodent_tpu_torch.parallel) and the last tools on
+   hall-260K at 1920x1088, spp 4, max path length 20: a one-rank NCCL
+   group (the persistent renderer under select_render_policy and the
+   progressive one, bit for bit against their single-device films); four
+   gloo ranks spawned on the one card, K1 in each (the persistent
+   renderer at (n_px, n_sp) = (2, 2) and (4, 1), the progressive at
+   (2, 2), within 1e-5 of the single-device films, their Msamples/s beside
+   the single device's; traverse_sharded on the 1M sorted primaries, equal
+   to K1 bit for bit; whether gloo takes CUDA tensors);
+   measure_shard_steps at (4, 1) and (2, 2), equal to the ranks' steps;
+   tools.bench_ref (one host thread) on the 1M primaries against K1; and
+   tools.bench_shading and bench_interface at 1M. The K1 launches of its
+   renderers, in every rank, join the main path's.
 
 Every kernel's time stands beside its bound, the least time the card
 could take for the same pops and the table rows they read
@@ -100,7 +113,9 @@ and the CUDA-event timer are those of rodent_tpu_torch.experiments.common,
 which the port's tools share.
 
 Run from the repository root: python3 chip_smoke.py
-Needs one CUDA card, nvcc and g++; writes only under build/. Any failed
+Needs one CUDA card, nvcc and g++; writes only under build/. With
+--cards N (N even, N cards visible) it runs only phase 17b's sharded calls
+on an NCCL group of N ranks, one card each, against cuda:0's films. Any failed
 check raises, so the exit code is not 0; the last line of a successful
 run is a JSON object naming the device.
 """
@@ -118,6 +133,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # exact-t ties allowed in phases 4, 8, 11; in phase 12, prim_id differences
 # with K1, whose pops come in another order (against_k1)
 TIE_LIMIT = 1e-4
+# rays on which tools.bench_ref's engine and K1 differ by more than a tie
+# (phase 17d), each held against a brute force
+EDGE_RAYS = 8
 SUBSET = 65_536             # ao rays held against the plain version
 # powerplant rays through K4's nonodetest, which pops all of the tree's
 # 250,000 entries per ray
@@ -1974,9 +1992,377 @@ def phase_engine_tools(device):
         f"on the box passed; view PNG mean {img.mean():.1f}")
 
 
+def film_close(got, want, what):
+    """A sharded film against the single-device one: within rtol/atol 1e-5
+    (tests/test_parallel.py's bound). Returns (share of bit-identical
+    values, max |difference|)."""
+    got = torch.as_tensor(got).to(want.device)
+    check(got.shape == want.shape, f"{what}: film shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{what}: film not finite")
+    check(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5)),
+          f"{what}: film outside rtol/atol 1e-5 of the single-device film")
+    return (float((got == want).float().mean()),
+            float((got - want).abs().max()))
+
+
+def sharded_rank(calls, device=None):
+    """[17b] The rank body of the spawned groups: mesh.run_calls on each
+    call in turn (its args placed on the rank's card before its timed
+    region), with the K1 and K2 launches the call made on this rank and
+    the CUDA device current after it. It lives in this script, which the
+    spawned ranks import, so that the library keeps no count of this run's."""
+    from rodent_tpu_torch.parallel import mesh as pmesh
+    from rodent_tpu_torch.traversal import packet
+    res = []
+    for call in calls:
+        before = dict(packet.launches)
+        (r,) = pmesh.run_calls([call], device)
+        r["launches"] = {k: packet.launches[k] - v for k, v in before.items()}
+        r["card"] = (torch.cuda.current_device()
+                     if torch.cuda.is_initialized() else None)
+        res.append(r)
+    return res
+
+
+def sharded_group(backend, world, device, scene, cam, prim, k1_hits, policy,
+                  singles, size):
+    """[17b] The sharded renderers and traversal on `world` spawned ranks
+    of a `backend` group (device None: each rank's own card, cuda:rank):
+    the persistent renderer at (n_px, n_sp) = (world/2, 2) and (world, 1)
+    and the progressive at (world/2, 2), each after an untimed first call
+    of its renderer, within 1e-5 of the single-device films `singles` =
+    (progressive, persistent, their seconds), and traverse_sharded on the
+    primaries `prim`, equal to single-device K1's `k1_hits` bit for bit.
+    The scene goes to the ranks on the host and onto each rank's card
+    before its timed calls. Returns the ranks' K1 launches and the steps
+    per rank of each persistent shape."""
+    from rodent_tpu_torch.experiments import common
+    from rodent_tpu_torch.parallel import mesh as pmesh
+    from rodent_tpu_torch.render import film as film_mod
+    w, h, spp = size
+    samples = w * h * spp
+    single_p, single_q, s_p, s_q = singles
+    card = common.card(torch.device(device or "cuda:0"))
+    scene_h = pmesh.to_device(scene, "cpu")
+    o, d, inv, inv_o, tmin, tmax = prim
+    rays = {"org": torch.stack(o, -1).cpu(), "dir": torch.stack(d, -1).cpu(),
+            "inv_dir": torch.stack(inv, -1).cpu(),
+            "inv_org": torch.stack(inv_o, -1).cpu(), "tmin": tmin.cpu(),
+            "tmax": tmax.cpu()}
+    persistent = pmesh.render_iteration_persistent_sharded
+    args = (scene_h, cam, film_mod.new_film(w, h, "cpu"), w, h, spp, 0)
+    shapes = ((world // 2, 2), (world, 1))
+    # each renderer's first call in a rank warms it up and is not timed
+    progressive = (pmesh.render_iteration_sharded, shapes[0], args, {})
+    calls = [(persistent, shapes[1], args, policy), progressive]
+    calls += [(persistent, shape, args, dict(policy, return_steps=True))
+              for shape in shapes]
+    calls.append(progressive)
+    calls.append((pmesh.traverse_sharded, shapes[1], (scene_h["bvh"], rays),
+                  {"engine": "packet"}))
+    t0 = time.perf_counter()
+    ranks = pmesh.run_group(sharded_rank, world, backend, calls, device,
+                            timeout=420)
+    where = ("each on cuda:0" if device else
+             "rank r on cuda:r, cards " + str([r[0]["card"] for r in ranks]))
+    log(f"[17b] {world} {backend} ranks on {card}, {where}: the group ran "
+        f"in {time.perf_counter() - t0:.1f} s with the spawn")
+    want = [0] * world if device else list(range(world))
+    cards = [r[-1]["card"] for r in ranks]
+    check(cards == want, f"phase 17b: the ranks' current cards {cards}")
+    launched = sum(r[i]["launches"]["bvh_traverse"] for r in ranks
+                   for i in range(len(calls)))
+    steps = {}
+    for i, (fn, shape, _, _) in enumerate(calls[2:5], start=2):
+        pers = fn is persistent
+        what = (f"{backend} {'persistent' if pers else 'progressive'} "
+                f"(n_px, n_sp) {shape}")
+        films = [r[i]["out"][0] if pers else r[i]["out"] for r in ranks]
+        for f in films[1:]:
+            check(np.array_equal(f, films[0]),
+                  f"phase 17b {what}: ranks return different films")
+        k1 = [r[i]["launches"]["bvh_traverse"] for r in ranks]
+        check(all(k > 0 for k in k1), f"phase 17b {what}: K1 launches {k1}")
+        same, err = film_close(films[0], single_q if pers else single_p,
+                               f"phase 17b {what}")
+        secs = ranks[0][i]["seconds"]
+        single_s = s_q if pers else s_p
+        if pers:
+            steps[shape] = ranks[0][i]["out"][1]
+        log(f"[17b] {what}: film within 1e-5 of the single-device film "
+            f"({same:.4%} of values bit for bit, max |diff| {err:.3g}); "
+            f"{secs:.3f} s = {samples / secs / 1e6:.3f} Msamples/s against "
+            f"the single device's {samples / single_s / 1e6:.3f}; K1 "
+            f"launches per rank {k1}"
+            + (f"; steps {steps[shape].tolist()}" if pers else ""))
+    hits = ranks[0][-1]["out"]
+    for key, v in k1_hits.items():
+        check(np.array_equal(hits[key], v.cpu().numpy()),
+              f"phase 17b traverse_sharded: {key} differs from K1's")
+    log(f"[17b] {backend} traverse_sharded over {world} ranks, engine "
+        f"packet (K1), {tmin.shape[0]} sorted hall primaries: every hit "
+        f"equal to single-device K1 bit for bit; "
+        f"{ranks[0][-1]['seconds']:.3f} s, the scene and rays already on "
+        f"the card, with the gather")
+    return launched, steps
+
+
+def phase_sharded(device, scene, prim):
+    """[17a-c] The sharded renderers and traversal (rodent_tpu_torch.
+    parallel) on hall-260K at 1920x1088, spp 4, max path length 20: (a) a
+    one-rank NCCL group in this process, the persistent renderer under
+    select_render_policy and the progressive one, each against its
+    single-device film; (b) a 4-rank gloo group spawned on this one card
+    (every rank's tensors on cuda:0, K1 in each rank; sharded_group);
+    (c) measure_shard_steps at (4, 1) and (2, 2) against the steps the
+    sharded ranks report. Returns the K1 launches of the renderers in (a),
+    (b) and (c), all ranks."""
+    import torch.distributed as dist
+    from rodent_tpu_torch.experiments import common
+    from rodent_tpu_torch.parallel import mesh as pmesh
+    from rodent_tpu_torch.parallel.accounting import (measure_shard_steps,
+                                                      shard_plan)
+    from rodent_tpu_torch.render.camera import Camera
+    from rodent_tpu_torch.render.compiler import select_render_policy
+    from rodent_tpu_torch.traversal import packet
+    from rodent_tpu_torch.traversal.packet import traverse_packet_components
+    w, h, spp = 1920, 1088, 4
+    cam = Camera.make(*HALL_VIEW, w, h)
+    policy = select_render_policy(scene.device)
+    card = common.card(device)
+    samples = w * h * spp
+    k1_hits = traverse_packet_components(scene.device["bvh"], *prim)
+    packet.reset_launches()
+    singles, timed_call = single_films(device, scene.device, cam, policy,
+                                       (w, h, spp))
+    single_p, single_q, s_p, s_q = singles
+
+    # (a) the same calls on a one-rank mesh, after the single-device ones
+    check(pmesh.init_group(), "phase 17: a process group was already up")
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"phase 17a: group {dist.get_backend()} of "
+              f"{dist.get_world_size()}")
+        m = pmesh.make_mesh(device=device)
+        (one_q, one_steps), s_oq = timed_call(
+            lambda: pmesh.render_iteration_persistent_sharded(
+                scene.device, cam, new_film(w, h, device), w, h, spp, 0, m,
+                return_steps=True, **policy))
+        one_p, s_op = timed_call(lambda: pmesh.render_iteration_sharded(
+            scene.device, cam, new_film(w, h, device), w, h, spp, 0, m))
+    finally:
+        dist.destroy_process_group()
+    check(torch.equal(one_q, single_q) and torch.equal(one_p, single_p),
+          "phase 17a: a one-rank sharded film differs from the "
+          "single-device film")
+    log(f"[17a] one-rank NCCL group on {card}: hall-260K {w}x{h} spp {spp}"
+        f" mpl 20, films bit for bit equal to the single-device films; "
+        f"persistent under the policy {policy}: sharded {s_oq:.3f} s = "
+        f"{samples / s_oq / 1e6:.3f} Msamples/s ({int(one_steps.sum())} "
+        f"steps), single {s_q:.3f} s = {samples / s_q / 1e6:.3f}; "
+        f"progressive: sharded {s_op:.3f} s = {samples / s_op / 1e6:.3f}, "
+        f"single {s_p:.3f} s = {samples / s_p / 1e6:.3f} (host clock, "
+        f"synchronised, after a first call of each)")
+
+    # (b) four gloo ranks on the one card: the cost of the decomposition on
+    # one card, not scaling across cards
+    launched, steps = sharded_group("gloo", 4, str(device), scene.device,
+                                    cam, prim, k1_hits, policy, singles,
+                                    (w, h, spp))
+
+    # (c) shard accounting, each shard's call in turn in this process
+    for n_px, n_sp in ((4, 1), (2, 2)):
+        st, secs = timed_call(lambda: measure_shard_steps(
+            scene.device, cam, w, h, spp, n_px, n_sp,
+            pool=policy.get("pool"), packet=policy.get("packet", True),
+            sort=policy.get("sort", False),
+            retire_every=policy.get("retire_every", 1)))
+        check(np.array_equal(st, steps[(n_px, n_sp)]),
+              f"phase 17c: measured steps {st.tolist()} against the "
+              f"sharded run's {steps[(n_px, n_sp)].tolist()}")
+        plan = shard_plan(w, h, spp, n_px, n_sp)
+        log(f"[17c] measure_shard_steps (n_px, n_sp) ({n_px}, {n_sp}): "
+            f"steps {st.tolist()} (equal to the sharded ranks'), max/mean "
+            f"{st.max() / st.mean():.4f}; {plan['pixels_local']} pixels "
+            f"and {plan['samples_local']} samples per rank, "
+            f"{plan['padded_pixels']} padded, all-reduce "
+            f"{plan['collective_bytes_per_device']} bytes per rank; "
+            f"{secs:.1f} s")
+    parent = packet.launches["bvh_traverse"]
+    check(packet.launches["bvh_traverse_prefetch"] == 0,
+          f"phase 17: K2 launched on hall ({packet.launches})")
+    log(f"[17] K1 launches of the sharded phase: {parent} in this process "
+        f"(a, c), {launched} in the 4 ranks (b)")
+    return parent + launched
+
+
+def new_film(w, h, device):
+    from rodent_tpu_torch.render import film as film_mod
+    return film_mod.new_film(w, h, device)
+
+
+def single_films(device, scene, cam, policy, size):
+    """[17] The single-device films of both renderers on `scene` and their
+    seconds: each renderer runs once untimed (a process's first persistent
+    iteration runs 2-3x slower than the next), then once timed; the films
+    must agree. Returns ((progressive, persistent, seconds of each), the
+    timer)."""
+    from rodent_tpu_torch.render.integrator import (
+        render_iteration, render_iteration_persistent)
+    w, h, spp = size
+
+    def timed_call(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def single(persistent):
+        if persistent:
+            return render_iteration_persistent(
+                scene, cam, new_film(w, h, device), w, h, spp, 0, **policy)
+        return render_iteration(scene, cam, new_film(w, h, device), w, h,
+                                spp, 0)
+
+    first_p, first_q = single(False), single(True)
+    single_q, s_q = timed_call(lambda: single(True))
+    single_p, s_p = timed_call(lambda: single(False))
+    check(torch.equal(first_q, single_q) and torch.equal(first_p, single_p),
+          "phase 17: a single-device film differs between two calls")
+    return (single_p, single_q, s_p, s_q), timed_call
+
+
+def phase_bench_tools(device, verts, idx):
+    """[17d, 17e] tools.bench_ref, the independent engine, on hall-260K's
+    1,048,576 primary rays (one host thread) against K1 on the same rays
+    and a BVH8/Tri8 build of the same mesh; then tools.bench_shading in its
+    three modes and tools.bench_interface in its two at their default 1M
+    count on the card."""
+    from rodent_tpu_torch.accel import build_bvh
+    from rodent_tpu_torch.experiments import common
+    from rodent_tpu_torch.tools import bench_interface, bench_ref
+    from rodent_tpu_torch.tools import bench_shading
+    from rodent_tpu_torch.traversal import api
+    from rodent_tpu_torch.traversal.packet import traverse_packet
+    card = common.card(device)
+    res, text = run_tool(bench_ref.run, [
+        "--scene", "hall", "--tris", 260_000, "--width", 1024, "--height",
+        1024, "--bench", 1])
+    check(res is not None, "bench_ref: the native library is unavailable")
+    org, dirs, tmin, tmax = res["rays"]
+    n = len(org)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, **common.TRI8),
+                            device)
+    rays = api.make_rays(org, dirs, tmin, tmax, device=device)
+    k = traverse_packet(dev, rays)
+    kt, kp = k["t"].cpu().numpy(), k["prim_id"].cpu().numpy()
+    rt, rp = res["t"], res["prim_id"]
+    # the independent engine has its own intersection arithmetic: where
+    # the ids differ, a tie is a t within 2e-5 of K1's. Every other
+    # difference (a ray through a crack between triangles that one
+    # engine's test takes and the other's does not) is held against a
+    # brute force over K1's whole Tri table, which K1 must match, so that
+    # only the reference engine can be at fault; at most EDGE_RAYS of them
+    close = np.abs(rt - kt) <= 2e-5 + 2e-5 * np.abs(kt)
+    diff = rp != kp
+    ties = int((diff & close).sum())
+    edge = np.nonzero(diff & ~close)[0]
+    check(ties < TIE_LIMIT * n, f"bench_ref: {ties} ties with K1")
+    check(len(edge) <= EDGE_RAYS,
+          f"bench_ref: {len(edge)} rays differ from K1 and are no ties")
+    check(bool(close[~diff].all()), "bench_ref: t outside 2e-5 of K1's")
+    comps = api.components(rays)
+    listed = []
+    for i in edge.tolist():
+        bt, bp = brute_force(dev, comps, i)
+        hit = bool(kp[i] >= 0)
+        check(hit == bool(np.isfinite(bt)) and (
+            not hit or abs(float(kt[i]) - bt) <= 1e-6 * abs(bt)),
+              f"bench_ref: ray {i}: K1 prim {kp[i]} at t {kt[i]!r}, the "
+              f"brute force prim {bp} at t {bt!r}")
+        listed.append(f"{i}: ref {rp[i]}/{rt[i]:.6g}, K1 {kp[i]}/"
+                      f"{kt[i]:.6g}, brute force "
+                      + (f"{bp}/{bt:.6g}" if hit else "miss"))
+    log(f"[17d] bench_ref (native/ref_bvh.cpp: its own BVH2, one host CPU "
+        f"thread, not the card) on {n} hall-260K primaries: "
+        f"{n / (res['ms'][0] * 1e3):.3f} Mrays/s on the host; against K1: "
+        f"prim_id equal on all but {int(diff.sum())} rays: {ties} ties (t "
+        f"within 2e-5) and {len(edge)} rays through a crack, where K1 "
+        f"equals the brute force (ray: prim/t) " + "; ".join(listed)
+        + f"; {int((kp >= 0).sum())} K1 hits, {int((rp >= 0).sum())} ref")
+    rates = {}
+    for name, tool, modes in (("shading", bench_shading,
+                               ((), ("--sorted",), ("--mono",))),
+                              ("interface", bench_interface,
+                               ((), ("--opaque",)))):
+        for mode in modes:
+            code, text = run_tool(tool.main, list(mode))
+            lines = text.strip().splitlines()
+            check(code == 0 and "checksum" in lines[0],
+                  f"bench_{name} {mode}: {text!r}")
+            rates[f"{name} {' '.join(mode) or 'default'}"] = float(
+                lines[-1].split()[0])
+    log(f"[17e] on {card}: bench_shading / bench_interface at 1,048,576 "
+        f"rays/lookups, CUDA events: {json.dumps(rates)} "
+        f"(Mrays/s, Mlookups/s)")
+    return rates
+
+
+def multi_card(cards):
+    """--cards N: phase 17b's sharded calls on an NCCL group of N ranks,
+    rank r on cuda:r (the multi-card path of torchrun --nproc-per-node N),
+    against the single-device films and K1's hits on cuda:0; nothing else
+    of the smoke run."""
+    from rodent_tpu_torch.experiments import common
+    from rodent_tpu_torch.kernels.build import load_library
+    from rodent_tpu_torch.render.camera import Camera
+    from rodent_tpu_torch.render.compiler import (compile_mesh,
+                                                  select_render_policy)
+    from rodent_tpu_torch.traversal.packet import traverse_packet_components
+    from rodent_tpu_torch.utils import testscenes
+    check(cards >= 2 and cards % 2 == 0 and
+          torch.cuda.device_count() >= cards,
+          f"--cards {cards}: an even count of at least 2, and "
+          f"{torch.cuda.device_count()} cards are visible")
+    t_start = time.perf_counter()
+    device = torch.device("cuda:0")
+    phase_env()
+    load_library(kind="main")      # built once, before the ranks start
+    verts, idx = testscenes.make_hall(common.SIZES["hall"])
+    scene = compile_mesh(verts, idx, device, max_path_len=20,
+                         emitter="inside", bvh_kwargs=common.TRI8)
+    bvh = scene.device["bvh"]
+    prim = common.distributions("hall", scene.mesh.vertices,
+                                scene.mesh.indices, bvh, 1024, device,
+                                ("primary",))["primary"][0]
+    k1_hits = traverse_packet_components(bvh, *prim)
+    size = (1920, 1088, 4)
+    cam = Camera.make(*HALL_VIEW, size[0], size[1])
+    policy = select_render_policy(scene.device)
+    singles, _ = single_films(device, scene.device, cam, policy, size)
+    samples = size[0] * size[1] * size[2]
+    log(f"[17b] single device (cuda:0), hall-260K {size[0]}x{size[1]} spp "
+        f"{size[2]} mpl 20: persistent under the policy {policy} "
+        f"{samples / singles[3] / 1e6:.3f} Msamples/s, progressive "
+        f"{samples / singles[2] / 1e6:.3f}")
+    launched, _ = sharded_group("nccl", cards, None, scene.device, cam, prim,
+                                k1_hits, policy, singles, size)
+    log(f"[17b] K1 launches in the {cards} NCCL ranks: {launched}")
+    log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False")
+    if sys.argv[1:]:
+        if sys.argv[1:2] != ["--cards"] or len(sys.argv) != 3:
+            sys.exit("usage: chip_smoke.py [--cards N]")
+        multi_card(int(sys.argv[2]))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     from rodent_tpu_torch.device import cuda_device
     from rodent_tpu_torch.experiments import common
     from rodent_tpu_torch.render.compiler import compile_mesh
@@ -2049,17 +2435,24 @@ def main():
     phase_engine_tools(device)
     log(f"[16] engines {json.dumps(engines)}")
     log(f"[16] the engine phase took {time.perf_counter() - t_eng:.1f} s")
+    t_shard = time.perf_counter()
+    shard_k1 = phase_sharded(device, hall, hall_prim)
+    phase_bench_tools(device, verts, idx)
+    log(f"[17] the sharding and tools phase took "
+        f"{time.perf_counter() - t_shard:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     src = "rodent_tpu_torch/csrc/bvh_traverse.cu"
     pallas = "rodent_tpu/traversal/pallas_packet.py"
     # no PyTorch call computes a BVH traversal: library_ms is null. K1-K3
     # run the first body; "variants" holds both bodies' times from phase
-    # 14. K1's launches: hall's render (phase 5) and mathall's (15a); K2's:
-    # powerplant's persistent render (phase 9) and tools.render's hbm run
-    # on the mathall OBJ (15b)
+    # 14. K1's launches: hall's render (phase 5), mathall's (15a) and the
+    # sharded renders of phase 17 (all ranks); K2's: powerplant's
+    # persistent render (phase 9) and tools.render's hbm run on the mathall
+    # OBJ (15b)
     log(json.dumps({"kernels": [
         {"name": "bvh_traverse", "route": "cuda", "source": src,
-         "replaces": f"{pallas}:878", "launches": launches + mathall_k1,
+         "replaces": f"{pallas}:878",
+         "launches": launches + mathall_k1 + shard_k1,
          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "library_ms": None,

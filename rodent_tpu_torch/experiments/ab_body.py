@@ -170,13 +170,12 @@ def launch(dev, comps, variant="K1", any_hit=False, body="group", cap=None):
         return out
     lib = build.load_library(kind="group")
     ptrs = (ctypes.c_void_p * 11)(*(x.data_ptr() for x in flat))
-    err = lib.rt_group_traverse(
-        nodes.data_ptr(), tris.data_ptr(), ptrs, n, arity, m,
-        int(bool(any_hit)), cap,
+    err = packet.call_on_card(
+        nodes.device, lib.rt_group_traverse, nodes.data_ptr(),
+        tris.data_ptr(), ptrs, n, arity, m, int(bool(any_hit)), cap,
         *(out[k].data_ptr() for k in ("t", "u", "v", "prim_id",
                                       "geom_id")),
-        *counters, VARIANTS.index(variant), BODIES.index(body),
-        torch.cuda.current_stream(nodes.device).cuda_stream)
+        *counters, VARIANTS.index(variant), BODIES.index(body))
     if err != 0:
         raise RuntimeError(f"rt_group_traverse ({body} {variant}) failed "
                            f"with CUDA error {err}")

@@ -26,6 +26,7 @@ for bit.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -145,7 +146,9 @@ def build(build_dir=None, kind="main"):
     for these exact sources. Returns (path, nvcc's output) — the output,
     which carries ptxas' per-kernel register and spill lines, is None when
     nothing was built. Raises RuntimeError without nvcc or when nvcc
-    fails."""
+    fails. Processes that ask for one library at once (the ranks of a
+    sharded render) wait on a lock file per library, so it is built
+    once."""
     out = library_path(build_dir, kind)
     if out.exists():
         return out, None
@@ -154,14 +157,18 @@ def build(build_dir=None, kind="main"):
         raise RuntimeError("rodent_tpu_torch: nvcc not found; the CUDA "
                            "kernels cannot be built")
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *_flags(kind), "-o", str(tmp),
-           str(CSRC / LIBRARIES[kind][0])]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed on the {kind} library:\n"
-                           + res.stdout + res.stderr)
-    os.replace(tmp, out)
+    with open(out.parent / f".{kind}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out, None
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *_flags(kind), "-o", str(tmp),
+               str(CSRC / LIBRARIES[kind][0])]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {kind} library:\n"
+                               + res.stdout + res.stderr)
+        os.replace(tmp, out)
     return out, res.stdout + res.stderr
 
 

@@ -1,9 +1,10 @@
 """ctypes bindings to the port's native host library (copy of
-rodent_tpu/native/__init__.py without the RefTracer cross-check engine).
+rodent_tpu/native/__init__.py).
 
 The C++ sources beside this file (bvh_builder.cpp, obj_loader.cpp,
-lz4.cpp) are copies of the JAX package's: the SAH/SBVH BVH builder, the
-OBJ loader and the LZ4 block codec. They are compiled with g++ at first
+lz4.cpp, ref_bvh.cpp) are copies of the JAX package's: the SAH/SBVH BVH
+builder, the OBJ loader, the LZ4 block codec and RefTracer's independent
+single-ray BVH2 engine (tools/bench_ref). They are compiled with g++ at first
 use into a shared library under build/rodent_torch_host/ at the repository
 root; the file name carries a hash of the sources, the flags and the host
 CPU, so an edited source builds anew, an unchanged one loads the built
@@ -11,8 +12,9 @@ library, and a library built with -march=native for one CPU is never
 loaded on another (where it could stop on an illegal instruction).
 
 There is no fallback: without g++, or when the build fails, asking for the
-library raises. (The JAX package quietly falls back to its numpy builder,
-which gives another tree and other times.)
+library raises; available() says beforehand whether it can be had. (The
+JAX package quietly falls back to its numpy builder, which gives another
+tree and other times.)
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import numpy as np
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = _DIR.parent.parent / "build" / "rodent_torch_host"
-SOURCES = ("lz4.cpp", "bvh_builder.cpp", "obj_loader.cpp")
+SOURCES = ("lz4.cpp", "bvh_builder.cpp", "obj_loader.cpp", "ref_bvh.cpp")
 # the flags of rodent_tpu/native/Makefile, so both builds give the same tree
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
              "-shared")
@@ -138,8 +140,32 @@ def _load():
         ctypes.POINTER(ctypes.c_int32), ctypes.c_char_p]
     lib.rt_obj_free.restype = None
     lib.rt_obj_free.argtypes = [ctypes.c_void_p]
+    lib.rt_ref_build.restype = ctypes.c_void_p
+    lib.rt_ref_build.argtypes = [ctypes.POINTER(ctypes.c_float),
+                                 ctypes.POINTER(ctypes.c_int32),
+                                 ctypes.c_int64]
+    lib.rt_ref_num_nodes.restype = ctypes.c_int64
+    lib.rt_ref_num_nodes.argtypes = [ctypes.c_void_p]
+    lib.rt_ref_traverse.restype = ctypes.c_double
+    lib.rt_ref_traverse.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32)]
+    lib.rt_ref_free.restype = None
+    lib.rt_ref_free.argtypes = [ctypes.c_void_p]
     _lib = lib
     return _lib
+
+
+def available():
+    """True when the library is built or can be built here (g++ present
+    and the build succeeds)."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
 
 
 def lz4_compress(data: bytes) -> bytes:
@@ -201,6 +227,53 @@ def bvh_build(vertices, indices4, arity=8, packet=4, leaf_threshold=4,
     finally:
         lib.rt_bvh_free(h)
     return bounds, child, tv0, te1, te2, tn, pid, gid
+
+
+class RefTracer:
+    """The independent single-ray BVH2 engine of ref_bvh.cpp, with its own
+    binned-SAH builder and scalar stack traversal: the bench_embree /
+    bench_aila analog (tools/bench_embree/bench_embree.cpp), a second
+    implementation that shares no code with the port's traversal or
+    bvh_builder.cpp, to cross-check hits and to anchor throughput with a
+    measurement the code under test did not produce. Host CPU, one
+    thread, numpy in and out."""
+
+    def __init__(self, vertices, indices4):
+        lib = _load()
+        self._lib = lib
+        verts = np.ascontiguousarray(vertices, np.float32)
+        idx4 = np.ascontiguousarray(indices4, np.int32).reshape(-1, 4)
+        self._h = lib.rt_ref_build(
+            verts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            idx4.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            len(idx4))
+        self.num_nodes = int(lib.rt_ref_num_nodes(self._h))
+
+    def traverse(self, org, dirs, tmin, tmax, any_hit=False):
+        """Closest-hit (or first-hit) traversal of N rays. Returns (t (N,)
+        f32, tmax kept on a miss; prim_id (N,) i32, -1 on a miss; seconds,
+        timed inside the C engine)."""
+        org = np.ascontiguousarray(org, np.float32).reshape(-1, 3)
+        dirs = np.ascontiguousarray(dirs, np.float32).reshape(-1, 3)
+        n = len(org)
+        tmin = np.ascontiguousarray(
+            np.broadcast_to(np.float32(tmin), (n,)), np.float32)
+        tmax = np.ascontiguousarray(
+            np.broadcast_to(np.float32(tmax), (n,)), np.float32)
+        t_out = np.empty(n, np.float32)
+        prim_out = np.empty(n, np.int32)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        secs = self._lib.rt_ref_traverse(
+            self._h, org.ctypes.data_as(f32p), dirs.ctypes.data_as(f32p),
+            tmin.ctypes.data_as(f32p), tmax.ctypes.data_as(f32p), n,
+            1 if any_hit else 0, t_out.ctypes.data_as(f32p),
+            prim_out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        return t_out, prim_out, float(secs)
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.rt_ref_free(self._h)
+            self._h = None
 
 
 def obj_load(path):

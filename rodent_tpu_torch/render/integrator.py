@@ -356,9 +356,14 @@ def _emit_camera(camera, width, height, sample, iteration, pix):
 
 
 def render_sample(scene, camera, film, width, height, sample, iteration,
-                  packet=True, sort=False, stats=None):
+                  pixel_ids=None, packet=True, sort=False, stats=None):
     """Traces one sample per pixel to completion (one wavefront pass) and
-    returns film + the pass's radiance (integrator.py:432-500). packet
+    returns film + the pass's radiance (integrator.py:432-500). pixel_ids
+    (default: every pixel) index the global image, so the camera rays and
+    their RNG streams are those of the whole-image render; a film of the
+    same length as pixel_ids is taken as their own strip (row i for
+    pixel_ids[i], parallel.mesh), any other film is indexed by the global
+    ids (scatter-added, in order). packet
     picks the traversal engine of every depth (_engine): True K1, "hbm"/
     "giga" K2, False the dual-queue engine, "dense" the dense engine; the
     hybrid tiers run their full-packet flavour for every depth, where the
@@ -369,8 +374,11 @@ def render_sample(scene, camera, film, width, height, sample, iteration,
     "bounces"."""
     sort = sort in (True, "pool")
     device = film.device
-    n = width * height
-    pix = torch.arange(n, dtype=torch.int64, device=device)
+    if pixel_ids is None:
+        pix = torch.arange(width * height, dtype=torch.int64, device=device)
+    else:
+        pix = pixel_ids.to(device=device, dtype=torch.int64)
+    n = pix.shape[0]
     org, d, rnd = _emit_camera(camera, width, height, sample, iteration,
                                pix)
     zeros = torch.zeros(n, dtype=torch.float32, device=device)
@@ -390,7 +398,12 @@ def render_sample(scene, camera, film, width, height, sample, iteration,
                              sort=sort)
         if stats is not None:
             stats["bounces"] = stats.get("bounces", 0) + 1
-    return film + torch.stack(state["acc"], dim=-1)
+    rows = torch.stack(state["acc"], dim=-1)
+    if film.shape[0] == n:
+        return film + rows
+    film = film.clone()
+    _index_add_in_order(film, pix, rows)
+    return film
 
 
 def render_debug(scene, camera, film, width, height, iteration,

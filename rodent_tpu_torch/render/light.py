@@ -1,12 +1,12 @@
 """Point and triangle lights (torch port of rodent_tpu/render/light.py;
 light.impala, converter.cpp:771-856).
 
-build_light_table is host numpy; pick_uniform, sample_direct and emission
-run on torch tensors. kind: 0 = point, 1 = triangle (area). Textured
-lights carry uv0/uv1/uv2/ke_tex columns; sample_direct and emission then
-return the texture id (and the sampled point's uv) for the integrator's
-bank lookup. sample_emission (light tracing) is not ported: no renderer
-of the port calls it.
+build_light_table is host numpy; pick_uniform, sample_direct,
+sample_emission and emission run on torch tensors. kind: 0 = point, 1 =
+triangle (area). Textured lights carry uv0/uv1/uv2/ke_tex columns;
+sample_direct and emission then return the texture id (and the sampled
+point's uv) for the integrator's bank lookup. sample_emission serves light
+tracing and photon emission; no renderer of either package calls it.
 """
 from __future__ import annotations
 
@@ -153,6 +153,57 @@ def sample_direct(table, light_idx, rnd, from_point):
                           for a, b, c in zip(uv0, uv1, uv2))
         out["ke_tex"] = _row(table, "ke_tex", light_idx)
     return out, rnd
+
+
+def sample_emission(table, light_idx, rnd):
+    """Light.sample_emission (light.impala:35-44; light.py:202-258): a
+    point on the light and an outgoing direction. Point lights draw a
+    uniform-sphere direction (light.impala:110-116); triangle lights a
+    surface point and a cosine-hemisphere direction about their normal
+    (make_area_light:131-134). Four uniforms per ray, whatever its kind.
+    Returns (dict(pos, dir, intensity, pdf_area, pdf_dir, cos), rnd)."""
+    kind = _row(table, "kind", light_idx)
+    u, rnd = randf(rnd)
+    v, rnd = randf(rnd)
+    u2, rnd = randf(rnd)
+    v2, rnd = randf(rnd)
+
+    v0 = _row(table, "v0", light_idx)
+    v1 = _row(table, "v1", light_idx)
+    v2_ = _row(table, "v2", light_idx)
+    n = _row(table, "n", light_idx)
+    inv_area = _row(table, "inv_area", light_idx)
+    color = _row(table, "color", light_idx)
+
+    # triangle: pos uniform on the triangle, dir cosine-distributed about n
+    pos_t = sampling.sample_triangle_c(u, v, v0, v1, v2_)
+    local, pdf_cos = sampling.sample_cosine_hemisphere_c(u2, v2)
+    t_, b_, n_ = vm.onb(n)
+    dir_t = vm.basis_mul(t_, b_, n_, local)
+    cos_t = local[2]
+
+    # point: pos = v0 (where the table keeps it), dir uniform on the sphere
+    dir_p, pdf_sph = sampling.sample_uniform_sphere_c(u2, v2)
+
+    is_tri = kind == TRIANGLE
+    pos = vm.where(is_tri, pos_t, v0)
+    dirv = vm.where(is_tri, dir_t, dir_p)
+    intensity = vm.where(is_tri, color, vm.scale(color, vm.INV_4PI))
+    pdf_area = torch.where(is_tri, inv_area, 1.0)
+    pdf_dir = torch.where(is_tri, pdf_cos, pdf_sph)
+    cos = torch.where(is_tri, cos_t, 1.0)
+
+    # make_emission_sample validity (light.impala:46-66)
+    valid = (pdf_area > 0.0) & (pdf_dir > 0.0) & (cos > 0.0)
+    zero = vm.splat((0.0, 0.0, 0.0), like=cos)
+    return {
+        "pos": pos,
+        "dir": dirv,
+        "intensity": vm.where(valid, intensity, zero),
+        "pdf_area": torch.where(valid, pdf_area, 1.0),
+        "pdf_dir": torch.where(valid, pdf_dir, 1.0),
+        "cos": torch.where(valid, cos, 1.0),
+    }, rnd
 
 
 def emission(table, light_idx, out_dir):

@@ -11,18 +11,25 @@ dumps hit distances as .fbuf.
 --variant packet runs K1 (csrc/bvh_traverse.cu); hbm and giga run K2, K1
 with the exact next-pop L2 prefetch; tiled runs the dual-queue engine
 (traversal/tiled.py, torch ops), tiled-c the same with staged row
-compaction (compact_stages=5). --sharded (ROADMAP A6) is not ported. A
-timed iteration is a sample of rodent_tpu_torch.experiments.common: CUDA
-events around a block of back-to-back calls, about 20 ms long, on a card;
---cpu runs the plain torch version on the CPU, one call per iteration on
-the host clock. Without --cpu the tool needs a CUDA card.
+compaction (compact_stages=5). A timed iteration is a sample of
+rodent_tpu_torch.experiments.common: CUDA events around a block of
+back-to-back calls, about 20 ms long, on a card; --cpu runs the plain
+torch version on the CPU, one call per iteration on the host clock.
+Without --cpu the tool needs a CUDA card.
+
+--sharded traces the rays split over all ranks of a torch.distributed
+group (parallel.mesh.traverse_sharded, the BVH on every rank, --variant's
+engine in each; a timed call includes the gather of the hits): under
+torchrun every rank joins from torchrun's variables (NCCL, one card per
+rank), without them the tool starts a group of one rank; --cpu takes
+gloo. The tool prints the group's size; rank 0 alone prints and writes.
 
 Usage:
   python -m rodent_tpu_torch.tools.bench_traversal -bvh scene.bvh
       -ray cam.rays [--tmin T] [--tmax T] [-any] [--bench N] [--warmup N]
       [-o out.fbuf] [--bvh-width 8] [--sort]
       [--variant packet|hbm|giga|tiled|tiled-c]
-      [--cpu]
+      [--sharded] [--cpu]
 """
 from __future__ import annotations
 
@@ -33,6 +40,12 @@ import numpy as np
 import torch
 
 from ..experiments import common
+
+
+# --variant -> traverse_sharded's engine (the JAX tool shards its
+# dual-queue engine whatever --variant says)
+_ENGINES = {"packet": "packet", "hbm": "packet-hbm", "giga": "packet-giga",
+            "tiled": "tiled", "tiled-c": "tiled"}
 
 
 def main(argv=None):
@@ -60,8 +73,22 @@ def main(argv=None):
                    help="packet: K1; hbm, giga: K2 (K1 with the next-pop "
                         "L2 prefetch); tiled: the dual-queue engine, "
                         "tiled-c with staged row compaction")
+    p.add_argument("--sharded", action="store_true",
+                   help="scene-replicated, ray-sharded traversal over all "
+                        "ranks of a torch.distributed group")
     args = p.parse_args(argv)
     device = common.device_of(args, "bench_traversal")
+    started, mesh, lead = False, None, True
+    if args.sharded:
+        import torch.distributed as dist
+        from ..parallel import mesh as pmesh
+        started = pmesh.init_group(cpu=args.cpu)
+        mesh = pmesh.make_mesh(device="cpu" if args.cpu else None)
+        device = mesh.device
+        lead = dist.get_rank() == 0
+        if lead:
+            print(f"# sharded over {dist.get_world_size()} rank(s) "
+                  f"({dist.get_backend()})")
 
     from ..accel.layout import WideBvh
     from ..io import formats
@@ -86,6 +113,11 @@ def main(argv=None):
         rays, perm = sort_rays(rays, lo, hi)
 
     def fn():
+        if mesh is not None:
+            from ..parallel import traverse_sharded
+            kw = {"compact_stages": 5} if args.variant == "tiled-c" else {}
+            return traverse_sharded(dev, rays, mesh, any_hit=args.any,
+                                    engine=_ENGINES[args.variant], **kw)
         if args.variant in ("tiled", "tiled-c"):
             return traverse_tiled(
                 dev, rays, any_hit=args.any,
@@ -104,15 +136,18 @@ def main(argv=None):
     prim = hit["prim_id"].cpu().numpy()
     times_ms = np.asarray(times_ms)
     med = float(np.median(times_ms))
-    print(f"{int((prim >= 0).sum())} intersection(s)")
-    print(f"# avg/med/min: {times_ms.mean():.2f}/{med:.2f}/"
-          f"{times_ms.min():.2f} ms")
-    print(f"{n * 1e-6 / (med * 1e-3):.2f} Mrays/sec")
-    if args.output:
+    if lead:
+        print(f"{int((prim >= 0).sum())} intersection(s)")
+        print(f"# avg/med/min: {times_ms.mean():.2f}/{med:.2f}/"
+              f"{times_ms.min():.2f} ms")
+        print(f"{n * 1e-6 / (med * 1e-3):.2f} Mrays/sec")
+    if args.output and lead:
         t = hit["t"].cpu().numpy().astype(np.float32)
         if args.any:
             t = (prim >= 0).astype(np.float32)   # 1 where blocked
         formats.write_fbuf(args.output, t)
+    if started:
+        dist.destroy_process_group()
     return 0
 
 

@@ -12,12 +12,20 @@ plain torch version on the CPU. Under --traversal auto the persistent
 renderer takes select_render_policy's engine and pool; --no-packet (with
 auto) and --traversal tiled take the dual-queue engine
 (traversal/tiled.py), --traversal dense the dense engine
-(traversal/dense.py), both torch ops on either device. --sharded (ROADMAP
-A6) is not ported.
+(traversal/dense.py), both torch ops on either device.
+
+--sharded renders over a torch.distributed group (parallel.mesh, the
+image plane split over all ranks): under torchrun every rank joins the
+group from torchrun's variables and drives the card LOCAL_RANK picks (NCCL,
+one card per rank); without them the tool starts a group of one rank. The
+tool prints the group's size; rank 0 alone prints and writes files. With
+--cpu the group runs over gloo on the CPU.
 
 Usage:
   python -m rodent_tpu_torch.tools.render scene.obj --bench 50 \
       --eye 0 1 2.7 --dir 0 0 -1 -o out.png [--cpu]
+  torchrun --nproc-per-node N -m rodent_tpu_torch.tools.render scene.obj \
+      --sharded ...
 """
 from __future__ import annotations
 
@@ -49,6 +57,10 @@ def parse_args(argv=None):
     p.add_argument("-o", "--output", default=None)
     p.add_argument("--cpu", action="store_true",
                    help="run the plain torch version on the CPU")
+    p.add_argument("--sharded", action="store_true",
+                   help="render over all ranks of a torch.distributed "
+                        "group (image-plane sharding; torchrun, or a "
+                        "group of one rank)")
     p.add_argument("--debug", action="store_true",
                    help="eye-light debug renderer (make_debug_renderer, "
                         "renderer.impala:42-60): no NEE/bounces, spp 1")
@@ -85,6 +97,18 @@ def run(argv=None):
     args = parse_args(argv)
     from ..experiments import common
     device = common.device_of(args, "render")
+    started, mesh, lead = False, None, True
+    if args.sharded and not args.debug:
+        import torch.distributed as dist
+        from ..parallel import mesh as pmesh
+        started = pmesh.init_group(cpu=args.cpu)
+        mesh = pmesh.make_mesh(device="cpu" if args.cpu else None)
+        device = mesh.device
+        lead = dist.get_rank() == 0
+    say = print if lead else (lambda *a: None)
+    if mesh is not None:
+        say(f"# sharded over {dist.get_world_size()} rank(s) "
+            f"({dist.get_backend()}), this one on {device}")
     from ..io import png
     from ..render import film as film_mod
     from ..render.camera import Camera
@@ -121,6 +145,18 @@ def run(argv=None):
 
         def step(f, i):
             return render_debug(scene.device, cam, f, w, h, i, packet=packet)
+    elif mesh is not None:
+        from ..parallel import (render_iteration_persistent_sharded,
+                                render_iteration_sharded)
+        kw = policy if policy is not None else dict(packet=packet, sort=sort)
+
+        def step(f, i):
+            if args.progressive:
+                return render_iteration_sharded(
+                    scene.device, cam, f, w, h, args.spp, i, mesh,
+                    packet=packet, sort=sort)
+            return render_iteration_persistent_sharded(
+                scene.device, cam, f, w, h, args.spp, i, mesh, **kw)
     elif args.progressive:
         def step(f, i):
             return render_iteration(scene.device, cam, f, w, h, args.spp, i,
@@ -147,10 +183,10 @@ def run(argv=None):
     # leave the first (warm-up) iteration out when there is more than one
     stats = times[1:] if len(times) > 1 else times
     msamples = sorted(samples_per_iter / t * 1e-6 for t in stats)
-    print("# {:.2f}/{:.2f}/{:.2f} (min/med/max Msamples/s)".format(
+    say("# {:.2f}/{:.2f}/{:.2f} (min/med/max Msamples/s)".format(
         msamples[0], msamples[len(msamples) // 2], msamples[-1]))
 
-    if args.output:
+    if args.output and lead:
         t0 = time.perf_counter()
         img = film_mod.tonemap(film, w, h, args.bench)
         prof.add("tonemap", time.perf_counter() - t0)
@@ -159,7 +195,10 @@ def run(argv=None):
         prof.add("io", time.perf_counter() - t0)
         print(f"wrote {args.output}")
     if args.profile:
-        print(prof.report())
+        say(prof.report())
+    if started:
+        import torch.distributed as dist
+        dist.destroy_process_group()
     return film
 
 

@@ -95,6 +95,16 @@ def reset_launches():
         launches[k] = 0
 
 
+def call_on_card(device, fn, *args):
+    """fn(*args, stream): a C entry called with `device` as the current
+    CUDA device and that device's current stream as its last argument.
+    The entries launch on the current device, which is not the tensors'
+    card in a rank of a multi-card group unless it is set here. Returns
+    fn's CUDA error code."""
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
 def stack_cap(dev, pops=1):
     """The smallest compiled stack that holds this BVH's worst case (for
     pops=2, K4's doubled bound)."""
@@ -186,12 +196,11 @@ def _launch(dev, comps, any_hit, kernel, option=None):
     lib = load_library(kind="options" if option else "main")
     fn = getattr(lib, _ENTRY[kernel])
     ptrs = (ctypes.c_void_p * 11)(*(x.data_ptr() for x in comps))
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(nodes.data_ptr(), tris.data_ptr(), ptrs, n, arity, m,
-             int(bool(any_hit)), cap,
-             out["t"].data_ptr(), out["u"].data_ptr(), out["v"].data_ptr(),
-             out["prim_id"].data_ptr(), out["geom_id"].data_ptr(), *extra,
-             stream)
+    err = call_on_card(
+        device, fn, nodes.data_ptr(), tris.data_ptr(), ptrs, n, arity, m,
+        int(bool(any_hit)), cap,
+        *(out[k].data_ptr() for k in ("t", "u", "v", "prim_id", "geom_id")),
+        *extra)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
     launches[kernel] += 1
@@ -235,12 +244,11 @@ def _launch_tile(dev, comps, any_hit, tile_rows, mode):
         return out
     lib = load_library(kind="tile")
     ptrs = (ctypes.c_void_p * 11)(*(x.data_ptr() for x in comps))
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.rt_bvh_traverse_tile(
-        nodes.data_ptr(), tris.data_ptr(), ptrs, n, m, int(bool(any_hit)),
-        tile_rows, TILE_MODES.index(mode), cap,
-        *(out[k].data_ptr() for k in ("t", "u", "v", "prim_id", "geom_id",
-                                      "pops", "leaf_pops")), stream)
+    err = call_on_card(
+        device, lib.rt_bvh_traverse_tile, nodes.data_ptr(), tris.data_ptr(),
+        ptrs, n, m, int(bool(any_hit)), tile_rows, TILE_MODES.index(mode),
+        cap, *(out[k].data_ptr() for k in ("t", "u", "v", "prim_id",
+                                           "geom_id", "pops", "leaf_pops")))
     if err != 0:
         raise RuntimeError(f"bvh_traverse_tile launch failed with CUDA "
                            f"error {err}")

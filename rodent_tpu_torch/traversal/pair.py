@@ -242,12 +242,11 @@ def _launch(dev, comps, any_hit, tile_rays, ablate):
     mask = sum(1 << ABLATIONS.index(ab) for ab in ablate)
     lib = load_library(kind="tile")
     ptrs = (ctypes.c_void_p * 11)(*(x.data_ptr() for x in comps))
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.rt_bvh_traverse_pair(
-        nodes.data_ptr(), tris.data_ptr(), ptrs, n, tile_rays,
-        int(bool(any_hit)), cap, mask, max_iters(dev),
+    err = packet.call_on_card(
+        device, lib.rt_bvh_traverse_pair, nodes.data_ptr(), tris.data_ptr(),
+        ptrs, n, tile_rays, int(bool(any_hit)), cap, mask, max_iters(dev),
         *(out[k].data_ptr() for k in ("t", "u", "v", "prim_id", "geom_id",
-                                      "pops", "leaf_pops")), stream)
+                                      "pops", "leaf_pops")))
     if err != 0:
         raise RuntimeError(f"bvh_traverse_pair launch failed with CUDA "
                            f"error {err}")

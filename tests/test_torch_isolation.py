@@ -49,7 +49,10 @@ def test_port_imports_no_jax():
                  "render.light", "utils.profiling", "tools.render",
                  "tools.converter", "tools.ray_gen", "tools.bvh_extractor",
                  "tools.fbuf2png", "traversal.dense", "traversal.tiled",
-                 "tools.quality_gate", "tools.view"):
+                 "tools.quality_gate", "tools.view", "parallel",
+                 "parallel.mesh", "parallel.accounting",
+                 "tools.bench_shading", "tools.bench_interface",
+                 "tools.bench_ref", "utils.checkpoint"):
         assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
@@ -60,6 +63,21 @@ def test_port_imports_no_jax():
             "assert not bad, bad\n"
             "from rodent_tpu_torch.kernels import build\n"
             "assert not build._libs, build._libs\n"
+            "print('clean')\n")
+    res = _run(["-c", code], REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
+def test_bench_ref_loads_no_torch():
+    """tools.bench_ref, the independent anchor, runs on numpy and ctypes
+    alone: importing it loads neither torch nor jax."""
+    code = ("import sys\n"
+            "import rodent_tpu_torch.tools.bench_ref\n"
+            "import rodent_tpu_torch.native\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('torch', 'jax', 'jaxlib', 'rodent_tpu'))\n"
+            "assert not bad, bad\n"
             "print('clean')\n")
     res = _run(["-c", code], REPO)
     assert res.returncode == 0, res.stderr
