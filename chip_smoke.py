@@ -105,6 +105,20 @@ calls real, and checks it:
    tools.bench_ref (one host thread) on the 1M primaries against K1; and
    tools.bench_shading and bench_interface at 1M. The K1 launches of its
    renderers, in every rank, join the main path's.
+18. the port's bench and measuring tools, each through its main() at the
+   size its users run: rodent_tpu_torch.bench (hall-260K at 1024x1024 on
+   the pk8 and pk16 builds, ao and bounces through K1 and tiled-c,
+   powerplant-4.3M through K2; no cornell row without a reference
+   directory), its JSON line's keys checked and its hit fraction held
+   against K1's on the same rays and build; ab_render_policy on
+   powerplant-4.3M at 1920x1088 spp 1 through K2 at pools of 32K and 512K,
+   on hall-260K (K1) at pools of 64K and 512K, and all-packet beside
+   all-tiled at 160x90, the films bit for bit equal across pools and
+   engines; profile_renderer on hall-260K at 480x272 spp 1; race_hall_packet
+   at Tri8/Tri24 x leaf_cost 0/0.6; sweep_bigscene_leaf on two
+   powerplant-4.3M builds; bigscene_12m's primaries at 14.6M triangles
+   (K1 and K2); shard_scaling_table at its defaults. Their K1, K2 and K3
+   launches join the kernels line's.
 
 Every kernel's time stands beside its bound, the least time the card
 could take for the same pops and the table rows they read
@@ -2309,6 +2323,91 @@ def phase_bench_tools(device, verts, idx):
     return rates
 
 
+# the keys of the bench's JSON line and of its detail without a reference
+# directory (bench.py:261-267, its primary rows renamed for K1)
+BENCH_DETAIL = {
+    "backend", "card", "baseline", "num_nodes", "num_packets",
+    "primary_pk8_k1_mrays", "primary_pk16_k1_mrays", "primary_config",
+    "primary_mrays", "primary_band", "primary_hit_fraction",
+    "bigscene_transport", "bigscene_tris", "bigscene_mrays",
+    "bigscene_band", "cornell"} | {
+    f"{kind}_{key}" for kind in ("ao", "bounces")
+    for key in ("packet_mrays", "packet_band", "tiled-c_mrays",
+                "tiled-c_band", "mrays", "engine")}
+
+
+def phase_tools(device, verts, idx):
+    """[18] the bench and the measuring tools (ROADMAP A1-A6) through their
+    main() on the card, each at the size its users run it (bigscene_12m
+    on primaries only); their rows are logged. Returns the K1, K2 and K3
+    launches they made."""
+    from rodent_tpu_torch import bench
+    from rodent_tpu_torch.accel import build_bvh
+    from rodent_tpu_torch.experiments import (
+        ab_render_policy, bigscene_12m, common, profile_renderer,
+        race_hall_packet, shard_scaling_table, sweep_bigscene_leaf)
+    from rodent_tpu_torch.traversal import api, packet
+    times = {}
+
+    def run(name, main, argv):
+        t0 = time.perf_counter()
+        code, text = run_tool(main, argv)
+        check(code == 0, f"phase 18: {name} returned {code}")
+        times[name] = round(time.perf_counter() - t0, 1)
+        return text
+
+    packet.reset_launches()
+    text = run("bench", bench.main, [
+        "--reference", os.path.join(REPO, "build", "phase18", "absent")])
+    out = text.strip().splitlines()
+    check(len(out) == 1, f"bench printed {len(out)} lines")
+    res = json.loads(out[0])
+    detail = res["detail"]
+    check(set(res) == {"metric", "value", "unit", "vs_baseline", "detail"}
+          and res["metric"] == "hall260k_primary_traversal"
+          and set(detail) == BENCH_DETAIL
+          and detail["backend"] == "cuda"
+          and detail["bigscene_tris"] == 4_347_968,
+          f"bench: the JSON line's keys {sorted(detail)}")
+    run("ab_render_policy powerplant", ab_render_policy.main, [
+        "--scene", "powerplant", "--tris", 5_000_000, "--wh", "1920x1088",
+        "--spp", 1, "--iters", 1, "--policies", "all-packet", "--packet",
+        "hbm", "--pools", "32768,524288"])
+    run("ab_render_policy hall", ab_render_policy.main, [
+        "--wh", "1920x1088", "--spp", 1, "--iters", 1, "--policies",
+        "all-packet", "--pools", "65536,524288"])
+    run("ab_render_policy engines", ab_render_policy.main, [
+        "--wh", "160x90", "--spp", 1, "--iters", 1, "--policies",
+        "all-packet,all-tiled"])
+    run("profile_renderer", profile_renderer.main, [
+        "--spp", 1, "--iters", 1])
+    run("race_hall_packet", race_hall_packet.main, [
+        "--packets", "8,24", "--lcs", "0,0.6"])
+    run("sweep_bigscene_leaf", sweep_bigscene_leaf.main, [
+        "--packets", 24, "--lts", 12, "--lcs", "0.45,0.6"])
+    run("bigscene_12m", bigscene_12m.main, ["--dists", "primary"])
+    run("shard_scaling_table", shard_scaling_table.main, [])
+    launched = {k: packet.launches[k] for k in (
+        "bvh_traverse", "bvh_traverse_prefetch", "bvh_traverse_count")}
+    check(all(launched.values()), f"phase 18: launches {launched}")
+    # the hit fraction against K1's on the bench's rays and winning build
+    name = detail["primary_config"].split("-")[0]
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8,
+                                      **bench.BUILDS[name]), device)
+    comps = common.distributions("hall", verts, idx, dev, 1024, device,
+                                 ("primary",))["primary"][0]
+    hit = packet.traverse_packet_components(dev, *comps)
+    frac = round(float((hit["prim_id"] >= 0).double().mean()), 4)
+    check(detail["primary_hit_fraction"] == frac,
+          f"bench: primary_hit_fraction {detail['primary_hit_fraction']} "
+          f"against K1's {frac}")
+    log(f"[18] bench and tools on {common.card(device)}: seconds "
+        f"{json.dumps(times)}; K1-K3 launches {json.dumps(launched)}; the "
+        f"bench's hit fraction {frac} equals K1's on its rays and {name} "
+        "build")
+    return launched
+
+
 def multi_card(cards):
     """--cards N: phase 17b's sharded calls on an NCCL group of N ranks,
     rank r on cuda:r (the multi-card path of torchrun --nproc-per-node N),
@@ -2440,6 +2539,10 @@ def main():
     phase_bench_tools(device, verts, idx)
     log(f"[17] the sharding and tools phase took "
         f"{time.perf_counter() - t_shard:.1f} s")
+    t_tools = time.perf_counter()
+    tools = phase_tools(device, verts, idx)
+    log(f"[18] the bench and measuring tools phase took "
+        f"{time.perf_counter() - t_tools:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     src = "rodent_tpu_torch/csrc/bvh_traverse.cu"
     pallas = "rodent_tpu/traversal/pallas_packet.py"
@@ -2448,23 +2551,26 @@ def main():
     # 14. K1's launches: hall's render (phase 5), mathall's (15a) and the
     # sharded renders of phase 17 (all ranks); K2's: powerplant's
     # persistent render (phase 9) and tools.render's hbm run on the mathall
-    # OBJ (15b)
+    # OBJ (15b); K1-K3's launches in the bench and the tools of phase 18
     log(json.dumps({"kernels": [
         {"name": "bvh_traverse", "route": "cuda", "source": src,
          "replaces": f"{pallas}:878",
-         "launches": launches + mathall_k1 + shard_k1,
+         "launches": launches + mathall_k1 + shard_k1
+                     + tools["bvh_traverse"],
          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "library_ms": None,
          "variants": bodies["bvh_traverse"]},
         {"name": "bvh_traverse_prefetch", "route": "cuda", "source": src,
-         "replaces": f"{pallas}:96", "launches": k2_launches + obj_k2,
+         "replaces": f"{pallas}:96",
+         "launches": k2_launches + obj_k2 + tools["bvh_traverse_prefetch"],
          "max_abs_err": big_err, "ms": big_ms["K2"],
          "plain_ms": big_plain_ms, "bound_ms": bounds["K2"][0],
          "bound_by": bounds["K2"][1], "library_ms": None,
          "variants": bodies["bvh_traverse_prefetch"]},
         {"name": "bvh_traverse_count", "route": "cuda", "source": src,
-         "replaces": f"{pallas}:395", "launches": k3_launches,
+         "replaces": f"{pallas}:395",
+         "launches": k3_launches + tools["bvh_traverse_count"],
          "max_abs_err": big_err, "ms": big_ms["K3"],
          "plain_ms": big_plain_ms, "bound_ms": bounds["K3"][0],
          "bound_by": bounds["K3"][1], "library_ms": None,

@@ -152,12 +152,12 @@ def distributions(scene, verts, idx, dev, side, device, kinds=DISTS):
     return out
 
 
-def samples(fn, device, blocks=5, block_ms=20.0, warmup_s=0.0):
+def samples(fn, device, blocks=5, block_ms=20.0, warmup_s=0.0, calls=None):
     """(milliseconds per call of each of `blocks` blocks, last result).
     On a card: one warm-up call timed with CUDA events, more calls until
     warmup_s seconds have passed (WARMUP_S before a run's first turn), then
     blocks of back-to-back calls between two events, each block about
-    block_ms long.
+    block_ms long, or of `calls` calls where that is given.
     A call of over half a second is its own warm-up: its first time is
     the first sample, and at most 3 blocks of one call are taken. On the
     CPU: one call per block on the host clock. `fn` must not synchronise,
@@ -180,7 +180,8 @@ def samples(fn, device, blocks=5, block_ms=20.0, warmup_s=0.0):
     while time.perf_counter() - t0 < warmup_s:
         res = fn()
         torch.cuda.synchronize()
-    iters = max(1, min(50, int(np.ceil(block_ms / max(first, 1e-3)))))
+    iters = calls or max(1, min(50, int(np.ceil(block_ms
+                                                / max(first, 1e-3)))))
     out = []
     if first > 500.0:
         blocks = min(blocks, 3) - 1

@@ -274,18 +274,19 @@ _MESH_PALETTE = [
 ]
 
 
-_EMITTER_FRAC = 0.30   # panel footprint as a fraction of the bbox xz extent
-_EMITTER_POWER = 8.0   # panel radiance (compiler.py:354-359)
-
-
 def compile_mesh(verts, indices, device, arity=8, max_path_len=64,
-                 emitter="above", bvh_kwargs=None, materials=None,
+                 emitter="above", emitter_frac=0.30, emitter_power=None,
+                 kds=None, bvh_kwargs=None, materials=None,
                  tex_images=None, timings=None):
     """Procedural mesh -> CompiledScene on `device` (compiler.py:271-392):
-    per-mat-id palette diffuse materials (or `materials`, obj Materials
-    indexed by mat id), smooth area-weighted vertex normals, and one
-    emissive area-light panel just under the bbox top (emitter="inside")
-    or above it ("above"). tex_images: dict name -> linear (H, W, 3) f32
+    per-mat-id palette diffuse materials (or `kds`, one diffuse colour per
+    mat id, or `materials`, obj Materials indexed by mat id), smooth
+    area-weighted vertex normals, and one emissive area-light panel just
+    under the bbox top (emitter="inside") or above it ("above");
+    emitter_frac scales the panel's xz footprint, and emitter_power is its
+    radiance (None: 8.0, which lands the three benchmark scenes in a usable
+    exposure range, since the NEE geometry term scales with the panel's
+    area). tex_images: dict name -> linear (H, W, 3) f32
     image backing the materials' map_kd/map_ks names; its order sets the
     bank ids, and a textured scene gets triplanar uvs (procedural geometry
     ships none). timings, a dict, receives the seconds of the BVH build
@@ -299,7 +300,7 @@ def compile_mesh(verts, indices, device, arity=8, max_path_len=64,
 
     # ---- emissive panel (2 tris, its own material id, normal -y) ----
     cx, cz = (lo[0] + hi[0]) / 2, (lo[2] + hi[2]) / 2
-    hx, hz = ext[0] * _EMITTER_FRAC / 2, ext[2] * _EMITTER_FRAC / 2
+    hx, hz = ext[0] * emitter_frac / 2, ext[2] * emitter_frac / 2
     y = hi[1] - 0.04 * ext[1] if emitter == "inside" \
         else hi[1] + 0.10 * ext[1]
     pv = np.asarray([[cx - hx, y, cz - hz], [cx + hx, y, cz - hz],
@@ -342,16 +343,19 @@ def compile_mesh(verts, indices, device, arity=8, max_path_len=64,
         indices=idx4.reshape(-1).astype(np.int32))
 
     # ---- materials: palette diffuse (or caller MTLs) + the emitter ----
+    if emitter_power is None:
+        emitter_power = 8.0
     if materials is not None:
         if len(materials) < n_mats:
             raise ValueError(f"scene uses {n_mats} material ids, got "
                              f"{len(materials)}")
         mats = list(materials[:n_mats])
     else:
-        mats = [obj_io.Material(name=f"m{i}",
-                                kd=_MESH_PALETTE[i % len(_MESH_PALETTE)])
-                for i in range(n_mats)]
-    mats.append(obj_io.Material(name="emitter", ke=(_EMITTER_POWER,) * 3))
+        mats = [obj_io.Material(
+            name=f"m{i}", kd=tuple(kds[i]) if kds is not None
+            else _MESH_PALETTE[i % len(_MESH_PALETTE)])
+            for i in range(n_mats)]
+    mats.append(obj_io.Material(name="emitter", ke=(emitter_power,) * 3))
     tex_files = list(tex_images) if tex_images else []
     tex_index = {n: i for i, n in enumerate(tex_files)}
     mat_params = [material_to_params(m, tex_index) for m in mats]

@@ -454,14 +454,17 @@ def _index_add_in_order(plane, idx, val):
         torch.use_deterministic_algorithms(prev, warn_only=warn_only)
 
 
-def _splat_planar(planes, pixel, color, mask):
-    """Scatter-adds a Vec3 into a component-planar film (3 x (N,) tensors,
-    updated in place; integrator.py:284-294). Masked-off rays add an exact
-    0.0 to their own pixel instead of being dropped: x + 0.0 == x bit for
-    bit for every value but -0.0, which radiance sums never hold, and no
-    index has to be compacted on the host."""
+def _splat_planar(planes, slot, color, mask):
+    """Writes a Vec3 into the rows `slot` of a component-planar sample
+    buffer (3 x (S + 1,) tensors, updated in place; the splat of
+    integrator.py:284-294, one row per sample instead of a scatter-add per
+    pixel). Masked-off rays write to the last row, which no sample owns, so
+    no index has to be compacted on the host; every other row is written
+    by one ray at most."""
+    spare = planes[0].shape[0] - 1
+    idx = torch.where(mask, slot, spare)
     for p, c in zip(planes, color):
-        _index_add_in_order(p, pixel, torch.where(mask, c, 0.0))
+        p.index_put_((idx,), c)
 
 
 def render_iteration_persistent(scene, camera, film, width, height, spp,
@@ -475,10 +478,15 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
     reference's megakernel regeneration (gpu_mega_kernel_trace,
     mapping_gpu.impala:371-474). A pool of `pool` ray slots (default
     min(total, 32768)) processes all n_pixels * spp samples of the
-    iteration; when a path ends, its slot is splatted into the film and
-    re-emitted with the next unprocessed sample id. RNG seeds depend only
-    on (sample, iteration, x, y), so the film does not depend on the pool,
-    on retire_every or on the sort.
+    iteration; when a path ends, its radiance is written to its sample's
+    row of a buffer and its slot is re-emitted with the next unprocessed
+    sample id. At the end each pixel adds its samples' rows to the film in
+    sample order (film + s0 + s1 + ...). RNG seeds depend only on (sample,
+    iteration, x, y), and the order of the additions does not depend on
+    when paths end, so the film does not change in a single bit with the
+    pool, retire_every, the sort or the engine. (The JAX package
+    scatter-adds each dead slot into its pixel, in the order the paths
+    end; its film matches this one to the last bits of a float sum.)
 
     The JAX while_loop is a Python loop that reads one boolean per step
     (any slot alive, or samples left); lax.cond is a Python `if`, which
@@ -520,13 +528,15 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
     def emit_rays(sample_id):
         pix = pixel_lo + torch.clamp(sample_id // spp, max=n_pixels - 1)
         s = sample_lo + sample_id % spp
-        org, d, rnd = _emit_camera(camera, width, height, s, iteration, pix)
-        return org, d, rnd, pix
+        return _emit_camera(camera, width, height, s, iteration, pix)
 
     sample_id = torch.arange(pool, dtype=torch.int64, device=device)
     next_free = torch.tensor(pool, dtype=torch.int64, device=device)
-    org, d, rnd, pixel = emit_rays(sample_id)
+    org, d, rnd = emit_rays(sample_id)
     live = sample_id < min(total, pool)
+    # the sample each slot holds; `total` (the buffer's spare row) where it
+    # holds none
+    slot = torch.where(live, sample_id, total)
     zeros = torch.zeros(pool, dtype=torch.float32, device=device)
     ones = torch.ones(pool, dtype=torch.float32, device=device)
     rays = make_rays_c(org, d, zeros, torch.where(live, FLT_MAX, -1.0))
@@ -540,23 +550,21 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
     }
     zero3 = (zeros, zeros, zeros)
     ones3 = (ones, ones, ones)
-    # the film rides through the loop as 3 component planes (in place)
-    planes = tuple(film[:, i].clone(memory_format=torch.contiguous_format)
-                   for i in range(3))
+    # each sample's radiance, one row per sample id and a spare row, as 3
+    # component planes (written in place)
+    samples = tuple(torch.zeros(total + 1, dtype=torch.float32,
+                                device=device) for _ in range(3))
 
-    def film_index(pix):
-        return pix - pixel_lo if local_film else pix
-
-    def retire(rays, state, pixel, next_free):
+    def retire(rays, state, slot, next_free):
         dead = ~state["alive"]
-        _splat_planar(planes, film_index(pixel),
-                      vm.scale(state["acc"], weight), dead)
+        _splat_planar(samples, slot, vm.scale(state["acc"], weight), dead)
         state = dict(state, acc=vm.where(dead, zero3, state["acc"]))
         dead_i = dead.to(torch.int64)
         new_id = next_free + torch.cumsum(dead_i, 0) - 1
         can = dead & (new_id < total)
+        slot = torch.where(can, new_id, torch.where(dead, total, slot))
         next_free = torch.clamp(next_free + dead_i.sum(), max=total)
-        norg, nd, nrnd, npix = emit_rays(torch.where(can, new_id, 0))
+        norg, nd, nrnd = emit_rays(torch.where(can, new_id, 0))
         fresh = make_rays_c(norg, nd, zeros, torch.full_like(zeros, FLT_MAX))
         rays = {k: (vm.where(can, fresh[k], rays[k])
                     if isinstance(rays[k], tuple)
@@ -570,12 +578,10 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
             "alive": state["alive"] | can,
             "acc": state["acc"],     # zeroed above for retired slots
         }
-        pixel = torch.where(can, npix, pixel)
         if pool_sort:
             # reorder the pool by the post-regeneration rays' keys so the
             # next steps' bounce and shadow traversals see coherent warps;
-            # slot identity carries (pixel, acc, sample): the film is
-            # unchanged
+            # slot identity carries (acc, sample): the film is unchanged
             keys = ray_sort_keys(rays["org"], rays["dir"],
                                  scene["scene_lo"], scene["scene_hi"])
             if depth_split:
@@ -590,8 +596,8 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
                                rays["tmin"][perm], rays["tmax"][perm])
             state = {k: gt(v) if isinstance(v, tuple) else v[perm]
                      for k, v in state.items()}
-            pixel = pixel[perm]
-        return rays, state, pixel, next_free
+            slot = slot[perm]
+        return rays, state, slot, next_free
 
     step = 0
     while bool(state["alive"].any() | (next_free < total)):  # host read
@@ -616,11 +622,21 @@ def render_iteration_persistent(scene, camera, film, width, height, spp,
         # slot is alive (else the loop could spin with samples pending)
         if (retire_every == 1 or step % retire_every == 0
                 or not bool(state["alive"].any())):
-            rays, state, pixel, next_free = retire(rays, state, pixel,
-                                                   next_free)
+            rays, state, slot, next_free = retire(rays, state, slot,
+                                                  next_free)
     # slots that ran out of samples never reached a retirement's splat
-    _splat_planar(planes, film_index(pixel), vm.scale(state["acc"], weight),
+    _splat_planar(samples, slot, vm.scale(state["acc"], weight),
                   torch.ones_like(state["alive"]))
+    # each pixel adds its samples in sample order; the film rides as 3
+    # component planes
+    lo = 0 if local_film else pixel_lo
+    planes = []
+    for i, plane in enumerate(samples):
+        p = film[:, i].clone(memory_format=torch.contiguous_format)
+        rows = plane[:total].view(n_pixels, spp)
+        for k in range(spp):
+            p[lo:lo + n_pixels] += rows[:, k]
+        planes.append(p)
     film = torch.stack(planes, dim=-1)
     if return_steps:
         return film, step

@@ -254,8 +254,8 @@ def test_prefetch_refusals(card):
 def test_persistent_films_through_k1_and_k2(card):
     """hall-20K, 32x24, spp 2, pool 256: the persistent film through K1
     (packet=True) and through K2 (packet="hbm") on the card. The film
-    splat sums each pixel in slot order (deterministic index_put_), and
-    K2's hits are K1's, so the two films are equal bit for bit; against
+    adds each pixel's samples in sample order, and K2's hits are K1's, so
+    the two films are equal bit for bit; against
     the CPU film (plain traversal) they are held to rtol 1e-4 / atol 1e-5
     on >= 99% of pixels and the mean to 0.5% (CPU and CUDA sqrt/sin/cos
     differ by ULPs, test_render_on_card_matches_cpu)."""

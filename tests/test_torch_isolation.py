@@ -52,7 +52,13 @@ def test_port_imports_no_jax():
                  "tools.quality_gate", "tools.view", "parallel",
                  "parallel.mesh", "parallel.accounting",
                  "tools.bench_shading", "tools.bench_interface",
-                 "tools.bench_ref", "utils.checkpoint"):
+                 "tools.bench_ref", "utils.checkpoint", "bench",
+                 "experiments.ab_render_policy",
+                 "experiments.profile_renderer",
+                 "experiments.race_hall_packet",
+                 "experiments.sweep_bigscene_leaf",
+                 "experiments.bigscene_12m",
+                 "experiments.shard_scaling_table"):
         assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"

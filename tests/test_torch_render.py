@@ -77,6 +77,33 @@ def test_compile_mesh_matches_jax(hall):
     assert scene.materials == jscene.materials
 
 
+def test_compile_mesh_emitter_and_kds_match_jax(hall):
+    """C10: the port's compile_mesh takes the JAX keywords emitter_frac,
+    emitter_power and kds. At emitter_frac=0.5, emitter_power=3.0 and a
+    diffuse colour per mat id its tables equal the JAX package's (also as
+    carried across by from_jax_device), and differ from the default
+    call's, which equals a call with the defaults spelt out."""
+    verts, idx, jscene = hall
+    n_mats = int(np.asarray(idx).reshape(-1, 4)[:, 3].max()) + 1
+    kds = [(0.1 + 0.05 * i, 0.8 - 0.03 * i, 0.4) for i in range(n_mats)]
+    kw = dict(max_path_len=4, emitter="inside", emitter_frac=0.5,
+              emitter_power=3.0, kds=kds)
+    want = jax.tree_util.tree_map(
+        np.asarray, jcompile(verts, idx, **kw).device)
+    got = compile_mesh(verts, idx, "cpu", **kw).device
+    _assert_same_tree(want, got)
+    _assert_same_tree(want, from_jax_device(want, "cpu"))
+    base = compile_mesh(verts, idx, "cpu", max_path_len=4,
+                        emitter="inside").device
+    _assert_same_tree(jax.tree_util.tree_map(np.asarray, jscene.device),
+                      compile_mesh(verts, idx, "cpu", max_path_len=4,
+                                   emitter="inside", emitter_frac=0.30,
+                                   emitter_power=None, kds=None).device)
+    for key in ("vertices", "mat_table"):
+        with pytest.raises(AssertionError):
+            _assert_same_tree(base[key], got[key], key)
+
+
 def test_render_iteration_matches_jax(hall):
     """hall-20K, 32x24, spp 1, mpl 4, both packages on the JAX package's
     tables. Tolerance: rtol 1e-4 and atol 1e-5 on >= 99% of pixels, mean

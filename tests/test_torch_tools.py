@@ -13,9 +13,14 @@ import torch
 from rodent_tpu.accel import build_bvh
 from rodent_tpu.io import formats
 from rodent_tpu.utils import testscenes
-from rodent_tpu_torch.experiments import (ablate_packet, ablate_pair,
-                                          attribute_bigscene, cost_model,
-                                          measure_packet, measure_pair)
+from rodent_tpu_torch.experiments import (ab_render_policy, ablate_packet,
+                                          ablate_pair, attribute_bigscene,
+                                          bigscene_12m, cost_model,
+                                          measure_packet, measure_pair,
+                                          profile_renderer,
+                                          race_hall_packet,
+                                          shard_scaling_table,
+                                          sweep_bigscene_leaf)
 from rodent_tpu_torch.tools import bench_traversal, benchmark
 from rodent_tpu_torch.traversal import api, packet
 
@@ -159,6 +164,55 @@ EXPERIMENTS = {
         attribute_bigscene, ["--tris", "20000", "--rays", "1024"],
         [r"^counted \(K3\): pops/ray ", r"^ +K1: ", r"^ +K2: ",
          r"^ +pops2: ", r"^ +chain4: ", r"^ +row_loads: "]),
+    "ab_render_policy": (
+        ab_render_policy, ["--tris", "2000", "--wh", "16x12", "--spp", "1",
+                           "--mpl", "4", "--iters", "1", "--pools", "64,192",
+                           "--policies", "all-packet,split",
+                           "--variants", "tiled+sort"],
+        [r"^ +all-packet-p64: [\d.]+ Msamples/s \(min [\d.]+ max [\d.]+ "
+         r"n=1\) steps \d+ \[ref\]$",
+         r"^ +all-packet-p192: .* \[bit-identical\]$",
+         r"^ +split-p64: .* \[bit-identical\]$",
+         r"^ +tiled\+sort-p192: .* steps \d+ \[bit-identical\]$"]),
+    "profile_renderer": (
+        profile_renderer, ["--tiny", "--scene", "mathall"],
+        [r"^baseline: ", r"^no-splat: .* calls _splat_planar [1-9]",
+         r"^no-gathers: .* calls surface_element [1-9]\d*, "
+         r"gather_material [1-9]",
+         r"^no-texture-fetch: .* calls _sample_bank [1-9]",
+         r"^no-camera-emit\*: .* calls _emit_camera [1-9]",
+         r"^no-light-sampling\*: .* calls sample_direct [1-9]\d*, "
+         r"emission [1-9]",
+         r"^no-bsdf\*: .* calls eval_pdf [1-9]\d*, sample [1-9]",
+         r"^no-shadow-trace: .* calls _traverse [1-9]",
+         r"^no-traverse-at-all\*: .* calls _traverse [1-9]",
+         r"^pool 4K: ", r"^sort-pool\+retire4: ", r"^retire_every 3: "]),
+    "race_hall_packet": (
+        race_hall_packet, ["--tris", "2000", "--rays", "256", "--packets",
+                           "8,24", "--lcs", "0,0.6"],
+        [r"^pk=8 lc=def: \d+ BVH8 nodes .* Tri8 rows .*; pops/ray [\d.]+, "
+         r"leaf pops/ray [\d.]+, warp-max [\d.]+; hit ",
+         r"^pk=24 lc=0.6: .* Tri24 rows ",
+         r"^  K1: [\d.]+ ms = [\d.]+ Mrays/s; in turns with pk=8 lc=def "]),
+    "sweep_bigscene_leaf": (
+        sweep_bigscene_leaf, ["--tris", "20000", "--rays", "256", "--lts",
+                              "12", "--lcs", "0,0.45", "--packets", "24"],
+        [r"^pk=24 lt=12 lc=def: .* node pops/ray [\d.]+; built in ",
+         r"^pk=24 lt=12 lc=0.45: ",
+         r"^  K1: [\d.]+ ms = [\d.]+ Mrays/s; K2: [\d.]+ ms = [\d.]+ "
+         r"Mrays/s; K2/K1 [\d.]+$"]),
+    "bigscene_12m": (
+        bigscene_12m, ["--target", "20000", "--rays", "256"],
+        [r"^powerplant: \d+ tris .* Tri24 rows = .* tier hybrid$",
+         r"^primary: pops/ray ", r"^ao : hbm : [\d.]+ Mrays \(",
+         r"^bounces : packet : [\d.]+ Mrays ",
+         r"^bounces : packet/hbm time [\d.]+$"]),
+    "shard_scaling_table": (
+        shard_scaling_table, ["--wh", "24x16", "--tris", "2000", "--pool",
+                              "256"],
+        [r"^   8 \| (\d+ ){7}\d+ +\| +[\d.]+ \| ",
+         r"^reference 1920x1088 spp4 \|    2 \|    4 \|  1044480 \| "
+         r"+18800640 \| "]),
 }
 
 
@@ -185,3 +239,57 @@ def test_experiment_on_cpu(name, capsys):
         assert re.search(r"^ +primary +1 +[\d.]+ ", out, re.M), out
         with pytest.raises(ValueError, match="frustum.*tile_rows="):
             api.check_options(False, frustum=True)
+    if name == "race_hall_packet":
+        with pytest.raises(SystemExit):
+            mod.main(["--cpu", "--packets", "8,12"])
+        assert "--packets 12: K1 is built for Tri 4/8/16/24" in (
+            capsys.readouterr().err)
+
+
+@pytest.mark.parametrize("name", list(EXPERIMENTS)[6:])
+def test_experiment_needs_card(name, monkeypatch):
+    """Without --cpu and without a card, each of the measuring tools exits
+    with an error before it builds anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA card"):
+        EXPERIMENTS[name][0].main(EXPERIMENTS[name][1])
+
+
+def test_ab_render_policy_raises_on_film_difference(monkeypatch):
+    """A spy that perturbs the film of the second row by one part in a
+    million: the tool raises, naming both rows."""
+    real = ab_render_policy.integrator.render_iteration_persistent
+    calls = []
+
+    def spy(*args, **kw):
+        film, steps = real(*args, **kw)
+        calls.append(kw.get("pool"))
+        if kw.get("pool") == 192:
+            film = film * (1.0 + 1e-6)
+        return film, steps
+
+    monkeypatch.setattr(ab_render_policy.integrator,
+                        "render_iteration_persistent", spy)
+    with pytest.raises(RuntimeError, match="the film of all-packet-p192 "
+                       "differs from all-packet-p64's"):
+        ab_render_policy.main([
+            "--cpu", "--tris", "2000", "--wh", "16x12", "--spp", "1",
+            "--mpl", "4", "--iters", "1", "--pools", "64,192",
+            "--policies", "all-packet"])
+    assert calls == [64, 64, 192, 192]
+
+
+def test_profile_renderer_refuses_a_dead_ablation():
+    """An ablation whose stand-in the step never calls raises, and the
+    module attribute is restored."""
+    from rodent_tpu_torch.render import integrator
+    real = integrator.render_debug
+    with pytest.raises(RuntimeError, match="ablation no-debug: the step "
+                       "never called render_debug"):
+        profile_renderer.ablated("no-debug", [
+            (integrator, "render_debug", lambda *a: None)], lambda: 1.0)
+    assert integrator.render_debug is real
+    dt, calls = profile_renderer.ablated(
+        "live", [(integrator, "render_debug", lambda *a: None)],
+        lambda: integrator.render_debug() or 2.0)
+    assert (dt, calls) == (2.0, {"render_debug": 1})
