@@ -5,10 +5,11 @@ Drives the port's main path once at the size the repository's benchmark
 calls real, and checks it:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
-2. builds the kernels with nvcc, four libraries at once: K1, its
+2. builds the kernels with nvcc, six libraries at once: K1, its
    prefetching variant K2 and its pop-counting variant K3; K4, the options
-   of the legacy Pallas body (both csrc/bvh_traverse.cu); K5 and K6, the
-   tile-shared-stack kernels (csrc/bvh_tile.cu); and the micro-probes
+   of the legacy Pallas body; K1-K3's two bodies (all csrc/bvh_traverse.cu);
+   K5 and K6, the tile-shared-stack kernels, in the warp schedule and in
+   the first one (csrc/bvh_tile.cu, two libraries); and the micro-probes
    (csrc/probes.cu);
 3. K1 against its plain torch version on random triangle soups, arity
    2/4/8 and Tri4/8/16 packets, closest-hit and any-hit;
@@ -37,18 +38,22 @@ calls real, and checks it:
    1M sorted primaries and on the ao rays (nonodetest, which pops the
    whole tree, on fewer rays), with K4's launch count read around them,
    and each option's counters and hits held against the plain version;
-12. the tile-shared-stack kernels (csrc/bvh_tile.cu): K5 (_kernel's tile
-   stack: plain, frustum, nopure) and K6 (the pair layout, each ablation)
-   against their plain versions on the soups of phase 11, bit for bit in
-   hits and per-tile pops, and against K1; then the measurement path of
-   rodent_tpu_torch.experiments.measure_packet/measure_pair on hall-260K
-   (1M sorted primaries, ao and bounce rays: K5 at tile_rows 1, 2, 4, 16,
-   frustum off and on, and nopure at 16 on the primaries; K6 at tiles of
-   256, 1024, 2048 rays), each timed in
-   turns against K1, counted, beside its bound, and held against the plain
-   version on 65,536 of its rays (whole tiles of at most PLAIN_POPS pops);
-   and powerplant-4.3M's sorted primaries through K5 (Tri24) at tile_rows 2
-   and 16, frustum off and on;
+12. the tile-shared-stack kernels (csrc/bvh_tile.cu), K5 (_kernel's tile
+   stack: plain, frustum, nopure) and K6 (the pair layout, each ablation),
+   each in both schedules (the warp schedule, which the wrappers launch,
+   and the first one; rodent_tpu_torch.experiments.ab_tile_body): against
+   their plain versions on the soups of phase 11, bit for bit in hits and
+   per-tile pops, and against K1, and on a stack or a guard too small for
+   some tiles, which both stop with pops -1; then the measurement path on
+   hall-260K (1M sorted primaries, ao and bounce rays: K5 at tile_rows 1,
+   2, 4, 16, frustum off and on, and nopure at 16 on the primaries; K6 at
+   tiles of 256, 1024, 2048 rays) and powerplant-4.3M's sorted primaries
+   (K5, Tri24, at tile_rows 2 and 16, frustum off and on): K1 and both
+   schedules timed in turns (K1, v1, warp, warp, v1, K1), counted, beside
+   the bound of the pops made, with each instance's registers, shared
+   memory and resident blocks, the two schedules equal on all rays and
+   held against the plain version on up to 65,536 of their rays (whole
+   tiles of at most ab_tile_body.PLAIN_POPS pops);
 13. the micro-probes (csrc/probes.cu, rodent_tpu_torch.experiments.probe_*
    and vpu_dtype_bench, the ports of the TPU probes of experiments/): every
    body of the eight probe files through its kernel as its main() drives
@@ -154,13 +159,6 @@ SUBSET = 65_536             # ao rays held against the plain version
 # powerplant rays through K4's nonodetest, which pops all of the tree's
 # 250,000 entries per ray
 NONODE_BIG = 16_384
-# phase 12: K5's tile_rows and K6's tiles on hall-260K, K5's on powerplant
-HALL_ROWS = (1, 2, 4, 16)
-PAIR_TILES = (256, 1024, 2048)
-BIG_ROWS = (2, 16)
-# the plain version steps once per pop: it checks the whole tiles that pop
-# at most this often
-PLAIN_POPS = 1000
 
 
 def log(msg):
@@ -239,7 +237,9 @@ def phase_build():
     dt = time.perf_counter() - t0
     what = {"main": "K1, K2 and K3", "options": "K4 (-DRT_OPTIONS)",
             "group": "K1-K3's two bodies (-DRT_GROUP, phase 14)",
-            "tile": "K5 and K6", "probes": "the micro-probes"}
+            "tile": "K5 and K6 (the warp schedule)",
+            "tile_v1": "K5 and K6's first schedule (-DRT_TILE_V1, phase 12)",
+            "probes": "the micro-probes"}
     for kind, (path, nvcc_log) in built.items():
         load_library(kind=kind)
         if nvcc_log is None:
@@ -902,17 +902,20 @@ def against_k1(k, k1, any_hit, what, dev, comps):
 
 
 def phase_tile_soups(device):
-    """[12] K5 and K6 against their plain versions on the soups of phase 11
-    (leaves of up to 32 tris): K5 at tile_rows 1 and 2 on random rays
-    (mixed tiles, where every mode is the plain one) and in each mode on
-    coherent rays (octant-pure tiles, where the pure slab test and the
-    frustum act), K6 with each ablation at tiles of 128 and 256 rays
-    on the random rays; closest-hit and any-hit; hits and per-tile pops
-    bit for bit, and the hits against K1's."""
+    """[12] K5 and K6 in both schedules against their plain versions on the
+    soups of phase 11 (leaves of up to 32 tris): K5 at tile_rows 1 and 2
+    on random rays (mixed tiles, where every mode is the plain one) and in
+    each mode on coherent rays (octant-pure tiles, where the pure slab test
+    and the frustum act), K6 with each ablation at tiles of 128 and 256
+    rays on the random rays; closest-hit and any-hit; hits and per-tile
+    pops bit for bit, and the hits against K1's; then both schedules on a
+    stack (K5) or a guard (K6) too small for some tiles, which stop with
+    pops -1 in both (ab_tile_body.check_stops)."""
     from rodent_tpu_torch.accel import build_bvh
+    from rodent_tpu_torch.experiments import ab_tile_body as ab
     from rodent_tpu_torch.traversal import api, pair
     from rodent_tpu_torch.traversal.packet import TILE_MODES, traverse_packet
-    runs = ties = 0
+    runs = ties = stops = 0
     for m in (8, 24):
         verts, idx = random_tri_soup(3000, seed=70 + m)
         dev = api.bvh_to_device(build_bvh(
@@ -938,178 +941,145 @@ def phase_tile_soups(device):
                 kw = {"any_hit": any_hit, "count_pops": True,
                       "tile_rows": rows, **tile_args(mode)}
                 k = traverse_packet(dev, rays, **kw)
-                check_equal(k, api.traverse(dev, rays, **kw), what)
+                p = api.traverse(dev, rays, **kw)
+                check_equal(k, p, what)
+                check_equal(ab.launch(dev, comps, "K5", "v1", any_hit, rows,
+                                      mode), p, f"{what} v1")
                 ties += sum(against_k1(k, k1, any_hit, what, dev, comps))
                 runs += 1
             if m != 8 or batch != "random":
                 continue
-            for tile, ab in itertools.product(
+            for tile, abl in itertools.product(
                     (128, 256), [()] + [(a,) for a in pair.ABLATIONS]):
-                what = f"soup K6 tile {tile} {ab} any_hit={any_hit}"
+                what = f"soup K6 tile {tile} {abl} any_hit={any_hit}"
                 k = pair.traverse_pair(dev, rays, any_hit=any_hit,
-                                       tile_rays=tile, ablate=ab,
+                                       tile_rays=tile, ablate=abl,
                                        count_pops=True)
-                check_equal(k, pair.traverse_pair_components(
-                    dev, *comps[:3], *comps[4:], any_hit, tile, ab,
-                    count_pops=True), what)
-                if not ab:
+                p = pair.traverse_pair_components(
+                    dev, *comps[:3], *comps[4:], any_hit, tile, abl,
+                    count_pops=True)
+                check_equal(k, p, what)
+                check_equal(ab.launch(dev, comps, "K6", "v1", any_hit, tile,
+                                      ablate=abl), p, f"{what} v1")
+                if not abl:
                     ties += sum(against_k1(k, k1, any_hit, what, dev,
                                            comps))
                 runs += 1
-    log(f"[12] K5 and K6 == plain on 2 soups (Tri8, Tri24; random and "
-        f"coherent rays), {runs} runs, closest-hit and any-hit: hits and "
-        f"per-tile pops bit for bit; {ties} prim_id differences with K1")
-
-
-def tile_run(name, dev, comps, any_hit, device, k1, pure, tile_rows=None,
-             frustum=False, tile_rays=None, nopure=False, blocks=3):
-    """One configuration of the measurement path: the kernel (K5 with
-    tile_rows, K6 with tile_rays) timed in turns against K1, one counted
-    launch, its bound, its hits against K1's, and its hits and pops against
-    the plain version on SUBSET rays, the first whole tiles that pop at
-    most PLAIN_POPS times (tiles are independent), which also count the
-    table rows read for the bound's byte term (a floor there). Returns the
-    label, the numbers and the counted run."""
-    from rodent_tpu_torch.experiments import common
-    from rodent_tpu_torch.traversal import api, packet, pair
-    if tile_rays:
-        size, label = tile_rays, f"K6 tile {tile_rays}"
-
-        def kernel():
-            return pair.traverse_pair_packet_components(
-                dev, *comps, any_hit=any_hit, tile_rays=tile_rays)
-        counted = common.counted_pair(dev, comps, any_hit, tile_rays)
-    else:
-        size = 128 * tile_rows
-        ablate = ("nopure",) if nopure else ()
-        label = (f"K5 rows {tile_rows}" + (" frustum" if frustum else "")
-                 + (" nopure" if nopure else ""))
-
-        def kernel():
-            return packet.traverse_packet_components(
-                dev, *comps, any_hit=any_hit, tile_rows=tile_rows,
-                frustum=frustum, ablate=ablate)
-        counted = common.counted_tile(dev, comps, any_hit, tile_rows,
-                                      frustum, ablate)
-
-    def k1_fn():
-        return packet.traverse_packet_components(dev, *comps,
-                                                 any_hit=any_hit)
-    k1_ms, ms, _, _ = common.in_turns(k1_fn, kernel, device, blocks)
-    n = comps[-1].shape[0]
-    st = common.tile_stats(counted, size, n)
-    ties, others = against_k1(counted, k1, any_hit, f"{name} {label}",
-                              dev, comps)
-    keep = torch.nonzero(counted["pops"] <= PLAIN_POPS)[:SUBSET // size, 0]
-    if keep.numel() == 0:           # at least the tile that pops least
-        keep = counted["pops"].argmin().reshape(1)
-    idx = (keep[:, None] * size + torch.arange(size, device=keep.device)
-           ).reshape(-1)
-    o, d, inv, _, tmin, tmax = tuple(
-        tuple(c[idx] for c in x) if isinstance(x, tuple) else x[idx]
-        for x in comps)
-    if tile_rays:
-        p = pair.traverse_pair_components(dev, o, d, inv, tmin, tmax,
-                                          any_hit, tile_rays,
-                                          count_pops=True, count_rows=True)
-    else:
-        p = api.traverse_tile_components(dev, o, d, inv, tmin, tmax, any_hit,
-                                         tile_rows, frustum, ablate,
-                                         count_rows=True)
-    rows = (int(p.pop("nodes_read").sum()), int(p.pop("tris_read").sum()))
-    check_equal({k: v[keep] if k in ("pops", "leaf_pops") else v[idx]
-                 for k, v in counted.items()}, p,
-                f"{name} {label} ({idx.numel()} rays)")
-    bound = common.tile_bound_ms(dev, counted, size, n, rows, any_hit,
-                                 pure, frustum, nopure,
-                                 pair_kernel=bool(tile_rays))
-    log(f"[12] {name} {label}: {ms:.4f} ms vs K1 {k1_ms:.4f} ms in turns "
-        f"({ms / k1_ms:.2f}x) = {n / ms / 1e3:.1f} Mrays/s; pops per tile "
-        f"{st['mean']:.1f} (max {st['max']}, leaf "
-        f"{st['leaf'] / st['tiles']:.1f}), {ms * 1e6 / st['pops']:.2f} ns "
-        f"per pop, {st['ray_equiv']:.1f} pops per ray-equivalent; bound "
-        f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.1%} of it; "
-        f"against K1 {ties} ties, {others} others; {idx.numel()} rays in "
-        f"{keep.numel()} tiles == plain (rows read {rows[0]} + {rows[1]})")
-    return label, {"ms": ms, "k1_ms": k1_ms, "bound": bound, "out": counted}
+            for kernel, size in (("K5", 1), ("K5", 2), ("K6", 128),
+                                 ("K6", 256)):
+                stops += ab.check_stops(dev, comps, any_hit, kernel, size)
+    log(f"[12] K5 and K6 in both schedules == plain on 2 soups (Tri8, "
+        f"Tri24; random and coherent rays), {runs} runs, closest-hit and "
+        f"any-hit: hits and per-tile pops bit for bit; {ties} prim_id "
+        f"differences with K1; {stops} tiles stopped on a small stack or "
+        "guard, the same in both schedules")
 
 
 def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
-    """[12] The tile kernels' measurement path (measure_packet --rows
-    1,2,4,16 with and without --frustum, measure_pair --tiles
-    256,1024,2048) on hall-260K's 1M sorted primaries, ao and bounce rays,
-    then K5 on powerplant-4.3M's sorted primaries, with the launch counts
-    read around it; then the headline configurations' plain versions on
-    all of their rays. Returns (K5's and K6's launches, the results, the
-    plain versions' times)."""
+    """[12] The tile kernels' measurement path
+    (rodent_tpu_torch.experiments.ab_tile_body, as measure_packet --rows
+    1,2,4,16 with and without --frustum and measure_pair --tiles
+    256,1024,2048 run them) on hall-260K's 1M sorted primaries, ao and
+    bounce rays, then K5 on powerplant-4.3M's sorted primaries: each
+    configuration timed in turns with K1 in both schedules (the warp
+    schedule through the wrappers), counted, beside its bound, both
+    schedules equal to each other on all rays and to the plain version on
+    a subset, with each schedule's launch count read around it; then the
+    headline configurations' plain versions on all of their rays. Returns
+    (the launches per schedule and kernel, the results, the plain
+    versions' times)."""
+    from rodent_tpu_torch.experiments import ab_tile_body as ab
     from rodent_tpu_torch.experiments import common
     from rodent_tpu_torch.traversal import api, packet, pair
     dists = common.distributions("hall", verts, idx, hall_bvh, side, device,
                                  ("primary", "ao", "bounces"))
-    runs = [("hall", name, comps, any_hit, hall_bvh, HALL_ROWS, PAIR_TILES)
+    runs = [("hall", name, comps, any_hit, hall_bvh)
             for name, (comps, any_hit) in dists.items()]
-    runs.append(("powerplant", "primary", big_prim, False, big_bvh, BIG_ROWS,
-                 ()))
+    runs.append(("powerplant", "primary", big_prim, False, big_bvh))
     res = {}
     packet.reset_launches()
     t0 = time.perf_counter()
-    for scene, name, comps, any_hit, dev, rows_list, tiles in runs:
-        k1 = packet.traverse_packet_components(dev, *comps, any_hit=any_hit)
-        for rows, frustum in itertools.product(rows_list, (False, True)):
-            label, r = tile_run(f"{scene} {name}", dev, comps, any_hit,
-                                device, k1, api.tile_purity(comps[2], rows),
-                                tile_rows=rows, frustum=frustum)
-            res[(scene, name, label)] = r
-        if scene == "hall" and name == "primary":   # the nopure ablation
-            label, r = tile_run(f"{scene} {name}", dev, comps, any_hit,
-                                device, k1, api.tile_purity(comps[2], 16),
-                                tile_rows=16, nopure=True)
-            res[(scene, name, label)] = r
-        for tile in tiles:
-            label, r = tile_run(f"{scene} {name}", dev, comps, any_hit,
-                                device, k1, None, tile_rays=tile)
-            res[(scene, name, label)] = r
+    for scene, name, comps, any_hit, dev in runs:
+        def show(key, r, dev=dev, comps=comps, any_hit=any_hit):
+            what = f"{key[0]} {key[1]} {ab.label(*key[2:])}"
+            ties, others = against_k1(r["out"][ab.WRAPPED], r["k1"], any_hit,
+                                      what, dev, comps)
+            st, ms = r["stats"], r["ms"][ab.WRAPPED]
+            log(f"[12] {ab.line(*key, r)}; warp {ms * 1e6 / st['pops']:.2f} "
+                f"ns per pop, {comps[4].shape[0] / ms / 1e3:.1f} Mrays/s, "
+                f"{st['ray_equiv']:.1f} pops per ray-equivalent; against "
+                f"K1 {ties} ties, {others} others")
+        res.update(ab.run(device, {name: (comps, any_hit)}, scene, dev,
+                          on_result=show))
     torch.cuda.synchronize()
-    launched = {k: packet.launches[k] for k in ("bvh_traverse_tile",
-                                                 "bvh_traverse_pair")}
+    launched = {f"{s} {k}": ab.launch_count(s, k) for s in ab.SCHEDULES
+                for k in ab.KERNELS}
     log(f"[12] measurement path: {len(res)} configurations in "
         f"{time.perf_counter() - t0:.1f} s, launches {launched} (clock, "
         f"power after: {sm_clock()})")
-    check(launched["bvh_traverse_tile"] >= len(res) - 3 * len(PAIR_TILES)
-          and launched["bvh_traverse_pair"] >= 3 * len(PAIR_TILES),
-          f"tile phase: launches {launched}")
+    for s in ab.SCHEDULES:
+        for kernel in ab.KERNELS:
+            want = sum(1 for key in res if key[2] == kernel)
+            check(launched[f"{s} {kernel}"] >= 2 * want,
+                  f"tile phase: {s} {kernel} launched "
+                  f"{launched[f'{s} {kernel}']} times in {want} "
+                  "configurations")
     # the headline configurations' plain versions on all of their rays
     plain = {}
     o, d, inv, _, tmin, tmax = dists["primary"][0]
-    for key, label, fn in (
-            ("K5", "K5 rows 16", lambda: api.traverse_tile_components(
+    for key, kernel, size, fn in (
+            ("K5", "K5", 16, lambda: api.traverse_tile_components(
                 hall_bvh, o, d, inv, tmin, tmax, tile_rows=16)),
-            ("K6", "K6 tile 2048", lambda: pair.traverse_pair_components(
+            ("K6", "K6", 2048, lambda: pair.traverse_pair_components(
                 hall_bvh, o, d, inv, tmin, tmax, tile_rays=2048,
                 count_pops=True))):
         ms, out = common.timed(fn, device, blocks=1)
-        check_equal(res[("hall", "primary", label)]["out"], out,
-                    f"hall primary {label} (all rays)")
+        for s in ab.SCHEDULES:
+            check_equal(res[("hall", "primary", kernel, size, "plain")]
+                        ["out"][s], out,
+                        f"hall primary {ab.label(kernel, size)} {s} (all "
+                        "rays)")
         plain[key] = ms
-        log(f"[12] plain version of hall primary {label} on all "
-            f"{tmin.shape[0]} rays: {ms:.1f} ms; hits and pops == the "
-            f"kernel's")
+        log(f"[12] plain version of hall primary {ab.label(kernel, size)} "
+            f"on all {tmin.shape[0]} rays: {ms:.1f} ms; hits and pops == "
+            f"both schedules'")
     return launched, res, plain
 
 
-def tile_entry(name, replaces, launches, head, plain_ms, res, kernel):
+def tile_entry(name, replaces, kernel, launched, plain_ms, res):
     """The kernels-line entry of K5 or K6 (its hits equalled the plain
-    version's bit for bit: max_abs_err 0); every configuration's times
-    under "variants"."""
+    version's bit for bit: max_abs_err 0) at its headline configuration
+    on hall's primaries (K5 tile_rows 16, K6 tiles of 2,048 rays), in the
+    schedule the wrappers launch; "variants": every configuration's times
+    in both schedules, their shares of the bound and ratios to K1, and
+    each instance's resources; "schedules": each schedule's library and
+    launches."""
+    from rodent_tpu_torch.experiments import ab_tile_body as ab
+    head = res[("hall", "primary", kernel, 16 if kernel == "K5" else 2048,
+                "plain")]
+    variants = {}
+    for key, r in res.items():
+        if key[2] != kernel:
+            continue
+        b_ms = r["bound"][0]
+        variants[f"{key[0]} {key[1]} {ab.label(*key[2:])}"] = {
+            "k1_ms": r["k1_ms"], "bound_ms": b_ms,
+            "ms": r["ms"][ab.WRAPPED],
+            "schedules": {s: {"ms": r["ms"][s], "share": b_ms / r["ms"][s],
+                              "k1_ratio": r["ms"][s] / r["k1_ms"],
+                              **r["resources"][s]}
+                          for s in ab.SCHEDULES}}
     return {"name": name, "route": "cuda",
             "source": "rodent_tpu_torch/csrc/bvh_tile.cu",
-            "replaces": replaces, "launches": launches, "max_abs_err": 0.0,
-            "ms": head["ms"], "plain_ms": plain_ms,
-            "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
-            "library_ms": None,
-            "variants": {" ".join(k): {"ms": r["ms"], "k1_ms": r["k1_ms"],
-                                       "bound_ms": r["bound"][0]}
-                         for k, r in res.items() if k[2].startswith(kernel)}}
+            "replaces": replaces,
+            "launches": launched[f"{ab.WRAPPED} {kernel}"],
+            "max_abs_err": 0.0, "ms": head["ms"][ab.WRAPPED],
+            "plain_ms": plain_ms, "bound_ms": head["bound"][0],
+            "bound_by": head["bound"][1], "library_ms": None,
+            "variants": variants,
+            "schedules": {s: {"library": ab.LIBRARY[s],
+                              "launches": launched[f"{s} {kernel}"]}
+                          for s in ab.SCHEDULES}}
 
 
 # probe module -> its JAX file's pallas_call site (probe_mosaic3.py has a
@@ -2585,16 +2555,14 @@ def main():
          "bound_by": bounds["K3"][1], "library_ms": None,
          "variants": variants},
         # ms: the headline configurations on hall-260K's 1M sorted
-        # primaries (K5 tile_rows 16, K6 tiles of 2048 rays), whose plain
-        # versions ran on all of those rays
-        tile_entry("bvh_traverse_tile", f"{pallas}:395",
-                   tile_launches["bvh_traverse_tile"],
-                   tiles[("hall", "primary", "K5 rows 16")],
-                   tile_plain["K5"], tiles, "K5"),
+        # primaries (K5 tile_rows 16, K6 tiles of 2048 rays) in the
+        # wrappers' schedule, whose plain versions ran on all of those rays;
+        # launches: that schedule's in phase 12
+        tile_entry("bvh_traverse_tile", f"{pallas}:395", "K5",
+                   tile_launches, tile_plain["K5"], tiles),
         tile_entry("bvh_traverse_pair", "experiments/pallas_pair.py:127",
-                   tile_launches["bvh_traverse_pair"],
-                   tiles[("hall", "primary", "K6 tile 2048")],
-                   tile_plain["K6"], tiles, "K6")] + probe_entries}))
+                   "K6", tile_launches, tile_plain["K6"], tiles)]
+        + probe_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -203,16 +203,28 @@ def timed(fn, device, blocks=5, block_ms=20.0, warmup_s=0.0):
     return float(np.median(ms)), res
 
 
+def rounds(fns, device, blocks=5, warmup_s=0.0):
+    """Calls timed in turns: each of fns in order, then in reverse order
+    (A, B, C, C, B, A), the first turn after warmup_s seconds of warm-up.
+    Returns (each call's ms, the mean of its two turns; each call's last
+    result)."""
+    ms = [0.0] * len(fns)
+    res = [None] * len(fns)
+    order = list(range(len(fns)))
+    for j, i in enumerate(order + order[::-1]):
+        t, res[i] = timed(fns[i], device, blocks,
+                          warmup_s=warmup_s if j == 0 else 0.0)
+        ms[i] += t / 2
+    return ms, res
+
+
 def in_turns(first, second, device, blocks=5, warmup_s=0.0):
     """Two calls timed in turns (first, second, second, first), the first
     turn after warmup_s seconds of warm-up. Returns (first's ms, second's
     ms, first's result, second's result), each time the mean of its two
     turns."""
-    a1, _ = timed(first, device, blocks, warmup_s=warmup_s)
-    b1, _ = timed(second, device, blocks)
-    b2, rb = timed(second, device, blocks)
-    a2, ra = timed(first, device, blocks)
-    return (a1 + a2) / 2, (b1 + b2) / 2, ra, rb
+    (a, b), (ra, rb) = rounds([first, second], device, blocks, warmup_s)
+    return a, b, ra, rb
 
 
 def pop_stats(out):

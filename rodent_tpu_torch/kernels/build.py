@@ -7,16 +7,19 @@ anew and an unchanged one loads the built library. Only sources in the
 repository are used. Without nvcc (and without a built library) asking
 for a library raises: there is no fallback.
 
-Five libraries: "main" (bvh_traverse.cu) holds K1, K2 and K3, the kernels
+Six libraries: "main" (bvh_traverse.cu) holds K1, K2 and K3, the kernels
 of the render and benchmark paths; "options" (the same source with
 -DRT_OPTIONS) holds K4, the options of the legacy Pallas body; "group"
 (the same source with -DRT_GROUP) holds K1-K3 in two bodies, the group
 stack and the first body, for experiments/ab_body.py, which times them
 against each other; "tile" (bvh_tile.cu) holds K5 and K6, the traversals
-whose stack is shared by a tile of rays; "probes" (probes.cu) holds the
+whose stack is shared by a tile of rays, in the warp schedule, which the
+wrappers launch; "tile_v1" (the same source with -DRT_TILE_V1) holds K5
+and K6 in their first schedule, for experiments/ab_tile_body.py, which
+times the two schedules against each other; "probes" (probes.cu) holds the
 micro-probes of rodent_tpu_torch.experiments.probe_* and vpu_dtype_bench.
 Each is built at its first use, so that none delays K1's first launch;
-build_all() starts the five nvcc runs at once. A library's hash covers
+build_all() starts the six nvcc runs at once. A library's hash covers
 its source and the header it includes (bvh_common.cuh).
 
 -fmad=false keeps every float operation separately rounded, as the plain
@@ -46,6 +49,7 @@ LIBRARIES = {"main": ("bvh_traverse.cu", ()),
              "options": ("bvh_traverse.cu", ("-DRT_OPTIONS",)),
              "group": ("bvh_traverse.cu", ("-DRT_GROUP",)),
              "tile": ("bvh_tile.cu", ()),
+             "tile_v1": ("bvh_tile.cu", ("-DRT_TILE_V1",)),
              "probes": ("probes.cu", ())}
 
 _P = ctypes.c_void_p
@@ -87,6 +91,11 @@ _ENTRIES = {
             _P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P,
             _P, _P, _P, _P]),
+        # kernel (0 K5, 1 K6), packet, any_hit, mode, tile, stack_cap,
+        # out (6 ints: registers, static and dynamic shared bytes, local
+        # bytes, resident blocks per SM, threads)
+        "rt_bvh_tile_resources": (ctypes.c_int, [_I, _I, _I, _I, _I, _I,
+                                                 _P]),
     },
     "probes": {
         # probe, body, arg, arg2, blocks_per_sm (out)
@@ -111,6 +120,9 @@ _ENTRIES = {
                                         ctypes.c_uint, _P]),
     },
 }
+
+# the two schedules of bvh_tile.cu export the same entries
+_ENTRIES["tile_v1"] = _ENTRIES["tile"]
 
 _libs = {}  # library path -> loaded CDLL
 _loaded = {}  # (build directory, kind) -> loaded CDLL

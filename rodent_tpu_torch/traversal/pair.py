@@ -218,15 +218,19 @@ def traverse_pair_components(dev, org, dirv, inv_d, tmin, tmax,
     return out
 
 
-def _launch(dev, comps, any_hit, tile_rays, ablate):
-    """K6 on CUDA tensors; comps: the 11 (n,) ray components in the C
-    entry's order (inv_dir xyz, org xyz, dir xyz, tmin, tmax)."""
+def _launch(dev, comps, any_hit, tile_rays, ablate, library="tile",
+            cap=None, iters=None):
+    """K6 on CUDA tensors from `library` ("tile"; "tile_v1", the first
+    schedule, for experiments/ab_tile_body); comps: the 11 (n,) ray
+    components in the C entry's order (inv_dir xyz, org xyz, dir xyz,
+    tmin, tmax). cap and iters replace the stack the tree needs and the
+    iteration guard."""
     nodes, tris = dev["nodes"], dev["tris"]
     n = packet.check_inputs("bvh_traverse_pair", comps, nodes, tris)
-    cap = stack_entries(dev)
-    if cap > PAIR_STACK_MAX:
-        raise ValueError(f"BVH needs {cap} stack entries; "
-                         f"bvh_traverse_pair holds at most {PAIR_STACK_MAX}")
+    cap = stack_entries(dev) if cap is None else cap
+    if not 1 <= cap <= PAIR_STACK_MAX:
+        raise ValueError(f"a stack of {cap} entries: bvh_traverse_pair "
+                         f"holds 1 to {PAIR_STACK_MAX}")
     nt = -(-n // tile_rays)
     device = nodes.device
 
@@ -240,17 +244,18 @@ def _launch(dev, comps, any_hit, tile_rays, ablate):
     if n == 0:
         return out
     mask = sum(1 << ABLATIONS.index(ab) for ab in ablate)
-    lib = load_library(kind="tile")
+    lib = load_library(kind=library)
     ptrs = (ctypes.c_void_p * 11)(*(x.data_ptr() for x in comps))
     err = packet.call_on_card(
         device, lib.rt_bvh_traverse_pair, nodes.data_ptr(), tris.data_ptr(),
-        ptrs, n, tile_rays, int(bool(any_hit)), cap, mask, max_iters(dev),
+        ptrs, n, tile_rays, int(bool(any_hit)), cap, mask,
+        max_iters(dev) if iters is None else iters,
         *(out[k].data_ptr() for k in ("t", "u", "v", "prim_id", "geom_id",
                                       "pops", "leaf_pops")))
     if err != 0:
         raise RuntimeError(f"bvh_traverse_pair launch failed with CUDA "
                            f"error {err}")
-    packet.launches["bvh_traverse_pair"] += 1
+    packet.launches[packet.launch_key("bvh_traverse_pair", library)] += 1
     return out
 
 

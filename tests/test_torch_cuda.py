@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from rodent_tpu_torch.accel import build_bvh
-from rodent_tpu_torch.experiments import (ab_body, common, probe_body,
+from rodent_tpu_torch.experiments import (ab_body, ab_tile_body, common,
+                                          probe_body,
                                           probe_chain, probe_dyn_cost,
                                           probe_gather, probe_mosaic,
                                           probe_mosaic2, probe_mosaic3,
@@ -206,7 +207,9 @@ def test_prefetch_and_count_kernels(card, width):
                                    "bvh_traverse_count": 1,
                                    "bvh_traverse_option": 0,
                                    "bvh_traverse_tile": 0,
-                                   "bvh_traverse_pair": 0}
+                                   "bvh_traverse_pair": 0,
+                                   "tile_v1 bvh_traverse_tile": 0,
+                                   "tile_v1 bvh_traverse_pair": 0}
         for key in ("t", "u", "v", "prim_id", "geom_id"):
             assert torch.equal(k2[key], k1[key]), key
             assert torch.equal(k3[key], k1[key]), key
@@ -363,13 +366,44 @@ def _equal(k, p, what):
         assert torch.equal(k[key], p[key]), (what, key)
 
 
+def _tile_kw(mode):
+    return {"frustum": mode == "frustum",
+            "ablate": ("nopure",) if mode == "nopure" else ()}
+
+
+def _tile_launch(schedule, dev, rays, kernel, any_hit, size, mode="plain",
+                 ablate=()):
+    """K5 or K6 in `schedule` with its counters: the wrapped schedule
+    through the wrappers, the other through ab_tile_body.launch; one
+    launch each, counted under its library's key."""
+    if schedule != ab_tile_body.WRAPPED:
+        packet.reset_launches()
+        out = ab_tile_body.launch(dev, api.components(rays), kernel,
+                                  schedule, any_hit, size, mode, ablate)
+        assert ab_tile_body.launch_count(schedule, kernel) == 1
+        assert sum(packet.launches.values()) == 1
+        return out
+    packet.reset_launches()
+    if kernel == "K5":
+        out = packet.traverse_packet(dev, rays, any_hit=any_hit,
+                                     count_pops=True, tile_rows=size,
+                                     **_tile_kw(mode))
+        assert packet.launches["bvh_traverse_tile"] == 1
+    else:
+        out = pair.traverse_pair(dev, rays, any_hit=any_hit, tile_rays=size,
+                                 ablate=ablate, count_pops=True)
+        assert packet.launches["bvh_traverse_pair"] == 1
+    return out
+
+
+@pytest.mark.parametrize("schedule", ab_tile_body.SCHEDULES)
 @pytest.mark.parametrize("width", [8, 24])
-def test_tile_kernel_matches_plain(card, width):
-    """K5 against its plain version on the card, bit for bit: hits and
-    per-tile pops and leaf pops, modes plain, frustum and nopure,
-    closest-hit and any-hit, tile_rows 1, 2 and 16, on coherent (octant
-    pure) and random rays whose count fills no whole number of tiles; its
-    closest hits equal K1's; one launch per call."""
+def test_tile_kernel_matches_plain(card, width, schedule):
+    """K5 in each schedule against its plain version on the card, bit for
+    bit: hits and per-tile pops and leaf pops, modes plain, frustum and
+    nopure, closest-hit and any-hit, tile_rows 1, 2, 16 and 32, on coherent
+    (octant pure) and random rays whose count fills no whole number of
+    tiles; its closest hits equal K1's; one launch per call."""
     verts, idx = _soup(3000, seed=90 + width)
     dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=width,
                                       leaf_threshold=32, leaf_cost=0.2),
@@ -378,17 +412,13 @@ def test_tile_kernel_matches_plain(card, width):
         for rays in (_coherent(5000, width, card, tmax),
                      _rays(5000, width + 1, card, tmax)):
             k1 = packet.traverse_packet(dev, rays, any_hit=any_hit)
-            for rows in (1, 2, 16):
+            for rows in (1, 2, 16, 32):
                 for mode in packet.TILE_MODES:
-                    kw = {"frustum": mode == "frustum",
-                          "ablate": ("nopure",) if mode == "nopure" else ()}
-                    packet.reset_launches()
-                    k = packet.traverse_packet(dev, rays, any_hit=any_hit,
-                                               count_pops=True,
-                                               tile_rows=rows, **kw)
-                    assert packet.launches["bvh_traverse_tile"] == 1
+                    k = _tile_launch(schedule, dev, rays, "K5", any_hit,
+                                     rows, mode)
                     p = api.traverse(dev, rays, any_hit=any_hit,
-                                     count_pops=True, tile_rows=rows, **kw)
+                                     count_pops=True, tile_rows=rows,
+                                     **_tile_kw(mode))
                     _equal(k, p, (rows, mode, any_hit))
                     assert k["pops"].shape == (-(-5000 // (128 * rows)),)
                     if any_hit:
@@ -398,10 +428,12 @@ def test_tile_kernel_matches_plain(card, width):
                         assert torch.equal(k["prim_id"], k1["prim_id"])
 
 
-def test_pair_kernel_matches_plain(card):
-    """K6 against its plain version on the card, bit for bit: hits and
-    per-tile pops and leaf pops, tiles of 128, 256 and 2048 rays, each
-    ablation, closest-hit and any-hit; its closest hits equal K1's."""
+@pytest.mark.parametrize("schedule", ab_tile_body.SCHEDULES)
+def test_pair_kernel_matches_plain(card, schedule):
+    """K6 in each schedule against its plain version on the card, bit for
+    bit: hits and per-tile pops and leaf pops, tiles of 128, 256, 1024 and
+    2048 rays, each ablation, closest-hit and any-hit; its closest hits
+    equal K1's."""
     verts, idx = _soup(3000, seed=97)
     dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8,
                                       leaf_threshold=32, leaf_cost=0.2),
@@ -409,13 +441,10 @@ def test_pair_kernel_matches_plain(card):
     for any_hit, tmax in ((False, 1e30), (True, 2.0)):
         rays = _rays(5000, 98, card, tmax)
         k1 = packet.traverse_packet(dev, rays, any_hit=any_hit)
-        for tile in (128, 256, 2048):
+        for tile in (128, 256, 1024, 2048):
             for ab in ((), *((a,) for a in pair.ABLATIONS)):
-                packet.reset_launches()
-                k = pair.traverse_pair(dev, rays, any_hit=any_hit,
-                                       tile_rays=tile, ablate=ab,
-                                       count_pops=True)
-                assert packet.launches["bvh_traverse_pair"] == 1
+                k = _tile_launch(schedule, dev, rays, "K6", any_hit, tile,
+                                 ablate=ab)
                 p = pair.traverse_pair_components(
                     dev, *api.components(rays)[:3], rays["tmin"],
                     rays["tmax"], any_hit, tile, ab, count_pops=True)
@@ -428,19 +457,81 @@ def test_pair_kernel_matches_plain(card):
                     assert torch.equal(k["prim_id"], k1["prim_id"])
 
 
-def test_tile_and_pair_refusals(card):
-    """K5 is built for BVH8 with Tri8/Tri24 rows, K6 for BVH8 with Tri8."""
+@pytest.mark.parametrize("schedule", ab_tile_body.SCHEDULES)
+def test_tile_and_pair_refusals(card, schedule):
+    """K5 is built for BVH8 with Tri8/Tri24 rows, K6 for BVH8 with Tri8, in
+    either schedule."""
     verts, idx = _soup(500, seed=11)
     rays = _rays(256, 12, card, 1e30)
+    comps = api.components(rays)
     dev4 = api.bvh_to_device(build_bvh(verts, idx, arity=4, packet=8), card)
-    with pytest.raises(ValueError, match="built for BVH8"):
-        packet.traverse_packet(dev4, rays, tile_rows=2)
     dev16 = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=16),
                               card)
-    with pytest.raises(ValueError, match="built for BVH8"):
-        packet.traverse_packet(dev16, rays, tile_rows=2)
+    if schedule == ab_tile_body.WRAPPED:
+        with pytest.raises(ValueError, match="built for BVH8"):
+            packet.traverse_packet(dev4, rays, tile_rows=2)
+        with pytest.raises(ValueError, match="built for BVH8"):
+            packet.traverse_packet(dev16, rays, tile_rows=2)
+        with pytest.raises(ValueError, match="Tri8 rows only"):
+            pair.traverse_pair(dev16, rays)
+    for dev in (dev4, dev16):
+        with pytest.raises(ValueError, match="built for BVH8"):
+            ab_tile_body.launch(dev, comps, "K5", schedule, size=2)
     with pytest.raises(ValueError, match="Tri8 rows only"):
-        pair.traverse_pair(dev16, rays)
+        ab_tile_body.launch(dev16, comps, "K6", schedule, size=256)
+
+
+@pytest.mark.parametrize("kernel,size", [("K5", 1), ("K5", 16),
+                                         ("K6", 256), ("K6", 2048)])
+def test_tile_stops_agree(card, kernel, size):
+    """A stack (K5) or a guard (K6) too small for some tiles: both schedules
+    stop the same tiles with pops -1 and agree in every output; the other
+    tiles keep the plain version's pops."""
+    verts, idx = _soup(3000, seed=91)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8,
+                                      leaf_threshold=32, leaf_cost=0.2),
+                            card)
+    for any_hit, tmax in ((False, 1e30), (True, 2.0)):
+        comps = api.components(_rays(5000, 92, card, tmax))
+        assert ab_tile_body.check_stops(dev, comps, any_hit, kernel,
+                                        size) > 0
+
+
+def test_tile_frustum_rows32_deep_stack(card):
+    """At tile_rows 32 in frustum mode the warp schedule launches on a
+    stack of TILE_FRUSTUM_R32_STACK_MAX entries, equal to the first
+    schedule and the plain version, and refuses one more by name; the
+    first schedule launches on the largest stack."""
+    verts, idx = _soup(3000, seed=93)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8,
+                                      leaf_threshold=32, leaf_cost=0.2),
+                            card)
+    rays = _coherent(5000, 8, card, 1e30)
+    comps = api.components(rays)
+    cap = packet.TILE_FRUSTUM_R32_STACK_MAX
+    p = api.traverse(dev, rays, count_pops=True, tile_rows=32, frustum=True)
+    for schedule, stack in (("warp", cap), ("v1", cap),
+                            ("v1", packet.TILE_STACK_MAX)):
+        k = ab_tile_body.launch(dev, comps, "K5", schedule, False, 32,
+                                "frustum", stack_cap=stack)
+        _equal(k, p, (schedule, stack))
+    with pytest.raises(ValueError, match="frustum mode at tile_rows 32"):
+        ab_tile_body.launch(dev, comps, "K5", "warp", False, 32, "frustum",
+                            stack_cap=cap + 1)
+
+
+def test_tile_resources(card):
+    """Both schedules' resource queries for the headline instances: a block
+    of 512 threads fits on an SM, and the warp schedule keeps its rays out
+    of shared memory up to 2,048 rays a tile."""
+    for kernel, size in (("K5", 16), ("K6", 2048)):
+        for schedule in ab_tile_body.SCHEDULES:
+            r = ab_tile_body.resources(kernel, schedule, 8, False, size,
+                                       "plain", 32)
+            assert r["threads"] == 512 and r["blocks"] >= 1, r
+        warp = ab_tile_body.resources(kernel, "warp", 8, False, size,
+                                      "plain", 32)
+        assert warp["smem_dynamic"] < 13 * 2048 * 4, warp
 
 
 PROBES = {m.__name__.rsplit(".", 1)[1]: m for m in (

@@ -116,7 +116,9 @@ def test_cpu_traversal_never_launches_the_kernel():
                                "bvh_traverse_count": 0,
                                "bvh_traverse_option": 0,
                                "bvh_traverse_tile": 0,
-                               "bvh_traverse_pair": 0}
+                               "bvh_traverse_pair": 0,
+                               "tile_v1 bvh_traverse_tile": 0,
+                               "tile_v1 bvh_traverse_pair": 0}
     assert hit["t"].device.type == "cpu"
 
 

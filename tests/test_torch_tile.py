@@ -165,3 +165,170 @@ def test_tile_route_refusals(scene):
             call(tdev, rays, tile_rows=2, pops=2)
     with pytest.raises(ValueError, match="prefetch"):
         tpacket.traverse_packet(tdev, rays, tile_rows=2, prefetch=True)
+
+
+def test_tile_libraries_and_flags():
+    """The two schedules of csrc/bvh_tile.cu are two libraries of one
+    source: "tile" (the warp schedule, which the wrappers load) and
+    "tile_v1" (-DRT_TILE_V1, the first schedule), both for sm_90a with
+    -fmad=false, exporting the same entries, the resource query among
+    them; their built files differ."""
+    from rodent_tpu_torch.kernels import build
+    assert build.LIBRARIES["tile"] == ("bvh_tile.cu", ())
+    assert build.LIBRARIES["tile_v1"] == ("bvh_tile.cu", ("-DRT_TILE_V1",))
+    for kind in ("tile", "tile_v1"):
+        flags = build._flags(kind)
+        assert "arch=compute_90a,code=sm_90a" in flags
+        assert "-fmad=false" in flags
+        assert ("-DRT_TILE_V1" in flags) == (kind == "tile_v1")
+    assert build._ENTRIES["tile_v1"] == build._ENTRIES["tile"]
+    assert "rt_bvh_tile_resources" in build._ENTRIES["tile"]
+    assert build.library_path(kind="tile") != build.library_path(
+        kind="tile_v1")
+    src = (build.CSRC / "bvh_tile.cu").read_text()
+    assert "#ifdef RT_TILE_V1" in src and "bvh_tile_warp_kernel" in src
+    from rodent_tpu_torch.experiments import ab_tile_body
+    assert set(ab_tile_body.LIBRARY.values()) == {"tile", "tile_v1"}
+    assert ab_tile_body.LIBRARY[ab_tile_body.WRAPPED] == "tile"
+
+
+@pytest.mark.parametrize("schedule", ["v1", "warp"])
+@pytest.mark.parametrize("mode", ["plain", "frustum", "nopure"])
+def test_ab_tile_body_launch_on_cpu(scene, schedule, mode):
+    """ab_tile_body.launch on CPU tensors is the plain tile version for
+    either schedule, counters included, and launches nothing."""
+    from rodent_tpu_torch.experiments import ab_tile_body
+    _, tdev = scene
+    org, d = _batch("coherent")
+    rays = tapi.make_rays(org, d, 0.0, _tmax(True))
+    tpacket.reset_launches()
+    got = ab_tile_body.launch(tdev, tapi.components(rays), "K5", schedule,
+                              True, 2, mode)
+    want = tapi.traverse(tdev, rays, any_hit=True, count_pops=True,
+                         tile_rows=2, **MODES[mode])
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+    assert set(tpacket.launches.values()) == {0}
+
+
+def test_tile_launch_keys():
+    """Each library's K5 and K6 count under their own key of
+    packet.launches: the kernel's name for "tile", which the wrappers
+    load, "tile_v1 <kernel>" for the first schedule; ab_tile_body reads
+    them per schedule."""
+    from rodent_tpu_torch.experiments import ab_tile_body as ab
+    assert tpacket.launch_key("bvh_traverse_tile") == "bvh_traverse_tile"
+    assert (tpacket.launch_key("bvh_traverse_pair", "tile_v1")
+            == "tile_v1 bvh_traverse_pair")
+    tpacket.reset_launches()
+    for i, (s, k) in enumerate((s, k) for s in ab.SCHEDULES
+                               for k in ab.KERNELS):
+        key = tpacket.launch_key(ab.NAMES[k], ab.LIBRARY[s])
+        assert key in tpacket.launches
+        tpacket.launches[key] = i + 1
+    assert [ab.launch_count(s, k) for s in ab.SCHEDULES
+            for k in ab.KERNELS] == [1, 2, 3, 4]
+    tpacket.reset_launches()
+    assert set(tpacket.launches.values()) == {0}
+
+
+def test_tile_frustum_rows32_stack_refused(scene):
+    """The warp schedule's frustum mode at tile_rows 32 keeps the rays in
+    shared memory beside a stack copy per warp: a stack past
+    TILE_FRUSTUM_R32_STACK_MAX is refused by name before anything reaches
+    a card."""
+    _, tdev = scene
+    org, d = _batch("coherent")
+    rays = tapi.make_rays(org, d, 0.0, 1e30)
+    o, dd, inv, _, tmin, tmax = tapi.components(rays)
+    flat = [*inv, *o, *dd, tmin, tmax]
+    cap = tpacket.TILE_FRUSTUM_R32_STACK_MAX + 1
+    with pytest.raises(ValueError, match="frustum mode at tile_rows 32"):
+        tpacket._launch_tile(tdev, flat, False, 32, "frustum", "tile", cap)
+
+
+def test_ab_tile_body_refusals(scene):
+    """launch() names what it takes: the schedules and kernels, K5's
+    tile_rows and modes, K6's tiles, a stack in range, no guard for K5,
+    and no stack or guard of its own on CPU tensors."""
+    from rodent_tpu_torch.experiments import ab_tile_body as ab
+    _, tdev = scene
+    org, d = _batch("random")
+    comps = tapi.components(tapi.make_rays(org, d, 0.0, 1e30))
+    for kw, match in (({"schedule": "v2"}, "takes"),
+                      ({"kernel": "K7"}, "takes"),
+                      ({"size": 3}, "tile_rows=3"),
+                      ({"mode": "wide"}, "mode"),
+                      ({"ablate": ("nosort",)}, "no ablation"),
+                      ({"max_iters": 10}, "no iteration guard"),
+                      ({"stack_cap": 0}, "stack_cap=0"),
+                      ({"stack_cap": 257}, "stack_cap=257"),
+                      ({"kernel": "K6", "size": 300}, "tile_rays=300"),
+                      ({"kernel": "K6", "size": 256, "mode": "frustum"},
+                       "no mode"),
+                      ({"kernel": "K6", "size": 256, "stack_cap": 129},
+                       "stack_cap=129"),
+                      ({"kernel": "K6", "size": 256, "max_iters": -1},
+                       "max_iters"),
+                      ({"stack_cap": 8}, "need CUDA tensors"),
+                      ({"kernel": "K6", "size": 256, "max_iters": 8},
+                       "need CUDA tensors")):
+        args = {"kernel": "K5", "schedule": "warp", "size": 2, **kw}
+        with pytest.raises(ValueError, match=match):
+            ab.launch(tdev, comps, **args)
+
+
+def _synthetic(ms_v1, ms_warp, k1_ms, bound):
+    res = {"regs": 96, "smem_static": 1024, "smem_dynamic": 2048,
+           "local": 0, "blocks": 1, "threads": 512}
+    return {"k1_ms": k1_ms, "ms": {"v1": ms_v1, "warp": ms_warp},
+            "bound": (bound, "operations"),
+            "stats": {"mean": 88.5, "max": 120},
+            "subset": (65536, 32),
+            "resources": {"v1": dict(res, regs=64), "warp": res}}
+
+
+def test_ab_tile_body_report():
+    """The A/B's report on a synthetic result: per configuration both
+    schedules' times, shares of the bound, ratios to K1 and resources, and
+    warp over v1."""
+    from rodent_tpu_torch.experiments import ab_tile_body as ab
+    head = ab.line("hall", "primary", "K5", 16, "plain",
+                   _synthetic(1.6, 0.8, 0.4, 0.2))
+    assert head.startswith("hall primary K5 rows 16: K1 0.4000 ms")
+    assert "v1 1.6000 ms (12.5% of the bound, 4.00x K1; 64 regs" in head
+    assert "warp 0.8000 ms (25.0% of the bound, 2.00x K1; 96 regs" in head
+    assert "1024+2048 B shared, 0 B local, 1 blocks of 512/SM" in head
+    assert "warp/v1 0.5000; bound 0.2000 ms (operations)" in head
+    assert "65536 rays in 32 tiles == plain" in head
+    assert ab.line("hall", "ao", "K6", 2048, "plain", _synthetic(
+        2.0, 1.0, 0.5, 0.1)).startswith("hall ao K6 tile 2048: K1 0.5000")
+    assert ab.label("K5", 16, "frustum") == "K5 rows 16 frustum"
+    assert ab.configs("powerplant", "primary") == [
+        ("K5", 2, "plain"), ("K5", 2, "frustum"), ("K5", 16, "plain"),
+        ("K5", 16, "frustum")]
+    hall = ab.configs("hall", "primary")
+    assert ("K5", 16, "nopure") in hall and len(hall) == 12
+    assert len(ab.configs("hall", "ao")) == 11
+
+
+def test_rounds_order():
+    """common.rounds times its calls in turns, in order and then in
+    reverse (A, B, C, C, B, A), and in_turns is its case of two."""
+    from rodent_tpu_torch.experiments import common
+    calls = []
+
+    def fn(name):
+        def f():
+            calls.append(name)
+            return name
+        return f
+    ms, res = common.rounds([fn("a"), fn("b"), fn("c")],
+                            torch.device("cpu"), blocks=1)
+    assert calls == ["a", "b", "c", "c", "b", "a"]
+    assert res == ["a", "b", "c"] and len(ms) == 3
+    calls.clear()
+    _, _, ra, rb = common.in_turns(fn("x"), fn("y"), torch.device("cpu"),
+                                   blocks=2)
+    assert calls == ["x", "x", "y", "y", "y", "y", "x", "x"]
+    assert (ra, rb) == ("x", "y")
