@@ -5,12 +5,11 @@ Drives the port's main path once at the size the repository's benchmark
 calls real, and checks it:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
-2. builds the kernels with nvcc, six libraries at once: K1, its
+2. builds the kernels with nvcc, five libraries at once: K1, its
    prefetching variant K2 and its pop-counting variant K3; K4, the options
    of the legacy Pallas body; K1-K3's two bodies (all csrc/bvh_traverse.cu);
-   K5 and K6, the tile-shared-stack kernels, in the warp schedule and in
-   the first one (csrc/bvh_tile.cu, two libraries); and the micro-probes
-   (csrc/probes.cu);
+   K5 and K6, the tile-shared-stack kernels (csrc/bvh_tile.cu); and the
+   micro-probes (csrc/probes.cu);
 3. K1 against its plain torch version on random triangle soups, arity
    2/4/8 and Tri4/8/16 packets, closest-hit and any-hit;
 4. hall-260K: 1024x1024 sorted primary rays timed through K1 and through
@@ -39,21 +38,19 @@ calls real, and checks it:
    whole tree, on fewer rays), with K4's launch count read around them,
    and each option's counters and hits held against the plain version;
 12. the tile-shared-stack kernels (csrc/bvh_tile.cu), K5 (_kernel's tile
-   stack: plain, frustum, nopure) and K6 (the pair layout, each ablation),
-   each in both schedules (the warp schedule, which the wrappers launch,
-   and the first one; rodent_tpu_torch.experiments.ab_tile_body): against
-   their plain versions on the soups of phase 11, bit for bit in hits and
-   per-tile pops, and against K1, and on a stack or a guard too small for
-   some tiles, which both stop with pops -1; then the measurement path on
+   stack: plain, frustum, nopure) and K6 (the pair layout, each ablation;
+   rodent_tpu_torch.experiments.ab_tile_body): against their plain
+   versions on the soups of phase 11, bit for bit in hits and per-tile
+   pops, and against K1, and on a stack or a guard too small for some
+   tiles, which stop with pops -1; then the measurement path on
    hall-260K (1M sorted primaries, ao and bounce rays: K5 at tile_rows 1,
    2, 4, 16, frustum off and on, and nopure at 16 on the primaries; K6 at
    tiles of 256, 1024, 2048 rays) and powerplant-4.3M's sorted primaries
-   (K5, Tri24, at tile_rows 2 and 16, frustum off and on): K1 and both
-   schedules timed in turns (K1, v1, warp, warp, v1, K1), counted, beside
-   the bound of the pops made, with each instance's registers, shared
-   memory and resident blocks, the two schedules equal on all rays and
-   held against the plain version on up to 65,536 of their rays (whole
-   tiles of at most ab_tile_body.PLAIN_POPS pops);
+   (K5, Tri24, at tile_rows 2 and 16, frustum off and on): K1 and the
+   kernel timed in turns (K1, kernel, kernel, K1), counted, beside the
+   bound of the pops made, with each instance's registers, shared memory
+   and resident blocks, held against the plain version on up to 65,536 of
+   their rays (whole tiles of at most ab_tile_body.PLAIN_POPS pops);
 13. the micro-probes (csrc/probes.cu, rodent_tpu_torch.experiments.probe_*
    and vpu_dtype_bench, the ports of the TPU probes of experiments/): every
    body of the eight probe files through its kernel as its main() drives
@@ -124,6 +121,20 @@ calls real, and checks it:
    powerplant-4.3M builds; bigscene_12m's primaries at 14.6M triangles
    (K1 and K2); shard_scaling_table at its defaults. Their K1, K2 and K3
    launches join the kernels line's.
+
+19. the last measuring programs of rodent_tpu_torch.experiments, each
+   through its run() (phase_programs): sass_audit's SASS audit of K1
+   (arity 8, Tri8 and Tri24, closest-hit and any-hit), K2, K3, K5 at
+   tile_rows 1 and 16 and K6 at 2,048 rays, from the -lineinfo copies of
+   the "main" and "tile" libraries that phase 2 builds, with each one's
+   issue estimate beside its measured ns per pop on hall-260K;
+   attribute_crown on hall-260K and crown-800K, ab_crown_build,
+   probe_crown_sort and measure_sorts at one configuration each;
+   waterfall_tiled, measure_tiled_iters, sweep_arity_tiled and
+   probe_sb_depth on hall's ao rays at one configuration each;
+   bigscene_demo --card (400K triangles) and --mesh (2 gloo ranks on the
+   card, bit for bit); make_goldens on hall under the golden gate. Their
+   K1-K3 launches join the kernels line's, with each kernel's audit.
 
 Every kernel's time stands beside its bound, the least time the card
 could take for the same pops and the table rows they read
@@ -232,13 +243,20 @@ def phase_env():
 def phase_build():
     from rodent_tpu_torch.kernels.build import (LIBRARIES, build_all,
                                                 load_library)
+    from concurrent.futures import ThreadPoolExecutor
+    from rodent_tpu_torch.experiments import sass_audit
     t0 = time.perf_counter()
-    built = build_all()
+    # phase 19's -lineinfo copies of "main" and "tile" build beside them
+    with ThreadPoolExecutor(2) as pool:
+        audit = [pool.submit(sass_audit.build_lineinfo, k)
+                 for k in sass_audit.AUDITED]
+        built = build_all()
+        for f in audit:
+            f.result()
     dt = time.perf_counter() - t0
     what = {"main": "K1, K2 and K3", "options": "K4 (-DRT_OPTIONS)",
             "group": "K1-K3's two bodies (-DRT_GROUP, phase 14)",
-            "tile": "K5 and K6 (the warp schedule)",
-            "tile_v1": "K5 and K6's first schedule (-DRT_TILE_V1, phase 12)",
+            "tile": "K5 and K6",
             "probes": "the micro-probes"}
     for kind, (path, nvcc_log) in built.items():
         load_library(kind=kind)
@@ -258,7 +276,9 @@ def phase_build():
             f"{LIBRARIES[kind][0]}: {len(regs)} kernels, registers "
             f"{min(regs)}-{max(regs)}, {spills} with spills -> "
             f"{os.path.relpath(path, REPO)}")
-    log(f"[2] all {len(built)} libraries built at once in {dt:.1f} s")
+    log(f"[2] all {len(built)} libraries and the -lineinfo copies of "
+        f"{', '.join(sass_audit.AUDITED)} (phase 19) built at once in "
+        f"{dt:.1f} s")
 
 
 def soups(device):
@@ -357,7 +377,57 @@ def phase_primary(device, scene):
     check(bool(torch.equal(ka, pa)), "hall ao: any-hit hit/miss differs")
     log(f"[4] {SUBSET} ao any-hit rays: hit/miss identical, occluded "
         f"fraction {float(ka.float().mean()):.4f}")
+    phase_sort_keys(device, scene)
     return k_ms, p_ms, err, bound, prim, ao
+
+
+def phase_sort_keys(device, scene):
+    """[4] ROADMAP C4 on the card: the sort keys of hall's 1M primaries
+    (pixel order) with CUDA's rsqrtf against the CPU's torch.rsqrt. Keys
+    may differ only in their 20 direction bits and only where 1/|d|
+    differs; given the CPU's 1/|d|, the card's keys equal the CPU's bit
+    for bit; K1's hits on the two orders, put back in pixel order, equal
+    each other bit for bit."""
+    from rodent_tpu_torch.core.math import FLT_MAX
+    from rodent_tpu_torch.traversal import api, sorting
+    from rodent_tpu_torch.traversal.packet import traverse_packet
+    from rodent_tpu_torch.utils import testscenes
+    org, dirs = testscenes.hall_primary_rays(1024, 1024)
+    lo = scene.mesh.vertices.min(0)
+    hi = scene.mesh.vertices.max(0)
+    rays = api.make_rays(org, dirs, 0.0, FLT_MAX, device=device)
+    o, d = torch.from_numpy(org), torch.from_numpy(dirs)
+    cpu = sorting.ray_sort_keys(o, d, lo, hi)
+    card = sorting.ray_sort_keys(rays["org"], rays["dir"], lo, hi).cpu()
+    s = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2] + 1e-30
+    inv_cpu = torch.rsqrt(s)
+    inv_card = torch.rsqrt(s.to(device)).cpu()
+    moved = card != cpu
+    check(not bool((moved & (inv_card == inv_cpu)).any()),
+          "sort keys: a key moved where 1/|d| is the same")
+    check(not bool(((card ^ cpu) & ~sorting.DIR_BITS).any()),
+          "sort keys: a key moved outside its direction bits")
+    held = sorting.ray_sort_keys(rays["org"], rays["dir"], lo, hi,
+                                 inv_len=inv_cpu.to(device)).cpu()
+    check(bool(torch.equal(held, cpu)), "sort keys: the card's keys with the "
+          "CPU's 1/|d| differ from the CPU's")
+    hits = []
+    for keys in (card, cpu):
+        perm = torch.sort(keys, stable=True).indices.to(device)
+        hit = traverse_packet(scene.device["bvh"],
+                              {k: v[perm] for k, v in rays.items()})
+        back = {k: torch.empty_like(v).index_copy_(0, perm, v)
+                for k, v in hit.items()}
+        hits.append(back)
+    for k in hits[0]:
+        check(bool(torch.equal(hits[0][k], hits[1][k])),
+              f"sort keys: K1's {k} differs between the two orders")
+    n = int(moved.sum())
+    log(f"[4] C4: {n} of {moved.numel()} sort keys moved by CUDA's rsqrtf "
+        f"against the CPU's ({int((inv_card != inv_cpu).sum())} of 1/|d| "
+        f"differ), all in the direction bits; with the CPU's 1/|d| the "
+        f"card's keys are the CPU's bit for bit; K1's hits on both orders "
+        f"equal bit for bit")
 
 
 def phase_render(device, scene):
@@ -902,15 +972,15 @@ def against_k1(k, k1, any_hit, what, dev, comps):
 
 
 def phase_tile_soups(device):
-    """[12] K5 and K6 in both schedules against their plain versions on the
+    """[12] K5 and K6 against their plain versions on the
     soups of phase 11 (leaves of up to 32 tris): K5 at tile_rows 1 and 2
     on random rays (mixed tiles, where every mode is the plain one) and in
     each mode on coherent rays (octant-pure tiles, where the pure slab test
     and the frustum act), K6 with each ablation at tiles of 128 and 256
     rays on the random rays; closest-hit and any-hit; hits and per-tile
-    pops bit for bit, and the hits against K1's; then both schedules on a
-    stack (K5) or a guard (K6) too small for some tiles, which stop with
-    pops -1 in both (ab_tile_body.check_stops)."""
+    pops bit for bit, and the hits against K1's; then on a stack (K5) or a
+    guard (K6) too small for some tiles, which stop with pops -1, the other
+    tiles equal to the plain version (ab_tile_body.check_stops)."""
     from rodent_tpu_torch.accel import build_bvh
     from rodent_tpu_torch.experiments import ab_tile_body as ab
     from rodent_tpu_torch.traversal import api, pair
@@ -943,8 +1013,6 @@ def phase_tile_soups(device):
                 k = traverse_packet(dev, rays, **kw)
                 p = api.traverse(dev, rays, **kw)
                 check_equal(k, p, what)
-                check_equal(ab.launch(dev, comps, "K5", "v1", any_hit, rows,
-                                      mode), p, f"{what} v1")
                 ties += sum(against_k1(k, k1, any_hit, what, dev, comps))
                 runs += 1
             if m != 8 or batch != "random":
@@ -959,8 +1027,6 @@ def phase_tile_soups(device):
                     dev, *comps[:3], *comps[4:], any_hit, tile, abl,
                     count_pops=True)
                 check_equal(k, p, what)
-                check_equal(ab.launch(dev, comps, "K6", "v1", any_hit, tile,
-                                      ablate=abl), p, f"{what} v1")
                 if not abl:
                     ties += sum(against_k1(k, k1, any_hit, what, dev,
                                            comps))
@@ -968,11 +1034,11 @@ def phase_tile_soups(device):
             for kernel, size in (("K5", 1), ("K5", 2), ("K6", 128),
                                  ("K6", 256)):
                 stops += ab.check_stops(dev, comps, any_hit, kernel, size)
-    log(f"[12] K5 and K6 in both schedules == plain on 2 soups (Tri8, "
-        f"Tri24; random and coherent rays), {runs} runs, closest-hit and "
-        f"any-hit: hits and per-tile pops bit for bit; {ties} prim_id "
-        f"differences with K1; {stops} tiles stopped on a small stack or "
-        "guard, the same in both schedules")
+    log(f"[12] K5 and K6 == plain on 2 soups (Tri8, Tri24; random and "
+        f"coherent rays), {runs} runs, closest-hit and any-hit: hits and "
+        f"per-tile pops bit for bit; {ties} prim_id differences with K1; "
+        f"{stops} tiles stopped on a small stack or guard, the others == "
+        "plain")
 
 
 def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
@@ -981,13 +1047,11 @@ def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
     1,2,4,16 with and without --frustum and measure_pair --tiles
     256,1024,2048 run them) on hall-260K's 1M sorted primaries, ao and
     bounce rays, then K5 on powerplant-4.3M's sorted primaries: each
-    configuration timed in turns with K1 in both schedules (the warp
-    schedule through the wrappers), counted, beside its bound, both
-    schedules equal to each other on all rays and to the plain version on
-    a subset, with each schedule's launch count read around it; then the
-    headline configurations' plain versions on all of their rays. Returns
-    (the launches per schedule and kernel, the results, the plain
-    versions' times)."""
+    configuration timed in turns with K1 through the wrappers, counted,
+    beside its bound, equal to the plain version on a subset, with each
+    kernel's launch count read around it; then the headline
+    configurations' plain versions on all of their rays. Returns (the
+    launches per kernel, the results, the plain versions' times)."""
     from rodent_tpu_torch.experiments import ab_tile_body as ab
     from rodent_tpu_torch.experiments import common
     from rodent_tpu_torch.traversal import api, packet, pair
@@ -1000,30 +1064,31 @@ def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
     packet.reset_launches()
     t0 = time.perf_counter()
     for scene, name, comps, any_hit, dev in runs:
-        def show(key, r, dev=dev, comps=comps, any_hit=any_hit):
-            what = f"{key[0]} {key[1]} {ab.label(*key[2:])}"
-            ties, others = against_k1(r["out"][ab.WRAPPED], r["k1"], any_hit,
-                                      what, dev, comps)
-            st, ms = r["stats"], r["ms"][ab.WRAPPED]
-            log(f"[12] {ab.line(*key, r)}; warp {ms * 1e6 / st['pops']:.2f} "
+        for kernel, size, mode in ab.configs(scene, name):
+            key = (scene, name, kernel, size, mode)
+            what = f"{scene} {name} {ab.label(kernel, size, mode)}"
+            t1 = time.perf_counter()
+            r = ab.measure(dev, comps, any_hit, device, kernel, size, mode,
+                           blocks=2, what=f"{scene} {name}")
+            res[key] = r
+            ties, others = against_k1(r["out"], r["k1"], any_hit, what, dev,
+                                      comps)
+            st, ms = r["stats"], r["ms"]
+            log(f"[12] {ab.line(*key, r)}; {ms * 1e6 / st['pops']:.2f} "
                 f"ns per pop, {comps[4].shape[0] / ms / 1e3:.1f} Mrays/s, "
                 f"{st['ray_equiv']:.1f} pops per ray-equivalent; against "
-                f"K1 {ties} ties, {others} others")
-        res.update(ab.run(device, {name: (comps, any_hit)}, scene, dev,
-                          on_result=show))
+                f"K1 {ties} ties, {others} others; "
+                f"{time.perf_counter() - t1:.1f} s")
     torch.cuda.synchronize()
-    launched = {f"{s} {k}": ab.launch_count(s, k) for s in ab.SCHEDULES
-                for k in ab.KERNELS}
+    launched = {k: ab.launch_count(k) for k in ab.KERNELS}
     log(f"[12] measurement path: {len(res)} configurations in "
         f"{time.perf_counter() - t0:.1f} s, launches {launched} (clock, "
         f"power after: {sm_clock()})")
-    for s in ab.SCHEDULES:
-        for kernel in ab.KERNELS:
-            want = sum(1 for key in res if key[2] == kernel)
-            check(launched[f"{s} {kernel}"] >= 2 * want,
-                  f"tile phase: {s} {kernel} launched "
-                  f"{launched[f'{s} {kernel}']} times in {want} "
-                  "configurations")
+    for kernel in ab.KERNELS:
+        want = sum(1 for key in res if key[2] == kernel)
+        check(launched[kernel] >= 2 * want,
+              f"tile phase: {kernel} launched {launched[kernel]} times in "
+              f"{want} configurations")
     # the headline configurations' plain versions on all of their rays
     plain = {}
     o, d, inv, _, tmin, tmax = dists["primary"][0]
@@ -1034,26 +1099,21 @@ def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
                 hall_bvh, o, d, inv, tmin, tmax, tile_rays=2048,
                 count_pops=True))):
         ms, out = common.timed(fn, device, blocks=1)
-        for s in ab.SCHEDULES:
-            check_equal(res[("hall", "primary", kernel, size, "plain")]
-                        ["out"][s], out,
-                        f"hall primary {ab.label(kernel, size)} {s} (all "
-                        "rays)")
+        check_equal(res[("hall", "primary", kernel, size, "plain")]["out"],
+                    out, f"hall primary {ab.label(kernel, size)} (all rays)")
         plain[key] = ms
         log(f"[12] plain version of hall primary {ab.label(kernel, size)} "
             f"on all {tmin.shape[0]} rays: {ms:.1f} ms; hits and pops == "
-            f"both schedules'")
+            f"the kernel's")
     return launched, res, plain
 
 
 def tile_entry(name, replaces, kernel, launched, plain_ms, res):
     """The kernels-line entry of K5 or K6 (its hits equalled the plain
     version's bit for bit: max_abs_err 0) at its headline configuration
-    on hall's primaries (K5 tile_rows 16, K6 tiles of 2,048 rays), in the
-    schedule the wrappers launch; "variants": every configuration's times
-    in both schedules, their shares of the bound and ratios to K1, and
-    each instance's resources; "schedules": each schedule's library and
-    launches."""
+    on hall's primaries (K5 tile_rows 16, K6 tiles of 2,048 rays);
+    "variants": every configuration's time, K1's, its share of the bound,
+    its ratio to K1 and the instance's resources."""
     from rodent_tpu_torch.experiments import ab_tile_body as ab
     head = res[("hall", "primary", kernel, 16 if kernel == "K5" else 2048,
                 "plain")]
@@ -1063,23 +1123,15 @@ def tile_entry(name, replaces, kernel, launched, plain_ms, res):
             continue
         b_ms = r["bound"][0]
         variants[f"{key[0]} {key[1]} {ab.label(*key[2:])}"] = {
-            "k1_ms": r["k1_ms"], "bound_ms": b_ms,
-            "ms": r["ms"][ab.WRAPPED],
-            "schedules": {s: {"ms": r["ms"][s], "share": b_ms / r["ms"][s],
-                              "k1_ratio": r["ms"][s] / r["k1_ms"],
-                              **r["resources"][s]}
-                          for s in ab.SCHEDULES}}
+            "k1_ms": r["k1_ms"], "bound_ms": b_ms, "ms": r["ms"],
+            "share": b_ms / r["ms"], "k1_ratio": r["ms"] / r["k1_ms"],
+            **r["resources"]}
     return {"name": name, "route": "cuda",
             "source": "rodent_tpu_torch/csrc/bvh_tile.cu",
-            "replaces": replaces,
-            "launches": launched[f"{ab.WRAPPED} {kernel}"],
-            "max_abs_err": 0.0, "ms": head["ms"][ab.WRAPPED],
-            "plain_ms": plain_ms, "bound_ms": head["bound"][0],
-            "bound_by": head["bound"][1], "library_ms": None,
-            "variants": variants,
-            "schedules": {s: {"library": ab.LIBRARY[s],
-                              "launches": launched[f"{s} {kernel}"]}
-                          for s in ab.SCHEDULES}}
+            "replaces": replaces, "launches": launched[kernel],
+            "max_abs_err": 0.0, "ms": head["ms"], "plain_ms": plain_ms,
+            "bound_ms": head["bound"][0], "bound_by": head["bound"][1],
+            "library_ms": None, "variants": variants}
 
 
 # probe module -> its JAX file's pallas_call site (probe_mosaic3.py has a
@@ -1124,6 +1176,34 @@ def probe_plain(name, m, device):
     if name == "probe_chain":
         return lambda: m.plain(*m.HEAD, tab)
     return lambda: m.plain(m.HEAD, tab)
+
+
+def gather_library(m, device):
+    """[13] probe_gather's take_along_axis bodies, the only probe bodies
+    that one PyTorch call computes (torch.gather; the other bodies are
+    loops of dependent steps or a control-flow machine): the kernel and
+    torch.gather each timed as CUDA-graph replays (common.launch_ms) on
+    the same table and indices, outputs equal. Returns {case: {"ms",
+    "library_ms"}}."""
+    from rodent_tpu_torch.experiments import common
+    out = {}
+    cases = [(f"axis{a} {shape}", m.correct_inputs(shape, a), a)
+             for shape, a in m.CORRECT]
+    cases.append(("i32 (8, 128)", m.i32_inputs(), 1))
+    for name, (tbl, idx), axis in cases:
+        tbl = torch.from_numpy(tbl).to(device)
+        idx = torch.from_numpy(idx).to(device)
+        idx64 = idx.long()
+        ms, k = common.launch_ms(lambda: m.run_take(tbl, idx, axis), device)
+        lib_ms, ref = common.launch_ms(
+            lambda: torch.gather(tbl, axis, idx64), device)
+        check(bool(torch.equal(k, ref)), f"probe_gather {name}: the kernel "
+              "differs from torch.gather")
+        out[name] = {"ms": ms, "library_ms": lib_ms}
+        log(f"[13] probe_gather take_along_axis {name}: kernel {ms:.5f} ms, "
+            f"torch.gather {lib_ms:.5f} ms (one block; CUDA-graph "
+            f"replays), equal")
+    return out
 
 
 def phase_probes(device):
@@ -1188,6 +1268,8 @@ def phase_probes(device):
                 "ms1", "ns1", "ms", "copies", "ns_sm")}
                 | {"bound_ms": r["bound"][0]}
                 for k, r in res[n].items() if "ms" in r}
+        if n == "probe_gather":
+            variants.update(gather_library(m, device))
         log(f"[13] {n}: every body == plain bit for bit ({len(ok)} "
             f"checked); headline {probe_key(head)} {ms:.4f} ms, plain "
             f"{plain_ms:.1f} ms on the card")
@@ -1516,8 +1598,9 @@ def phase_obj_files(device, scene, mats, texs):
     for traversal, key in ((None, "bvh_traverse"),
                            ("hybrid-hbm", "bvh_traverse_prefetch")):
         png_path = os.path.join(out, f"render-{traversal or 'auto'}.png")
+        # two iterations: the first warms up, the second is timed
         argv = [obj, "--width", 1920, "--height", 1088, "--spp", 4,
-                "--bench", 3, "--max-path-len", 20, *view, "-o", png_path]
+                "--bench", 2, "--max-path-len", 20, *view, "-o", png_path]
         if traversal:
             argv += ["--traversal", traversal]
         packet.reset_launches()
@@ -2378,6 +2461,134 @@ def phase_tools(device, verts, idx):
     return launched
 
 
+def phase_programs(device):
+    """[19] The last measuring programs (rodent_tpu_torch.experiments),
+    each through its run() as its main() drives it: sass_audit on every
+    instantiation it names (its -lineinfo copies built in phase 2; the
+    copy's SASS equal to the library's opcode for opcode, each
+    instantiation's histogram, registers, local bytes, spills and issue
+    estimate beside its measured ns per pop); attribute_crown,
+    ab_crown_build (one build variant), probe_crown_sort (one order and
+    tile_rows) and measure_sorts (one key and tile_rows on hall's bounce
+    rays) at the JAX scene sizes; waterfall_tiled, measure_tiled_iters,
+    sweep_arity_tiled and probe_sb_depth on hall-260K's ao rays at one
+    configuration each (the waterfall's full and noleaf rows); bigscene_demo
+    --card on a 400K-triangle powerplant
+    and --mesh over 2 gloo ranks on the card, bit for bit; make_goldens on
+    hall (3 iterations) under the golden gate. K1-K6's launches are read
+    around it. Returns (the results for the log, the launches)."""
+    from rodent_tpu_torch.experiments import (ab_crown_build,
+                                              attribute_crown, bigscene_demo,
+                                              make_goldens,
+                                              measure_sorts,
+                                              measure_tiled_iters,
+                                              probe_crown_sort,
+                                              probe_sb_depth, sass_audit,
+                                              sweep_arity_tiled,
+                                              waterfall_tiled)
+    from rodent_tpu_torch.traversal import packet
+    out, times = {}, {}
+    packet.reset_launches()
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        log(f"[19] {name}: {times[name]:.1f} s")
+
+    step("sass_audit", lambda: sass_audit.run(device, blocks=3))
+    for label, *_ in sass_audit.INSTANCES:
+        r = out["sass_audit"][label]
+        st, est = r["static"], r["estimate"]
+        check(st["regs"] is not None and st["spills"] is not None
+              and st["audit"]["count"].get("node", 0) > 0
+              and st["audit"]["count"].get("leaf", 0) > 0,
+              f"sass_audit {label}: incomplete ({st['regs']} registers, "
+              f"{st['spills']} spills, {st['audit']['count']})")
+        check(0.0 < est["share"] < 10.0 and est["ns_pop"] > 0,
+              f"sass_audit {label}: issue estimate {est}")
+    step("attribute_crown", lambda: attribute_crown.run(
+        device, ("hall", "crown"), rows=16, blocks=3))
+    step("ab_crown_build", lambda: ab_crown_build.run(
+        device, "crown", ["q0-lt12-lc0.6"], rows=16, blocks=3))
+    step("probe_crown_sort", lambda: probe_crown_sort.run(
+        device, rows=(16,), orders=("hit-prim",), blocks=3))
+    step("measure_sorts", lambda: measure_sorts.run(
+        device, "bounces", rows=(16,), keys=("org9+oct+dir",), blocks=3))
+    step("waterfall_tiled", lambda: waterfall_tiled.run(
+        device, ("ao",), rows=("full", "noleaf"), candidates=(), blocks=2))
+    step("measure_tiled_iters", lambda: measure_tiled_iters.run(
+        device, ("ao",), blocks=1))
+    step("sweep_arity_tiled", lambda: sweep_arity_tiled.run(
+        device, ((4, 4),), blocks=1, kinds=("ao",)))
+    step("probe_sb_depth", lambda: probe_sb_depth.run(
+        device, (16,), ("ao",), blocks=1))
+    step("bigscene_demo --card", lambda: bigscene_demo.run_card(
+        device, 400_000, 1024, blocks=3))
+    step("bigscene_demo --mesh", lambda: bigscene_demo.run_mesh(
+        device, 2, 100_000, 512))
+    goldens = os.path.join(REPO, "build", "phase19", "goldens")
+    step("make_goldens", lambda: make_goldens.run(device, ("hall",), 3,
+                                                  goldens))
+    torch.cuda.synchronize()
+    launched = dict(packet.launches)
+    for kernel in ("bvh_traverse", "bvh_traverse_prefetch",
+                   "bvh_traverse_count", "bvh_traverse_tile",
+                   "bvh_traverse_pair"):
+        check(launched[kernel] > 0, f"phase 19: {kernel} never launched")
+    crown = out["attribute_crown"]
+    for scene, r in crown.items():
+        check(r["k3"]["pops"] > 0 and r["k5"]["pops"] > 0
+              and r["k1_ms"] > 0 and r["k5_ms"] > 0,
+              f"attribute_crown {scene}: {r}")
+    g = out["make_goldens"]["hall"]
+    wf = out["waterfall_tiled"]["ao"]
+    summary = {
+        "seconds": times,
+        "sass_audit": {label: {
+            "regs": r["static"]["regs"], "stack": r["static"]["stack"],
+            "spills": r["static"]["spills"],
+            "count": r["static"]["audit"]["count"],
+            "per_pop": r["estimate"]["per_pop"],
+            "ms": r["measured"]["ms"], "pops": r["measured"]["pops"],
+            "ns_pop": r["estimate"]["ns_pop"],
+            "issue_ms": r["estimate"]["issue_ms"],
+            "issue_ns_pop": r["estimate"]["issue_ns_pop"],
+            "share": r["estimate"]["share"]}
+            for label, r in out["sass_audit"].items()},
+        "attribute_crown": {s: {
+            "pops_ray": r["k3"]["pops_ray"], "warp_pops": r["k3"]["warp_pops"],
+            "tile_pops": r["k5"]["mean"], "k1_ms": r["k1_ms"],
+            "k5_ms": r["k5_ms"], "k1_ns_pop": r["k1_ns_pop"],
+            "k5_ns_pop": r["k5_ns_pop"], "depth": r["stats"]["max_depth"]}
+            for s, r in crown.items()},
+        "ab_crown_build": {k: {"tile_pops": r["k5"]["mean"],
+                               "k1_mrays": r["k1_mrays"],
+                               "k5_mrays": r["k5_mrays"]}
+                           for k, r in out["ab_crown_build"].items()},
+        "probe_crown_sort": {f"{k[0]} rows {k[1]}": {
+            "tile_pops": r["k5"]["mean"], "k5_mrays": r["k5_mrays"],
+            "k1_mrays": r["k1_mrays"]}
+            for k, r in out["probe_crown_sort"].items()},
+        "measure_sorts": {f"{k[0]} rows {k[1]}": {
+            "tile_pops": r["k5"]["mean"], "mrays": r["mrays"]}
+            for k, r in out["measure_sorts"].items()},
+        "waterfall_tiled": {"prod_ms": wf["prod_ms"], "trips": wf["trips"],
+                            "util": wf["util"], "idle": wf["idle"]["idle"],
+                            "rows": wf["rows"]},
+        "measure_tiled_iters": {k: {kk: (v["idle"]["idle"] if kk == "idle"
+                                         else v[kk]) for kk in v}
+                                for k, v in
+                                out["measure_tiled_iters"].items()},
+        "golden_hall": {"mse_short": g["gate_short"][0],
+                        "mse_long": g["gate_long"][0],
+                        "gate": g["gate_short"][1]},
+        "launches": launched}
+    log(f"[19] programs {json.dumps(summary, default=str)}")
+    return summary, launched
+
+
 def multi_card(cards):
     """--cards N: phase 17b's sharded calls on an NCCL group of N ranks,
     rank r on cuda:r (the multi-card path of torchrun --nproc-per-node N),
@@ -2513,6 +2724,10 @@ def main():
     tools = phase_tools(device, verts, idx)
     log(f"[18] the bench and measuring tools phase took "
         f"{time.perf_counter() - t_tools:.1f} s")
+    t_prog = time.perf_counter()
+    programs, prog_launches = phase_programs(device)
+    log(f"[19] the measuring programs phase took "
+        f"{time.perf_counter() - t_prog:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     src = "rodent_tpu_torch/csrc/bvh_traverse.cu"
     pallas = "rodent_tpu/traversal/pallas_packet.py"
@@ -2522,29 +2737,39 @@ def main():
     # sharded renders of phase 17 (all ranks); K2's: powerplant's
     # persistent render (phase 9) and tools.render's hbm run on the mathall
     # OBJ (15b); K1-K3's launches in the bench and the tools of phase 18
+    # and the measuring programs of phase 19; "sass": each kernel's
+    # instantiations in phase 19's SASS audit
+    sass = programs["sass_audit"]
+
+    def sass_of(k):
+        return {label: r for label, r in sass.items()
+                if label.startswith(k + " ")}
     log(json.dumps({"kernels": [
         {"name": "bvh_traverse", "route": "cuda", "source": src,
          "replaces": f"{pallas}:878",
          "launches": launches + mathall_k1 + shard_k1
-                     + tools["bvh_traverse"],
+                     + tools["bvh_traverse"]
+                     + prog_launches["bvh_traverse"],
          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "library_ms": None,
-         "variants": bodies["bvh_traverse"]},
+         "variants": bodies["bvh_traverse"], "sass": sass_of("K1")},
         {"name": "bvh_traverse_prefetch", "route": "cuda", "source": src,
          "replaces": f"{pallas}:96",
-         "launches": k2_launches + obj_k2 + tools["bvh_traverse_prefetch"],
+         "launches": k2_launches + obj_k2 + tools["bvh_traverse_prefetch"]
+                     + prog_launches["bvh_traverse_prefetch"],
          "max_abs_err": big_err, "ms": big_ms["K2"],
          "plain_ms": big_plain_ms, "bound_ms": bounds["K2"][0],
          "bound_by": bounds["K2"][1], "library_ms": None,
-         "variants": bodies["bvh_traverse_prefetch"]},
+         "variants": bodies["bvh_traverse_prefetch"], "sass": sass_of("K2")},
         {"name": "bvh_traverse_count", "route": "cuda", "source": src,
          "replaces": f"{pallas}:395",
-         "launches": k3_launches + tools["bvh_traverse_count"],
+         "launches": k3_launches + tools["bvh_traverse_count"]
+                     + prog_launches["bvh_traverse_count"],
          "max_abs_err": big_err, "ms": big_ms["K3"],
          "plain_ms": big_plain_ms, "bound_ms": bounds["K3"][0],
          "bound_by": bounds["K3"][1], "library_ms": None,
-         "variants": bodies["bvh_traverse_count"]},
+         "variants": bodies["bvh_traverse_count"], "sass": sass_of("K3")},
         # ms: row_loads on the powerplant primaries, which does K3's work
         # (so K3's bound); every variant's time is under "variants"
         {"name": "bvh_traverse_option", "route": "cuda", "source": src,
@@ -2555,13 +2780,15 @@ def main():
          "bound_by": bounds["K3"][1], "library_ms": None,
          "variants": variants},
         # ms: the headline configurations on hall-260K's 1M sorted
-        # primaries (K5 tile_rows 16, K6 tiles of 2048 rays) in the
-        # wrappers' schedule, whose plain versions ran on all of those rays;
-        # launches: that schedule's in phase 12
-        tile_entry("bvh_traverse_tile", f"{pallas}:395", "K5",
-                   tile_launches, tile_plain["K5"], tiles),
-        tile_entry("bvh_traverse_pair", "experiments/pallas_pair.py:127",
-                   "K6", tile_launches, tile_plain["K6"], tiles)]
+        # primaries (K5 tile_rows 16, K6 tiles of 2048 rays), whose plain
+        # versions ran on all of those rays; launches: phase 12's
+        dict(tile_entry("bvh_traverse_tile", f"{pallas}:395", "K5",
+                        tile_launches, tile_plain["K5"], tiles),
+             sass=sass_of("K5")),
+        dict(tile_entry("bvh_traverse_pair",
+                        "experiments/pallas_pair.py:127", "K6",
+                        tile_launches, tile_plain["K6"], tiles),
+             sass=sass_of("K6"))]
         + probe_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ import torch
 MASK32 = 0xFFFFFFFF
 FNV_INIT = 0x811C9DC5
 FNV_PRIME = 16777619
+BERNSTEIN_INIT = 5381
 
 
 def to_int32(x):
@@ -42,6 +43,26 @@ def randf(state):
     s = xorshift(state)
     bits = (127 << 23) | (s & 0x7FFFFF)   # < 2^31: fits int32 as is
     return bits.to(torch.int32).view(torch.float32) - 1.0, s
+
+
+def fnv_init():
+    """The FNV hash's start value, a 0-d int64 tensor (random.impala)."""
+    return torch.tensor(FNV_INIT, dtype=torch.int64)
+
+
+def bernstein_init():
+    """The Bernstein hash's start value, a 0-d int64 tensor."""
+    return torch.tensor(BERNSTEIN_INIT, dtype=torch.int64)
+
+
+def bernstein_hash(h, d):
+    """Bernstein hash over the 4 bytes of d (random.impala:107-112).
+    h, d: int64 tensors holding uint32 values (d may hold an int32's
+    negative value: its two's-complement bytes are hashed)."""
+    d = d & MASK32
+    for shift in (0, 8, 16, 24):
+        h = ((h * 33) & MASK32) ^ ((d >> shift) & 0xFF)
+    return h
 
 
 def fnv_hash(h, d):

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .math import vec3
+from .math import luminance, vec3
 from .vmath import INV_2PI, INV_4PI, INV_PI, TWO_PI
 
 
@@ -93,3 +93,9 @@ def sample_cosine_power_hemisphere_c(k, u, v):
 def sample_cosine_power_hemisphere(k, u, v):
     d, pdf = sample_cosine_power_hemisphere_c(k, u, v)
     return vec3(*d), pdf
+
+
+def russian_roulette(contrib, clamp=0.75):
+    """Continuation probability min(2 * luminance, clamp) of a (..., 3)
+    contribution (random.impala:128-131)."""
+    return torch.clamp(2.0 * luminance(contrib), max=clamp)

@@ -1,9 +1,6 @@
 // K5 and K6: BVH traversal for Hopper (sm_90a) with ONE stack shared by a
-// tile of rays. One source, two schedules of the same contract: the warp
-// schedule (the default, built into the "tile" library, which the wrappers
-// load) and the first schedule (-DRT_TILE_V1, built into "tile_v1" for
-// experiments/ab_tile_body.py, which times the two against each other;
-// kernels/build.py).
+// tile of rays, in the warp schedule (below), built into the "tile"
+// library that the wrappers load (kernels/build.py).
 //
 // K5 (bvh_traverse_tile) replaces _kernel of
 // rodent_tpu/traversal/pallas_packet.py (:395-876, pops=1) with its own
@@ -52,7 +49,7 @@
 // guard 4 * nodes + 4 * Tri rows + 1024 (:305) marks a tile that reaches
 // it.
 //
-// Both schedules: one block per tile, min(T, 512) threads, thread i owning
+// One block per tile, min(T, 512) threads, thread i owning
 // rays i, i + blockDim.x, ... of the tile; u, v and geom go straight to
 // the outputs when a ray's hit changes. The stacks are never written past:
 // a tile that would overflow (impossible within BvhMeta's worst case,
@@ -62,23 +59,18 @@
 // What bounds them on this card: operations. A node pop costs every ray of
 // the tile 8 slab tests, whatever share of the rays hits the node, and the
 // tile pops the union of its rays' nodes; the pop itself is serial work of
-// the whole block, in the first schedule a chain of block barriers (a
-// block-wide minimum costs about 1 us, PERF.md §6, the probes).
+// the whole block (a block-wide minimum costs about 1 us, PERF.md §6, the
+// probes).
 //
-// The first schedule keeps the TPU's: the rays' inputs, t and prim in
-// shared memory (13 words a ray: 106 KB for 2,048 rays, 213 KB for 4,096),
-// read back on every pop; thread 0 pops; the popped row is read into
-// shared memory; every thread tests its rays; the per-child minimum is
-// taken with warp shuffles, then across warps in shared memory by warp 0,
-// whose lane 0 sorts and pushes: 3-4 block barriers per node pop, 2 per
-// leaf pop.
-//
-// The warp schedule is the card's own:
+// The first schedule, the TPU's (the rays and the popped row in shared
+// memory, thread 0 pops, 3-4 block barriers per node pop), lost to this
+// one in every configuration measured and is gone (PERF.md §6). The warp
+// schedule is the card's own:
 //   - rays in registers: a thread's R = T / blockDim.x rays (1, 2, 4; 8 at
 //     tile_rows 32) keep their 13 words in registers (RegRays), up to
 //     kRegRaysMax = 4 rays a thread. At 8 (tile_rows 32) ptxas spilled
-//     more in registers than with those rays in shared memory, as the
-//     first schedule keeps them (SmemRays), which spills less. K6's tiles
+//     more in registers than with those rays in shared memory (SmemRays,
+//     13 words a ray), which spills less. K6's tiles
 //     reach 2,048 rays, 4 a thread;
 //   - a copy of the stack in every warp (K5: one int an entry; K6: the 17
 //     words of an entry, lane l keeping slot l & 7), popped and pushed by
@@ -114,24 +106,22 @@
 // copies of the stack (64 bytes an entry) and the frustum mode's 9,344
 // static bytes of row boxes, fill the card's 232,448 bytes a block at 158
 // entries: the wrapper refuses a frustum tile of 32 rows on a deeper
-// stack (traversal/packet.py TILE_FRUSTUM_R32_STACK_MAX), which the first
-// schedule takes.
+// stack (traversal/packet.py TILE_FRUSTUM_R32_STACK_MAX).
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6,
 // chip_smoke.py phase 12: 1M sorted hall-260K primaries, in turns with
 // K1): K5 at tile_rows 16 0.9933 ms, 19.9% of its bound, against 1.4450 ms
 // and 13.6% for the first schedule (K1 0.3834 ms); at tile_rows 1 0.4318
 // against 0.5735 ms; K6 at 2,048 rays 1.1249 against 1.5767 ms. The warp
-// schedule is faster in all 38 configurations the phase runs (0.59-0.96x
+// schedule was faster in all 38 configurations the phase ran (0.59-0.96x
 // the first schedule's time). What is left is the arithmetic of the slab
-// tests and the leaf at 16 warps per SM. The first schedule is kept,
-// built beside it, for the A/B.
+// tests and the leaf at 16 warps per SM.
 //
 // The plain torch versions (traversal/api.py traverse_tile_components,
 // traversal/pair.py traverse_pair_components) follow the same float
 // operations in the same order (a minimum is exact in any order, up to the
-// sign of a zero, which reaches no output); built with -fmad=false, both
-// schedules agree with them bit for bit in hits and counters.
+// sign of a zero, which reaches no output); built with -fmad=false, the
+// kernels agree with them bit for bit in hits and counters.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -211,570 +201,6 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-#ifdef RT_TILE_V1  // the first schedule
-
-// The tile's rays in dynamic shared memory: 13 arrays of `tile` words.
-struct TileRays {
-  float *ix, *iy, *iz, *ox, *oy, *oz, *dx, *dy, *dz, *tmin, *tmax, *t;
-  int* prim;
-};
-
-__device__ __forceinline__ TileRays tile_rays(float* smem, int tile) {
-  TileRays s;
-  float* p[kRayWords - 1];
-  for (int k = 0; k < kRayWords - 1; ++k) p[k] = smem + k * tile;
-  s.ix = p[0]; s.iy = p[1]; s.iz = p[2];
-  s.ox = p[3]; s.oy = p[4]; s.oz = p[5];
-  s.dx = p[6]; s.dy = p[7]; s.dz = p[8];
-  s.tmin = p[9]; s.tmax = p[10]; s.t = p[11];
-  s.prim = reinterpret_cast<int*>(smem + (kRayWords - 1) * tile);
-  return s;
-}
-
-// Loads the tile's rays, padded past n as pack_rays pads (zeros, tmax -1),
-// and starts every ray's hit as a miss: t = tmax, prim = -1 here, u = v = 0
-// and geom = -1 in the outputs.
-__device__ void load_tile(const Args& a, const TileRays& s, long long base) {
-  for (int j = threadIdx.x; j < a.tile; j += blockDim.x) {
-    const long long g = base + j;
-    const bool in = g < a.n;
-    s.ix[j] = in ? a.ix[g] : 0.0f;
-    s.iy[j] = in ? a.iy[g] : 0.0f;
-    s.iz[j] = in ? a.iz[g] : 0.0f;
-    s.ox[j] = in ? a.ox[g] : 0.0f;
-    s.oy[j] = in ? a.oy[g] : 0.0f;
-    s.oz[j] = in ? a.oz[g] : 0.0f;
-    s.dx[j] = in ? a.dx[g] : 0.0f;
-    s.dy[j] = in ? a.dy[g] : 0.0f;
-    s.dz[j] = in ? a.dz[g] : 0.0f;
-    s.tmin[j] = in ? a.tmin[g] : 0.0f;
-    s.tmax[j] = in ? a.tmax[g] : -1.0f;
-    s.t[j] = s.tmax[j];
-    s.prim[j] = -1;
-    if (in) {
-      a.u[g] = 0.0f;
-      a.v[g] = 0.0f;
-      a.geom[g] = -1;
-    }
-  }
-}
-
-__device__ __forceinline__ Ray ray_of(const TileRays& s, int j) {
-  return Ray{s.ix[j], s.iy[j], s.iz[j], s.ox[j], s.oy[j], s.oz[j],
-             s.dx[j], s.dy[j], s.dz[j], s.tmin[j]};
-}
-
-// whether every ray of this thread has its hit or is dead (:843-846)
-__device__ __forceinline__ bool rays_done(const TileRays& s, int tile) {
-  bool done = true;
-  for (int j = threadIdx.x; j < tile; j += blockDim.x)
-    done = done && (s.tmax[j] < s.tmin[j] || s.prim[j] >= 0);
-  return done;
-}
-
-// One child's entry key against one ray: the pure form (px/py/pz: the
-// tile's direction signs) or the mixed one, in the unfused (b - o) * inv
-// form of _slab_parts (pallas_packet.py:289-320). FLT_MAX for a miss.
-template <bool PURE>
-__device__ __forceinline__ float slab_key(const float* row, int c,
-                                          const Ray& r, float t_test,
-                                          bool px, bool py, bool pz) {
-  float ent, ext;
-  if constexpr (PURE) {
-    const float sx = px ? row[0 * kArity + c] : row[1 * kArity + c];
-    const float fx = px ? row[1 * kArity + c] : row[0 * kArity + c];
-    const float sy = py ? row[2 * kArity + c] : row[3 * kArity + c];
-    const float fy = py ? row[3 * kArity + c] : row[2 * kArity + c];
-    const float sz = pz ? row[4 * kArity + c] : row[5 * kArity + c];
-    const float fz = pz ? row[5 * kArity + c] : row[4 * kArity + c];
-    ent = fmaxf(fmaxf((sx - r.ox) * r.ix, (sy - r.oy) * r.iy),
-                fmaxf((sz - r.oz) * r.iz, r.tmin));
-    ext = fminf(fminf((fx - r.ox) * r.ix, (fy - r.oy) * r.iy),
-                fminf((fz - r.oz) * r.iz, t_test));
-  } else {
-    const float tx0 = (row[0 * kArity + c] - r.ox) * r.ix;
-    const float tx1 = (row[1 * kArity + c] - r.ox) * r.ix;
-    const float ty0 = (row[2 * kArity + c] - r.oy) * r.iy;
-    const float ty1 = (row[3 * kArity + c] - r.oy) * r.iy;
-    const float tz0 = (row[4 * kArity + c] - r.oz) * r.iz;
-    const float tz1 = (row[5 * kArity + c] - r.oz) * r.iz;
-    ent = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
-                fmaxf(fminf(tz0, tz1), r.tmin));
-    ext = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
-                fminf(fmaxf(tz0, tz1), t_test));
-  }
-  return ent <= ext ? ent : kFltMax;
-}
-
-// The per-child tile minimum of the slab keys: each thread over its rays,
-// then warp shuffles; lane 0 of every warp writes red[warp][c]. ANY_HIT
-// tests rays that have their hit at -FLT_MAX (TILE: K5's rule).
-template <bool PURE, bool DEACTIVATE>
-__device__ __forceinline__ void tile_slab_keys(const TileRays& s, int tile,
-                                               const float* row, bool px,
-                                               bool py, bool pz,
-                                               float (*red)[kArity]) {
-  float key[kArity];
-#pragma unroll
-  for (int c = 0; c < kArity; ++c) key[c] = kFltMax;
-  for (int j = threadIdx.x; j < tile; j += blockDim.x) {
-    const Ray r = ray_of(s, j);
-    const float t_test =
-        DEACTIVATE && s.prim[j] >= 0 ? -kFltMax : s.t[j];
-#pragma unroll
-    for (int c = 0; c < kArity; ++c)
-      key[c] = fminf(key[c], slab_key<PURE>(row, c, r, t_test, px, py, pz));
-  }
-#pragma unroll
-  for (int c = 0; c < kArity; ++c) key[c] = warp_min(key[c]);
-  if ((threadIdx.x & 31) == 0) {
-#pragma unroll
-    for (int c = 0; c < kArity; ++c) red[threadIdx.x >> 5][c] = key[c];
-  }
-}
-
-// Warp 0: lane c < 8 takes the minimum of child c over `parts` rows of
-// part[.][c]; lane 0 returns all 8 keys.
-__device__ __forceinline__ void gather_keys(const float (*part)[kArity],
-                                            int parts, float (&key)[kArity]) {
-  const int lane = threadIdx.x & 31;
-  float k = kFltMax;
-  if (lane < kArity)
-    for (int w = 0; w < parts; ++w) k = fminf(k, part[w][lane]);
-#pragma unroll
-  for (int c = 0; c < kArity; ++c) key[c] = __shfl_sync(kFull, k, c);
-}
-
-template <int M, bool ANY_HIT, int MODE>
-__global__ void __launch_bounds__(kMaxThreads)
-    bvh_traverse_tile_kernel(Args a) {
-  extern __shared__ float smem[];
-  __shared__ int stack[kMaxStack];
-  __shared__ float row[14 * M > kNodeFloats ? 14 * M : kNodeFloats];
-  __shared__ float red[kMaxWarps][kArity];
-  __shared__ float fr[kMaxRows][13];         // the rows' interval boxes
-  __shared__ float chunk[kMaxRows * 4];      // t_test max per 32 rays
-  __shared__ float fkey[kMaxRows][kArity];   // frustum keys per row
-  __shared__ int s_code;
-
-  const int tile = a.tile;
-  const int rows = tile / 128;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const TileRays s = tile_rays(smem, tile);
-  const long long base = (long long)blockIdx.x * tile;
-  load_tile(a, s, base);
-
-  // octant purity of the whole tile, padding included (:487-491)
-  bool px = true, nx = true, py = true, ny = true, pz = true, nz = true;
-  for (int j = tid; j < tile; j += blockDim.x) {
-    px = px && s.ix[j] >= 0.0f; nx = nx && s.ix[j] < 0.0f;
-    py = py && s.iy[j] >= 0.0f; ny = ny && s.iy[j] < 0.0f;
-    pz = pz && s.iz[j] >= 0.0f; nz = nz && s.iz[j] < 0.0f;
-  }
-  px = __syncthreads_and(px); nx = __syncthreads_and(nx);
-  py = __syncthreads_and(py); ny = __syncthreads_and(ny);
-  pz = __syncthreads_and(pz); nz = __syncthreads_and(nz);
-  const bool pure = (px || nx) && (py || ny) && (pz || nz);
-  const bool frustum = MODE == kFrustum && pure;
-
-  if (frustum) {
-    // each 128-ray row's interval box in sign-mirrored coordinates
-    // (:503-509): origin' = +-origin, inv' = |inv_dir|, min and max each
-    const bool pos[3] = {px, py, pz};
-    for (int r = warp; r < rows; r += nwarps) {
-      float lo[7], hi[6];
-      for (int k = 0; k < 7; ++k) lo[k] = kFltMax;
-      for (int k = 0; k < 6; ++k) hi[k] = -kFltMax;
-      for (int q = 0; q < 4; ++q) {
-        const int j = r * 128 + q * 32 + lane;
-        const float o[3] = {s.ox[j], s.oy[j], s.oz[j]};
-        const float i[3] = {s.ix[j], s.iy[j], s.iz[j]};
-        for (int k = 0; k < 3; ++k) {
-          const float o2 = pos[k] ? o[k] : -o[k];
-          const float i2 = fabsf(i[k]);
-          lo[k] = fminf(lo[k], o2); hi[k] = fmaxf(hi[k], o2);
-          lo[3 + k] = fminf(lo[3 + k], i2); hi[3 + k] = fmaxf(hi[3 + k], i2);
-        }
-        lo[6] = fminf(lo[6], s.tmin[j]);
-      }
-      for (int k = 0; k < 7; ++k) lo[k] = warp_min(lo[k]);
-      for (int k = 0; k < 6; ++k) hi[k] = warp_max(hi[k]);
-      if (lane == 0) {
-        // per axis: o2_lo, o2_hi, i2_lo, i2_hi; then tmin_row
-        for (int k = 0; k < 3; ++k) {
-          fr[r][4 * k] = lo[k];
-          fr[r][4 * k + 1] = hi[k];
-          fr[r][4 * k + 2] = lo[3 + k];
-          fr[r][4 * k + 3] = hi[3 + k];
-        }
-        fr[r][12] = lo[6];
-      }
-    }
-  }
-
-  int sp = 1, pops = 0, leaf_pops = 0;  // thread 0's
-  bool overflow = false;
-  if (tid == 0) stack[0] = 1;           // root (1-based node ref)
-  for (;;) {
-    if (tid == 0) {
-      int code = 0;
-      if (sp > 0) {
-        code = stack[--sp];
-        ++pops;
-        leaf_pops += code < 0 ? 1 : 0;
-      }
-      s_code = code;
-    }
-    __syncthreads();
-    const int code = s_code;
-    if (code == 0) break;
-    if (code > 0) {
-      const float* g = a.nodes + (long long)(code - 1) * kNodeFloats;
-      if (tid < kNodeFloats) row[tid] = __ldg(g + tid);
-      __syncthreads();
-      float key[kArity];
-      if (frustum) {
-        // the largest t_test of each 32 rays, then of each row
-        for (int j = tid; j < tile; j += blockDim.x) {
-          const float tt = ANY_HIT && s.prim[j] >= 0 ? -kFltMax : s.t[j];
-          const float m = warp_max(tt);
-          if (lane == 0) chunk[j >> 5] = m;
-        }
-        __syncthreads();
-        // (row, child) interval tests of node_step_frustum (:521-539)
-        const bool pos[3] = {px, py, pz};
-        for (int q = tid; q < rows * kArity; q += blockDim.x) {
-          const int r = q / kArity, c = q % kArity;
-          const float t_ub = fmaxf(fmaxf(chunk[4 * r], chunk[4 * r + 1]),
-                                   fmaxf(chunk[4 * r + 2], chunk[4 * r + 3]));
-          float ent = 0.0f, ext = 0.0f;
-          for (int k = 0; k < 3; ++k) {
-            const float lo = row[16 * k + c], hi = row[16 * k + 8 + c];
-            const float b_n = pos[k] ? lo : -hi;
-            const float b_f = pos[k] ? hi : -lo;
-            const float an = b_n - fr[r][4 * k + 1];
-            const float e_k = an * (an >= 0.0f ? fr[r][4 * k + 2]
-                                               : fr[r][4 * k + 3]);
-            const float bf = b_f - fr[r][4 * k];
-            const float x_k = bf * (bf >= 0.0f ? fr[r][4 * k + 3]
-                                               : fr[r][4 * k + 2]);
-            ent = k == 0 ? e_k : fmaxf(ent, e_k);
-            ext = k == 0 ? x_k : fminf(ext, x_k);
-          }
-          ent = fmaxf(ent, fr[r][12]);
-          ext = fminf(ext, t_ub);
-          fkey[r][c] = ent <= ext ? ent : kFltMax;
-        }
-        __syncthreads();
-        if (warp == 0) gather_keys(fkey, rows, key);
-      } else {
-        if (MODE != kNoPure && pure)
-          tile_slab_keys<true, ANY_HIT>(s, tile, row, px, py, pz, red);
-        else
-          tile_slab_keys<false, ANY_HIT>(s, tile, row, px, py, pz, red);
-        __syncthreads();
-        if (warp == 0) gather_keys(red, nwarps, key);
-      }
-      if (tid == 0) {
-        // _finalize_children (:324-339): invalid children are 0 with key
-        // FLT_MAX, then the near-first sort; push the last first so child
-        // 0 ends on top (:836-840)
-        int ch[kArity];
-        bool unused[kArity] = {};
-        int k = 0;
-#pragma unroll
-        for (int c = 0; c < kArity; ++c) {
-          ch[c] = __float_as_int(row[6 * kArity + c]);
-          const bool valid = ch[c] != 0 && key[c] < kFltMax;
-          key[c] = valid ? key[c] : kFltMax;
-          ch[c] = valid ? ch[c] : 0;
-          k += valid ? 1 : 0;
-        }
-        if (!ANY_HIT) sort_children<kArity>(key, ch, unused);
-        if (sp + k > a.stack_cap) {
-          overflow = true;
-          sp = 0;
-        } else {
-          for (int c = kArity - 1; c >= 0; --c)
-            if (ch[c] != 0) stack[sp++] = ch[c];
-        }
-      }
-    } else {
-      const float* g = a.tris + (long long)(~code) * (14 * M);
-      for (int f = tid; f < 14 * M; f += blockDim.x) row[f] = __ldg(g + f);
-      __syncthreads();
-      const int* rowi = reinterpret_cast<const int*>(row);
-      for (int j = tid; j < tile; j += blockDim.x) {
-        const Ray r = ray_of(s, j);
-        const float t_test = ANY_HIT && s.prim[j] >= 0 ? -kFltMax : s.t[j];
-        float t = s.t[j], u = 0.0f, v = 0.0f;
-        int prim = -1, geom = -1;
-        for (int l = 0; l < M; ++l) {
-          const int pid = rowi[12 * M + l];
-          if (pid == -1) continue;
-          float f[12];
-#pragma unroll
-          for (int k = 0; k < 12; ++k) f[k] = row[k * M + l];
-          if (mt_lane(f, r, t_test, t, t, u, v)) {
-            prim = pid & 0x7FFFFFFF;
-            geom = rowi[13 * M + l];
-          }
-        }
-        if (prim >= 0) {
-          s.t[j] = t;
-          s.prim[j] = prim;
-          const long long gi = base + j;
-          if (gi < a.n) {
-            a.u[gi] = u;
-            a.v[gi] = v;
-            a.geom[gi] = geom;
-          }
-        }
-      }
-      if (tid == 0 && rowi[13 * M - 1] >= 0) {
-        if (sp + 1 > a.stack_cap) {
-          overflow = true;
-          sp = 0;
-        } else {
-          stack[sp++] = code - 1;
-        }
-      }
-    }
-    // any-hit: the tile stops when every ray has its hit or is dead
-    if (ANY_HIT && __syncthreads_and(rays_done(s, tile))) break;
-  }
-  __syncthreads();
-  for (int j = tid; j < tile; j += blockDim.x) {
-    const long long g = base + j;
-    if (g < a.n) {
-      a.t[g] = s.t[j];
-      a.prim[g] = s.prim[j];
-    }
-  }
-  if (tid == 0) {
-    a.pops[blockIdx.x] = overflow ? -1 : pops;
-    a.leaf_pops[blockIdx.x] = leaf_pops;
-  }
-}
-
-template <bool ANY_HIT>
-__global__ void __launch_bounds__(kMaxThreads)
-    bvh_traverse_pair_kernel(Args a) {
-  constexpr int M = 8;
-  extern __shared__ float smem[];
-  __shared__ float ekey[kMaxPairStack][kArity];   // the entries' keys
-  __shared__ int ecode[kMaxPairStack][kArity];    // their child codes
-  __shared__ int ecnt[kMaxPairStack];             // children left
-  __shared__ float row[14 * M];
-  __shared__ float red[kMaxWarps][kArity];
-  __shared__ int s_code;
-  __shared__ int s_go;
-
-  const int tile = a.tile;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const bool nostrip = a.flags & kNoStrip, nosort = a.flags & kNoSort;
-  const bool nonode = a.flags & kNoNode, noleaf = a.flags & kNoLeaf;
-  const TileRays s = tile_rays(smem, tile);
-  const long long base = (long long)blockIdx.x * tile;
-  load_tile(a, s, base);
-
-  int sp = 1, pops = 0, leaf_pops = 0;  // thread 0's
-  long long iters = 0;
-  bool stopped = false;
-  if (tid == 0) {
-    // the root entry: one child, code 1, key 0
-    for (int c = 0; c < kArity; ++c) {
-      ekey[0][c] = c == 0 ? 0.0f : kFltMax;
-      ecode[0][c] = c == 0 ? 1 : 0;
-    }
-    ecnt[0] = 1;
-  }
-  __syncthreads();
-  for (;;) {
-    if (tid == 0) {
-      int code = 0;
-      bool go = sp > 0;
-      if (go && iters >= a.max_iters) {
-        stopped = true;
-        go = false;
-      }
-      if (go) {
-        ++iters;
-        const int top = sp - 1;
-        int slot = 0;
-        bool strip = true;
-        if (nosort) {
-          // the first child with a finite key (slot 7 and no strip if none)
-          slot = kArity;
-          for (int c = kArity - 1; c >= 0; --c)
-            slot = ekey[top][c] < kFltMax ? c : slot;
-          strip = slot < kArity;
-          slot = strip ? slot : kArity - 1;
-        } else {
-          // the nearest; the lowest slot on ties
-          float mn = ekey[top][0];
-          for (int c = 1; c < kArity; ++c) mn = fminf(mn, ekey[top][c]);
-          slot = kArity;
-          for (int c = kArity - 1; c >= 0; --c)
-            slot = ekey[top][c] <= mn ? c : slot;
-          slot = slot < kArity ? slot : 0;
-        }
-        code = ecode[top][slot];
-        pops += code != 0 ? 1 : 0;
-        leaf_pops += code < 0 ? 1 : 0;
-        if (strip && !nostrip) ekey[top][slot] = kFltMax;
-        const int rem = ecnt[top] - 1;
-        ecnt[top] = rem;
-        sp = rem <= 0 ? top : top + 1;
-      }
-      s_code = code;
-      s_go = go;
-    }
-    __syncthreads();
-    if (!s_go) break;
-    const int code = s_code;
-    if (code > 0 && !nonode) {
-      const float* g = a.nodes + (long long)(code - 1) * kNodeFloats;
-      if (tid < kNodeFloats) row[tid] = __ldg(g + tid);
-      __syncthreads();
-      tile_slab_keys<false, false>(s, tile, row, true, true, true, red);
-      __syncthreads();
-      float key[kArity];
-      if (warp == 0) gather_keys(red, nwarps, key);
-      if (tid == 0) {
-        int k = 0;
-        for (int c = 0; c < kArity; ++c) {
-          const int ch = __float_as_int(row[6 * kArity + c]);
-          key[c] = ch != 0 ? key[c] : kFltMax;
-          k += key[c] < kFltMax ? 1 : 0;
-        }
-        if (k > 0) {
-          if (sp >= a.stack_cap) {
-            stopped = true;
-            sp = 0;
-          } else {
-            for (int c = 0; c < kArity; ++c) {
-              ekey[sp][c] = key[c];
-              ecode[sp][c] = __float_as_int(row[6 * kArity + c]);
-            }
-            ecnt[sp] = k;
-            ++sp;
-          }
-        }
-      }
-    } else if (code < 0 && !noleaf) {
-      const float* g = a.tris + (long long)(~code) * (14 * M);
-      for (int f = tid; f < 14 * M; f += blockDim.x) row[f] = __ldg(g + f);
-      __syncthreads();
-      const int* rowi = reinterpret_cast<const int*>(row);
-      for (int j = tid; j < tile; j += blockDim.x) {
-        const Ray r = ray_of(s, j);
-        const float t_cur = s.t[j];
-        // fold the 8 lanes: t FLT_MAX where a lane fails, the lower lane
-        // keeps a tie (:246-261); then update on best < t (:262-267)
-        float bt = 0.0f, bu = 0.0f, bv = 0.0f;
-        int bp = -1, bg = -1;
-#pragma unroll
-        for (int l = 0; l < M; ++l) {
-          float f[12];
-#pragma unroll
-          for (int k = 0; k < 12; ++k) f[k] = row[k * M + l];
-          const int pid = rowi[12 * M + l];
-          float tv, uv, vv;
-          const bool ok = mt_test(f, r, t_cur, tv, uv, vv) && pid != -1;
-          tv = ok ? tv : kFltMax;
-          if (l == 0 || tv < bt) {
-            bt = tv;
-            bu = uv;
-            bv = vv;
-            bp = pid == -1 ? -1 : (pid & 0x7FFFFFFF);
-            bg = rowi[13 * M + l];
-          }
-        }
-        if (bt < t_cur) {
-          s.t[j] = bt;
-          s.prim[j] = bp;
-          const long long gi = base + j;
-          if (gi < a.n) {
-            a.u[gi] = bu;
-            a.v[gi] = bv;
-            a.geom[gi] = bg;
-          }
-        }
-      }
-      // the next row of the leaf: one child, key 0, count 1 (:384-397)
-      if (tid == 0 && rowi[12 * M + M - 1] >= 0) {
-        if (sp >= a.stack_cap) {
-          stopped = true;
-          sp = 0;
-        } else {
-          for (int c = 0; c < kArity; ++c) {
-            ekey[sp][c] = c == 0 ? 0.0f : kFltMax;
-            ecode[sp][c] = c == 0 ? code - 1 : 0;
-          }
-          ecnt[sp] = 1;
-          ++sp;
-        }
-      }
-    } else {
-      // a pop that reads no row: every thread reads s_code and s_go before
-      // thread 0 writes the next pop's
-      __syncthreads();
-    }
-    if (ANY_HIT && __syncthreads_and(rays_done(s, tile))) break;
-  }
-  __syncthreads();
-  for (int j = tid; j < tile; j += blockDim.x) {
-    const long long g = base + j;
-    if (g < a.n) {
-      // a miss reads t = tmax and geom -1 (:552-553, :455)
-      const bool miss = s.prim[j] < 0;
-      a.t[g] = miss ? s.tmax[j] : s.t[j];
-      a.prim[g] = s.prim[j];
-      if (miss) a.geom[g] = -1;
-    }
-  }
-  if (tid == 0) {
-    a.pops[blockIdx.x] = stopped ? -1 : pops;
-    a.leaf_pops[blockIdx.x] = leaf_pops;
-  }
-}
-
-// The first schedule's kernels, one per template instance, or nullptr for
-// a shape it is not built for; the dynamic shared memory each takes.
-KernelFn k5_kernel(int m, bool any_hit, int mode, int tile) {
-  (void)tile;
-  if (mode < kPlain || mode > kNoPure) return nullptr;
-#define RT_K5_MODES(M_, AH_)                                        \
-  (mode == kPlain     ? bvh_traverse_tile_kernel<M_, AH_, kPlain>   \
-   : mode == kFrustum ? bvh_traverse_tile_kernel<M_, AH_, kFrustum> \
-                      : bvh_traverse_tile_kernel<M_, AH_, kNoPure>)
-  if (m == 8) return any_hit ? RT_K5_MODES(8, true) : RT_K5_MODES(8, false);
-  if (m == 24)
-    return any_hit ? RT_K5_MODES(24, true) : RT_K5_MODES(24, false);
-#undef RT_K5_MODES
-  return nullptr;
-}
-
-size_t k5_smem(int tile, int stack_cap) {
-  (void)stack_cap;
-  return (size_t)kRayWords * tile * sizeof(float);
-}
-
-KernelFn k6_kernel(bool any_hit, int tile) {
-  (void)tile;
-  return any_hit ? bvh_traverse_pair_kernel<true>
-                 : bvh_traverse_pair_kernel<false>;
-}
-
-size_t k6_smem(int tile, int stack_cap) { return k5_smem(tile, stack_cap); }
-
-#else  // the warp schedule
 
 // Ray words of a thread's rays, in the order of Args' components
 enum { kIx, kIy, kIz, kOx, kOy, kOz, kDx, kDy, kDz, kTmin, kTmax, kT };
@@ -790,8 +216,8 @@ struct RegRays {
   __device__ __forceinline__ int& prim(int k) { return p[k]; }
 };
 
-// ... or in dynamic shared memory, laid out as the first schedule lays
-// them out, where R rays would not fit in registers
+// ... or in dynamic shared memory, 13 arrays of `tile` words, where R rays
+// would not fit in registers
 template <int R>
 struct SmemRays {
   float* s;
@@ -962,7 +388,7 @@ __device__ __forceinline__ bool node_barrier(bool done) {
 // (:503-509): each warp reduces its rays per 32-ray chunk into part[chunk],
 // then threads r < rows fold the row's four chunks into fr[r] (per axis:
 // o2_lo, o2_hi, i2_lo, i2_hi; then tmin_row), from FLT_MAX / -FLT_MAX as
-// the first schedule's fold starts.
+// a fold over the rows starts.
 template <int R, class RS>
 __device__ void frustum_rows(RS& rs, bool px, bool py, bool pz,
                              float (*part_)[13], float (*fr)[13], int rows) {
@@ -1542,7 +968,6 @@ size_t k6_smem(int tile, int stack_cap) {
              * sizeof(int) + smem_rays(tile);
 }
 
-#endif  // RT_TILE_V1
 
 // Launches kernel k with one block per tile, threads_of(tile) threads and
 // `smem` bytes of dynamic shared memory (above 48 KB only once the kernel
@@ -1629,7 +1054,7 @@ extern "C" int rt_bvh_traverse_pair(
                 static_cast<cudaStream_t>(stream));
 }
 
-// What one instance of this library's schedule holds, for the A/B's table:
+// What one instance of this library holds, for the A/B's table:
 // kernel 0 is K5 (packet 8 or 24, mode, tile = 128 * tile_rows), 1 is K6
 // (tile_rays; packet and mode not read). out: registers per thread, static
 // and dynamic shared memory bytes per block, local memory bytes per thread,

@@ -2,23 +2,28 @@
 and their BVH builds, the ray distributions, the card's name and power
 limit, CUDA-event timing (in turns), per-warp and per-tile pop statistics,
 and the least time the card could take for a traversal launch (its bound,
-per-ray kernels and tile kernels); and, for the micro-probes (probe_*.py,
+per-ray kernels and tile kernels); for the micro-probes (probe_*.py,
 vpu_dtype_bench.py), the call into their library, the launch that fills
-the card and their bound. The experiments here, tools/benchmark.py and
-chip_smoke.py all take them from this module."""
+the card and their bound; and a reader of the card's assembly (SASS, as
+cuobjdump and nvdisasm print it) for vpu_dtype_bench and sass_audit. The
+experiments here, tools/benchmark.py and chip_smoke.py all take them from
+this module."""
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..accel import build_bvh
 from ..core.math import FLT_MAX
-from ..kernels.build import load_library
+from ..kernels.build import find_nvcc, load_library
 from ..traversal import api, packet, pair
 from ..traversal.sorting import sort_rays
 from ..utils import testscenes
@@ -108,6 +113,45 @@ def card(device):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def sm_clock_mhz():
+    """The card's SM clock now and its largest, in MHz, as nvidia-smi
+    reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    now, top = (float(x) for x in out.split(","))
+    return now, top
+
+
+def device_idle(fn):
+    """One call of fn under torch.profiler on the card: {"wall_ms",
+    "kernel_ms" (the kernels' device time), "busy_ms" (the union of their
+    spans), "idle" (the share of the wall time the device ran no kernel),
+    "kernels"}. fn must end in work on the card; the call is synchronised
+    before the clock stops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return {"wall_ms": wall,
+            "kernel_ms": sum(e.time_range.elapsed_us() for e in dev) * 1e-3,
+            "busy_ms": busy * 1e-3, "idle": 1.0 - busy * 1e-3 / wall,
+            "kernels": len(dev)}
 
 
 def build_of(scene):
@@ -494,3 +538,111 @@ def probe_shapes(fn, device, full, per_sm, iters, blocks=3):
     return {"ms1": ms1, "ns1": ms1 * 1e6 / iters, "ms": ms,
             "copies": full, "ns_sm": ms * 1e6 / iters / per_sm,
             "out1": out1, "out": out}
+
+
+# The card's assembly. cuobjdump -sass and nvdisasm print one instruction
+# a line, "/*0a30*/  @!P0 FSETP.GT.AND P1, PT, R3, R4, PT ;", under a
+# header per function ("Function : <name>" and ".text.<name>:"
+# respectively); nvdisasm also prints branch labels (".L_x_12:") and, with
+# -gi on a build with -lineinfo, the source line of the instructions that
+# follow with the call sites they were inlined at ('//## File "f.cu",
+# line 12 inlined at "f.cu", line 40').
+_FUNCTION = re.compile(r"^\s*(?:Function : (\S+)|\.text\.(\S+):)\s*$")
+_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_LINE = re.compile(r'//## File "([^"]+)", line (\d+)')
+_INLINED = re.compile(r'inlined at "([^"]+)", line (\d+)')
+_TARGET_ADDR = re.compile(r"\b0x([0-9a-f]+)")
+_TARGET_LABEL = re.compile(r"`\((\.L_x_\d+)\)")
+
+
+@dataclasses.dataclass
+class Sass:
+    """One function's instructions: (address, text, frames), frames the
+    source lines (file, line) from the innermost to the outermost call
+    site, () without line information; and its labels' addresses."""
+    insns: list
+    labels: dict
+
+
+def parse_sass(text):
+    """{function name: Sass} of a cuobjdump -sass or nvdisasm listing.
+    nvdisasm -gi may print several source lines before one instruction
+    (an inlined helper's line with its call sites, then the caller's
+    line): they add up to the instruction's frames."""
+    funcs, cur, pending, frames, fresh = {}, None, [], (), True
+    for line in text.splitlines():
+        m = _FUNCTION.match(line)
+        if m:
+            cur = funcs.setdefault(m.group(1) or m.group(2), Sass([], {}))
+            pending, frames, fresh = [], (), True
+            continue
+        if cur is None:
+            continue
+        m = _LINE.search(line)
+        if m:
+            found = ((m.group(1), int(m.group(2))),) + tuple(
+                (f, int(n)) for f, n in _INLINED.findall(line))
+            frames = found if fresh else frames + found
+            fresh = False
+            continue
+        m = _LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _INSTRUCTION.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for label in pending:
+                cur.labels[label] = addr
+            pending = []
+            cur.insns.append((addr, " ".join(m.group(2).split()), frames))
+            fresh = True
+    return funcs
+
+
+def opcode(text, full=False):
+    """An instruction's mnemonic without its predicate: its base ("FSETP")
+    or, with full=True, with its modifiers ("FSETP.GT.AND")."""
+    words = text.split()
+    op = words[1] if words[0].startswith("@") else words[0]
+    return op if full else op.split(".")[0]
+
+
+def branch_target(sass, text):
+    """The address a BRA instruction jumps to, or None for another
+    instruction or an indirect branch."""
+    if opcode(text) != "BRA":
+        return None
+    m = _TARGET_ADDR.search(text)
+    if m:
+        return int(m.group(1), 16)
+    m = _TARGET_LABEL.search(text)
+    return sass.labels.get(m.group(1)) if m else None
+
+
+def loops(sass):
+    """[(target, branch address)] of every backward branch, in address
+    order: each loop's first instruction and its closing branch. A branch
+    to itself, the trap behind a function's EXIT, is no loop."""
+    out = []
+    for addr, text, _ in sass.insns:
+        t = branch_target(sass, text)
+        if t is not None and t < addr:
+            out.append((t, addr))
+    return out
+
+
+def sass_tool(name):
+    """A CUDA toolkit binary (cuobjdump, nvdisasm) beside nvcc."""
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(f"{name}: no CUDA toolkit (nvcc not found)")
+    return str(Path(nvcc).with_name(name))
+
+
+def read_sass(lib_path):
+    """{function: Sass} of a kernel library, through cuobjdump -sass."""
+    return parse_sass(subprocess.run(
+        [sass_tool("cuobjdump"), "-sass", str(lib_path)],
+        capture_output=True, text=True, check=True).stdout)

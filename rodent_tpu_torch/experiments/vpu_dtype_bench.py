@@ -28,10 +28,8 @@ from __future__ import annotations
 
 import argparse
 import re
-import subprocess
 import sys
 from collections import Counter
-from pathlib import Path
 
 import torch
 
@@ -116,32 +114,23 @@ def sass_counts(lib_path=None):
     instructions of the loop body (between the backward branch and its
     target) less the branch, the loop's compare and the counter's update,
     over the unroll of 8."""
-    lib = Path(lib_path or build.library_path(kind="probes"))
-    tool = Path(build.find_nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
+    funcs = common.read_sass(lib_path or build.library_path(kind="probes"))
     out = {}
-    for fn in sass.split("Function : ")[1:]:
-        m = re.search(r"vpu_kernelILi(\d)E", fn.splitlines()[0])
+    for name, fn in funcs.items():
+        m = re.search(r"vpu_kernelILi(\d)E", name)
         if not m:
             continue
         dtype = next(d for d, (n, _) in DTYPES.items() if n == int(m[1]))
-        ins = [(int(a, 16), body.strip()) for a, body in re.findall(
-            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", fn)]
-        back = [(a, int(t, 16)) for a, b in ins
-                for t in re.findall(r"BRA\s+(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)",
-                                    b) if int(t, 16) < a]
+        back = common.loops(fn)
         if not back:
             raise RuntimeError(f"no loop in the {dtype} kernel's SASS")
-        end, start = back[-1]
-        loop = [b for a, b in ins if start <= a < end]
-        cmp_ = [b for b in loop if b.split()[0].startswith("ISETP")
-                or (b.startswith("@") and "ISETP" in b)]
+        start, end = back[-1]
+        loop = [b for a, b, _ in fn.insns if start <= a < end]
+        cmp_ = [b for b in loop if common.opcode(b).startswith("ISETP")]
         counter = set(re.findall(r"\bR\d+\b", " ".join(cmp_)))
         ops = Counter()
         for b in loop:
-            words = b.split()
-            op = words[1] if words[0].startswith("@") else words[0]
+            op = common.opcode(b, full=True)
             dest = re.findall(r"\bR\d+\b", b)[:1]
             if (op.startswith(("ISETP", "BRA", "NOP"))
                     or (dest and dest[0] in counter

@@ -7,19 +7,17 @@ anew and an unchanged one loads the built library. Only sources in the
 repository are used. Without nvcc (and without a built library) asking
 for a library raises: there is no fallback.
 
-Six libraries: "main" (bvh_traverse.cu) holds K1, K2 and K3, the kernels
+Five libraries: "main" (bvh_traverse.cu) holds K1, K2 and K3, the kernels
 of the render and benchmark paths; "options" (the same source with
 -DRT_OPTIONS) holds K4, the options of the legacy Pallas body; "group"
 (the same source with -DRT_GROUP) holds K1-K3 in two bodies, the group
 stack and the first body, for experiments/ab_body.py, which times them
 against each other; "tile" (bvh_tile.cu) holds K5 and K6, the traversals
 whose stack is shared by a tile of rays, in the warp schedule, which the
-wrappers launch; "tile_v1" (the same source with -DRT_TILE_V1) holds K5
-and K6 in their first schedule, for experiments/ab_tile_body.py, which
-times the two schedules against each other; "probes" (probes.cu) holds the
+wrappers launch; "probes" (probes.cu) holds the
 micro-probes of rodent_tpu_torch.experiments.probe_* and vpu_dtype_bench.
 Each is built at its first use, so that none delays K1's first launch;
-build_all() starts the six nvcc runs at once. A library's hash covers
+build_all() starts the five nvcc runs at once. A library's hash covers
 its source and the header it includes (bvh_common.cuh).
 
 -fmad=false keeps every float operation separately rounded, as the plain
@@ -49,7 +47,6 @@ LIBRARIES = {"main": ("bvh_traverse.cu", ()),
              "options": ("bvh_traverse.cu", ("-DRT_OPTIONS",)),
              "group": ("bvh_traverse.cu", ("-DRT_GROUP",)),
              "tile": ("bvh_tile.cu", ()),
-             "tile_v1": ("bvh_tile.cu", ("-DRT_TILE_V1",)),
              "probes": ("probes.cu", ())}
 
 _P = ctypes.c_void_p
@@ -121,9 +118,6 @@ _ENTRIES = {
     },
 }
 
-# the two schedules of bvh_tile.cu export the same entries
-_ENTRIES["tile_v1"] = _ENTRIES["tile"]
-
 _libs = {}  # library path -> loaded CDLL
 _loaded = {}  # (build directory, kind) -> loaded CDLL
 
@@ -139,13 +133,14 @@ def find_nvcc():
     return None
 
 
-def _flags(kind):
-    return NVCC_FLAGS + LIBRARIES[kind][1]
+def _flags(kind, extra=()):
+    return NVCC_FLAGS + LIBRARIES[kind][1] + tuple(extra)
 
 
-def library_path(build_dir=None, kind="main"):
-    """Where the library `kind` for these exact sources and flags lives."""
-    h = hashlib.sha256(" ".join(_flags(kind)).encode())
+def library_path(build_dir=None, kind="main", extra=()):
+    """Where the library `kind` for these exact sources and flags (with
+    the nvcc flags `extra` added) lives."""
+    h = hashlib.sha256(" ".join(_flags(kind, extra)).encode())
     for name in (LIBRARIES[kind][0], *HEADERS):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -153,15 +148,16 @@ def library_path(build_dir=None, kind="main"):
     return Path(build_dir or BUILD_DIR) / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(build_dir=None, kind="main"):
-    """Compiles csrc/ into the library `kind` with nvcc unless it exists
+def build(build_dir=None, kind="main", extra=()):
+    """Compiles csrc/ into the library `kind` with nvcc (and the flags
+    `extra`, as experiments/sass_audit.py's -lineinfo) unless it exists
     for these exact sources. Returns (path, nvcc's output) — the output,
     which carries ptxas' per-kernel register and spill lines, is None when
     nothing was built. Raises RuntimeError without nvcc or when nvcc
     fails. Processes that ask for one library at once (the ranks of a
     sharded render) wait on a lock file per library, so it is built
     once."""
-    out = library_path(build_dir, kind)
+    out = library_path(build_dir, kind, extra)
     if out.exists():
         return out, None
     nvcc = find_nvcc()
@@ -174,7 +170,7 @@ def build(build_dir=None, kind="main"):
         if out.exists():
             return out, None
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_flags(kind), "-o", str(tmp),
+        cmd = [nvcc, *_flags(kind, extra), "-o", str(tmp),
                str(CSRC / LIBRARIES[kind][0])]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:

@@ -15,6 +15,21 @@ def new_film(width, height, device):
                        device=device)
 
 
+def splat(film, pixel_ids, color, mask=None):
+    """film with color (n, 3) added at the rows pixel_ids (n,), as a new
+    tensor; rows where mask (n,) is False add nothing. As the JAX film's
+    scatter-add (mode="drop"): an id in [-rows, -1] counts from the end,
+    any other id out of range is dropped. Ids that repeat add in an
+    unspecified order."""
+    if mask is not None:
+        color = torch.where(mask[:, None], color, torch.zeros_like(color))
+    rows = film.shape[0]
+    ids = pixel_ids.to(torch.int64)
+    ids = torch.where(ids < 0, ids + rows, ids)
+    keep = (ids >= 0) & (ids < rows)
+    return film.index_add(0, ids[keep], color[keep].to(film.dtype))
+
+
 def tonemap(film, width, height, iters):
     """Running sum -> gamma-2.2 u8 image (H, W, 3), like save_image."""
     if isinstance(film, torch.Tensor):

@@ -335,7 +335,7 @@ def _leaf_chain(dev, org, dirv, tmin, t_test, carry, code, chain,
 
 def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
                         count_pops=False, ablate=(), pops=1, leaf_chain=1,
-                        frustum=False, count_rows=False):
+                        frustum=False, count_rows=False, stack_depth=None):
     """Closest-hit (any_hit=False) or first-hit (any_hit=True) traversal of
     flat (B,) component rays: org, dirv, inv_d are Vec3 tuples. A ray with
     tmax < tmin is dead. Returns {t, u, v, prim_id, geom_id}; on a miss
@@ -366,16 +366,26 @@ def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
           first-wins with strict <, push the second entry's children
           first, so the first entry's nearest child ends on top;
       leaf_chain=N: one leaf pop consumes up to N consecutive Tri rows
-          (:651-663) and still counts one pop and one leaf pop."""
+          (:651-663) and still counts one pop and one leaf pop.
+
+    stack_depth: the stack's entries, with the JAX api.traverse's meaning
+    (:280-298): a push at or past the last entry is dropped while the
+    ray's pointer still moves, and a pop from such a slot reads an empty
+    entry, so the ray skips what did not fit. None (or 0) takes
+    stack_entries(dev, pops), the tree's worst case, and raises where a
+    push would not fit."""
     ablate = check_options(any_hit, ablate, pops, leaf_chain, frustum)
+    if stack_depth is not None and stack_depth < 0:
+        raise ValueError(f"stack_depth={stack_depth} < 0")
     nodetest = "nonodetest" not in ablate
     leaftest = "noleaftest" not in ablate
     sort_any = any_hit or "nosort" in ablate
     device = tmin.device
     b = tmin.shape[0]
     a = dev["nodes"].shape[1] // 7
-    cap = stack_entries(dev, pops)
-    stack = torch.zeros((b, cap), dtype=torch.int32, device=device)
+    cap = stack_depth or stack_entries(dev, pops)
+    # column cap takes the pushes a given stack_depth drops; never popped
+    stack = torch.zeros((b, cap + 1), dtype=torch.int32, device=device)
     stack[:, 0] = 1                       # root node ref (1-based)
     sptr = (tmax >= tmin).to(torch.int64)  # dead rays never start
     t = tmax.to(torch.float32).clone()
@@ -401,8 +411,9 @@ def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
         codes = []
         for _ in range(pops):
             has = sp > 0
-            code = stack[act, (sp - 1).clamp(min=0)]
-            codes.append(torch.where(has, code, torch.zeros_like(code)))
+            code = stack[act, (sp - 1).clamp(0, cap - 1)]
+            read = has & (sp <= cap)   # a slot past the stack reads empty
+            codes.append(torch.where(read, code, torch.zeros_like(code)))
             sp = sp - has.to(torch.int64)
         if count_pops:
             for code in codes:
@@ -459,7 +470,9 @@ def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
             k = m64.sum(1)
             pos = sp[:, None] + k[:, None] - 1 - (torch.cumsum(m64, 1) - m64)
             live = pos[mask]
-            if live.numel() and int(live.max()) >= cap:
+            if stack_depth:
+                pos = pos.clamp(max=cap)
+            elif live.numel() and int(live.max()) >= cap:
                 raise ValueError(f"traversal stack of {cap} entries "
                                  f"overflowed (pops={pops})")
             rr = act[:, None].expand_as(pos)
@@ -797,13 +810,18 @@ def components(rays):
             cols(rays["inv_org"]), rays["tmin"], rays["tmax"])
 
 
-def traverse(dev, rays, any_hit=False, count_pops=False, **options):
+def traverse(dev, rays, any_hit=False, count_pops=False, stack_depth=None,
+             **options):
     """traverse_components over a make_rays dict ((B, 3) org/dir);
-    options: ablate, pops, leaf_chain, frustum, count_rows. With
-    tile_rows=, traverse_tile_components instead (options frustum, ablate,
-    count_rows; its per-tile counters with count_pops=True)."""
+    options: ablate, pops, leaf_chain, frustum, count_rows; stack_depth as
+    there (the JAX api.traverse's). With tile_rows=,
+    traverse_tile_components instead (options frustum, ablate, count_rows;
+    its per-tile counters with count_pops=True; no stack_depth)."""
     org, dirv, inv_d, _, tmin, tmax = components(rays)
     if options.get("tile_rows") is not None:
+        if stack_depth:
+            raise ValueError("stack_depth belongs to the per-ray route; the "
+                             "tile route sizes its shared stack itself")
         check_options(any_hit, options.get("ablate", ()),
                       options.pop("pops", 1), options.pop("leaf_chain", 1),
                       options.get("frustum", False), options["tile_rows"])
@@ -815,7 +833,7 @@ def traverse(dev, rays, any_hit=False, count_pops=False, **options):
     options.pop("tile_rows", None)
     return traverse_components(dev, org, dirv, inv_d, tmin, tmax,
                                any_hit=any_hit, count_pops=count_pops,
-                               **options)
+                               stack_depth=stack_depth, **options)
 
 
 def occluded(dev, rays):
@@ -823,9 +841,13 @@ def occluded(dev, rays):
     return traverse(dev, rays, any_hit=True)["prim_id"] >= 0
 
 
-def intersect_bruteforce(dev, rays):
+def intersect_bruteforce(dev, rays, any_hit=False):
     """O(B x T) all-triangles closest hit, the test oracle (the Embree role
-    of SURVEY.md §4). Ties go to the lowest packet, then the lowest lane."""
+    of SURVEY.md §4). Ties go to the lowest packet, then the lowest lane.
+    any_hit is taken for the JAX signature, whose function returns the
+    closest hit either way: it answers the any-hit query too (a hit where
+    prim_id >= 0)."""
+    del any_hit
     org, dirv = components(rays)[:2]
     out = empty_hit(rays["tmax"])
     b = out["t"].shape[0]

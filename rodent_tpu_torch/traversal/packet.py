@@ -84,13 +84,10 @@ TILE_STACK_MAX = 256
 TILE_FRUSTUM_R32_STACK_MAX = 158
 
 # launches per kernel since the last reset_launches(); raised by one where
-# the kernel is launched and nowhere else. K5 and K6 of the "tile_v1"
-# library (the first schedule, experiments/ab_tile_body) count under
-# launch_key()'s "tile_v1 <kernel>".
+# the kernel is launched and nowhere else
 launches = {"bvh_traverse": 0, "bvh_traverse_prefetch": 0,
             "bvh_traverse_count": 0, "bvh_traverse_option": 0,
-            "bvh_traverse_tile": 0, "bvh_traverse_pair": 0,
-            "tile_v1 bvh_traverse_tile": 0, "tile_v1 bvh_traverse_pair": 0}
+            "bvh_traverse_tile": 0, "bvh_traverse_pair": 0}
 
 _ENTRY = {"bvh_traverse": "rt_bvh_traverse",
           "bvh_traverse_prefetch": "rt_bvh_traverse_prefetch",
@@ -101,13 +98,6 @@ _ENTRY = {"bvh_traverse": "rt_bvh_traverse",
 def reset_launches():
     for k in launches:
         launches[k] = 0
-
-
-def launch_key(kernel, library="tile"):
-    """The key of `launches` that K5 or K6 (`kernel`) of `library` counts
-    under: the kernel's name for the "tile" library, which the wrappers
-    load, else "<library> <kernel>"."""
-    return kernel if library == "tile" else f"{library} {kernel}"
 
 
 def call_on_card(device, fn, *args):
@@ -228,10 +218,8 @@ def tile_mode(frustum=False, ablate=()):
             "nopure" if "nopure" in ablate else "plain")
 
 
-def _launch_tile(dev, comps, any_hit, tile_rows, mode, library="tile",
-                 cap=None):
-    """K5 on CUDA tensors from `library` ("tile"; "tile_v1", the first
-    schedule, for experiments/ab_tile_body); comps as in _launch. Returns
+def _launch_tile(dev, comps, any_hit, tile_rows, mode, cap=None):
+    """K5 on CUDA tensors; comps as in _launch. Returns
     the hits and the per-tile "pops" and "leaf_pops"; a tile whose stack
     would have overflowed (never within BvhMeta's worst case, the stack
     it gets unless `cap` entries are asked for) stops with pops -1."""
@@ -247,7 +235,7 @@ def _launch_tile(dev, comps, any_hit, tile_rows, mode, library="tile",
     if not 1 <= cap <= TILE_STACK_MAX:
         raise ValueError(f"a stack of {cap} entries: bvh_traverse_tile "
                          f"holds 1 to {TILE_STACK_MAX}")
-    if (library == "tile" and tile_rows == 32 and mode == "frustum"
+    if (tile_rows == 32 and mode == "frustum"
             and cap > TILE_FRUSTUM_R32_STACK_MAX):
         raise ValueError(f"a stack of {cap} entries: bvh_traverse_tile's "
                          f"frustum mode at tile_rows 32 holds at most "
@@ -266,7 +254,7 @@ def _launch_tile(dev, comps, any_hit, tile_rows, mode, library="tile",
            "leaf_pops": empty(torch.int32, nt)}
     if n == 0:
         return out
-    lib = load_library(kind=library)
+    lib = load_library(kind="tile")
     ptrs = (ctypes.c_void_p * 11)(*(x.data_ptr() for x in comps))
     err = call_on_card(
         device, lib.rt_bvh_traverse_tile, nodes.data_ptr(), tris.data_ptr(),
@@ -276,7 +264,7 @@ def _launch_tile(dev, comps, any_hit, tile_rows, mode, library="tile",
     if err != 0:
         raise RuntimeError(f"bvh_traverse_tile launch failed with CUDA "
                            f"error {err}")
-    launches[launch_key("bvh_traverse_tile", library)] += 1
+    launches["bvh_traverse_tile"] += 1
     return out
 
 

@@ -218,10 +218,8 @@ def traverse_pair_components(dev, org, dirv, inv_d, tmin, tmax,
     return out
 
 
-def _launch(dev, comps, any_hit, tile_rays, ablate, library="tile",
-            cap=None, iters=None):
-    """K6 on CUDA tensors from `library` ("tile"; "tile_v1", the first
-    schedule, for experiments/ab_tile_body); comps: the 11 (n,) ray
+def _launch(dev, comps, any_hit, tile_rays, ablate, cap=None, iters=None):
+    """K6 on CUDA tensors; comps: the 11 (n,) ray
     components in the C entry's order (inv_dir xyz, org xyz, dir xyz,
     tmin, tmax). cap and iters replace the stack the tree needs and the
     iteration guard."""
@@ -244,7 +242,7 @@ def _launch(dev, comps, any_hit, tile_rays, ablate, library="tile",
     if n == 0:
         return out
     mask = sum(1 << ABLATIONS.index(ab) for ab in ablate)
-    lib = load_library(kind=library)
+    lib = load_library(kind="tile")
     ptrs = (ctypes.c_void_p * 11)(*(x.data_ptr() for x in comps))
     err = packet.call_on_card(
         device, lib.rt_bvh_traverse_pair, nodes.data_ptr(), tris.data_ptr(),
@@ -255,7 +253,7 @@ def _launch(dev, comps, any_hit, tile_rays, ablate, library="tile",
     if err != 0:
         raise RuntimeError(f"bvh_traverse_pair launch failed with CUDA "
                            f"error {err}")
-    packet.launches[packet.launch_key("bvh_traverse_pair", library)] += 1
+    packet.launches["bvh_traverse_pair"] += 1
     return out
 
 

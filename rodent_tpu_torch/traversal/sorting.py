@@ -1,12 +1,16 @@
 """Octant + Morton ray reordering (torch port of
 rodent_tpu/traversal/sorting.py).
 
-Keys are bit-exact with the JAX package's: the uint32 arithmetic runs in
-int64, and the permutation comes from a stable sort, as jnp.argsort's is.
+The uint32 arithmetic runs in int64 and the permutation comes from a
+stable sort, as jnp.argsort's is; keys equal the JAX package's bit for bit
+wherever the two rsqrt agree (ray_sort_keys).
 """
 from __future__ import annotations
 
 import torch
+
+# the key's 20 direction bits, the only ones 1/|d| reaches
+DIR_BITS = (1 << 20) - 1
 
 
 def ray_octant(d):
@@ -27,10 +31,17 @@ def _morton10(x):
     return x
 
 
-def ray_sort_keys(org, d, scene_lo, scene_hi):
+def ray_sort_keys(org, d, scene_lo, scene_hi, inv_len=None):
     """Key = 9-bit origin Morton (8^3 grid over the scene box), then the
     octant (3 bits), then a 20-bit direction Morton. Returns int64 tensors
-    holding the uint32 keys."""
+    holding the uint32 keys.
+
+    inv_len: each direction's 1/|d| as a (B,) float32 tensor, or None for
+    torch.rsqrt(dx*dx + dy*dy + dz*dz + 1e-30). rsqrt is an approximation
+    whose last bits differ between XLA's CPU code (and its host CPU),
+    torch's and CUDA's rsqrtf; a different 1/|d| can only move the 20
+    direction bits. Given the JAX package's own 1/|d|, the key equals its
+    key bit for bit."""
     org = org if isinstance(org, tuple) else tuple(org.unbind(-1))
     dt = d if isinstance(d, tuple) else tuple(d.unbind(-1))
     dev = dt[0].device
@@ -42,8 +53,9 @@ def ray_sort_keys(org, d, scene_lo, scene_hi):
         q.append(torch.clamp(t * 8.0, 0, 7).to(torch.int64))
     org_m = (_morton10(q[0]) | (_morton10(q[1]) << 1)
              | (_morton10(q[2]) << 2)) & 0x1FF
-    inv_len = torch.rsqrt(dt[0] * dt[0] + dt[1] * dt[1] + dt[2] * dt[2]
-                          + 1e-30)
+    if inv_len is None:
+        inv_len = torch.rsqrt(dt[0] * dt[0] + dt[1] * dt[1]
+                              + dt[2] * dt[2] + 1e-30)
     qd = [torch.clamp((dt[i] * inv_len * 0.5 + 0.5) * 128.0, 0, 127)
           .to(torch.int64) for i in range(3)]
     dir_m = (_morton10(qd[0]) | (_morton10(qd[1]) << 1)

@@ -53,8 +53,21 @@ float32 as the JAX engine sums it). Whatever the options, `trips` counts
 the trips and the leaf-unit trips of every call since reset_trips(), for
 callers that cannot ask for counters (the renderers).
 
-Not ported (TPU measurement machinery): the waterfall hooks `ablate=` and
-`fixed_iters=`, and the `_LEAF_GATHER` shard modes (:68).
+The waterfall hooks (experiments/waterfall_tiled.py, tiled.py:131-331):
+ablate= takes ABLATIONS, each removing one part of a trip while the loop
+goes on (the results are wrong; only the time of such a run means
+something): "nopop" pops slot 0 instead of the top, "leafalways" and
+"noleaf" force the leaf gate on or off, "trigatherfix" and
+"nodegatherfix" read row 0 of the Tri or node table for every ray,
+"nopush" writes no stack entry (the pointers still move), "nosort" pushes
+the hit children in slot order. fixed_iters=N runs exactly N trips, so
+that runs with different ablations share one pop schedule; it needs
+debug_counters, whose trip counter it reads. As in the JAX engine, the
+staged cascade (compact_stages) runs without the hooks, and sub_batches
+is ignored under fixed_iters.
+
+Not ported (TPU measurement machinery): the `_LEAF_GATHER` shard modes
+(:68), which split a gather of a table past the TPU's fast-gather cliff.
 """
 from __future__ import annotations
 
@@ -65,6 +78,9 @@ from .api import _node_step, components, mt_lane
 
 NODE_STACK_DEPTH = 24
 LEAF_STACK_DEPTH = 16
+# the waterfall hooks of the JAX engine (tiled.py:131-331)
+ABLATIONS = ("nopop", "leafalways", "noleaf", "trigatherfix",
+             "nodegatherfix", "nopush", "nosort")
 ROW = 128          # the rows of the JAX engine's (R, 128) tiles
 _HIT_KEYS = ("t", "u", "v", "prim_id", "geom_id")
 
@@ -77,19 +93,25 @@ def reset_trips():
         trips[k] = 0
 
 
-def _pop(stack, ptr, can):
+def _pop(stack, ptr, can, ablate=()):
     """One pop per ray where `can`: (code, new ptr). A slot at or past the
-    stack's size (its last column is the dump) reads 0."""
+    stack's size (its last column is the dump) reads 0; "nopop" reads slot
+    0 whatever the pointer."""
     s = stack.shape[1] - 1
     top = ptr - 1
+    if "nopop" in ablate:
+        return (torch.where(can, stack[:, 0], 0),
+                torch.where(can, top, ptr))
     code = stack.gather(1, top.clamp(0, s - 1)[:, None])[:, 0]
     code = torch.where(can & (top < s), code, 0)
     return code, torch.where(can, top, ptr)
 
 
-def _push(stack, pos, vals, mask):
+def _push(stack, pos, vals, mask, ablate=()):
     """Writes vals (B, k) at slots pos (B, k) where mask; slots at or past
-    the stack's size go to the dump column."""
+    the stack's size go to the dump column. "nopush" writes nothing."""
+    if "nopush" in ablate:
+        return
     s = stack.shape[1] - 1
     pos = torch.where(mask & (pos < s), pos, s)
     stack.scatter_(1, pos, vals)
@@ -106,14 +128,17 @@ def _ranks(mask):
     return torch.stack(ranks, 1)
 
 
-def _leaf_unit(dev, rays, st):
+def _leaf_unit(dev, rays, st, ablate=()):
     """Pops one leaf packet per ray, tests its M lanes and pushes the
     continuation of a multi-packet leaf (tiled.py:187-240)."""
     tris = dev["tris"]
     m = tris.shape[1] // 14
-    lcode, lptr = _pop(st["lstack"], st["lptr"], st["lptr"] > 0)
+    lcode, lptr = _pop(st["lstack"], st["lptr"], st["lptr"] > 0, ablate)
     is_leaf = lcode < 0
-    row = tris[torch.where(is_leaf, ~lcode, 0)]
+    pidx = torch.where(is_leaf, ~lcode, 0)
+    if "trigatherfix" in ablate:
+        pidx = torch.zeros_like(pidx)
+    row = tris[pidx]
     rowi = row.view(torch.int32)
 
     def fld(k):
@@ -131,7 +156,8 @@ def _leaf_unit(dev, rays, st):
     upd = torch.isfinite(best)
     lane = lane[:, None]
     cont = is_leaf & ~(pid[:, m - 1] < 0)
-    _push(st["lstack"], lptr[:, None], (lcode - 1)[:, None], cont[:, None])
+    _push(st["lstack"], lptr[:, None], (lcode - 1)[:, None], cont[:, None],
+          ablate)
     st["lptr"] = lptr + cont.to(lptr.dtype)
     st["t"] = torch.where(upd, best, t0)
     st["u"] = torch.where(upd, uv.gather(1, lane)[:, 0], st["u"])
@@ -142,17 +168,19 @@ def _leaf_unit(dev, rays, st):
         upd, rowi[:, 13 * m:14 * m].gather(1, lane)[:, 0], st["geom_id"])
 
 
-def _node_unit(dev, rays, st, any_hit, s_l):
+def _node_unit(dev, rays, st, any_hit, s_l, ablate=()):
     """Pops one inner node per ray whose leaf stack has room, slab-tests its
     children and pushes the hit ones (tiled.py:252-341)."""
     arity = dev["nodes"].shape[1] // 7
     nptr, lptr = st["nptr"], st["lptr"]
     can = (nptr > 0) & (lptr + arity + 1 <= s_l)
-    ncode, nptr = _pop(st["nstack"], nptr, can)
+    ncode, nptr = _pop(st["nstack"], nptr, can, ablate)
     is_node = ncode > 0
+    code = torch.where(is_node, ncode, 1)
+    if "nodegatherfix" in ablate:
+        code = torch.ones_like(code)
     children, hit = _node_step(dev, rays["org"], rays["inv_d"], rays["tmin"],
-                               st["t"], torch.where(is_node, ncode, 1),
-                               any_hit)
+                               st["t"], code, any_hit or "nosort" in ablate)
     hit = hit & is_node[:, None]
     inner = hit & (children > 0)
     leaf = hit & (children < 0)
@@ -161,10 +189,11 @@ def _node_unit(dev, rays, st, any_hit, s_l):
     k_n = inner_i.sum(1)
     k_l = leaf_i.sum(1)
     # leaf children in sorted order above lptr
-    _push(st["lstack"], lptr[:, None] + _ranks(leaf_i), children, leaf)
+    _push(st["lstack"], lptr[:, None] + _ranks(leaf_i), children, leaf,
+          ablate)
     # inner children: the first in sorted order ends on top
     _push(st["nstack"], (nptr + k_n - 1)[:, None] - _ranks(inner_i),
-          children, inner)
+          children, inner, ablate)
     st["lptr"] = lptr + k_l
     st["nptr"] = nptr + k_n
     if any_hit:
@@ -173,11 +202,13 @@ def _node_unit(dev, rays, st, any_hit, s_l):
         st["lptr"] = torch.where(done, 0, st["lptr"])
 
 
-def _stage_loop(dev, rays, st, stop_rows, any_hit, s_l, counters=None):
+def _stage_loop(dev, rays, st, stop_rows, any_hit, s_l, counters=None,
+                ablate=(), fixed_iters=0):
     """One lockstep loop at the bundle's current width (tiled.py:73-354):
     runs until at most `stop_rows` rows of ROW slots still have work
-    (stop_rows=0: until every ray is done). One host read per trip carries
-    the loop's condition, the leaf gate and the live count."""
+    (stop_rows=0: until every ray is done), or, with fixed_iters, until
+    counters["iters"] reaches it. One host read per trip carries the
+    loop's condition, the leaf gate and the live count."""
     arity = dev["nodes"].shape[1] // 7
     while True:
         nptr, lptr = st["nptr"], st["lptr"]
@@ -195,11 +226,17 @@ def _stage_loop(dev, rays, st, stop_rows, any_hit, s_l, counters=None):
                                                 & (leaf_cnt > 0))
         go, do_leaf, n_live = torch.stack(
             [go.long(), do_leaf.long(), live_cnt]).tolist()
+        if fixed_iters:
+            go = counters["iters"] < fixed_iters
+        if "leafalways" in ablate:
+            do_leaf = 1
+        elif "noleaf" in ablate:
+            do_leaf = 0
         if not go:
             return
         if do_leaf:
-            _leaf_unit(dev, rays, st)
-        _node_unit(dev, rays, st, any_hit, s_l)
+            _leaf_unit(dev, rays, st, ablate)
+        _node_unit(dev, rays, st, any_hit, s_l, ablate)
         trips["trips"] += 1
         trips["leaf_trips"] += do_leaf
         if counters is not None:
@@ -263,25 +300,35 @@ def _traverse_staged(dev, rays, st, any_hit, s_l, max_stages):
 def traverse_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
                         any_hit=False, stack_depth=None,
                         debug_counters=False, compact_stages=0,
-                        sub_batches=0):
+                        ablate=(), fixed_iters=0, sub_batches=0):
     """Closest-hit or any-hit traversal of flat (B,) component rays (org,
     dirv, inv_d, inv_o Vec3 tuples) through the dual-queue engine. A ray
     with tmax < tmin is dead. Returns {t, u, v, prim_id, geom_id} (t = tmax
     and ids -1 on a miss), and "counters" with debug_counters=True.
     compact_stages > 0 takes the staged compaction (bundles of at least 8
     rows, without counters); sub_batches=k > 1 traces k chunks of rows one
-    after the other (see the module docstring)."""
+    after the other; ablate and fixed_iters are the waterfall hooks (see
+    the module docstring)."""
+    ablate = tuple(ablate)
+    for ab in ablate:
+        if ab not in ABLATIONS:
+            raise ValueError(f"unknown ablation {ab!r}; choose from "
+                             f"{ABLATIONS}")
+    if fixed_iters and not debug_counters:
+        raise ValueError("fixed_iters needs the iters counter: pass "
+                         "debug_counters=True")
     b = tmin.shape[0]
     n_rows = -(-b // ROW)
     k = sub_batches
     if (k > 1 and n_rows % k == 0 and n_rows // k >= 8
-            and not debug_counters):
+            and not debug_counters and not fixed_iters):
         step = n_rows // k * ROW
         parts = [traverse_components(
             dev, *[tuple(c[i:i + step] for c in x)
                    for x in (org, dirv, inv_d, inv_o)],
             tmin[i:i + step], tmax[i:i + step], any_hit=any_hit,
-            stack_depth=stack_depth, compact_stages=compact_stages)
+            stack_depth=stack_depth, compact_stages=compact_stages,
+            ablate=ablate)
             for i in range(0, b, step)]
         return {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
     meta = dev.get("meta")
@@ -321,7 +368,8 @@ def traverse_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
         if debug_counters:
             counters = {"iters": 0, "leaf_iters": 0,
                         "live_sum": np.float32(0.0)}
-        _stage_loop(dev, rays, st, 0, any_hit, s_l, counters)
+        _stage_loop(dev, rays, st, 0, any_hit, s_l, counters, ablate,
+                    fixed_iters)
         out = {key: st[key] for key in _HIT_KEYS}
     out = {key: val[:b] for key, val in out.items()}
     out["t"] = torch.where(out["prim_id"] < 0, tmax.to(torch.float32),
@@ -332,13 +380,15 @@ def traverse_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
 
 
 def traverse_tiled(dev, rays, any_hit=False, stack_depth=None,
-                   debug_counters=False, compact_stages=0, sub_batches=0):
+                   debug_counters=False, compact_stages=0, ablate=(),
+                   fixed_iters=0, sub_batches=0):
     """make_rays dict ((B, 3) org/dir) -> hit dict; the contract of
     api.traverse with the options of traverse_components."""
     return traverse_components(dev, *components(rays), any_hit=any_hit,
                                stack_depth=stack_depth,
                                debug_counters=debug_counters,
-                               compact_stages=compact_stages,
+                               compact_stages=compact_stages, ablate=ablate,
+                               fixed_iters=fixed_iters,
                                sub_batches=sub_batches)
 
 
@@ -347,5 +397,6 @@ def occluded_tiled(dev, rays):
     return traverse_tiled(dev, rays, any_hit=True)["prim_id"] >= 0
 
 
-__all__ = ["NODE_STACK_DEPTH", "LEAF_STACK_DEPTH", "traverse_components",
+__all__ = ["NODE_STACK_DEPTH", "LEAF_STACK_DEPTH", "ABLATIONS",
+           "traverse_components",
            "traverse_tiled", "occluded_tiled", "trips", "reset_trips"]

@@ -207,9 +207,7 @@ def test_prefetch_and_count_kernels(card, width):
                                    "bvh_traverse_count": 1,
                                    "bvh_traverse_option": 0,
                                    "bvh_traverse_tile": 0,
-                                   "bvh_traverse_pair": 0,
-                                   "tile_v1 bvh_traverse_tile": 0,
-                                   "tile_v1 bvh_traverse_pair": 0}
+                                   "bvh_traverse_pair": 0}
         for key in ("t", "u", "v", "prim_id", "geom_id"):
             assert torch.equal(k2[key], k1[key]), key
             assert torch.equal(k3[key], k1[key]), key
@@ -371,18 +369,9 @@ def _tile_kw(mode):
             "ablate": ("nopure",) if mode == "nopure" else ()}
 
 
-def _tile_launch(schedule, dev, rays, kernel, any_hit, size, mode="plain",
-                 ablate=()):
-    """K5 or K6 in `schedule` with its counters: the wrapped schedule
-    through the wrappers, the other through ab_tile_body.launch; one
-    launch each, counted under its library's key."""
-    if schedule != ab_tile_body.WRAPPED:
-        packet.reset_launches()
-        out = ab_tile_body.launch(dev, api.components(rays), kernel,
-                                  schedule, any_hit, size, mode, ablate)
-        assert ab_tile_body.launch_count(schedule, kernel) == 1
-        assert sum(packet.launches.values()) == 1
-        return out
+def _tile_launch(dev, rays, kernel, any_hit, size, mode="plain", ablate=()):
+    """K5 or K6 with its counters through the wrappers; one launch each,
+    counted under the kernel's name."""
     packet.reset_launches()
     if kernel == "K5":
         out = packet.traverse_packet(dev, rays, any_hit=any_hit,
@@ -393,13 +382,14 @@ def _tile_launch(schedule, dev, rays, kernel, any_hit, size, mode="plain",
         out = pair.traverse_pair(dev, rays, any_hit=any_hit, tile_rays=size,
                                  ablate=ablate, count_pops=True)
         assert packet.launches["bvh_traverse_pair"] == 1
+    assert ab_tile_body.launch_count(kernel) == 1
+    assert sum(packet.launches.values()) == 1
     return out
 
 
-@pytest.mark.parametrize("schedule", ab_tile_body.SCHEDULES)
 @pytest.mark.parametrize("width", [8, 24])
-def test_tile_kernel_matches_plain(card, width, schedule):
-    """K5 in each schedule against its plain version on the card, bit for
+def test_tile_kernel_matches_plain(card, width):
+    """K5 against its plain version on the card, bit for
     bit: hits and per-tile pops and leaf pops, modes plain, frustum and
     nopure, closest-hit and any-hit, tile_rows 1, 2, 16 and 32, on coherent
     (octant pure) and random rays whose count fills no whole number of
@@ -414,8 +404,7 @@ def test_tile_kernel_matches_plain(card, width, schedule):
             k1 = packet.traverse_packet(dev, rays, any_hit=any_hit)
             for rows in (1, 2, 16, 32):
                 for mode in packet.TILE_MODES:
-                    k = _tile_launch(schedule, dev, rays, "K5", any_hit,
-                                     rows, mode)
+                    k = _tile_launch(dev, rays, "K5", any_hit, rows, mode)
                     p = api.traverse(dev, rays, any_hit=any_hit,
                                      count_pops=True, tile_rows=rows,
                                      **_tile_kw(mode))
@@ -428,9 +417,8 @@ def test_tile_kernel_matches_plain(card, width, schedule):
                         assert torch.equal(k["prim_id"], k1["prim_id"])
 
 
-@pytest.mark.parametrize("schedule", ab_tile_body.SCHEDULES)
-def test_pair_kernel_matches_plain(card, schedule):
-    """K6 in each schedule against its plain version on the card, bit for
+def test_pair_kernel_matches_plain(card):
+    """K6 against its plain version on the card, bit for
     bit: hits and per-tile pops and leaf pops, tiles of 128, 256, 1024 and
     2048 rays, each ablation, closest-hit and any-hit; its closest hits
     equal K1's."""
@@ -443,8 +431,7 @@ def test_pair_kernel_matches_plain(card, schedule):
         k1 = packet.traverse_packet(dev, rays, any_hit=any_hit)
         for tile in (128, 256, 1024, 2048):
             for ab in ((), *((a,) for a in pair.ABLATIONS)):
-                k = _tile_launch(schedule, dev, rays, "K6", any_hit, tile,
-                                 ablate=ab)
+                k = _tile_launch(dev, rays, "K6", any_hit, tile, ablate=ab)
                 p = pair.traverse_pair_components(
                     dev, *api.components(rays)[:3], rays["tmin"],
                     rays["tmax"], any_hit, tile, ab, count_pops=True)
@@ -457,36 +444,34 @@ def test_pair_kernel_matches_plain(card, schedule):
                     assert torch.equal(k["prim_id"], k1["prim_id"])
 
 
-@pytest.mark.parametrize("schedule", ab_tile_body.SCHEDULES)
-def test_tile_and_pair_refusals(card, schedule):
-    """K5 is built for BVH8 with Tri8/Tri24 rows, K6 for BVH8 with Tri8, in
-    either schedule."""
+def test_tile_and_pair_refusals(card):
+    """K5 is built for BVH8 with Tri8/Tri24 rows, K6 for BVH8 with Tri8,
+    through the wrappers and through ab_tile_body.launch."""
     verts, idx = _soup(500, seed=11)
     rays = _rays(256, 12, card, 1e30)
     comps = api.components(rays)
     dev4 = api.bvh_to_device(build_bvh(verts, idx, arity=4, packet=8), card)
     dev16 = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=16),
                               card)
-    if schedule == ab_tile_body.WRAPPED:
-        with pytest.raises(ValueError, match="built for BVH8"):
-            packet.traverse_packet(dev4, rays, tile_rows=2)
-        with pytest.raises(ValueError, match="built for BVH8"):
-            packet.traverse_packet(dev16, rays, tile_rows=2)
-        with pytest.raises(ValueError, match="Tri8 rows only"):
-            pair.traverse_pair(dev16, rays)
+    with pytest.raises(ValueError, match="built for BVH8"):
+        packet.traverse_packet(dev4, rays, tile_rows=2)
+    with pytest.raises(ValueError, match="built for BVH8"):
+        packet.traverse_packet(dev16, rays, tile_rows=2)
+    with pytest.raises(ValueError, match="Tri8 rows only"):
+        pair.traverse_pair(dev16, rays)
     for dev in (dev4, dev16):
         with pytest.raises(ValueError, match="built for BVH8"):
-            ab_tile_body.launch(dev, comps, "K5", schedule, size=2)
+            ab_tile_body.launch(dev, comps, "K5", size=2, stack_cap=8)
     with pytest.raises(ValueError, match="Tri8 rows only"):
-        ab_tile_body.launch(dev16, comps, "K6", schedule, size=256)
+        ab_tile_body.launch(dev16, comps, "K6", size=256)
 
 
 @pytest.mark.parametrize("kernel,size", [("K5", 1), ("K5", 16),
                                          ("K6", 256), ("K6", 2048)])
 def test_tile_stops_agree(card, kernel, size):
-    """A stack (K5) or a guard (K6) too small for some tiles: both schedules
-    stop the same tiles with pops -1 and agree in every output; the other
-    tiles keep the plain version's pops."""
+    """A stack (K5) or a guard (K6) too small for some tiles: those tiles
+    stop with pops -1; the other tiles keep the plain version's pops and
+    their rays its hits."""
     verts, idx = _soup(3000, seed=91)
     dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8,
                                       leaf_threshold=32, leaf_cost=0.2),
@@ -498,10 +483,9 @@ def test_tile_stops_agree(card, kernel, size):
 
 
 def test_tile_frustum_rows32_deep_stack(card):
-    """At tile_rows 32 in frustum mode the warp schedule launches on a
-    stack of TILE_FRUSTUM_R32_STACK_MAX entries, equal to the first
-    schedule and the plain version, and refuses one more by name; the
-    first schedule launches on the largest stack."""
+    """At tile_rows 32 in frustum mode K5 launches on a stack of
+    TILE_FRUSTUM_R32_STACK_MAX entries, equal to the plain version, and
+    refuses one more by name."""
     verts, idx = _soup(3000, seed=93)
     dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8,
                                       leaf_threshold=32, leaf_cost=0.2),
@@ -510,28 +494,22 @@ def test_tile_frustum_rows32_deep_stack(card):
     comps = api.components(rays)
     cap = packet.TILE_FRUSTUM_R32_STACK_MAX
     p = api.traverse(dev, rays, count_pops=True, tile_rows=32, frustum=True)
-    for schedule, stack in (("warp", cap), ("v1", cap),
-                            ("v1", packet.TILE_STACK_MAX)):
-        k = ab_tile_body.launch(dev, comps, "K5", schedule, False, 32,
-                                "frustum", stack_cap=stack)
-        _equal(k, p, (schedule, stack))
+    k = ab_tile_body.launch(dev, comps, "K5", False, 32, "frustum",
+                            stack_cap=cap)
+    _equal(k, p, cap)
     with pytest.raises(ValueError, match="frustum mode at tile_rows 32"):
-        ab_tile_body.launch(dev, comps, "K5", "warp", False, 32, "frustum",
+        ab_tile_body.launch(dev, comps, "K5", False, 32, "frustum",
                             stack_cap=cap + 1)
 
 
 def test_tile_resources(card):
-    """Both schedules' resource queries for the headline instances: a block
-    of 512 threads fits on an SM, and the warp schedule keeps its rays out
-    of shared memory up to 2,048 rays a tile."""
+    """The resource queries for the headline instances: a block of 512
+    threads fits on an SM, and the rays stay out of shared memory up to
+    2,048 rays a tile."""
     for kernel, size in (("K5", 16), ("K6", 2048)):
-        for schedule in ab_tile_body.SCHEDULES:
-            r = ab_tile_body.resources(kernel, schedule, 8, False, size,
-                                       "plain", 32)
-            assert r["threads"] == 512 and r["blocks"] >= 1, r
-        warp = ab_tile_body.resources(kernel, "warp", 8, False, size,
-                                      "plain", 32)
-        assert warp["smem_dynamic"] < 13 * 2048 * 4, warp
+        r = ab_tile_body.resources(kernel, 8, False, size, "plain", 32)
+        assert r["threads"] == 512 and r["blocks"] >= 1, r
+        assert r["smem_dynamic"] < 13 * 2048 * 4, r
 
 
 PROBES = {m.__name__.rsplit(".", 1)[1]: m for m in (

@@ -1,0 +1,344 @@
+"""The port's last measuring programs on the CPU: the SASS reader shared by
+vpu_dtype_bench and sass_audit on listings written here (the card's
+cuobjdump and nvdisasm formats), sass_audit's regions, lane-loop weights,
+per-ray fit and issue estimate, tree_stats against the JAX function,
+the sort keys of probe_crown_sort and measure_sorts against the JAX
+files' own code (parsed, since those files run their work in main), and
+each program's --cpu run at a tiny size. Integers, keys and permutations
+are held bit for bit; tree_stats' floats exactly, since both run the
+same numpy arithmetic on one BVH."""
+import ast
+import json
+import os
+import re
+from collections import Counter
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from rodent_tpu.accel import build_bvh as jbuild_bvh
+from rodent_tpu.traversal.sorting import _morton10, ray_octant
+from rodent_tpu_torch.accel import build_bvh
+from rodent_tpu_torch.experiments import (attribute_crown, common,
+                                          measure_sorts, probe_crown_sort,
+                                          sass_audit, vpu_dtype_bench)
+from rodent_tpu_torch.kernels import build
+from rodent_tpu_torch.utils import testscenes
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = "/src/rodent_tpu_torch/csrc/bvh_traverse.cu"
+
+
+def test_parse_sass_both_formats():
+    """cuobjdump -sass (a "Function :" header, hex branch targets) and
+    nvdisasm -gi (".text." headers, labels, source lines; several line
+    records before one instruction add up): instructions, opcodes with
+    and without their predicate and modifiers, branch targets, loops."""
+    cuobjdump = """
+	code for sm_90a
+		Function : _Z3fooPf
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;  /* 0x00000a00ff017b82 */
+        /*0010*/                   FMUL R2, R0, 2 ;
+        /*0020*/              @!P0 FSETP.GT.AND P1, PT, R2, R3, PT ;
+        /*0030*/               @P1 BRA 0x10 ;
+        /*0040*/                   EXIT ;
+        /*0050*/                   BRA 0x50;
+"""
+    f = common.parse_sass(cuobjdump)["_Z3fooPf"]
+    assert [a for a, _, _ in f.insns] == [0, 16, 32, 48, 64, 80]
+    assert common.opcode(f.insns[2][1]) == "FSETP"
+    assert common.opcode(f.insns[2][1], full=True) == "FSETP.GT.AND"
+    assert common.branch_target(f, f.insns[3][1]) == 16
+    assert common.branch_target(f, f.insns[1][1]) is None
+    assert common.loops(f) == [(16, 48)]       # the end's trap is none
+    nvdisasm = f"""
+.text._Z3barv:
+_Z3barv:
+	//## File "{SRC}", line 245
+        /*0000*/                   S2R R5, SR_CTAID.X ;
+.L_x_1:
+	//## File "{SRC}", line 183 inlined at "{SRC}", line 247
+	//## File "{SRC}", line 247
+        /*0010*/                   IMAD.SHL.U32 R22, R2, 0x4, RZ ;
+        /*0020*/               @P0 BRA `(.L_x_1) ;
+"""
+    g = common.parse_sass(nvdisasm)["_Z3barv"]
+    assert g.labels == {".L_x_1": 16}
+    assert g.insns[0][2] == ((SRC, 245),)
+    assert g.insns[1][2] == ((SRC, 183), (SRC, 247), (SRC, 247))
+    assert g.insns[2][2] == g.insns[1][2]
+    assert common.loops(g) == [(16, 32)]
+
+
+def test_vpu_sass_counts_on_a_listing(monkeypatch):
+    """vpu_dtype_bench.sass_counts on the shared reader: the float32 loop
+    body unrolled 8 times, 4 operations a word each, less the loop's
+    compare, its counter and the branch: 4 per word and iteration."""
+    body = "".join(
+        f"        /*{0x100 + 0x40 * i:04x}*/  FMUL R{i}, R{i}, R20 ;\n"
+        f"        /*{0x110 + 0x40 * i:04x}*/  FADD R{i}, R{i}, -R21 ;\n"
+        f"        /*{0x120 + 0x40 * i:04x}*/  FMNMX R{i}, R{i}, R30, !PT ;\n"
+        f"        /*{0x130 + 0x40 * i:04x}*/  FMNMX R{i}, R{i}, R22, PT ;\n"
+        for i in range(8))
+    listing = ("\t\tFunction : _Z10vpu_kernelILi0EEvPKfPfxijjj\n"
+               "        /*0000*/  MOV R9, RZ ;\n" + body +
+               "        /*0300*/  IADD3 R9, R9, 0x8, RZ ;\n"
+               "        /*0310*/  ISETP.GE.AND P0, PT, R9, 0x7d0, PT ;\n"
+               "        /*0320*/  @!P0 BRA 0x100 ;\n"
+               "        /*0330*/  EXIT ;\n")
+    monkeypatch.setattr(common, "read_sass",
+                        lambda path: common.parse_sass(listing))
+    counts = vpu_dtype_bench.sass_counts("unused")
+    assert counts["float32"][0] == 4
+    assert counts["float32"][1] == Counter({"FMUL": 8, "FADD": 8,
+                                            "FMNMX": 16})
+
+
+def _k1_listing(reg, fname):
+    """A fake K1 loop in nvdisasm -gi's form: 2 pop instructions, 5 node
+    ones (one of them inlined from a helper), a leaf of 1 instruction
+    before a lane loop of 3 (its backward branch among them), 1 NOP, and
+    a prologue outside the loop."""
+    pop = reg["loop"][0]
+    node = reg["node"][0] + 2
+    leaf = reg["leaf"][0] + 3
+    rows = [(reg["body"][0] + 3, "LDC R1, c[0x0][0x28]", ())]
+    rows += [(pop, "ISETP.GT.AND P0, PT, R3, RZ, PT", ()),
+             (pop, "LDL R4, [R1]", ())]
+    rows += [(node, op, ()) for op in ("FADD R5, R5, R6", "FMUL R5, R5, R7",
+                                       "FMNMX R5, R5, R8, PT",
+                                       "FMNMX R5, R5, R9, !PT")]
+    rows += [(190, "FSETP.GTU.AND P1, PT, R5, R6, PT", (node,))]
+    rows += [(leaf, "LDG.E.CONSTANT R10, desc[UR4][R12.64]", ()),
+             ("loop", "FMUL R11, R10, R10", ()),
+             (leaf, "FADD R11, R11, R10", ()),
+             (leaf, "@P2 BRA `(.L_x_9)", ()),
+             (leaf, "NOP", ())]
+    text = [".text._Zk1:", "_Zk1:"]
+    for i, (line, ins, inl) in enumerate(rows):
+        if line == "loop":
+            text.append(".L_x_9:")
+            line = leaf
+        if inl:
+            text.append(f'\t//## File "{fname}", line {line} inlined at '
+                        f'"{fname}", line {inl[0]}')
+            text.append(f'\t//## File "{fname}", line {inl[0]}')
+        else:
+            text.append(f'\t//## File "{fname}", line {line}')
+        text.append(f"        /*{0x10 * i:04x}*/  {ins} ;")
+    return "\n".join(text)
+
+
+def test_sass_audit_regions_on_a_listing():
+    """sass_audit's regions from the kernel's own source (the loop, the
+    block of `if (code > 0)`, its else block; K5's two slab-form calls),
+    the leaf's lane loop weighted M / unroll times, NOPs counted but not
+    issued, and the warp instructions of a node and a leaf pop."""
+    src = (build.CSRC / "bvh_traverse.cu").read_text()
+    reg = sass_audit.kernel_regions(src, "bvh_traverse_kernel")
+    assert reg["body"][0] < reg["loop"][0] < reg["node"][0] < reg["leaf"][0]
+    assert reg["leaf"][1] < reg["loop"][1] < reg["body"][1]
+    assert sass_audit.lane_unroll(src, "bvh_traverse_kernel") == 4
+    tile = (build.CSRC / "bvh_tile.cu").read_text()
+    treg = sass_audit.kernel_regions(tile, "bvh_tile_warp_kernel")
+    assert len(treg["node pure"]) == len(treg["node mixed"]) == 1
+    assert sass_audit.lane_unroll(tile, "bvh_pair_warp_kernel") == 4
+    fname = "/any/path/bvh_traverse.cu"
+    fn = common.parse_sass(_k1_listing(reg, fname))["_Zk1"]
+    a = sass_audit.audit_function(fn, src, "bvh_traverse.cu",
+                                  "bvh_traverse_kernel", 8)
+    assert a["count"] == {"pop": 2, "node": 5, "leaf": 5}
+    assert a["hist"]["node"] == Counter({"FMNMX": 2, "FADD": 1, "FMUL": 1,
+                                         "FSETP": 1})
+    assert a["lane_loop"] == (3, 2)
+    # leaf: 1 + 3 x 2 trips, the NOP left out
+    assert a["weighted"] == {"pop": 2, "node": 5, "leaf": 7}
+    assert sass_audit.per_pop(a) == {"node": 7, "leaf": 9}
+    a24 = sass_audit.audit_function(fn, src, "bvh_traverse.cu",
+                                    "bvh_traverse_kernel", 24)
+    assert a24["weighted"]["leaf"] == 1 + 3 * 6
+
+
+def test_sass_audit_fit_estimate_and_parsers():
+    """The per-ray fit (count = fixed + R x per ray from R = 1 and 4), the
+    issue estimate of a measured run, the mangled names of the three
+    kernels, and the res-usage and ptxas spill lines."""
+    r1 = {"count": {"node": 100, "leaf": 50},
+          "hist": {r: Counter() for r in sass_audit.REGIONS}}
+    r4 = {"count": {"node": 130, "leaf": 110},
+          "hist": {r: Counter() for r in sass_audit.REGIONS}}
+    r1["hist"]["node"].update({"FMUL": 10, "LDG": 90})
+    r4["hist"]["node"].update({"FMUL": 40, "LDG": 90})
+    fit = sass_audit.per_ray_fit(r1, r4)
+    assert fit["node"]["per_ray"] == 10 and fit["node"]["fixed"] == 90
+    assert fit["node"]["per_ray_hist"] == {"FMUL": 10}
+    assert fit["node"]["fixed_hist"] == {"LDG": 90}
+    assert fit["leaf"]["per_ray"] == 20 and fit["leaf"]["fixed"] == 30
+    static = {"audit": {"weighted": {"pop": 10, "node": 290, "leaf": 500}}}
+    meas = {"ms": 1.0, "pops": 1_000_000, "warps": 1000,
+            "warp_node": 300.0, "warp_leaf": 20.0}
+    est = sass_audit.estimate(static, meas, 1000.0, 100)
+    assert est["instr"] == 1000 * (300 * 300 + 20 * 510)
+    assert est["issue_ms"] == pytest.approx(
+        est["instr"] / (100 * 4 * 1e9) * 1e3)
+    assert est["share"] == pytest.approx(est["issue_ms"] / 1.0)
+    assert est["ns_pop"] == pytest.approx(1.0)
+    assert sass_audit.demangle(
+        "_ZN48_GLOBAL__N__3306fb65_15_bvh_traverse_cu_9d8585d119bvh_"
+        "traverse_kernelILb0ELi8ELi24ELi128ELi2EEEvNS_4ArgsE") == (
+        "bvh_traverse_kernel", (0, 8, 24, 128, 2))
+    assert sass_audit.demangle(
+        "_ZN12_GLOBAL__N_120bvh_tile_warp_kernelILi8ELb1ELb0ELi4EEEvNS_4"
+        "ArgsE") == ("bvh_tile_warp_kernel", (8, 1, 0, 4))
+    assert sass_audit.demangle("_Z3fooPf") is None
+    usage = sass_audit.parse_res_usage(
+        " Function _Zk1:\n  REG:47 STACK:256 SHARED:0 LOCAL:0 "
+        "CONSTANT[0]:696 TEXTURE:0\n Function _Zk2:\n  REG:128 STACK:0\n")
+    assert usage["_Zk1"]["REG"] == 47 and usage["_Zk1"]["STACK"] == 256
+    assert usage["_Zk2"] == {"REG": 128, "STACK": 0}
+    log = ("ptxas info    : Function properties for _Zk1\n"
+           "    256 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+           "loads\nptxas info    : Used 47 registers\n")
+    assert sass_audit.spills(log) == {"_Zk1": (8, 4)}
+
+
+def _jax_tree_stats():
+    """The JAX file's tree_stats (experiments/attribute_crown.py:28),
+    compiled from its source (the file's main runs TPU work)."""
+    src = open(os.path.join(REPO, "experiments", "attribute_crown.py")).read()
+    fn = next(n for n in ast.parse(src).body
+              if isinstance(n, ast.FunctionDef) and n.name == "tree_stats")
+    g = {"np": np}
+    exec(compile(ast.Module([fn], []), "attribute_crown.py", "exec"), g)
+    return g["tree_stats"]
+
+
+def test_tree_stats_match_jax():
+    """tree_stats on one small crown build (BVH8/Tri8) equals the JAX
+    function's on the same build, and on the JAX package's own build of
+    the same mesh (the two builders are byte-identical)."""
+    verts, idx = testscenes.make_crown(20_000)
+    kw = dict(arity=8, packet=8, leaf_threshold=12)
+    bvh = build_bvh(verts, idx, **kw)
+    jstats = _jax_tree_stats()
+    got = attribute_crown.tree_stats(bvh, verts)
+    assert got == jstats(bvh, verts)
+    assert got == jstats(jbuild_bvh(verts, idx, **kw), verts)
+    assert got["max_depth"] > 2 and 0 < got["lane_fill"] <= 1
+
+
+def _main_node(path, name):
+    src = open(os.path.join(REPO, "experiments", path)).read()
+    main = next(n for n in ast.parse(src).body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+    return [n for n in main.body if getattr(n, "name", None) == name or (
+        isinstance(n, ast.Assign) and getattr(n.targets[0], "id", "")
+        == name)]
+
+
+def test_probe_crown_sort_orders_match_jax():
+    """sort_orders equals the JAX file's `orders` (evaluated from its
+    source on the same arrays) permutation for permutation, on prim ids
+    with misses and repeats and a cone key of uint32 values."""
+    r = np.random.RandomState(4)
+    n = 50_000
+    pid = r.randint(-1, 3000, n).astype(np.int32)
+    t = np.where(pid >= 0, r.rand(n) * 40, np.float32(3.4e38)).astype(
+        np.float32)
+    cone = r.randint(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+    (node,) = _main_node("probe_crown_sort.py", "orders")
+    want = eval(compile(ast.Expression(node.value), "probe_crown_sort.py",
+                        "eval"), {"np": np, "pid": pid, "tt": t,
+                                  "cone": cone})
+    got = probe_crown_sort.sort_orders(pid, t, cone)
+    assert set(got) == set(want) == set(probe_crown_sort.ORDERS)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_measure_sorts_keys_match_jax():
+    """key_fn of every key equals the JAX file's key_fn (its closure
+    compiled from the source, on jnp and the JAX package's _morton10 and
+    ray_octant) bit for bit, axis-parallel directions included."""
+    fns = _main_node("measure_sorts.py", "qmorton") + _main_node(
+        "measure_sorts.py", "key_fn")
+    r = np.random.RandomState(5)
+    o = (r.rand(20_000, 3) * 10 - 3).astype(np.float32)
+    d = r.randn(20_000, 3).astype(np.float32)
+    d[:50, 1] = 0.0
+    lo = o.min(0)
+    hi = o.max(0)
+    g = {"jnp": jnp, "np": np, "_morton10": _morton10,
+         "ray_octant": ray_octant, "lo": lo, "hi": hi}
+    exec(compile(ast.Module(fns, []), "measure_sorts.py", "exec"), g)
+    for k in measure_sorts.ALL_KEYS:
+        want = np.asarray(g["key_fn"](k, o, d))
+        got = measure_sorts.key_fn(k, o, d, lo, hi)
+        assert got.dtype == np.uint32
+        np.testing.assert_array_equal(got, want, err_msg=k)
+    with pytest.raises(ValueError, match="unknown key"):
+        measure_sorts.key_fn("oct", o, d, lo, hi)
+
+
+TINY = ["--cpu", "--tris", "10000", "--side", "32", "--blocks", "1"]
+PROGRAMS = {
+    "sass_audit": (TINY, r"K5 rows 16: \d+ pops"),
+    "attribute_crown": (TINY, r"crown: \d+ tris.*\n.*occupancy"),
+    "ab_crown_build": (TINY + ["--variants", "q0-lt12-lc0.6"],
+                       r"q0-lt12-lc0.6: \d+ nodes"),
+    "probe_crown_sort": (TINY + ["--rows", "1", "--orders", "cone,t-bucket"],
+                         r"t-bucket rows  1: K5"),
+    "measure_sorts": (TINY + ["--rows", "1", "--keys", "oct+org",
+                              "--dist", "ao"],
+                      r"oct\+org rows  1:"),
+    "waterfall_tiled": (TINY + ["--dist", "ao"], r"barebones:.*\n.*sb0-c5"),
+    "measure_tiled_iters": (TINY, r"bounces:.*trips"),
+    "sweep_arity_tiled": (TINY + ["--grid", "4x4"], r"bounces a4pk4:"),
+    "probe_sb_depth": (TINY + ["--subs", "2"], r"sb2  -c5"),
+    "bigscene_demo": (["--card"] + TINY, r"\[tiled\] .* hit fraction"),
+}
+
+
+@pytest.mark.parametrize("name", list(PROGRAMS))
+def test_program_cpu_run(name, capsys):
+    """Each program's main() with --cpu at a tiny size: it runs the plain
+    versions, prints the CPU's line in place of a card's and its report."""
+    import importlib
+    argv, pattern = PROGRAMS[name]
+    mod = importlib.import_module(f"rodent_tpu_torch.experiments.{name}")
+    assert mod.main(argv) == 0
+    out = capsys.readouterr().out
+    assert "cpu: the plain torch version" in out
+    assert re.search(pattern, out), out
+
+
+def test_bigscene_demo_mesh_cpu(capsys):
+    """bigscene_demo --mesh on two gloo ranks on the CPU: every rank's
+    hits bit for bit equal to one process's."""
+    from rodent_tpu_torch.experiments import bigscene_demo
+    res = bigscene_demo.run_mesh(torch.device("cpu"), 2, 10_000, 16)
+    assert res == {"backend": "gloo", "ranks": 2,
+                   "seconds": res["seconds"], "equal": True}
+
+
+def test_make_goldens_cpu(tmp_path, capsys):
+    """make_goldens renders hall in its golden configuration (2 iterations
+    here) through the dual-queue engine, writes the film and its meta to
+    the directory it is given, holds both renders against tests/golden
+    under the gate, and refuses to write tests/golden."""
+    from rodent_tpu_torch.experiments import make_goldens
+    assert make_goldens.main(["--cpu", "--iters", "2", "--scenes", "hall",
+                              "--out", str(tmp_path)]) == 0
+    meta = json.loads((tmp_path / "golden_meta.json").read_text())
+    assert meta["hall"]["golden_iters"] == 2
+    assert meta["hall"]["calib_mse_u8"] == 0.0     # 2 iterations = short
+    assert (tmp_path / "hall.png").exists()
+    assert "against tests/golden" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="JAX package's goldens"):
+        make_goldens.run(torch.device("cpu"), ("hall",), 2,
+                         os.path.join(REPO, "tests", "golden"))
+    assert make_goldens.OUT == make_goldens.REPO / "build" / "goldens"

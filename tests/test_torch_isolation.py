@@ -58,7 +58,17 @@ def test_port_imports_no_jax():
                  "experiments.race_hall_packet",
                  "experiments.sweep_bigscene_leaf",
                  "experiments.bigscene_12m",
-                 "experiments.shard_scaling_table"):
+                 "experiments.shard_scaling_table",
+                 "experiments.sass_audit", "experiments.attribute_crown",
+                 "experiments.ab_crown_build",
+                 "experiments.probe_crown_sort",
+                 "experiments.measure_sorts",
+                 "experiments.waterfall_tiled",
+                 "experiments.measure_tiled_iters",
+                 "experiments.sweep_arity_tiled",
+                 "experiments.probe_sb_depth",
+                 "experiments.bigscene_demo",
+                 "experiments.make_goldens"):
         assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
@@ -116,9 +126,7 @@ def test_cpu_traversal_never_launches_the_kernel():
                                "bvh_traverse_count": 0,
                                "bvh_traverse_option": 0,
                                "bvh_traverse_tile": 0,
-                               "bvh_traverse_pair": 0,
-                               "tile_v1 bvh_traverse_tile": 0,
-                               "tile_v1 bvh_traverse_pair": 0}
+                               "bvh_traverse_pair": 0}
     assert hit["t"].device.type == "cpu"
 
 

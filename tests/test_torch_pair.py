@@ -164,11 +164,10 @@ def test_pair_refusals(soup):
     assert set(tpacket.launches.values()) == {0}
 
 
-@pytest.mark.parametrize("schedule", ["v1", "warp"])
 @pytest.mark.parametrize("ablate", [(), ("nostrip",), ("nosort",)])
-def test_ab_tile_body_pair_on_cpu(soup, schedule, ablate):
-    """ab_tile_body.launch of K6 on CPU tensors is the plain pair version
-    for either schedule, counters included; it refuses the matrix unit's
+def test_ab_tile_body_pair_on_cpu(soup, ablate):
+    """ab_tile_body.launch of K6 on CPU tensors is the plain pair version,
+    counters included; it refuses the matrix unit's
     ablations as the wrapper does, and launches nothing."""
     from rodent_tpu_torch.experiments import ab_tile_body
     _, tdev = soup
@@ -176,13 +175,13 @@ def test_ab_tile_body_pair_on_cpu(soup, schedule, ablate):
     rays = tapi.make_rays(org, d, 0.0, tmax)
     comps = tapi.components(rays)
     tpacket.reset_launches()
-    got = ab_tile_body.launch(tdev, comps, "K6", schedule, True, 256,
+    got = ab_tile_body.launch(tdev, comps, "K6", True, 256,
                               ablate=ablate)
     want = tpair.traverse_pair(tdev, rays, any_hit=True, tile_rays=256,
                                ablate=ablate, count_pops=True)
     for key in want:
         assert torch.equal(got[key], want[key]), key
     with pytest.raises(ValueError, match="matrix unit"):
-        ab_tile_body.launch(tdev, comps, "K6", schedule, size=256,
+        ab_tile_body.launch(tdev, comps, "K6", size=256,
                             ablate=("nomatmul",))
     assert set(tpacket.launches.values()) == {0}

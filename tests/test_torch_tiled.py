@@ -10,6 +10,8 @@ counters (iters, leaf_iters, live_sum) exactly equal, since the port keeps
 the JAX engine's lockstep schedule. Staged compaction is exactly equal to
 the single-stage loop (and the stages are seen to run, on 4,000 sorted
 rays: 32 rows halve to 16 and 8); sub_batches=2 equals the JAX engine's.
+The waterfall hooks (ablate=, fixed_iters=) are held likewise, hits and
+counters, on the schedule pinned at the free-running trips.
 
 Films: under `jit` XLA contracts multiply-adds (ROADMAP C2), which flips a
 few Russian-roulette draws of the JAX film: on hall-20K at 32x32, spp 2,
@@ -172,6 +174,107 @@ def test_tiled_sub_batches_match_jax(sorted_soup, monkeypatch):
     base = tiled.traverse_tiled(tdev, trays)
     for k in ("t", "u", "v", "prim_id", "geom_id"):
         assert torch.equal(got[k], base[k]), k
+
+
+@pytest.fixture(scope="module")
+def waterfall_soup():
+    """A BVH8/Tri4 soup of 257 triangles (multi-packet leaves, so the
+    continuation push runs) and 300 rays, every seventh dead, with the
+    JAX engine's free-running trips for closest-hit and any-hit."""
+    verts, idx = random_tri_soup(257, seed=47)
+    bvh = build_bvh(verts, idx, arity=8, packet=4)
+    jdev = japi.bvh_to_device(bvh)
+    tdev = tapi.bvh_to_device(bvh, "cpu")
+    runs = {}
+    for any_hit, tmax in ((False, 1e30), (True, 2.0)):
+        org, d, tm = soup_rays(300, 49, tmax)
+        jr = japi.make_rays(org, d, np.zeros(300, np.float32), tm)
+        trips = int(jtiled(jdev, jr, any_hit=any_hit,
+                           debug_counters=True)["counters"]["iters"])
+        runs[any_hit] = (jr, tapi.make_rays(org, d, 0.0, tm), trips)
+    return jdev, tdev, runs
+
+
+def _counters(out):
+    return {k: float(v) for k, v in out["counters"].items()}
+
+
+@pytest.mark.parametrize("ablate", [(a,) for a in tiled.ABLATIONS] + [
+    ("noleaf", "nodegatherfix", "nosort", "nopush", "nopop")])
+def test_tiled_waterfall_ablations_match_jax(waterfall_soup, ablate):
+    """Each waterfall ablation (and experiments/waterfall_tiled.py's
+    "barebones" set) on the schedule pinned at the free-running trips
+    (fixed_iters, as the waterfall runs them): hits and counters equal to
+    the JAX engine's, trip for trip (iters, leaf_iters, live_sum),
+    closest-hit and any-hit; prim_id/geom_id exact, t/u/v within atol 1e-5
+    and rtol 1e-6. The ablated hits are wrong on purpose; both engines
+    must still compute the same wrong hits."""
+    jdev, tdev, runs = waterfall_soup
+    for any_hit, (jr, tr, trips) in runs.items():
+        want = jtiled(jdev, jr, any_hit=any_hit, debug_counters=True,
+                      ablate=ablate, fixed_iters=trips)
+        got = tiled.traverse_tiled(tdev, tr, any_hit=any_hit,
+                                   debug_counters=True, ablate=ablate,
+                                   fixed_iters=trips)
+        assert_hits(got, want)
+        assert _counters(got) == _counters(want)
+        assert got["counters"]["iters"] == trips
+
+
+def test_tiled_fixed_iters_matches_jax(waterfall_soup):
+    """fixed_iters alone pins the trip count: below the free-running trips
+    the loop stops early (fewer hits), above them it runs idle trips that
+    add nothing but trips; both equal the JAX engine's hits and counters.
+    fixed_iters without debug_counters is refused, as the JAX engine
+    asserts; an unknown ablation is refused by name."""
+    jdev, tdev, runs = waterfall_soup
+    for any_hit, (jr, tr, trips) in runs.items():
+        for n in (trips // 2, trips + 8):
+            want = jtiled(jdev, jr, any_hit=any_hit, debug_counters=True,
+                          fixed_iters=n)
+            got = tiled.traverse_tiled(tdev, tr, any_hit=any_hit,
+                                       debug_counters=True, fixed_iters=n)
+            assert_hits(got, want)
+            assert _counters(got) == _counters(want)
+            assert got["counters"]["iters"] == n
+    jr, tr, trips = runs[False]
+    with pytest.raises(AssertionError):
+        jtiled(jdev, jr, fixed_iters=trips)
+    with pytest.raises(ValueError, match="debug_counters"):
+        tiled.traverse_tiled(tdev, tr, fixed_iters=trips)
+    with pytest.raises(ValueError, match="unknown ablation"):
+        tiled.traverse_tiled(tdev, tr, ablate=("nopure",))
+
+
+def test_tiled_waterfall_hooks_preserve_results(waterfall_soup):
+    """The counterpart of tests/test_traversal.py's test of the same name:
+    'leafalways' on a schedule pinned past the free-running trips and
+    'nosort' running free leave the hits as they are (the engine without
+    hooks, itself equal to the JAX engine), and equal the JAX engine's
+    under the same hooks; sub-batches pass the ablation to each chunk, as
+    the JAX engine's lax.map does."""
+    jdev, tdev, runs = waterfall_soup
+    jr, tr, trips = runs[False]
+    base = tiled.traverse_tiled(tdev, tr)
+    assert_hits(base, jtiled(jdev, jr))
+    for kw in (dict(ablate=("leafalways",), fixed_iters=trips + 8,
+                    debug_counters=True),
+               dict(ablate=("nosort",), debug_counters=True)):
+        got = tiled.traverse_tiled(tdev, tr, **kw)
+        for k in ("prim_id", "geom_id"):
+            assert torch.equal(got[k], base[k]), (kw, k)
+        for k in ("t", "u", "v"):
+            np.testing.assert_allclose(got[k].numpy(), base[k].numpy(),
+                                       atol=1e-5, rtol=1e-6)
+        want = jtiled(jdev, jr, **kw)
+        assert_hits(got, want)
+        assert _counters(got) == _counters(want)
+    org, d, tm = soup_rays(2048, 51, 1e30)
+    jr4 = japi.make_rays(org, d, np.zeros(2048, np.float32), tm)
+    tr4 = tapi.make_rays(org, d, 0.0, tm)
+    got = tiled.traverse_tiled(tdev, tr4, sub_batches=2, ablate=("nosort",))
+    assert_hits(got, jtiled(jdev, jr4, sub_batches=2, ablate=("nosort",)))
+    assert_hits(got, tiled.traverse_tiled(tdev, tr4))
 
 
 @pytest.fixture(scope="module")
