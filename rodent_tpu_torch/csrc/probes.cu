@@ -295,9 +295,10 @@ __global__ void __launch_bounds__(128) mosaic2_kernel(
 
 // ---------------------------------------------------------------------------
 // probe_gather: experiments/probe_gather.py, run at :28-35. A take_along_axis
-// per element: thread (r, j) of an (8, 128) block reads word idx of its row
-// r (axis 1) or row idx of its column j (axis 0).
-//   kCorrect (:38-57 f32, :60-75 int32): one block, any (rows, 128), untimed.
+// per element: element (r, j) reads word idx of its row r (axis 1) or row
+// idx of its column j (axis 0).
+//   kTake (:38-57 f32, :60-75 int32): any (rows, 128), a grid over the card
+//     (gather_take_kernel below).
 //   kChain (:92-108): K = 2048 dependent lane gathers of an int32 (8, 128)
 //     table, idx = (tbl[r, idx] + 1) & 127.
 //   kFields (:113-130): a 56-field (8, 128) f32 block, 256 iterations; each
@@ -305,25 +306,57 @@ __global__ void __launch_bounds__(128) mosaic2_kernel(
 //   kPages (:133-162): P = 1, 2, 4, 8 pages of 28 fields; the TPU selects a
 //     page with a chain of P where()s, the card indexes the page directly
 //     (the same value: hi < P always).
-// The question for the card: does a ray fetch its node's fields from a page
-// held in shared memory faster than from global memory through __ldg, as
-// K1 does? With smem=1 the table goes in shared memory (56 x 4 KB = 224 KB
-// and 2 pages x 28 x 4 KB = 224 KB fit the 227 KB a block may have; 4 and 8
-// pages do not, and the wrapper refuses smem there); with smem=0 every
-// gather is an __ldg. Bound with one copy: the latency of one gather per
-// step (a dependent chain); with the card full, shared-memory or L1
+// The timed bodies ask the card: does a ray fetch its node's fields from a
+// page held in shared memory faster than from global memory through __ldg,
+// as K1 does? With smem=1 the table goes in shared memory (56 x 4 KB = 224
+// KB and 2 pages x 28 x 4 KB = 224 KB fit the 227 KB a block may have; 4
+// and 8 pages do not, and the wrapper refuses smem there); with smem=0
+// every gather is an __ldg. Bound with one copy: the latency of one gather
+// per step (a dependent chain); with the card full, shared-memory or L1
 // bandwidth. One block of 1024 threads per copy.
-enum { kCorrect, kChain, kFields, kPages };
+enum { kTake, kChain, kFields, kPages };
 constexpr int kChainSteps = 2048, kFieldIters = 256, kFields56 = 56,
               kPageFields = 28;
 
-__global__ void __launch_bounds__(1024) gather_correct_kernel(
-    const int* __restrict__ tbl, const int* __restrict__ idx,
-    int* __restrict__ out, int rows, int axis) {
-  for (int e = threadIdx.x; e < rows * 128; e += blockDim.x) {
-    const int r = e >> 7, j = e & 127;
-    out[e] = axis == 1 ? tbl[r * 128 + idx[e]] : tbl[idx[e] * 128 + j];
+// kTake: out[e] = tbl[r, idx[e]] (axis 1) or tbl[idx[e], j] (axis 0) over
+// a (rows, 128) table of 32-bit words, jnp.take_along_axis and
+// torch.gather(tbl, axis, idx). Bound by bytes (table, indices and output
+// once each), and below a few thousand rows by the launch itself. The TPU
+// ran it as one program; here one thread takes a 16-byte group of four
+// elements of one row (rows * 128 is a multiple of 4), kTakeThreads
+// threads a block and rows / 4 blocks, so the grid spreads over every SM
+// (128 blocks at 512 rows) and no thread waits on a series of loads. A
+// thread's index load and output store are one coalesced 16-byte access
+// each; its four table loads are independent __ldg's. Axis 1: a warp's
+// 128 gathers fall in one 512-byte row, which L1 holds after its first
+// touch. Axis 0: each lane reads a word of four other rows, a 32-byte
+// sector for each 4-byte word, from a table that sits in L2 as far as it
+// fits (the access torch.gather makes too).
+constexpr int kTakeThreads = 128;
+
+template <int kAxis>
+__global__ void __launch_bounds__(kTakeThreads) gather_take_kernel(
+    const int* __restrict__ tbl, const int4* __restrict__ idx,
+    int4* __restrict__ out, int groups) {
+  const int g = blockIdx.x * kTakeThreads + threadIdx.x;
+  if (g >= groups) return;
+  const int4 i = __ldg(idx + g);
+  const int e = g * 4;
+  int4 o;
+  if (kAxis == 1) {
+    const int* row = tbl + (e & ~127);
+    o.x = __ldg(row + i.x);
+    o.y = __ldg(row + i.y);
+    o.z = __ldg(row + i.z);
+    o.w = __ldg(row + i.w);
+  } else {
+    const int* col = tbl + (e & 127);
+    o.x = __ldg(col + i.x * 128);
+    o.y = __ldg(col + i.y * 128 + 1);
+    o.z = __ldg(col + i.z * 128 + 2);
+    o.w = __ldg(col + i.w * 128 + 3);
   }
+  out[g] = o;
 }
 
 template <int kBody, bool kSmem>
@@ -945,19 +978,28 @@ extern "C" int rt_probe_mosaic2(int body, const float* x, float* out,
   return (int)cudaGetLastError();
 }
 
-// probe_gather. kCorrect: tbl and out (rows, 128) 32-bit words, idx (rows,
-// 128) int32, axis 0 or 1, one block. kChain: tbl (8, 128) int32; kFields:
-// (56, 8, 128) f32; kPages: (28, pages, 8, 128) f32; idx (8, 128) int32,
-// out (copies, 8, 128) int32; smem: the table in shared memory.
+// probe_gather. kTake: tbl and out (rows, 128) 32-bit words, idx (rows,
+// 128) int32 in [0, 128) (axis 1) or [0, rows) (axis 0), all 16-byte
+// aligned, axis 0 or 1, rows from 1 to 2^24 - 1. kChain: tbl (8, 128)
+// int32; kFields: (56, 8, 128) f32; kPages: (28, pages, 8, 128) f32; idx
+// (8, 128) int32, out (copies, 8, 128) int32; smem: the table in shared
+// memory.
 extern "C" int rt_probe_gather(int body, const void* tbl, const int* idx,
                                void* out, int rows, int axis, int pages,
                                int smem, int copies, void* stream) {
-  if (body == kCorrect) {
-    if (rows < 1 || (axis != 0 && axis != 1))
+  if (body == kTake) {
+    if (rows < 1 || rows >= (1 << 24) || (axis != 0 && axis != 1))
       return (int)cudaErrorInvalidValue;
-    gather_correct_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(tbl), idx, static_cast<int*>(out), rows,
-        axis);
+    const int groups = rows * 32;
+    const int blocks = (groups + kTakeThreads - 1) / kTakeThreads;
+    const int* t = static_cast<const int*>(tbl);
+    const int4* i = reinterpret_cast<const int4*>(idx);
+    int4* o = static_cast<int4*>(out);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (axis == 1)
+      gather_take_kernel<1><<<blocks, kTakeThreads, 0, s>>>(t, i, o, groups);
+    else
+      gather_take_kernel<0><<<blocks, kTakeThreads, 0, s>>>(t, i, o, groups);
     return (int)cudaGetLastError();
   }
   const float* t = static_cast<const float*>(tbl);

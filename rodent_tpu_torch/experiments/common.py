@@ -247,17 +247,21 @@ def timed(fn, device, blocks=5, block_ms=20.0, warmup_s=0.0):
     return float(np.median(ms)), res
 
 
-def rounds(fns, device, blocks=5, warmup_s=0.0):
+def rounds(fns, device, blocks=5, warmup_s=0.0, graphs=False):
     """Calls timed in turns: each of fns in order, then in reverse order
-    (A, B, C, C, B, A), the first turn after warmup_s seconds of warm-up.
+    (A, B, C, C, B, A), the first turn after warmup_s seconds of warm-up;
+    with graphs, each turn as CUDA-graph replays (launch_ms, no warm-up).
     Returns (each call's ms, the mean of its two turns; each call's last
     result)."""
     ms = [0.0] * len(fns)
     res = [None] * len(fns)
     order = list(range(len(fns)))
     for j, i in enumerate(order + order[::-1]):
-        t, res[i] = timed(fns[i], device, blocks,
-                          warmup_s=warmup_s if j == 0 else 0.0)
+        if graphs:
+            t, res[i] = launch_ms(fns[i], device, blocks)
+        else:
+            t, res[i] = timed(fns[i], device, blocks,
+                              warmup_s=warmup_s if j == 0 else 0.0)
         ms[i] += t / 2
     return ms, res
 

@@ -13,6 +13,9 @@ pages); each line says which.
 Cases, with the JAX file's inputs (RandomState(0) and RandomState(1)):
   axis1, axis0: take_along_axis of an arange table at (8|16|32, 128) and
       (8|64|512, 128), float32 (:38-57); i32: int32 at (8, 128) (:60-75);
+      its kernel runs on a grid over the card, one thread per four
+      elements; TAKE adds rows 4,096 and 65,536 at both axes, where it is
+      timed against torch.gather (take_cases, take_bound);
   chain: K = 2048 dependent int32 lane gathers (:89-108);
   fields: 56 fields of an (8, 128) block per iteration, 256 iterations
       (:110-130);
@@ -43,9 +46,13 @@ PAGES = (1, 2, 4, 8)
 # timed case -> (body number in csrc/probes.cu, pages, dependent steps)
 TIMED = {"chain": (1, 0, K_CHAIN), "fields": (2, 0, ITERS),
          **{f"pages{p}": (3, p, ITERS) for p in PAGES}}
+# the take_along_axis cases timed against torch.gather: CORRECT's, then
+# the same inputs at 4,096 and 65,536 rows
+TAKE = CORRECT + [((r, 128), a) for r in (4096, 65536) for a in (0, 1)]
 HEAD = "fields shared"
 SHARED_MAX = 232_448             # bytes of shared memory a block may have
-launches = 0
+launches = 0                     # every kernel launch of this module
+take_launches = 0                # those of run_take's kernel
 
 
 def correct_inputs(shape, axis):
@@ -60,6 +67,20 @@ def i32_inputs():
     tbl = np.arange(1024, dtype=np.int32).reshape(8, 128)
     idx = np.random.RandomState(1).randint(0, 128, (8, 128))
     return tbl, idx.astype(np.int32)
+
+
+def take_cases():
+    """[(name, table, indices, axis)] of every timed take_along_axis
+    case: TAKE's float32 arange tables (correct_inputs) and the int32
+    (8, 128) one."""
+    cases = [(f"axis{a} {s}", *correct_inputs(s, a), a) for s, a in TAKE]
+    return cases + [("i32 (8, 128)", *i32_inputs(), 1)]
+
+
+def take_bound(rows):
+    """The least time of a take_along_axis over (rows, 128) 32-bit words:
+    the table and int32 indices read once, the output written once."""
+    return common.probe_bound_ms(0, 3 * rows * 128 * 4)
 
 
 def timed_inputs(case):
@@ -140,20 +161,27 @@ def _check(x, dtype, shape, what):
 
 
 def run_take(tbl, idx, axis):
-    """take_along_axis through the kernel (one block) on CUDA tensors, the
-    plain version on CPU ones."""
-    global launches
+    """take_along_axis through the kernel (a grid over the card) on CUDA
+    tensors, the plain version on CPU ones. The indices must lie in the
+    axis' range, as torch.gather's must."""
+    global launches, take_launches
     if tbl.device.type == "cpu":
         return plain_take(tbl, idx, axis)
-    rows = tbl.shape[0]
+    rows = tbl.shape[0] if tbl.dim() == 2 else 0
     _check(tbl, tbl.dtype, (rows, 128), "table")
-    if tbl.dtype not in (torch.float32, torch.int32) or axis not in (0, 1):
-        raise ValueError(f"probe_gather: {tbl.dtype} table, axis {axis}")
+    if (tbl.dtype not in (torch.float32, torch.int32) or axis not in (0, 1)
+            or not 1 <= rows < 1 << 24):
+        raise ValueError(f"probe_gather: {tbl.dtype} table of {rows} rows, "
+                         f"axis {axis}")
     _check(idx, torch.int32, (rows, 128), "indices")
+    if idx.data_ptr() % 16:
+        raise ValueError("probe_gather: the indices are read 16 bytes at a "
+                         "time and must start on a 16-byte boundary")
     out = torch.empty_like(tbl)
     common.probe_call("rt_probe_gather", 0, tbl.data_ptr(), idx.data_ptr(),
                       out.data_ptr(), rows, axis, 0, 0, 1)
     launches += 1
+    take_launches += 1
     return out
 
 

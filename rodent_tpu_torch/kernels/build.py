@@ -137,27 +137,30 @@ def _flags(kind, extra=()):
     return NVCC_FLAGS + LIBRARIES[kind][1] + tuple(extra)
 
 
-def library_path(build_dir=None, kind="main", extra=()):
+def library_path(build_dir=None, kind="main", extra=(), csrc=None):
     """Where the library `kind` for these exact sources and flags (with
-    the nvcc flags `extra` added) lives."""
+    the nvcc flags `extra` added) lives; csrc: the directory of the
+    sources, this package's csrc/ unless another checkout's is given."""
     h = hashlib.sha256(" ".join(_flags(kind, extra)).encode())
     for name in (LIBRARIES[kind][0], *HEADERS):
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((Path(csrc or CSRC) / name).read_bytes())
     stem = "librodent_torch" if kind == "main" else f"librodent_torch_{kind}"
     return Path(build_dir or BUILD_DIR) / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(build_dir=None, kind="main", extra=()):
-    """Compiles csrc/ into the library `kind` with nvcc (and the flags
-    `extra`, as experiments/sass_audit.py's -lineinfo) unless it exists
-    for these exact sources. Returns (path, nvcc's output) — the output,
+def build(build_dir=None, kind="main", extra=(), csrc=None):
+    """Compiles csrc/ (or the directory csrc, as
+    experiments/ab_gather_take.py gives another checkout's) into the
+    library `kind` with nvcc (and the flags `extra`, as
+    experiments/sass_audit.py's -lineinfo) unless it exists for these
+    exact sources. Returns (path, nvcc's output) — the output,
     which carries ptxas' per-kernel register and spill lines, is None when
     nothing was built. Raises RuntimeError without nvcc or when nvcc
     fails. Processes that ask for one library at once (the ranks of a
     sharded render) wait on a lock file per library, so it is built
     once."""
-    out = library_path(build_dir, kind, extra)
+    out = library_path(build_dir, kind, extra, csrc)
     if out.exists():
         return out, None
     nvcc = find_nvcc()
@@ -171,7 +174,7 @@ def build(build_dir=None, kind="main", extra=()):
             return out, None
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *_flags(kind, extra), "-o", str(tmp),
-               str(CSRC / LIBRARIES[kind][0])]
+               str(Path(csrc or CSRC) / LIBRARIES[kind][0])]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on the {kind} library:\n"
@@ -188,16 +191,17 @@ def build_all(build_dir=None):
         return {k: f.result() for k, f in futures.items()}
 
 
-def load_library(build_dir=None, kind="main"):
-    """The kernel library `kind`, built on first use and loaded with
-    ctypes. Its sources are hashed at the first call for each build
-    directory and kind only, since every launch asks for its library: a
-    source edited after that call is built by the next process."""
-    key = (str(build_dir or BUILD_DIR), kind)
+def load_library(build_dir=None, kind="main", csrc=None):
+    """The kernel library `kind` (of the sources in csrc, as build()),
+    built on first use and loaded with ctypes. Its sources are hashed at
+    the first call for each build directory, kind and source directory
+    only, since every launch asks for its library: a source edited after
+    that call is built by the next process."""
+    key = (str(build_dir or BUILD_DIR), kind, str(csrc or CSRC))
     lib = _loaded.get(key)
     if lib is not None:
         return lib
-    path, _ = build(build_dir, kind)
+    path, _ = build(build_dir, kind, csrc=csrc)
     lib = _libs.get(path)
     if lib is None:
         lib = ctypes.CDLL(str(path))

@@ -105,6 +105,76 @@ def test_safe_rcp_prodsign_bit_exact():
     assert np.array_equal(_bits(jmath.prodsign(x, y)), _bits(got))
 
 
+FLT_MIN = np.float32(1.1754944e-38)    # the least normal float32
+
+
+def _subnormal(x):
+    return (x != 0) & (np.abs(x) < FLT_MIN)
+
+
+def _ulps(a, b):
+    """The float32 ULPs between a and b of one sign."""
+    return np.abs(_bits(a).astype(np.int64) - _bits(b).astype(np.int64))
+
+
+def test_safe_rcp_keeps_the_subnormals_xla_flushes():
+    """ROADMAP C6: XLA's CPU backend (like the TPU) flushes subnormal
+    results to zero; torch on the CPU and the card's kernels (built
+    without -ftz) keep them. safe_rcp over |x| > 8.5e37, whose reciprocals
+    are subnormal, and over normal inputs: the port equals the JAX package
+    bit for bit wherever JAX's result is not a flushed zero; where it is,
+    the port's result is a subnormal of x's sign, and flushing it to a
+    zero of that sign gives JAX's bits."""
+    r = np.random.RandomState(7)
+    big = np.exp(r.uniform(np.log(8.6e37), np.log(3.4e38), 4096))
+    big = (big * np.where(r.rand(4096) < 0.5, -1, 1)).astype(np.float32)
+    x = np.concatenate([big, r.randn(4096).astype(np.float32)])
+    want = np.asarray(jmath.safe_rcp(x))
+    got = tmath.safe_rcp(torch.from_numpy(x)).numpy()
+    flushed = want == 0
+    assert flushed.sum() == len(big)
+    assert np.array_equal(_bits(got[~flushed]), _bits(want[~flushed]))
+    assert _subnormal(got[flushed]).all()
+    assert np.array_equal(np.signbit(got[flushed]), np.signbit(x[flushed]))
+    flush = np.where(_subnormal(got), np.copysign(np.float32(0), got), got)
+    assert np.array_equal(_bits(flush), _bits(want))
+
+
+def test_cosine_power_pdf_keeps_the_subnormals_xla_flushes():
+    """C6 on the cosine-power pdf at c < 0.3, where c^k underflows. XLA
+    flushes pow's subnormal results; the port keeps them and scales them
+    by (k + 1) / 2pi, which lifts some into the normal range (the
+    difference shows on about a third of JAX's zeros). Where JAX's pdf is
+    not zero: bit for bit wherever the two pows agree (XLA's and torch's
+    approximations differ by one ULP on about 2% of inputs, at most 3
+    ULPs after the two products). Where it is a flushed zero: the port's
+    pow is subnormal or zero, and the port run with torch's flush on (the
+    FTZ/DAZ modes of XLA's CPU code) gives JAX's bits."""
+    r = np.random.RandomState(8)
+    c = (0.3 * r.rand(8192)).astype(np.float32)
+    k = (r.rand(8192) * 64 + 1).astype(np.float32)
+    tc, tk = torch.from_numpy(c), torch.from_numpy(k)
+    want = np.asarray(jsamp.cosine_power_hemisphere_pdf(jnp.asarray(c),
+                                                        jnp.asarray(k)))
+    got = tsamp.cosine_power_hemisphere_pdf(tc, tk).numpy()
+    jpow = np.asarray(jnp.power(jnp.maximum(jnp.asarray(c), 0.0),
+                                jnp.asarray(k)))
+    tpow = torch.pow(torch.clamp(tc, min=0.0), tk).numpy()
+    flushed = want == 0
+    same_pow = _bits(jpow) == _bits(tpow)
+    assert np.array_equal(_bits(got[~flushed & same_pow]),
+                          _bits(want[~flushed & same_pow]))
+    assert _ulps(got[~flushed], want[~flushed]).max() <= 3
+    assert (tpow[flushed] < FLT_MIN).all() and (got[flushed] >= 0).all()
+    assert (got[flushed] != 0).sum() > flushed.sum() // 5
+    assert torch.set_flush_denormal(True)
+    try:
+        ftz = tsamp.cosine_power_hemisphere_pdf(tc, tk).numpy()
+    finally:
+        torch.set_flush_denormal(False)
+    assert np.array_equal(_bits(ftz[flushed]), _bits(want[flushed]))
+
+
 def _vec(r, n=4096):
     return tuple(r.randn(n).astype(np.float32) for _ in range(3))
 

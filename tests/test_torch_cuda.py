@@ -531,6 +531,33 @@ def test_probe_kernels_match_plain(card, name):
     assert all(ok.values()), [k for k, v in ok.items() if not v]
 
 
+TAKE_ROWS = (1, 3, 8, 64, 512, 4096, 65536)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("rows", TAKE_ROWS)
+def test_take_kernel_matches_gather(card, rows, axis, dtype):
+    """probe_gather's take_along_axis kernel (a grid over the card) equals
+    torch.gather and the plain version bit for bit, with indices drawn
+    with numpy from a seed over the whole axis; each call launches it."""
+    r = np.random.RandomState(rows * 4 + axis)
+    tbl = torch.from_numpy(
+        r.randn(rows, 128).astype(np.float32) if dtype == torch.float32
+        else r.randint(-2 ** 31, 2 ** 31 - 1, (rows, 128)).astype(np.int32)
+    ).to(card)
+    idx = torch.from_numpy(r.randint(0, (rows, 128)[axis], (rows, 128))
+                           .astype(np.int32)).to(card)
+    before = probe_gather.take_launches
+    got = probe_gather.run_take(tbl, idx, axis)
+    torch.cuda.synchronize()
+    assert probe_gather.take_launches == before + 1
+    want = torch.gather(tbl, axis, idx.long())
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got, probe_gather.plain_take(tbl, idx, axis))
+
+
 def test_vpu_sass_counts(card):
     """The SASS of the vpu kernels holds a loop, and float32's body is the
     probe's 4 operations per value and iteration."""
@@ -555,6 +582,20 @@ def test_probe_refusals(card):
     with pytest.raises(RuntimeError, match="CUDA error"):
         common.probe_call("rt_probe_gather", 3, tbl.data_ptr(),
                           idx.data_ptr(), out.data_ptr(), 8, 1, 4, 1, 1)
+    tbl, idx = (torch.from_numpy(a).to(card)
+                for a in probe_gather.correct_inputs((64, 128), 0))
+    with pytest.raises(ValueError, match="axis 2"):
+        probe_gather.run_take(tbl, idx, 2)
+    with pytest.raises(ValueError, match="indices"):
+        probe_gather.run_take(tbl, idx.long(), 0)
+    with pytest.raises(ValueError, match="indices"):
+        probe_gather.run_take(tbl, idx[:32].contiguous(), 0)
+    with pytest.raises(ValueError, match="table"):
+        probe_gather.run_take(tbl[:, :64].contiguous(), idx, 0)
+    with pytest.raises(ValueError, match="16-byte"):
+        probe_gather.run_take(tbl[:63], torch.zeros(
+            63 * 128 + 1, dtype=torch.int32, device=card)[1:].view(63, 128),
+            0)
     with pytest.raises(ValueError):
         probe_body.run(("push8", "sort"), probe_body.inputs(card))
     with pytest.raises(ValueError):

@@ -300,6 +300,9 @@ PROGRAMS = {
     "sweep_arity_tiled": (TINY + ["--grid", "4x4"], r"bounces a4pk4:"),
     "probe_sb_depth": (TINY + ["--subs", "2"], r"sb2  -c5"),
     "bigscene_demo": (["--card"] + TINY, r"\[tiled\] .* hit fraction"),
+    "ab_gather_take": (["--cpu", "--blocks", "1"],
+                       r"axis0 \(65536, 128\): kernel .* torch\.gather .*"
+                       r"\n.*axis1 \(65536, 128\)"),
 }
 
 
@@ -314,6 +317,26 @@ def test_program_cpu_run(name, capsys):
     out = capsys.readouterr().out
     assert "cpu: the plain torch version" in out
     assert re.search(pattern, out), out
+
+
+def test_ab_gather_take_builds_the_other_checkouts_source(tmp_path):
+    """ab_gather_take builds another checkout's probes.cu: its library's
+    name hashes that source (the same bytes give this checkout's name, an
+    edit another), and --against refuses the CPU."""
+    from rodent_tpu_torch.experiments import ab_gather_take
+    other = tmp_path / "rodent_tpu_torch" / "csrc"
+    other.mkdir(parents=True)
+    for name in ("probes.cu", *build.HEADERS):
+        (other / name).write_bytes((build.CSRC / name).read_bytes())
+    here = build.library_path(tmp_path, "probes")
+    assert build.library_path(tmp_path, "probes", csrc=other) == here
+    with open(other / "probes.cu", "a") as f:
+        f.write("// another body\n")
+    assert build.library_path(tmp_path, "probes", csrc=other) != here
+    with pytest.raises(FileNotFoundError):
+        ab_gather_take.other_library(tmp_path / "absent")
+    with pytest.raises(SystemExit):
+        ab_gather_take.main(["--cpu", "--against", str(tmp_path)])
 
 
 def test_bigscene_demo_mesh_cpu(capsys):

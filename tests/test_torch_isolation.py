@@ -68,7 +68,8 @@ def test_port_imports_no_jax():
                  "experiments.sweep_arity_tiled",
                  "experiments.probe_sb_depth",
                  "experiments.bigscene_demo",
-                 "experiments.make_goldens"):
+                 "experiments.make_goldens",
+                 "experiments.ab_gather_take"):
         assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"

@@ -180,6 +180,28 @@ def test_gather_matches_jax(case):
     np.testing.assert_array_equal(got, want)
 
 
+TAKE_ROWS = (1, 3, 8, 64, 512, 4096, 65536)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32])
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("rows", TAKE_ROWS)
+def test_plain_take_matches_numpy(rows, axis, dtype):
+    """plain_take, which run_take takes on CPU tensors and which the card's
+    kernel is held against, equals np.take_along_axis bit for bit at the
+    row counts of the card test (tests/test_torch_cuda.py), odd ones
+    included; the indices span the axis."""
+    r = np.random.RandomState(rows * 4 + axis)
+    tbl = (r.randn(rows, 128).astype(np.float32) if dtype == np.float32
+           else r.randint(-2 ** 31, 2 ** 31 - 1, (rows, 128)).astype(dtype))
+    idx = r.randint(0, (rows, 128)[axis], (rows, 128)).astype(np.int32)
+    got = probe_gather.run_take(torch.from_numpy(tbl), torch.from_numpy(idx),
+                                axis).numpy()
+    want = np.take_along_axis(tbl, idx, axis=axis)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
 def _jax_mosaic3(mode):
     """_kernel (modes none, extract, slice) or _kernel2 (the dep- modes)
     with the specs of run (:56-61) or run2 (:108-113)."""
