@@ -5,11 +5,12 @@ Drives the port's main path once at the size the repository's benchmark
 calls real, and checks it:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
-2. builds the kernels with nvcc, five libraries at once: K1, its
+2. builds the kernels with nvcc, six libraries at once: K1, its
    prefetching variant K2 and its pop-counting variant K3; K4, the options
    of the legacy Pallas body; K1-K3's two bodies (all csrc/bvh_traverse.cu);
-   K5 and K6, the tile-shared-stack kernels (csrc/bvh_tile.cu); and the
-   micro-probes (csrc/probes.cu);
+   K7, the carry-top body (csrc/bvh_ct.cu); K5 and K6, the
+   tile-shared-stack kernels (csrc/bvh_tile.cu); and the micro-probes
+   (csrc/probes.cu);
 3. K1 against its plain torch version on random triangle soups, arity
    2/4/8 and Tri4/8/16 packets, closest-hit and any-hit;
 4. hall-260K: 1024x1024 sorted primary rays timed through K1 and through
@@ -79,9 +80,9 @@ calls real, and checks it:
    rest, device idle share); the mathall golden gate through both
    renderers; then the scene written as OBJ + MTL + PNG textures under
    build/phase15: converter -> load_data_dir equal to compile_obj tensor
-   for tensor on the card, tools.render at 1920x1088 spp 4 through its
-   policy (K1) and --traversal hybrid-hbm (K2), and the traversal file
-   pipeline ray_gen (1024x1024 primaries) -> bvh_extractor ->
+   for tensor on the card, tools.render at 1920x1088 through its policy
+   (K1, spp 4) and --traversal hybrid-hbm (K2, spp 1), and the traversal
+   file pipeline ray_gen (1024x1024 primaries) -> bvh_extractor ->
    bench_traversal (K1) -> fbuf2png, whose intersection count and t equal
    K1's on the rays and BVH read back from the files;
 16. the engines that are torch ops, not kernels (rodent_tpu_torch/
@@ -109,7 +110,8 @@ calls real, and checks it:
    renderers, in every rank, join the main path's.
 18. the port's bench and measuring tools, each through its main() at the
    size its users run: rodent_tpu_torch.bench (hall-260K at 1024x1024 on
-   the pk8 and pk16 builds, ao and bounces through K1 and tiled-c,
+   the pk8 and pk16 builds through K7, the carry-top body of the JAX
+   bench's rows, and K1, ao and bounces through K1 and tiled-c,
    powerplant-4.3M through K2; no cornell row without a reference
    directory), its JSON line's keys checked and its hit fraction held
    against K1's on the same rays and build; ab_render_policy on
@@ -117,16 +119,18 @@ calls real, and checks it:
    on hall-260K (K1) at pools of 64K and 512K, and all-packet beside
    all-tiled at 160x90, the films bit for bit equal across pools and
    engines; profile_renderer on hall-260K at 480x272 spp 1; race_hall_packet
-   at Tri8/Tri24 x leaf_cost 0/0.6; sweep_bigscene_leaf on two
+   at Tri8/Tri24 x leaf_cost 0/0.6 (K1 and K7); sweep_bigscene_leaf on two
    powerplant-4.3M builds; bigscene_12m's primaries at 14.6M triangles
-   (K1 and K2); shard_scaling_table at its defaults. Their K1, K2 and K3
-   launches join the kernels line's.
+   (K1 and K2); shard_scaling_table at its defaults. Their K1, K2, K3 and
+   K7 launches join the kernels line's.
 
 19. the last measuring programs of rodent_tpu_torch.experiments, each
    through its run() (phase_programs): sass_audit's SASS audit of K1
-   (arity 8, Tri8 and Tri24, closest-hit and any-hit), K2, K3, K5 at
-   tile_rows 1 and 16 and K6 at 2,048 rays, from the -lineinfo copies of
-   the "main" and "tile" libraries that phase 2 builds, with each one's
+   (arity 8, Tri8 and Tri24, closest-hit and any-hit), K2, K3, K7 (Tri8
+   fold with the fused slab and sort with the unfused one, any-hit, Tri24),
+   K5 at tile_rows 1 and 16 and K6 at 2,048 rays, from the -lineinfo
+   copies of the "main", "ct" and "tile" libraries that phase 2 builds,
+   with each one's
    issue estimate beside its measured ns per pop on hall-260K;
    attribute_crown on hall-260K and crown-800K, ab_crown_build,
    probe_crown_sort and measure_sorts at one configuration each;
@@ -134,7 +138,16 @@ calls real, and checks it:
    probe_sb_depth on hall's ao rays at one configuration each;
    bigscene_demo --card (400K triangles) and --mesh (2 gloo ranks on the
    card, bit for bit); make_goldens on hall under the golden gate. Their
-   K1-K3 launches join the kernels line's, with each kernel's audit.
+   K1-K3 and K7 launches join the kernels line's, with each kernel's audit.
+
+20. K7, the carry-top body (phase_ct): every variant (closest-hit fold and
+   sort, fused and unfused slab; any-hit fused and unfused) bit for bit
+   against its plain version in hits, pops and rows read, on hall-260K's
+   1M sorted primaries, bounce and ao rays and on powerplant-4.3M's
+   sorted primaries (Tri24), sort with the unfused slab also against K1's
+   hits and K3's counters; then each timed in turns with K1
+   (experiments.measure_ct) with its pops per ray, its bound and the rays
+   where it keeps another hit than K1.
 
 Every kernel's time stands beside its bound, the least time the card
 could take for the same pops and the table rows they read
@@ -246,15 +259,17 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
     from rodent_tpu_torch.experiments import sass_audit
     t0 = time.perf_counter()
-    # phase 19's -lineinfo copies of "main" and "tile" build beside them
-    with ThreadPoolExecutor(2) as pool:
+    # phase 19's -lineinfo copies of "main", "ct" and "tile" build beside
+    # them
+    with ThreadPoolExecutor(len(sass_audit.AUDITED)) as pool:
         audit = [pool.submit(sass_audit.build_lineinfo, k)
                  for k in sass_audit.AUDITED]
         built = build_all()
         for f in audit:
             f.result()
     dt = time.perf_counter() - t0
-    what = {"main": "K1, K2 and K3", "options": "K4 (-DRT_OPTIONS)",
+    what = {"main": "K1, K2 and K3", "ct": "K7, the carry-top body",
+            "options": "K4 (-DRT_OPTIONS)",
             "group": "K1-K3's two bodies (-DRT_GROUP, phase 14)",
             "tile": "K5 and K6",
             "probes": "the micro-probes"}
@@ -1546,10 +1561,10 @@ def run_tool(main, argv):
 def phase_obj_files(device, scene, mats, texs):
     """[15b, 15c] mathall-260K written as OBJ + MTL + PNG textures under
     build/: converter -> load_data_dir against compile_obj, tensor for
-    tensor on the card; tools.render at 1920x1088 spp 4 through K1 (its
-    policy) and K2 (--traversal hybrid-hbm); the traversal file pipeline
-    ray_gen -> bvh_extractor -> bench_traversal (K1) -> fbuf2png, held
-    against K1 on the rays and BVH read back from the files. Returns
+    tensor on the card; tools.render at 1920x1088 through K1 (its policy,
+    spp 4) and K2 (--traversal hybrid-hbm, spp 1); the traversal file
+    pipeline ray_gen -> bvh_extractor -> bench_traversal (K1) -> fbuf2png,
+    held against K1 on the rays and BVH read back from the files. Returns
     tools.render's K2 launches."""
     import re
     import shutil
@@ -1607,9 +1622,12 @@ def phase_obj_files(device, scene, mats, texs):
     for traversal, key in ((None, "bvh_traverse"),
                            ("hybrid-hbm", "bvh_traverse_prefetch")):
         png_path = os.path.join(out, f"render-{traversal or 'auto'}.png")
-        # two iterations: the first warms up, the second is timed
-        argv = [obj, "--width", 1920, "--height", 1088, "--spp", 4,
-                "--bench", 2, "--max-path-len", 20, *view, "-o", png_path]
+        # two iterations: the first warms up, the second is timed; K2's
+        # route at spp 1 (its 32K pool renders spp 4 in about 29 s an
+        # iteration, host-bound: ROADMAP B7)
+        argv = [obj, "--width", 1920, "--height", 1088, "--spp",
+                1 if traversal else 4, "--bench", 2, "--max-path-len", 20,
+                *view, "-o", png_path]
         if traversal:
             argv += ["--traversal", traversal]
         packet.reset_launches()
@@ -2389,7 +2407,8 @@ def phase_bench_tools(device, verts, idx):
 # directory (bench.py:261-267, its primary rows renamed for K1)
 BENCH_DETAIL = {
     "backend", "card", "baseline", "num_nodes", "num_packets",
-    "primary_pk8_k1_mrays", "primary_pk16_k1_mrays", "primary_config",
+    "primary_pk8_k1_mrays", "primary_pk16_k1_mrays", "primary_pk8_ct_mrays",
+    "primary_pk16_ct_mrays", "primary_config",
     "primary_mrays", "primary_band", "primary_hit_fraction",
     "bigscene_transport", "bigscene_tris", "bigscene_mrays",
     "bigscene_band", "cornell"} | {
@@ -2450,7 +2469,8 @@ def phase_tools(device, verts, idx):
     run("bigscene_12m", bigscene_12m.main, ["--dists", "primary"])
     run("shard_scaling_table", shard_scaling_table.main, [])
     launched = {k: packet.launches[k] for k in (
-        "bvh_traverse", "bvh_traverse_prefetch", "bvh_traverse_count")}
+        "bvh_traverse", "bvh_traverse_prefetch", "bvh_traverse_count",
+        "bvh_traverse_ct")}
     check(all(launched.values()), f"phase 18: launches {launched}")
     # the hit fraction against K1's on the bench's rays and winning build
     name = detail["primary_config"].split("-")[0]
@@ -2464,8 +2484,9 @@ def phase_tools(device, verts, idx):
           f"bench: primary_hit_fraction {detail['primary_hit_fraction']} "
           f"against K1's {frac}")
     log(f"[18] bench and tools on {common.card(device)}: seconds "
-        f"{json.dumps(times)}; K1-K3 launches {json.dumps(launched)}; the "
-        f"bench's hit fraction {frac} equals K1's on its rays and {name} "
+        f"{json.dumps(times)}; K1-K3 and K7 launches "
+        f"{json.dumps(launched)}; the bench's hit fraction {frac} "
+        f"({detail['primary_config']}) equals K1's on its rays and {name} "
         "build")
     return launched
 
@@ -2544,7 +2565,7 @@ def phase_programs(device):
     launched = dict(packet.launches)
     for kernel in ("bvh_traverse", "bvh_traverse_prefetch",
                    "bvh_traverse_count", "bvh_traverse_tile",
-                   "bvh_traverse_pair"):
+                   "bvh_traverse_pair", "bvh_traverse_ct"):
         check(launched[kernel] > 0, f"phase 19: {kernel} never launched")
     crown = out["attribute_crown"]
     for scene, r in crown.items():
@@ -2596,6 +2617,95 @@ def phase_programs(device):
         "launches": launched}
     log(f"[19] programs {json.dumps(summary, default=str)}")
     return summary, launched
+
+
+def phase_ct(device, hall, big_bvh, big_prim, side=1024):
+    """[20] K7, the carry-top body (csrc/bvh_ct.cu, the "ct" library):
+    every variant held bit for bit against its plain version (hits,
+    counters and the rows it reads) on hall-260K's 1M sorted primaries,
+    bounce rays (closest-hit: fold and sort, fused and unfused slab) and ao
+    rays (any-hit: fused and unfused), and on powerplant-4.3M's 1M sorted
+    primaries (Tri24); sort with the unfused slab also against K1's hits
+    and K3's counters, bit for bit. Each variant is then timed in turns
+    with K1 (experiments.measure_ct.measure: K1, K7, K7, K1) beside its
+    pops per ray from its counting instantiation, its bound and the rays
+    where it keeps another hit than K1. Returns the kernels-line entry's
+    numbers: {"res": {(scene, kind, variant): measure's result},
+    "plain_ms": the plain version's time on hall's primaries (ct-fold)}."""
+    from rodent_tpu_torch.experiments import common, measure_ct
+    from rodent_tpu_torch.traversal import api, packet
+    hall_bvh = hall.device["bvh"]
+    hall_d = common.distributions("hall", hall.mesh.vertices,
+                                  hall.mesh.indices, hall_bvh, side, device,
+                                  ("primary", "ao", "bounces"))
+    runs = [("hall-260K", hall_bvh, kind, hall_d[kind])
+            for kind in ("primary", "bounces", "ao")]
+    runs.append(("powerplant-4.3M", big_bvh, "primary", (big_prim, False)))
+    res, plain_ms, first = {}, None, True
+    for scene, bvh, kind, (comps, any_hit) in runs:
+        what = f"{scene} {kind}"
+        bodies = (measure_ct.ANY_HIT_VARIANTS if any_hit
+                  else measure_ct.VARIANTS)
+        rows = {}
+        for name, body in bodies.items():
+            p = common.ct_plain(bvh, comps, any_hit, **body)
+            rows[name] = (int(p["nodes_read"].sum()),
+                          int(p["tris_read"].sum()))
+            del p["nodes_read"], p["tris_read"]
+            k = measure_ct.call(bvh, comps, body, any_hit)
+            kc = measure_ct.call(bvh, comps, body, any_hit, True)
+            check_equal(kc, p, f"[20] {what} K7 {name} with counters")
+            del p["pops"], p["leaf_pops"]
+            check_equal(k, p, f"[20] {what} K7 {name}")
+            if name == "ct-sort-nofma":
+                k1 = packet.traverse_packet_components(bvh, *comps)
+                k3 = packet.traverse_packet_components(bvh, *comps,
+                                                       count_pops=True)
+                check_equal(k, k1, f"[20] {what} K7 {name} against K1")
+                check_equal(kc, k3, f"[20] {what} K7 {name} against K3")
+            if scene == "hall-260K" and kind == "primary" and \
+                    name == "ct-fold":
+                plain_ms, _ = common.timed(
+                    lambda body=body: api.traverse_ct_components(
+                        bvh, comps[0], comps[1], comps[2], comps[4],
+                        comps[5], any_hit, **body), device, blocks=1)
+        log(f"[20] {what}: K7 {', '.join(bodies)} == the plain version bit "
+            f"for bit (hits, pops, leaf pops, rows read)"
+            + ("" if any_hit else "; ct-sort-nofma == K1's hits and K3's "
+               "counters bit for bit"))
+        out = measure_ct.measure(bvh, comps, device, bodies, any_hit,
+                                 warmup_s=common.WARMUP_S if first else 0.0,
+                                 rows=rows)
+        first = False
+        for name, r in out.items():
+            res[(scene, kind, name)] = r
+            log(f"[20] {what} {measure_ct.report(name, r)}")
+    log(f"[20] hall primary ct-fold's plain version: {plain_ms:.1f} ms")
+    return {"res": res, "plain_ms": plain_ms}
+
+
+def ct_entry(ct, launched):
+    """The kernels-line entry of K7: its headline on hall-260K's 1M sorted
+    primaries (ct-fold, the JAX bench's body), every variant under
+    "variants"; its hits equalled the plain version's bit for bit
+    (max_abs_err 0)."""
+    head = ct["res"][("hall-260K", "primary", "ct-fold")]
+    variants = {
+        f"{scene} {kind} {name}": {
+            "ms": r["ms"], "k1_ms": r["k1_ms"], "ratio": r["ratio"],
+            "pops_ray": r["stats"]["pops_ray"],
+            "leaf_ray": r["stats"]["leaf_ray"],
+            "warp_pops": r["stats"]["warp_pops"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "share": r["share"],
+            "k1_differences": r["differences"]}
+        for (scene, kind, name), r in ct["res"].items()}
+    return {"name": "bvh_traverse_ct", "route": "cuda",
+            "source": "rodent_tpu_torch/csrc/bvh_ct.cu",
+            "replaces": "rodent_tpu/traversal/pallas_packet.py:878",
+            "launches": launched, "max_abs_err": 0.0, "ms": head["ms"],
+            "plain_ms": ct["plain_ms"], "bound_ms": head["bound"][0],
+            "bound_by": head["bound"][1], "library_ms": None,
+            "variants": variants}
 
 
 def multi_card(cards):
@@ -2737,6 +2847,9 @@ def main():
     programs, prog_launches = phase_programs(device)
     log(f"[19] the measuring programs phase took "
         f"{time.perf_counter() - t_prog:.1f} s")
+    t_ct = time.perf_counter()
+    ct = phase_ct(device, hall, big_bvh, big_prim)
+    log(f"[20] the carry-top phase took {time.perf_counter() - t_ct:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     src = "rodent_tpu_torch/csrc/bvh_traverse.cu"
     pallas = "rodent_tpu/traversal/pallas_packet.py"
@@ -2755,7 +2868,7 @@ def main():
                 if label.startswith(k + " ")}
     log(json.dumps({"kernels": [
         {"name": "bvh_traverse", "route": "cuda", "source": src,
-         "replaces": f"{pallas}:878",
+         "replaces": f"{pallas}:1132",
          "launches": launches + mathall_k1 + shard_k1
                      + tools["bvh_traverse"]
                      + prog_launches["bvh_traverse"],
@@ -2797,7 +2910,12 @@ def main():
         dict(tile_entry("bvh_traverse_pair",
                         "experiments/pallas_pair.py:127", "K6",
                         tile_launches, tile_plain["K6"], tiles),
-             sass=sass_of("K6"))]
+             sass=sass_of("K6")),
+        # launches: the bench's and race_hall_packet's primary rows (phase
+        # 18) and sass_audit's runs (phase 19); phase 20's are measurement
+        dict(ct_entry(ct, tools["bvh_traverse_ct"]
+                      + prog_launches["bvh_traverse_ct"]),
+             sass=sass_of("K7"))]
         + probe_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,12 +5,16 @@ with bench.py's keys (metric, value, unit, vs_baseline, detail).
 Rows (the scenes, builds, rays and timer of experiments.common):
 
 - primary: hall-260K, 1024x1024 primary rays, octant+Morton sorted,
-  closest-hit through K1 on two BVH8 builds, Tri8 leaves
-  (leaf_threshold=12, "pk8") and Tri16 leaves with cheap DP leaves
-  (leaf_cost=0.6, "pk16"); the faster build is the headline. bench.py's
-  tile_rows=32, multi=1, carry_top=True are knobs of the TPU's packet
-  kernel that K1, one stack per ray, does not have, so the rows are named
-  primary_pk8_k1_mrays and primary_pk16_k1_mrays;
+  closest-hit on two BVH8 builds, Tri8 leaves (leaf_threshold=12, "pk8")
+  and Tri16 leaves with cheap DP leaves (leaf_cost=0.6, "pk16"), each
+  through two bodies: bench.py's own, the carry-top body with its
+  defaults (carry_top=True, select="fold", fma_slab=True), which is K7
+  (csrc/bvh_ct.cu), in the rows primary_pk8_ct_mrays and
+  primary_pk16_ct_mrays; and the legacy body, K1, in the rows
+  primary_pk8_k1_mrays and primary_pk16_k1_mrays. The fastest of the four
+  is the headline, and primary_config names its build and body ("pk8-ct",
+  "pk16-K1", ...). bench.py's tile_rows=32 and multi=1 are the TPU
+  kernel's tile shape, which one ray per thread does not have;
 - ao and bounces: rays from the pk8 primaries' hit points
   (testscenes.secondary_rays_from_trace), sorted, through K1 ("packet",
   any-hit for ao) and the dual-queue engine with staged compaction
@@ -68,6 +72,11 @@ BASELINE = ("373.1 Mrays/s: the reference's own CUDA backend (rodent BVH2) "
 # bench.py's two primary builds
 BUILDS = {"pk8": {"packet": 8, "leaf_threshold": 12},
           "pk16": {"packet": 16, "leaf_threshold": 12, "leaf_cost": 0.6}}
+# the primary rows' bodies: bench.py's carry-top body (K7) and the legacy
+# body (K1), with traverse_packet's arguments for each
+PRIMARY_BODIES = {"ct": {"carry_top": True, "select": "fold",
+                         "fma_slab": True},
+                  "K1": {}}
 REFERENCE_ENV = "RODENT_REFERENCE"
 CORNELL_FILES = ("cornell_box.obj", "ref-cornell.png")
 # bench.py:233-234: the ctest config
@@ -113,13 +122,15 @@ def primary_rows(args, device, detail):
     comps = dists["primary"][0]
     best, band, hit = 0.0, None, None
     for name, dev in devs.items():
-        (m, lo, hi), out = rate(
-            lambda d=dev: traverse_packet_components(d, *comps), n, device,
-            args.blocks)
-        detail[f"primary_{name}_k1_mrays"] = round(m, 2)
-        if m > best:
-            best, band, hit = m, (lo, hi), out
-            detail["primary_config"] = f"{name}-K1"
+        for body, kw in PRIMARY_BODIES.items():
+            (m, lo, hi), out = rate(
+                lambda d=dev, kw=kw: traverse_packet_components(d, *comps,
+                                                                **kw),
+                n, device, args.blocks)
+            detail[f"primary_{name}_{body.lower()}_mrays"] = round(m, 2)
+            if m > best:
+                best, band, hit = m, (lo, hi), out
+                detail["primary_config"] = f"{name}-{body}"
     detail["primary_mrays"] = round(best, 2)
     detail["primary_band"] = [round(band[0], 2), round(band[1], 2)]
     detail["primary_hit_fraction"] = round(float(

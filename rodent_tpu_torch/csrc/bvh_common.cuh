@@ -1,9 +1,9 @@
-// Device code shared by the per-ray kernels (bvh_traverse.cu: K1-K4) and the
-// tile-shared-stack kernels (bvh_tile.cu: K5, K6): a ray's inputs, the
-// Batcher network over a node's children and the sign-trick
-// Moller-Trumbore of one Tri lane, in the float operation order of the
-// plain torch versions (traversal/api.py). Built with -fmad=false, so every
-// operation is rounded on its own, as torch computes it.
+// Device code shared by the per-ray kernels (bvh_traverse.cu: K1-K4;
+// bvh_ct.cu: K7) and the tile-shared-stack kernels (bvh_tile.cu: K5, K6): a
+// ray's inputs, the Batcher network over a node's children and the
+// sign-trick Moller-Trumbore of one Tri lane, in the float operation order
+// of the plain torch versions (traversal/api.py). Built with -fmad=false, so
+// every operation is rounded on its own, as torch computes it.
 #pragma once
 
 #include <cuda_runtime.h>

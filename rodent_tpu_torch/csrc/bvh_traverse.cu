@@ -4,12 +4,12 @@
 // a second library), and a second body of K1-K3, the group stack (built
 // with -DRT_GROUP into a library of the measurements only).
 //
-// K1 replaces the Pallas bodies _kernel_ct and _kernel_multi of
-// rodent_tpu/traversal/pallas_packet.py (:878-1131, :1132-1391), which
-// walk a tile of rays with ONE shared stack. This kernel computes the
-// same closest-hit / any-hit result with the reference's own GPU mapping
-// instead (gpu_traverse_single, SURVEY.md §1 L2): every thread owns one
-// ray and its own stack.
+// K1 replaces the Pallas body _kernel_multi of
+// rodent_tpu/traversal/pallas_packet.py (:1132-1391), the legacy order the
+// JAX renderers run, which walks tiles of rays with ONE shared stack each;
+// its carry-top body _kernel_ct (:878-1131) is K7's (csrc/bvh_ct.cu). This
+// kernel computes the same result with the reference's own GPU mapping
+// (gpu_traverse_single, SURVEY.md §1 L2): each thread one ray and a stack.
 //
 // Per pop:
 //   node: read the row (7A floats, __ldg) and slab-test every child in

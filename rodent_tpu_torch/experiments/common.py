@@ -67,6 +67,18 @@ PEAK_BYTES = 3.35e12
 #   a Tri row's continuation: its test and its push = 2.
 SLAB_OPS, PUSH_OPS, LANE_OPS, CONT_OPS = 28, 4, 59, 2
 SORT_SWAPS = {2: 1, 4: 5, 8: 19}
+# K7, the carry-top body (csrc/bvh_ct.cu), per node pop:
+#   one child's ordered slab test: 6 planes of a multiply and an add (the
+#     fused form's FMA counts as both, as the unfused subtract and
+#     multiply) = 12, 6 min/max into entry and exit, entry <= exit and the
+#     key's select, child != 0, key < FLT_MAX and their and, the key's and
+#     the child's selects = 25;
+#   one child's push as K1's (PUSH_OPS);
+#   the choice: the min-fold's compare and 2 selects for each of A - 1
+#     slots, any-hit's compare and select for each of A slots, or Batcher's
+#     network, 1 compare and 4 selects an exchange (no hit mask to swap);
+#   a leaf pop as K1's (LANE_OPS a lane, CONT_OPS).
+CT_SLAB_OPS = 25
 # The tile kernels (csrc/bvh_tile.cu), where a node pop tests every ray of
 # the tile against every child:
 #   one ray and child, pure slab form (slab_key<true>): 6 subtracts, 6
@@ -326,6 +338,17 @@ def counted_pair(dev, comps, any_hit=False, tile_rays=pair.TILE_RAYS,
         count_pops=True)
 
 
+def ct_plain(dev, comps, any_hit=False, select="fold", fma_slab=True):
+    """K7's plain version on these rays (api.traverse_ct_components) with
+    its counters and the rows it reads: its hits, "pops", "leaf_pops",
+    "nodes_read" and "tris_read", which K7 must equal and its bound counts
+    (bound_ms with select=)."""
+    return api.traverse_components(
+        dev, comps[0], comps[1], comps[2], comps[4], comps[5],
+        any_hit=any_hit, count_pops=True, count_rows=True, carry_top=True,
+        select=select, fma_slab=fma_slab)
+
+
 def tile_stats(out, size, n_rays):
     """Pop statistics of a counted tile run ("pops" and "leaf_pops" per
     tile of `size` rays): totals, the mean and the largest pops per tile,
@@ -420,43 +443,56 @@ def plain_args(option):
             if k != "row_loads"}
 
 
-def rows_read(dev, comps, any_hit=False, option=None):
+def rows_read(dev, comps, any_hit=False, option=None, ct=None):
     """(node rows, Tri rows) of the tables that a launch on these rays
     reads at least once, counted by the plain version (count_rows=True)
-    with K4's `option`. nonodetest is not run: its rays pop the whole tree,
+    with K4's `option`, or with ct, K7's {"select", "fma_slab"}, by the
+    carry-top body's. nonodetest is not run: its rays pop the whole tree,
     so it reads every row."""
     if option == "nonodetest":
         return dev["nodes"].shape[0], dev["tris"].shape[0]
+    kw = dict(carry_top=True, **ct) if ct else plain_args(option)
     out = api.traverse_components(dev, comps[0], comps[1], comps[2],
                                   comps[4], comps[5], any_hit=any_hit,
-                                  count_rows=True, **plain_args(option))
+                                  count_rows=True, **kw)
     return int(out["nodes_read"].sum()), int(out["tris_read"].sum())
 
 
-def pop_ops(arity, m, any_hit=False, option=None):
+def pop_ops(arity, m, any_hit=False, option=None, select=None):
     """(operations per node pop, per Tri row) of a traversal kernel, from
-    the counts above; option: K4's option."""
+    the counts above; option: K4's option; select: K7's ("fold" or
+    "sort"), for the carry-top body."""
+    leaf = CONT_OPS + (0 if option == "noleaftest" else m * LANE_OPS)
+    if select is not None:
+        node = arity * (CT_SLAB_OPS + PUSH_OPS)
+        if any_hit:
+            node += 2 * arity
+        elif select == "fold":
+            node += 3 * (arity - 1)
+        else:
+            node += 5 * SORT_SWAPS[arity]
+        return node, leaf
     node = arity * (SLAB_OPS + PUSH_OPS)
     if not any_hit and option != "nosort":
         node += 7 * SORT_SWAPS[arity]
     if option == "nonodetest":
         node = arity * PUSH_OPS
-    leaf = CONT_OPS + (0 if option == "noleaftest" else m * LANE_OPS)
     return node, leaf
 
 
 def bound_ms(dev, n_rays, node_pops, tri_rows, rows, any_hit=False,
-             option=None, counters=False):
+             option=None, counters=False, select=None):
     """The least time the card could take for one traversal launch, and
     what binds it: the larger of its operations (node_pops and tri_rows,
-    this run's totals over all rays, times pop_ops) over the float32 peak,
-    and its bytes over the memory rate: each ray's 11 input and 5 output
-    words, 8 bytes of counters with counters=True, and the table rows
-    read, rows = (node rows, Tri rows) from rows_read, each once. Returns
-    (ms, "operations" or "bytes")."""
+    this run's totals over all rays, times pop_ops, with K7's select for
+    the carry-top body) over the float32 peak, and its bytes over the
+    memory rate: each ray's 11 input and 5 output words, 8 bytes of
+    counters with counters=True, and the table rows read, rows = (node
+    rows, Tri rows) from rows_read, each once. Returns (ms, "operations"
+    or "bytes")."""
     arity = dev["nodes"].shape[1] // 7
     m = dev["tris"].shape[1] // 14
-    node, leaf = pop_ops(arity, m, any_hit, option)
+    node, leaf = pop_ops(arity, m, any_hit, option, select)
     t_ops = (node * node_pops + leaf * tri_rows) / PEAK_OPS
     t_bytes = (n_rays * (64 + (8 if counters else 0))
                + rows[0] * 28 * arity + rows[1] * 56 * m) / PEAK_BYTES

@@ -1,0 +1,152 @@
+"""The carry-top body against the legacy body on hall's primary row (port
+of experiments/measure_ct.py).
+
+The JAX program raced four bodies of the TPU's packet kernel on hall-260K's
+1M sorted primaries: the legacy body and the carry-top body (the next pop
+in the while loop's carry, the reference's top-of-stack trick,
+stack.impala:25-50) with its two child selections and its two slab forms.
+Here the same four run on the card: the legacy body is K1
+(csrc/bvh_traverse.cu), the carry-top body K7 (csrc/bvh_ct.cu) as ct-fold
+(the strict-< min-fold, the fused slab b * inv + (-(org * inv))), ct-sort
+(Batcher's network, fused) and ct-fold-nofma (the min-fold, (b - org) *
+inv). Each body is timed in turns with K1 (common.in_turns: K1, body,
+body, K1), so the legacy row is K1 against itself, the noise of a turn.
+Beside each: its pops and leaf pops per ray and its warps' largest, from
+its counting instantiation (K3, or K7 with counters), the rays where it
+keeps another hit than K1 (differences: ties, or grazing rays, at most
+DIFF_LIMIT of them; each body equals its own plain version bit for bit,
+which chip_smoke.py checks), and its bound
+(common.bound_ms from its own pops and the rows its plain version reads)
+with its share of it. The JAX program's tile rows (its argument) are the
+TPU kernel's tile shape, which a ray per thread does not have, so they
+went.
+
+Usage: python -m rodent_tpu_torch.experiments.measure_ct [--blocks 5]
+    [--cpu [--tris 2000 --side 32]]
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from ..traversal import packet
+from . import common
+
+# the share of rays on which a body may keep another hit than K1's
+# (chip_smoke.py's TIE_LIMIT)
+DIFF_LIMIT = 1e-4
+# body -> traverse_packet's carry-top arguments (None: the legacy body, K1)
+BODIES = {"legacy": None,
+          "ct-fold": {"select": "fold", "fma_slab": True},
+          "ct-sort": {"select": "sort", "fma_slab": True},
+          "ct-fold-nofma": {"select": "fold", "fma_slab": False}}
+# every K7 variant of a closest-hit launch, and of an any-hit launch (whose
+# choice is the lowest slot whatever the select)
+VARIANTS = {"ct-fold": BODIES["ct-fold"], "ct-sort": BODIES["ct-sort"],
+            "ct-fold-nofma": BODIES["ct-fold-nofma"],
+            "ct-sort-nofma": {"select": "sort", "fma_slab": False}}
+ANY_HIT_VARIANTS = {"ct": {"select": "fold", "fma_slab": True},
+                    "ct-nofma": {"select": "fold", "fma_slab": False}}
+
+
+def call(dev, comps, body, any_hit=False, count_pops=False):
+    """One launch of BODIES' `body` ({"select", "fma_slab"} or None) on the
+    ray components, without synchronising."""
+    kw = {} if body is None else dict(carry_top=True, **body)
+    return packet.traverse_packet_components(dev, *comps, any_hit=any_hit,
+                                             count_pops=count_pops, **kw)
+
+
+def differences(out, ref, any_hit, what):
+    """(ties, others): the rays where `out` keeps another hit than `ref`
+    (K1), closest-hit: ties, a prim_id within 1e-6 of K1's t relative (two
+    triangles hit at the same t, or a few ULPs apart through a shared
+    edge), and others; any-hit: others, a hit where K1 has none or the
+    reverse. Another body may keep another hit than K1's on a grazing ray:
+    its slab form rounds a plane otherwise, and its pop order tests a box
+    against another running t. Raises where they pass DIFF_LIMIT of the
+    rays."""
+    if any_hit:
+        diff = (out["prim_id"] >= 0) != (ref["prim_id"] >= 0)
+        ties = 0
+    else:
+        diff = out["prim_id"] != ref["prim_id"]
+        near = (out["t"] - ref["t"]).abs() <= 1e-6 * ref["t"].abs()
+        ties = int((diff & near).sum())
+    others = int(diff.sum()) - ties
+    if ties + others > DIFF_LIMIT * diff.shape[0]:
+        raise RuntimeError(f"{what}: {ties} ties and {others} other "
+                           "differences from K1")
+    return ties, others
+
+
+def measure(dev, comps, device, bodies=BODIES, any_hit=False, blocks=5,
+            warmup_s=common.WARMUP_S, rows=None):
+    """Each body in turns with K1 on these rays: {body: {"ms", "k1_ms",
+    "mrays", "ratio", "differences" (from K1's hits), "stats"
+    (common.pop_stats), "bound" (ms, what binds), "share"}}. rows: {body:
+    (node rows, Tri rows) its plain version read}, where a caller has
+    them (else common.rows_read counts them)."""
+    n = comps[4].shape[0]
+
+    def k1():
+        return call(dev, comps, None, any_hit)
+    res = {}
+    for i, (name, body) in enumerate(bodies.items()):
+        k1_ms, ms, ref, out = common.in_turns(
+            k1, lambda body=body: call(dev, comps, body, any_hit), device,
+            blocks, warmup_s if i == 0 else 0.0)
+        s = common.pop_stats(call(dev, comps, body, any_hit, True))
+        read = (rows[name] if rows and name in rows else
+                common.rows_read(dev, comps, any_hit, ct=body))
+        bound = common.bound_ms(dev, n, s["node"], s["leaf"], read, any_hit,
+                                select=body and body["select"])
+        res[name] = {"ms": ms, "k1_ms": k1_ms, "mrays": n / ms / 1e3,
+                     "ratio": ms / k1_ms,
+                     "differences": differences(out, ref, any_hit, name),
+                     "stats": s, "bound": bound, "share": bound[0] / ms}
+    return res
+
+
+def report(name, r):
+    s = r["stats"]
+    return (f"{name:14s} {r['ms']:.4f} ms = {r['mrays']:.2f} Mrays/s; K1 in "
+            f"turns {r['k1_ms']:.4f} ms: {r['ratio']:.4f}x; pops/ray "
+            f"{s['pops_ray']:.4f} (leaf {s['leaf_ray']:.4f}), warp-max "
+            f"{s['warp_pops']:.3f}; hits other than K1's: "
+            f"{r['differences'][0]} ties, {r['differences'][1]} others; bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+            f"{r['share']:.1%} of it")
+
+
+def run(device, blocks=5, tris=None, side=1024):
+    """The four bodies on hall's sorted primaries, printed; returns
+    measure()'s result."""
+    print(f"card: {common.card(device)}", flush=True)
+    verts, idx, dev, secs = common.load("hall", common.TRI8, device, tris)
+    comps, _ = common.distributions("hall", verts, idx, dev, side, device,
+                                    ("primary",))["primary"]
+    print(f"hall: {len(idx) // 4} tris, {dev['nodes'].shape[0]} BVH8 nodes, "
+          f"{dev['tris'].shape[0]} Tri8 rows (built in {secs:.1f} s); "
+          f"{comps[4].shape[0]} sorted primaries", flush=True)
+    res = measure(dev, comps, device, blocks=blocks)
+    for name, r in res.items():
+        print(report(name, r), flush=True)
+    return res
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="measure_ct")
+    p.add_argument("--tris", type=int, default=None,
+                   help="hall's size (default 260,000)")
+    p.add_argument("--side", type=int, default=1024,
+                   help="side x side rays")
+    common.add_args(p)
+    args = p.parse_args(argv)
+    device = common.device_of(args, "measure_ct")
+    run(device, args.blocks, args.tris, args.side)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,9 +16,12 @@ turns, K1, K5, K5, K1).
 
 The JAX file's configurations are tile rows x its kernel's interleave
 ("32x1ct", "16x2", "8x4", ...); here a configuration is tile_rows alone:
-`multi` and `carry_top` (ct) are TPU knobs with no counterpart (K5
-interleaves nothing; the card's warps hide each other's latency), so
-"16x2" is tile_rows 16. `--iters` becomes `--blocks`.
+`multi` is a TPU knob with no counterpart (K5 interleaves nothing; the
+card's warps hide each other's latency), and the carry-top body (ct) of a
+shared tile stack has none either: the port's carry-top body, K7
+(csrc/bvh_ct.cu), walks one ray per thread, K5 is the legacy body's tile
+stack, and carry_top with tile_rows= is refused. So "16x2" is tile_rows
+16 and "32x1ct" tile_rows 32. `--iters` becomes `--blocks`.
 
 Usage: python -m rodent_tpu_torch.experiments.probe_crown_sort
     [--tris 800000] [--rows 32,16,8,4] [--orders cone,hit-prim,...]

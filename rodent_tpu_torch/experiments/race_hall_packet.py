@@ -1,14 +1,18 @@
-"""Leaf width on hall's primaries through K1 (port of
-experiments/race_hall_packet.py): does a wider leaf packet, fewer leaf
-pops for more triangle lanes per pop, pay where the tables fit the L2?
+"""Leaf width on hall's primaries (port of experiments/race_hall_packet.py):
+does a wider leaf packet, fewer leaf pops for more triangle lanes per pop,
+pay where the tables fit the L2?
 
 Builds hall-260K at BVH8 with Tri --packets leaves and each --lcs leaf
 cost (0: build_bvh's default; leaf_threshold 12), and for each build
 prints its node and Tri rows, the pops and leaf pops per ray of 1M sorted
 primaries from K3, and K1's time, timed in turns (common.in_turns)
-against the first build. K1 takes Tri 4/8/16/24 leaves at arity 8
-(csrc/bvh_traverse.cu:537-540): the JAX tool's Tri12 has no
-instantiation, and its --rows (the TPU kernel's tile rows) no meaning.
+against the first build. The JAX tool races the builds through the
+carry-top body (traverse_packet(carry_top=True), :66), so each build's
+K7 (csrc/bvh_ct.cu, select "fold", the fused slab) is timed too, in turns
+with that build's K1, with its own pops per ray from its counters. K1
+takes Tri 4/8/16/24 leaves at arity 8 (csrc/bvh_traverse.cu:537-540) and
+K7 Tri 8/16/24: the JAX tool's Tri12 has no instantiation, and its --rows
+(the TPU kernel's tile rows) no meaning.
 
 Usage: python -m rodent_tpu_torch.experiments.race_hall_packet
     [--tris 260000] [--rays 1048576] [--packets 8,16,24] [--lcs 0,0.6]
@@ -25,6 +29,9 @@ from ..traversal import api, packet
 from ..utils import testscenes
 from . import common
 
+# the JAX tool's body (race_hall_packet.py:66): carry_top with its defaults
+CT_BODY = {"carry_top": True, "select": "fold", "fma_slab": True}
+
 
 def packets_arg(p, text):
     """The Tri widths of --packets; refuses one that K1 was not built
@@ -35,6 +42,10 @@ def packets_arg(p, text):
             p.error(f"--packets {pk}: K1 is built for Tri "
                     f"{'/'.join(map(str, packet.WIDE_PACKETS))} leaves at "
                     "arity 8 (csrc/bvh_traverse.cu:537-540)")
+        if pk not in packet.CT_PACKETS:
+            p.error(f"--packets {pk}: K7 is built for Tri "
+                    f"{'/'.join(map(str, packet.CT_PACKETS))} leaves at "
+                    "arity 8 (csrc/bvh_ct.cu)")
     return out
 
 
@@ -81,18 +92,28 @@ def main(argv=None):
 
             def k1(dev=dev):
                 return packet.traverse_packet_components(dev, *comps)
+
+            def k7(dev=dev, count_pops=False):
+                return packet.traverse_packet_components(
+                    dev, *comps, count_pops=count_pops, **CT_BODY)
             if base is None:
                 ms, _ = common.timed(k1, device, args.blocks,
                                      warmup_s=common.WARMUP_S)
                 base = (name, k1)
                 print(f"  K1: {ms:.4f} ms = {n / ms / 1e3:.2f} Mrays/s",
                       flush=True)
-                continue
-            b_ms, ms, _, _ = common.in_turns(base[1], k1, device,
-                                             args.blocks)
-            print(f"  K1: {ms:.4f} ms = {n / ms / 1e3:.2f} Mrays/s; in "
-                  f"turns with {base[0]} {b_ms:.4f} ms: "
-                  f"{ms / b_ms:.3f}x", flush=True)
+            else:
+                b_ms, ms, _, _ = common.in_turns(base[1], k1, device,
+                                                 args.blocks)
+                print(f"  K1: {ms:.4f} ms = {n / ms / 1e3:.2f} Mrays/s; in "
+                      f"turns with {base[0]} {b_ms:.4f} ms: "
+                      f"{ms / b_ms:.3f}x", flush=True)
+            k1_ms, ms, _, _ = common.in_turns(k1, k7, device, args.blocks)
+            s = common.pop_stats(k7(count_pops=True))
+            print(f"  K7 ct-fold: {ms:.4f} ms = {n / ms / 1e3:.2f} "
+                  f"Mrays/s; in turns with this build's K1 {k1_ms:.4f} ms: "
+                  f"{ms / k1_ms:.3f}x; pops/ray {s['pops_ray']:.6f}, leaf "
+                  f"pops/ray {s['leaf_ray']:.6f}", flush=True)
     return 0
 
 

@@ -5,12 +5,15 @@ and a part that grows with the tile's rows.
 
 For each instantiation the renderers and the measuring tools launch (K1,
 bvh_traverse_kernel, at arity 8 with Tri8 and Tri24 rows, closest-hit and
-any-hit; K2 on Tri24 rows and K3 on Tri8, closest-hit; K5,
-bvh_tile_warp_kernel, at tile_rows 1 and 16; K6, bvh_pair_warp_kernel, at
-2,048 rays) this tool prints:
+any-hit; K2 on Tri24 rows and K3 on Tri8, closest-hit; K7, bvh_ct_kernel,
+the carry-top body, closest-hit Tri8 with the fold and the fused slab and
+with the sort and the unfused slab, any-hit Tri8 and closest-hit Tri24
+with the fold and the fused slab; K5, bvh_tile_warp_kernel, at tile_rows
+1 and 16; K6, bvh_pair_warp_kernel, at 2,048 rays) this tool prints:
 
 - the opcode histogram of the traversal loop, split as asm_audit splits it:
-  for K1-K3 the pop (the loop's head), the node path and the leaf path;
+  for K1-K3 and K7 the pop (the loop's head), the node path and the leaf
+  path;
   for K5 and K6 the per-ray part (the loop over a thread's R rays, which
   grows with the tile's rows) against the fixed part of a pop, from the
   counts of the same kernel at R = 1 and R = 4 rays a thread (count = fixed
@@ -23,14 +26,15 @@ bvh_tile_warp_kernel, at tile_rows 1 and 16; K6, bvh_pair_warp_kernel, at
   not followed, so the count is an upper bound), over the card's SMs x 4
   schedulers at the SM clock read after the timed runs, against the
   measured time per pop on hall-260K's 1M sorted primaries (ao rays for
-  any-hit): K1-K3 launch time over their pops (as ablate_packet reports
-  it), K5 and K6 launched as ab_tile_body launches them, over their tile
-  pops (chip_smoke.py phase 12 holds those launches against the plain
-  version and K1). A warp runs
-  every pop of its slowest ray (K1: the warp's largest node and leaf pop
-  counts) and every warp of a block runs every pop of its tile (K5, K6).
+  any-hit): K1-K3 and K7 launch time over their pops (as ablate_packet
+  reports it; K7's pops from its counting instantiation), K5 and K6
+  launched as ab_tile_body launches them, over their tile pops
+  (chip_smoke.py phase 12 holds those launches against the plain version
+  and K1). A warp runs every pop of its slowest ray (K1, K7: the warp's
+  largest node and leaf pop counts) and every warp of a block runs every
+  pop of its tile (K5, K6).
 
-How: the "main" and "tile" libraries are read with cuobjdump -sass and
+How: the "main", "ct" and "tile" libraries are read with cuobjdump -sass and
 -res-usage. A copy of each is built with -lineinfo (which adds line
 tables and leaves the code alone: the audit checks that both copies hold
 the same instructions, opcode for opcode) and disassembled with nvdisasm
@@ -56,18 +60,21 @@ import torch
 
 from ..kernels import build
 from ..traversal import api, packet
-from . import ab_tile_body, common
+from . import ab_tile_body, common, measure_ct
 
 LINEINFO = ("-lineinfo",)
-AUDITED = ("main", "tile")     # the libraries the audited kernels live in
+AUDITED = ("main", "ct", "tile")  # the libraries of the audited kernels
 AUDIT_DIR = build.BUILD_DIR.parent / "sass_audit"
 # Tri24 on hall: the big-scene row width on the scene whose pops the Tri8
 # rows are measured on
 TRI24_HALL = {"packet": 24, "leaf_threshold": 12}
+# K7's default body: the min-fold and the fused slab
+FOLD_FMA = {"select": "fold", "fma_slab": True}
 # (label, library, kernel, template arguments, what is measured: build,
-# any_hit, variant or (kernel, size)). K1-K3: <ANY_HIT, A, M, STACK, VAR>
-# (VAR 0 K1, 1 K2, 2 K3; STACK the hall build's stack_cap, None here);
-# K5: <M, ANY_HIT, FRUSTUM, R>; K6: <ANY_HIT, R>
+# any_hit, variant, K7's {"select", "fma_slab"} or (kernel, size)). K1-K3:
+# <ANY_HIT, A, M, STACK, VAR> (VAR 0 K1, 1 K2, 2 K3; STACK the hall
+# build's stack_cap, None here); K7: <ANY_HIT, A, M, STACK, SORT, FMA,
+# COUNT>; K5: <M, ANY_HIT, FRUSTUM, R>; K6: <ANY_HIT, R>
 INSTANCES = (
     ("K1 closest Tri8", "main", "bvh_traverse_kernel", (0, 8, 8, None, 0),
      ("tri8", False, "K1")),
@@ -81,6 +88,15 @@ INSTANCES = (
      ("tri24", False, "K2")),
     ("K3 closest Tri8", "main", "bvh_traverse_kernel", (0, 8, 8, None, 2),
      ("tri8", False, "K3")),
+    ("K7 closest Tri8 fold fma", "ct", "bvh_ct_kernel",
+     (0, 8, 8, None, 0, 1, 0), ("tri8", False, FOLD_FMA)),
+    ("K7 closest Tri8 sort nofma", "ct", "bvh_ct_kernel",
+     (0, 8, 8, None, 1, 0, 0),
+     ("tri8", False, {"select": "sort", "fma_slab": False})),
+    ("K7 any-hit Tri8 fma", "ct", "bvh_ct_kernel", (1, 8, 8, None, 0, 1, 0),
+     ("tri8", True, FOLD_FMA)),
+    ("K7 closest Tri24 fold fma", "ct", "bvh_ct_kernel",
+     (0, 8, 24, None, 0, 1, 0), ("tri24", False, FOLD_FMA)),
     ("K5 rows 1", "tile", "bvh_tile_warp_kernel", (8, 0, 0, 1),
      ("tri8", False, ("K5", 1))),
     ("K5 rows 16", "tile", "bvh_tile_warp_kernel", (8, 0, 0, 4),
@@ -91,6 +107,7 @@ INSTANCES = (
 # the R = 1 instantiation each tile kernel's per-ray fit takes beside R = 4
 FIT_R1 = {"bvh_tile_warp_kernel": (8, 0, 0, 1), "bvh_pair_warp_kernel": (0, 1)}
 SOURCES = {"bvh_traverse_kernel": "bvh_traverse.cu",
+           "bvh_ct_kernel": "bvh_ct.cu",
            "bvh_tile_warp_kernel": "bvh_tile.cu",
            "bvh_pair_warp_kernel": "bvh_tile.cu"}
 SCHEDULERS = 4      # warp schedulers per SM, one issue a cycle each
@@ -134,7 +151,8 @@ def kernel_regions(src_text, kernel):
                  if re.search(rf"\b{kernel}\(Args a\) {{", s))
     end = _match_brace(lines, start)
     loop = next(i for i in range(start, end)
-                if re.search(r"while \(sp > 0\) \{|for \(;;\) \{", lines[i]))
+                if re.search(r"while \((?:sp > 0|code != 0)\) \{|"
+                             r"for \(;;\) \{", lines[i]))
     loop_end = _match_brace(lines, loop)
     node = next(i for i in range(loop, loop_end)
                 if re.search(r"\bif \(code > 0", lines[i]))
@@ -368,7 +386,8 @@ def static_audit(stack):
                 raise RuntimeError(f"{label}: the -lineinfo build's SASS "
                                    "differs from the library's")
             src = build.CSRC / SOURCES[kernel]
-            m = targs[2] if kernel == "bvh_traverse_kernel" else (
+            m = targs[2] if kernel in ("bvh_traverse_kernel",
+                                       "bvh_ct_kernel") else (
                 targs[0] if kernel == "bvh_tile_warp_kernel" else 8)
             out[label] = {"name": name, "kernel": kernel, "targs": targs,
                           "audit": audit_function(lined[name],
@@ -430,15 +449,22 @@ def measure(device, blocks=3, tris=None, side=1024):
                 "node_mixed": float(node[~pure].sum()),
                 "warps": min(tile, 512) // 32}
             continue
-        kw = {"prefetch": what == "K2", "count_pops": what == "K3"}
+        if isinstance(what, dict):
+            def run(dev=dev, comps=comps, body=what):
+                return measure_ct.call(dev, comps, body, any_hit)
+        else:
+            kw = {"prefetch": what == "K2", "count_pops": what == "K3"}
 
-        def run(kw=kw, dev=dev, comps=comps):
-            return packet.traverse_packet_components(dev, *comps,
-                                                     any_hit=any_hit, **kw)
+            def run(kw=kw, dev=dev, comps=comps):
+                return packet.traverse_packet_components(
+                    dev, *comps, any_hit=any_hit, **kw)
         ms, _ = common.timed(run, device, blocks,
                              warmup_s=common.WARMUP_S if first else 0.0)
         first = False
-        st = common.pop_stats(common.counted(dev, comps, any_hit))
+        st = common.pop_stats(
+            measure_ct.call(dev, comps, what, any_hit, True)
+            if isinstance(what, dict) else
+            common.counted(dev, comps, any_hit))
         res[label] = {"ms": ms, "pops": st["pops"], "node": st["node"],
                       "leaf": st["leaf"], "warp_node": st["warp_node"],
                       "warp_leaf": st["warp_leaf"],

@@ -7,8 +7,11 @@ anew and an unchanged one loads the built library. Only sources in the
 repository are used. Without nvcc (and without a built library) asking
 for a library raises: there is no fallback.
 
-Five libraries: "main" (bvh_traverse.cu) holds K1, K2 and K3, the kernels
-of the render and benchmark paths; "options" (the same source with
+Six libraries: "main" (bvh_traverse.cu) holds K1, K2 and K3, the kernels
+of the render and benchmark paths; "ct" (bvh_ct.cu) holds K7, the
+carry-top body of the bench's and the tools' primary rows, in a library of
+its own so that the main library's source and binary stay as they were;
+"options" (the same source with
 -DRT_OPTIONS) holds K4, the options of the legacy Pallas body; "group"
 (the same source with -DRT_GROUP) holds K1-K3 in two bodies, the group
 stack and the first body, for experiments/ab_body.py, which times them
@@ -17,7 +20,7 @@ whose stack is shared by a tile of rays, in the warp schedule, which the
 wrappers launch; "probes" (probes.cu) holds the
 micro-probes of rodent_tpu_torch.experiments.probe_* and vpu_dtype_bench.
 Each is built at its first use, so that none delays K1's first launch;
-build_all() starts the five nvcc runs at once. A library's hash covers
+build_all() starts the six nvcc runs at once. A library's hash covers
 its source and the header it includes (bvh_common.cuh).
 
 -fmad=false keeps every float operation separately rounded, as the plain
@@ -44,6 +47,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 # library -> (its source in csrc/, its extra nvcc flags)
 LIBRARIES = {"main": ("bvh_traverse.cu", ()),
+             "ct": ("bvh_ct.cu", ()),
              "options": ("bvh_traverse.cu", ("-DRT_OPTIONS",)),
              "group": ("bvh_traverse.cu", ("-DRT_GROUP",)),
              "tile": ("bvh_tile.cu", ()),
@@ -61,6 +65,12 @@ _ENTRIES = {
         "rt_bvh_traverse": (ctypes.c_int, _TRAVERSE + [_P]),
         "rt_bvh_traverse_prefetch": (ctypes.c_int, _TRAVERSE + [_P]),
         "rt_bvh_traverse_count": (ctypes.c_int, _TRAVERSE + [_P, _P, _P]),
+    },
+    "ct": {
+        # ..., pops, leaf_pops (both null without counters), sort, fma,
+        # stream
+        "rt_bvh_traverse_ct": (ctypes.c_int, _TRAVERSE + [_P, _P, _I, _I,
+                                                          _P]),
     },
     "group": {
         # ..., pops, leaf_pops, variant, body, stream

@@ -254,8 +254,9 @@ def traverse_sharded(dev, rays, mesh=None, any_hit=False, engine="packet",
     "packet-giga" (K2, the prefetching kernel, which the big-scene
     tiers take), or "tiled" (the dual-queue engine,
     traversal/tiled.py, the JAX default). engine_kwargs are the engine's
-    own options: traverse_packet's (tile_rows, ablate, ...; the TPU knobs
-    multi, carry_top and the like are refused there) or traverse_tiled's
+    own options: traverse_packet's (tile_rows, ablate, carry_top, ...;
+    the TPU knobs multi, tris_hbm and the like are refused there) or
+    traverse_tiled's
     (compact_stages, sub_batches)."""
     if mesh is None:
         mesh = make_mesh()

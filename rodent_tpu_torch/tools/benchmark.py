@@ -7,7 +7,12 @@ config, `scene : distribution : variant : N Mrays (avg A, min B, max C,
 n=I; K intersections)`, on the procedural scene fixtures (sponza-class
 hall, crown-class, powerplant-class). Variants:
 
-  packet     K1, the traversal kernel (csrc/bvh_traverse.cu)
+  packet     K1, the traversal kernel (csrc/bvh_traverse.cu); on hall's
+             primaries K7, the carry-top body (csrc/bvh_ct.cu, select
+             "fold", the fused slab), as the JAX tool runs hall's
+             primaries through the carry-top body
+             (rodent_tpu/tools/benchmark.py:182-184)
+  packet-k1  K1 everywhere: the legacy body beside K7 on hall's primaries
   hbm, giga  K2, K1 plus the exact next-pop L2 prefetch (the big-scene
              tiers; on the card one kernel serves both TPU transports)
   hbm-nopf, giga-nopf
@@ -30,7 +35,7 @@ config 1920x1088 / spp 4 / max path length 20 and prints Msamples/s rows.
 
 Usage:
   python -m rodent_tpu_torch.tools.benchmark [--scenes hall,crown,powerplant]
-      [--dists primary,ao,bounces] [--variants packet,hbm]
+      [--dists primary,ao,bounces] [--variants packet,packet-k1,hbm]
       [--rays 1048576] [--iters 5] [--sizes hall=260000,...]
       [--mode traversal|renderer] [--cpu]
 """
@@ -44,11 +49,15 @@ import numpy as np
 import torch
 
 # variant -> (engine, option): traverse_packet's prefetch flag (K2 when
-# True, else K1), or the dual-queue engine's compact_stages
-VARIANTS = {"packet": ("packet", False), "hbm": ("packet", True),
+# True, else K1 or, for "packet" on hall's primaries, K7), or the
+# dual-queue engine's compact_stages
+VARIANTS = {"packet": ("packet", False), "packet-k1": ("packet", False),
+            "hbm": ("packet", True),
             "giga": ("packet", True), "hbm-nopf": ("packet", False),
             "giga-nopf": ("packet", False), "tiled": ("tiled", 0),
             "tiled-c": ("tiled", 5)}
+# the carry-top body's arguments (K7), the JAX tool's on hall's primaries
+CT_BODY = {"carry_top": True, "select": "fold", "fma_slab": True}
 # camera + emitter per scene (the *_primary_rays viewpoints)
 _RENDER_CAMS = {
     "hall": ((2.5, 5.0, 5.0), (1.0, -0.12, 0.02), 60.0, "inside"),
@@ -80,7 +89,8 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="benchmark")
     p.add_argument("--scenes", default="hall,crown,powerplant")
     p.add_argument("--dists", default="primary,ao,bounces")
-    p.add_argument("--variants", type=_variants, default="packet,hbm")
+    p.add_argument("--variants", type=_variants,
+                   default="packet,packet-k1,hbm")
     p.add_argument("--rays", type=int, default=1024 * 1024)
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--sizes", type=_sizes, default={},
@@ -121,13 +131,17 @@ def _traverse_one(args, device, scene):
     for dist, (comps, ah) in dists.items():
         for variant in args.variants:
             engine, opt = VARIANTS[variant]
+            # the JAX tool's per-scene primary body (:176-184): hall's
+            # primaries through the carry-top body
+            kw = (CT_BODY if variant == "packet" and scene == "hall"
+                  and dist == "primary" else {})
 
-            def fn(engine=engine, opt=opt):
+            def fn(engine=engine, opt=opt, kw=kw):
                 if engine == "tiled":
                     return tiled.traverse_components(
                         dev, *comps, any_hit=ah, compact_stages=opt)
                 return traverse_packet_components(dev, *comps, any_hit=ah,
-                                                  prefetch=opt)
+                                                  prefetch=opt, **kw)
             ms, out = common.samples(fn, device, args.iters)
             mr = n / np.asarray(ms) / 1e3
             hits = int((out["prim_id"] >= 0).sum())

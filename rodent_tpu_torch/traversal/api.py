@@ -31,6 +31,11 @@ stack is not empty, and only those rays are touched.
 `traverse_tile_components` is the plain version of K5 (csrc/bvh_tile.cu):
 _kernel's own contract, in which a tile of rays shares ONE stack
 (pallas_packet.py:1-24); `traverse(..., tile_rows=...)` takes it.
+
+`traverse_ct_components` is the plain version of K7 (csrc/bvh_ct.cu):
+the carry-top body _kernel_ct for one ray per stack (the next pop
+carried, the min-fold or sort child choice, the ordered and optionally
+fused slab, `fma_f32`); `traverse(..., carry_top=True)` takes it.
 """
 from __future__ import annotations
 
@@ -226,17 +231,27 @@ def _leaf_step(dev, org, dirv, tmin, t_cur, code, t_run=None):
 # :575-578, :639-644)
 ABLATIONS = ("nonodetest", "noleaftest", "nosort")
 LEAF_CHAINS = (1, 2, 4)
+# the carry-top body's child selections (_kernel_ct, :1044-1057)
+SELECTS = ("fold", "sort")
+# the fused slab's inverse clamp (pallas_packet.py:_INV_CAP, :79-86): with
+# it no bound * inverse overflows, so b * inv + (-org * inv) is never NaN
+INV_CAP = float(2.0 ** 62)
 # the tile route: 128-ray rows per tile, and its one ablation (:794-799)
 TILE_ROWS = (1, 2, 4, 8, 16, 32)
 TILE_ABLATIONS = ("nopure",)
 
 
 def check_options(any_hit, ablate=(), pops=1, leaf_chain=1, frustum=False,
-                  tile_rows=None):
+                  tile_rows=None, carry_top=False, select="fold"):
     """Validates the options of the legacy Pallas body _kernel
     (pallas_packet.py:395-876) that the port carries; returns `ablate` as
-    a sorted tuple. tile_rows=None is the per-ray route, which raises
-    ValueError for:
+    a sorted tuple. `select` must be one of SELECTS. carry_top=True asks
+    for the carry-top body (_kernel_ct, :878-1131), which takes none of
+    the options: where the JAX wrapper silently runs the legacy body
+    instead (frustum, pops > 1, ablate, leaf_chain > 1: :1517-1520) this
+    raises ValueError naming the demotion, and it raises for tile_rows=,
+    a TPU tile that one ray per thread does not have. tile_rows=None is
+    the per-ray route, which raises ValueError for:
 
     - "nopure" and frustum=True: both belong to one stack shared by a
       tile of rays (_kernel's octant-pure ordered slab test, :794-799,
@@ -249,6 +264,23 @@ def check_options(any_hit, ablate=(), pops=1, leaf_chain=1, frustum=False,
     "nopure", one at a time (with "nopure", _kernel never reaches the
     frustum test), and none of the per-ray options."""
     ablate = tuple(sorted(set(ablate)))
+    if select not in SELECTS:
+        raise ValueError(f"select={select!r}: one of {SELECTS}")
+    if carry_top:
+        if tile_rows is not None:
+            raise ValueError("carry_top=True with tile_rows=: the carry-top "
+                             "body walks one ray with its own stack; a "
+                             "tile of rays is the legacy body's (drop one)")
+        demoted = [name for name, on in (
+            ("frustum", frustum), (f"ablate {ablate}", bool(ablate)),
+            (f"pops={pops}", pops > 1),
+            (f"leaf_chain={leaf_chain}", leaf_chain > 1)) if on]
+        if demoted:
+            raise ValueError(
+                f"carry_top=True with {', '.join(demoted)}: the JAX wrapper "
+                f"demotes the carry-top body to the legacy _kernel for "
+                f"these options (pallas_packet.py:1517-1520); the port "
+                f"does not demote: ask for one or the other")
     if tile_rows is not None:
         if tile_rows not in TILE_ROWS:
             raise ValueError(f"tile_rows={tile_rows}: one of {TILE_ROWS}")
@@ -335,7 +367,8 @@ def _leaf_chain(dev, org, dirv, tmin, t_test, carry, code, chain,
 
 def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
                         count_pops=False, ablate=(), pops=1, leaf_chain=1,
-                        frustum=False, count_rows=False, stack_depth=None):
+                        frustum=False, count_rows=False, stack_depth=None,
+                        carry_top=False, select="fold", fma_slab=True):
     """Closest-hit (any_hit=False) or first-hit (any_hit=True) traversal of
     flat (B,) component rays: org, dirv, inv_d are Vec3 tuples. A ray with
     tmax < tmin is dead. Returns {t, u, v, prim_id, geom_id}; on a miss
@@ -373,8 +406,22 @@ def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
     ray's pointer still moves, and a pop from such a slot reads an empty
     entry, so the ray skips what did not fit. None (or 0) takes
     stack_entries(dev, pops), the tree's worst case, and raises where a
-    push would not fit."""
-    ablate = check_options(any_hit, ablate, pops, leaf_chain, frustum)
+    push would not fit.
+
+    carry_top=True takes the carry-top body instead (_kernel_ct,
+    pallas_packet.py:878-1131; the plain version of K7, csrc/bvh_ct.cu),
+    with its `select` ("fold" or "sort") and `fma_slab`, and none of the
+    options above but count_pops and count_rows (check_options): see
+    traverse_ct_components. select and fma_slab are read only there."""
+    ablate = check_options(any_hit, ablate, pops, leaf_chain, frustum,
+                           carry_top=carry_top, select=select)
+    if carry_top:
+        if stack_depth:
+            raise ValueError("stack_depth belongs to the legacy order; the "
+                             "carry-top body sizes its stack itself")
+        return traverse_ct_components(dev, org, dirv, inv_d, tmin, tmax,
+                                      any_hit, count_pops, count_rows,
+                                      select, fma_slab)
     if stack_depth is not None and stack_depth < 0:
         raise ValueError(f"stack_depth={stack_depth} < 0")
     nodetest = "nonodetest" not in ablate
@@ -492,6 +539,207 @@ def traverse_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
 
 
 _F32_MAX = 3.402823466e38   # a miss's key in the tile kernels
+
+
+def fma_f32(a, b, c):
+    """a * b + c on float32 tensors (broadcast), rounded once, as CUDA's
+    __fmaf_rn: bit for bit the fused multiply-add, subnormals kept. The
+    product of two float32 values is exact in float64; their sum with c
+    is formed with TwoSum (the float64 sum and its exact error) and made
+    round-to-odd (where the sum is inexact and its last bit even, it steps
+    one float64 toward the exact value), and then rounded to float32,
+    which is then correctly rounded: float64 carries more than 24 + 2 bits
+    (Boldo and Melquiond, "Emulation of FMA and correctly rounded sums:
+    proved algorithms using rounding to odd", IEEE Trans. Computers 57(4),
+    2008). A non-finite sum is left as it is."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    step = (err != 0) & even & torch.isfinite(s)
+    toward = torch.copysign(torch.full_like(s, torch.inf), err)
+    return torch.where(step, torch.nextafter(s, toward), s).float()
+
+
+def _ct_node(dev, org, inv, io, pos, tmin, t_cur, code, any_hit, select):
+    """One node pop of the carry-top body per ray (_kernel_ct's do_node,
+    :993-1059, for one ray, whose tile is octant-pure). The ordered slab
+    (_slab_parts' pure form, :255-269 fused, :289-300 unfused; the
+    reference's ordered_bbox, intersection.impala:194-202): the near and
+    far plane of each axis picked by the sign of the raw inverse (pos),
+    each plane fma_f32(b, inv, io) with io given (inv clamped), else
+    (b - org) * inv; a child counts where its entry is at most its exit.
+    Returns (the next pop's code, 0 where no child counts; the children
+    (n, A) i32; the mask of those to push)."""
+    nodes = dev["nodes"]
+    a = nodes.shape[1] // 7
+    row = nodes[code - 1]
+    children = row[:, 6 * a:7 * a].view(torch.int32)
+    near, far = [], []
+    for k in range(3):
+        lo = row[:, 2 * k * a:(2 * k + 1) * a]
+        hi = row[:, (2 * k + 1) * a:(2 * k + 2) * a]
+        p = pos[k][:, None]
+        for b, out in ((torch.where(p, lo, hi), near),
+                       (torch.where(p, hi, lo), far)):
+            if io is None:
+                out.append((b - org[k][:, None]) * inv[k][:, None])
+            else:
+                out.append(fma_f32(b, inv[k][:, None], io[k][:, None]))
+    entry = torch.maximum(torch.maximum(near[0], near[1]),
+                          torch.maximum(near[2], tmin[:, None]))
+    exit_ = torch.minimum(torch.minimum(far[0], far[1]),
+                          torch.minimum(far[2], t_cur[:, None]))
+    key = torch.where(entry <= exit_, entry, _F32_MAX)
+    ok = (children != 0) & (key < _F32_MAX)
+    key = torch.where(ok, key, _F32_MAX)
+    ch = torch.where(ok, children, 0)
+    if any_hit:
+        # the lowest slot that counts (:1038-1043)
+        first = torch.argmax(ok.to(torch.uint8), 1, keepdim=True)
+        best = torch.gather(ch, 1, first)[:, 0]
+    elif select == "sort":
+        # Batcher's network: the nearest child in slot 0 (:1044-1046)
+        keys, chs = list(key.unbind(1)), list(ch.unbind(1))
+        for i, j in _SORT_NETWORKS[a]:
+            swap = keys[i] > keys[j]
+            keys[i], keys[j] = (torch.where(swap, keys[j], keys[i]),
+                                torch.where(swap, keys[i], keys[j]))
+            chs[i], chs[j] = (torch.where(swap, chs[j], chs[i]),
+                              torch.where(swap, chs[i], chs[j]))
+        ch = torch.stack(chs, 1)
+        best = ch[:, 0]
+    else:
+        # the strict-< min-fold over the slots: the first of equal keys
+        # (:1048-1054)
+        bk, best = key[:, 0], ch[:, 0]
+        for c in range(1, a):
+            sw = key[:, c] < bk
+            bk = torch.where(sw, key[:, c], bk)
+            best = torch.where(sw, ch[:, c], best)
+    return best, ch, (ch != 0) & (ch != best[:, None])
+
+
+def traverse_ct_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
+                           count_pops=False, count_rows=False, select="fold",
+                           fma_slab=True):
+    """The carry-top body (_kernel_ct, pallas_packet.py:878-1131) for one
+    ray per stack, the plain version of K7 (csrc/bvh_ct.cu); arguments
+    and outputs as traverse_components'. Its rules, per ray:
+
+    - the next pop's code is carried, not stored: a node's chosen child,
+      a leaf's next Tri row (code - 1 while the sign bit of lane M-1's pid
+      is clear, :1076), else the stack's top as it stood before the pop's
+      pushes (the peek, :1006-1009, :1097-1099), which is then popped;
+    - a node slab-tests its children in the ordered form (_ct_node;
+      fma_slab: the fused b * inv + (-(org * inv)) with inv clamped to
+      +-INV_CAP, rounded once as __fmaf_rn, :952-955) and chooses, for
+      closest-hit, the nearest child by a strict-< min-fold over the
+      slots (select="fold") or by Batcher's network (select="sort"), for
+      any-hit the lowest slot (:1038-1057); the other children that count
+      are pushed from slot A-1 down to 0 (:1093-1096), so the lowest ends
+      on top (with "sort", the nearest);
+    - a leaf is K1's: its M lanes tested against t as the pop began,
+      updated on the strict t < t_cur, the first hit found kept; any-hit
+      ends a ray at the leaf that hits;
+    - count_pops counts every pop and its leaf pops (:1001-1003).
+
+    A ray with tmax < tmin never starts and counts 0 pops (on the TPU it
+    pops the root once, whose children its empty interval rejects). The
+    stack holds the pushed siblings only, never more than K1's stack
+    (stack_entries). With select="sort" and fma_slab=False the body pops
+    what traverse_components pops, in its order: the same hits and the
+    same counts."""
+    if select not in SELECTS:
+        raise ValueError(f"select={select!r}: one of {SELECTS}")
+    device = tmin.device
+    b = tmin.shape[0]
+    cap = stack_entries(dev)
+    stack = torch.zeros((b, cap), dtype=torch.int32, device=device)
+    sp = torch.zeros(b, dtype=torch.int64, device=device)
+    one = torch.ones(b, dtype=torch.int32, device=device)
+    code = torch.where(tmax >= tmin, one, 0)   # dead rays never start
+    t = tmax.to(torch.float32).clone()
+    u = torch.zeros_like(t)
+    v = torch.zeros_like(t)
+    prim = torch.full((b,), -1, dtype=torch.int32, device=device)
+    geom = torch.full((b,), -1, dtype=torch.int32, device=device)
+    pos = [x >= 0.0 for x in inv_d]             # signs of the raw inverse
+    if fma_slab:
+        inv = [x.clamp(-INV_CAP, INV_CAP) for x in inv_d]
+        io = [-(o * i) for o, i in zip(org, inv)]
+    else:
+        inv, io = inv_d, None
+    if count_pops:
+        pops_n = torch.zeros(b, dtype=torch.int32, device=device)
+        leaf_n = torch.zeros(b, dtype=torch.int32, device=device)
+    if count_rows:
+        nodes_read = torch.zeros(dev["nodes"].shape[0], dtype=torch.bool,
+                                 device=device)
+        tris_read = torch.zeros(dev["tris"].shape[0], dtype=torch.bool,
+                                device=device)
+    while True:
+        act = torch.nonzero(code != 0).squeeze(1)
+        if act.numel() == 0:
+            break
+        c = code[act]
+        s = sp[act]
+        has = s > 0
+        peek = torch.where(has, stack[act, (s - 1).clamp(min=0)], 0)
+        best = torch.zeros_like(c)
+        if count_pops:
+            pops_n[act] += 1
+            leaf_n[act] += (c < 0).to(torch.int32)
+        nd = torch.nonzero(c > 0).squeeze(1)
+        if nd.numel():
+            rays = act[nd]
+            if count_rows:
+                nodes_read[c[nd] - 1] = True
+            bst, ch, push = _ct_node(
+                dev, [x[rays] for x in org], [x[rays] for x in inv],
+                None if io is None else [x[rays] for x in io],
+                [x[rays] for x in pos], tmin[rays], t[rays], c[nd],
+                any_hit, select)
+            best[nd] = bst
+            m64 = push.to(torch.int64)
+            k = m64.sum(1)
+            # slot c lands above the pushes of the slots after it
+            at = s[nd][:, None] + k[:, None] - torch.cumsum(m64, 1)
+            if push.any() and int(at[push].max()) >= cap:
+                raise ValueError(f"traversal stack of {cap} entries "
+                                 "overflowed (carry_top)")
+            rr = rays[:, None].expand_as(at)
+            stack[rr[push], at[push]] = ch[push]
+            s[nd] += k
+        lf = torch.nonzero(c < 0).squeeze(1)
+        if lf.numel():
+            rays = act[lf]
+            cl = c[lf]
+            if count_rows:
+                tris_read[~cl] = True
+            take, *vals, last = _leaf_step(
+                dev, [x[rays] for x in org], [x[rays] for x in dirv],
+                tmin[rays], t[rays], cl)
+            upd = rays[take]
+            for out, val in zip((t, u, v, prim, geom), vals):
+                out[upd] = val[take]
+            best[lf] = torch.where(last, 0, cl - 1)
+        pop = best == 0
+        nxt = torch.where(pop, peek, best)
+        sp[act] = s - (pop & has).to(torch.int64)
+        if any_hit:   # a ray ends at the pop that found a hit
+            nxt = torch.where(prim[act] >= 0, 0, nxt)
+        code[act] = nxt
+    out = {"t": t, "u": u, "v": v, "prim_id": prim, "geom_id": geom}
+    if count_pops:
+        out["pops"] = pops_n
+        out["leaf_pops"] = leaf_n
+    if count_rows:
+        out["nodes_read"] = nodes_read
+        out["tris_read"] = tris_read
+    return out
 
 
 def tile_pad(x, nt, size, fill=0.0):
@@ -813,8 +1061,9 @@ def components(rays):
 def traverse(dev, rays, any_hit=False, count_pops=False, stack_depth=None,
              **options):
     """traverse_components over a make_rays dict ((B, 3) org/dir);
-    options: ablate, pops, leaf_chain, frustum, count_rows; stack_depth as
-    there (the JAX api.traverse's). With tile_rows=,
+    options: ablate, pops, leaf_chain, frustum, count_rows, carry_top,
+    select, fma_slab; stack_depth as there (the JAX api.traverse's). With
+    tile_rows=,
     traverse_tile_components instead (options frustum, ablate, count_rows;
     its per-tile counters with count_pops=True; no stack_depth)."""
     org, dirv, inv_d, _, tmin, tmax = components(rays)
@@ -824,7 +1073,10 @@ def traverse(dev, rays, any_hit=False, count_pops=False, stack_depth=None,
                              "tile route sizes its shared stack itself")
         check_options(any_hit, options.get("ablate", ()),
                       options.pop("pops", 1), options.pop("leaf_chain", 1),
-                      options.get("frustum", False), options["tile_rows"])
+                      options.get("frustum", False), options["tile_rows"],
+                      options.pop("carry_top", False),
+                      options.pop("select", "fold"))
+        options.pop("fma_slab", None)
         out = traverse_tile_components(dev, org, dirv, inv_d, tmin, tmax,
                                        any_hit=any_hit, **options)
         if not count_pops:
@@ -865,4 +1117,5 @@ __all__ = ["make_rays", "traverse", "traverse_components", "occluded",
            "BvhMeta", "compute_stack_needs", "stack_entries", "components",
            "check_options", "ABLATIONS", "LEAF_CHAINS",
            "traverse_tile_components", "TILE_ROWS", "TILE_ABLATIONS",
-           "tile_pad", "tile_purity", "tile_leaf_lanes", "mt_lane"]
+           "tile_pad", "tile_purity", "tile_leaf_lanes", "mt_lane",
+           "traverse_ct_components", "fma_f32", "SELECTS", "INV_CAP"]

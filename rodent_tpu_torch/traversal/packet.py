@@ -1,8 +1,10 @@
 """BVH traversal through the hand-written CUDA kernels of
-csrc/bvh_traverse.cu: the counterpart of
+csrc/bvh_traverse.cu and csrc/bvh_ct.cu: the counterpart of
 rodent_tpu/traversal/pallas_packet.py.
 
-  K1 bvh_traverse           the traversal (_kernel_ct / _kernel_multi)
+  K1 bvh_traverse           the traversal in the legacy order
+                            (_kernel_multi, the JAX renderers' body):
+                            hit children sorted and pushed far-to-near
   K2 bvh_traverse_prefetch  K1 plus the exact next-pop L2 prefetch
                             (_pf_helpers and the tris_hbm / nodes_hbm
                             transport): prefetch=True
@@ -17,6 +19,11 @@ rodent_tpu/traversal/pallas_packet.py.
                             tile of tile_rows * 128 rays walks the BVH
                             from ONE shared stack: tile_rows=1-32, with
                             frustum=True or ablate=("nopure",)
+  K7 bvh_traverse_ct        the carry-top body _kernel_ct (csrc/bvh_ct.cu):
+                            carry_top=True with select="fold" (the
+                            default) or "sort" and fma_slab=True (the
+                            default) or False, per-ray counters with
+                            count_pops=True; BVH8 with Tri8/16/24 rows
 
 K6, bvh_traverse_pair (experiments/pallas_pair.py's tile stack of whole
 nodes), has its wrapper in traversal/pair.py; its launches are counted here.
@@ -35,12 +42,22 @@ The device of the tensors decides the route and nothing else: CUDA
 tensors launch the variant's kernel (or raise), CPU tensors take the plain
 torch version (api.traverse_components, which follows the kernels' rules
 exactly and counts the same pops; api.traverse_tile_components for
-tile_rows=). The kernels take one option at a time and none with prefetch,
-on either route. tile_rows= (1, 2, 4, 8, 16 or 32) asks for the tile route,
-which alone takes frustum=True and ablate "nopure" (api.check_options). The
-Pallas wrapper's other TPU tuning knobs (multi, carry_top, select,
-fma_slab, tris_hbm, nodes_hbm, interpret, ...) have no meaning on the card
-and are not accepted.
+tile_rows=; api.traverse_ct_components for carry_top=True). The kernels
+take one option at a time and none with prefetch, on either route.
+tile_rows= (1, 2, 4, 8, 16 or 32) asks for the tile route, which alone
+takes frustum=True and ablate "nopure" (api.check_options).
+
+carry_top, select and fma_slab are the Pallas wrapper's, with its defaults
+(False, "fold", True; select and fma_slab are read only with carry_top):
+they are rules of a ray's traversal, not tile shapes, so they keep their
+meaning for one ray per thread. Where the JAX wrapper silently runs the
+legacy body instead of the carry-top one (frustum, pops > 1, ablate,
+leaf_chain > 1: pallas_packet.py:1517-1520), the port raises, naming the
+demotion; carry_top also refuses tile_rows=, row_loads and prefetch (the
+carry-top body's next-pop prefetch is not ported), and a select other than
+"fold" or "sort". The Pallas wrapper's other TPU knobs (multi, tris_hbm,
+nodes_hbm, scalar_reads, interpret, ...) have no meaning on the card and
+are not accepted.
 """
 from __future__ import annotations
 
@@ -50,7 +67,8 @@ import torch
 
 from ..kernels.build import load_library
 from .api import (check_options, components, stack_entries,
-                  traverse_components, traverse_tile_components)
+                  traverse_components, traverse_ct_components,
+                  traverse_tile_components)
 
 ARITIES = (2, 4, 8)
 PACKETS = (1, 4, 8, 16, 24)
@@ -82,12 +100,15 @@ TILE_STACK_MAX = 256
 # (16 x 4 B an entry) and the frustum's row boxes (9,344 B) within the
 # card's 232,448 B a block (csrc/bvh_tile.cu)
 TILE_FRUSTUM_R32_STACK_MAX = 158
+# K7 is built for BVH8 (WIDE_ARITY) with these Tri rows
+CT_PACKETS = (8, 16, 24)
 
 # launches per kernel since the last reset_launches(); raised by one where
 # the kernel is launched and nowhere else
 launches = {"bvh_traverse": 0, "bvh_traverse_prefetch": 0,
             "bvh_traverse_count": 0, "bvh_traverse_option": 0,
-            "bvh_traverse_tile": 0, "bvh_traverse_pair": 0}
+            "bvh_traverse_tile": 0, "bvh_traverse_pair": 0,
+            "bvh_traverse_ct": 0}
 
 _ENTRY = {"bvh_traverse": "rt_bvh_traverse",
           "bvh_traverse_prefetch": "rt_bvh_traverse_prefetch",
@@ -212,6 +233,63 @@ def _launch(dev, comps, any_hit, kernel, option=None):
     return out
 
 
+def _launch_ct(dev, comps, any_hit, count_pops, select, fma_slab):
+    """K7 on CUDA tensors; comps as in _launch. Returns the hits, and with
+    count_pops the per-ray "pops" and "leaf_pops"."""
+    nodes, tris = dev["nodes"], dev["tris"]
+    arity = nodes.shape[1] // 7
+    m = tris.shape[1] // 14
+    if nodes.shape[1] != 7 * WIDE_ARITY or m not in CT_PACKETS or \
+            tris.shape[1] != 14 * m:
+        raise ValueError(f"bvh_traverse_ct is built for BVH{WIDE_ARITY} "
+                         f"with Tri-M rows, M in {CT_PACKETS}; got "
+                         f"BVH{arity}, Tri{m}")
+    cap = stack_cap(dev)
+    n = check_inputs("bvh_traverse_ct", comps, nodes, tris)
+    device = nodes.device
+
+    def empty(dtype):
+        return torch.empty(n, dtype=dtype, device=device)
+
+    out = {"t": empty(torch.float32), "u": empty(torch.float32),
+           "v": empty(torch.float32), "prim_id": empty(torch.int32),
+           "geom_id": empty(torch.int32)}
+    counters = [None, None]
+    if count_pops:
+        out["pops"] = empty(torch.int32)
+        out["leaf_pops"] = empty(torch.int32)
+        counters = [out["pops"].data_ptr(), out["leaf_pops"].data_ptr()]
+    if n == 0:
+        return out
+    lib = load_library(kind="ct")
+    ptrs = (ctypes.c_void_p * 11)(*(x.data_ptr() for x in comps))
+    err = call_on_card(
+        device, lib.rt_bvh_traverse_ct, nodes.data_ptr(), tris.data_ptr(),
+        ptrs, n, arity, m, int(bool(any_hit)), cap,
+        *(out[k].data_ptr() for k in ("t", "u", "v", "prim_id", "geom_id")),
+        *counters, int(select == "sort" and not any_hit),
+        int(bool(fma_slab)))
+    if err != 0:
+        raise RuntimeError(f"bvh_traverse_ct launch failed with CUDA error "
+                           f"{err}")
+    launches["bvh_traverse_ct"] += 1
+    return out
+
+
+def _traverse_ct(dev, org, dirv, inv_d, tmin, tmax, any_hit, count_pops,
+                 select, fma_slab):
+    """The carry-top route of traverse_packet_components: K7 on CUDA
+    tensors, its plain version on CPU tensors."""
+    if tmin.device.type == "cuda":
+        return _launch_ct(dev, [*inv_d, *org, *dirv, tmin, tmax], any_hit,
+                          count_pops, select, fma_slab)
+    if tmin.device.type == "cpu":
+        return traverse_ct_components(dev, org, dirv, inv_d, tmin, tmax,
+                                      any_hit, count_pops, select=select,
+                                      fma_slab=fma_slab)
+    raise ValueError(f"traverse_packet: unsupported device {tmin.device}")
+
+
 def tile_mode(frustum=False, ablate=()):
     """K5's entry of TILE_MODES for these (checked) tile options."""
     return ("frustum" if frustum else
@@ -290,16 +368,32 @@ def traverse_packet_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
                                any_hit=False, prefetch=False,
                                count_pops=False, ablate=(), pops=1,
                                leaf_chain=1, row_loads=False, frustum=False,
-                               tile_rows=None):
+                               tile_rows=None, carry_top=False,
+                               select="fold", fma_slab=True):
     """Component-level traversal: Vec3 tuples of (B,) tensors in, hit dict
     of (B,) tensors out. prefetch=True takes K2, count_pops=True takes K3
     (and adds "pops"/"leaf_pops"); one of ablate, pops=2, leaf_chain=2/4
     or row_loads takes K4 (its counters with count_pops=True). prefetch
     excludes the others. tile_rows= takes the tile route, K5, with
     frustum=True or ablate=("nopure",) at most, and per-tile counters with
-    count_pops=True. inv_o belongs to the contract but is not read: the
-    kernels slab-test in the NaN-free (bound - org) * inv_dir form."""
+    count_pops=True. carry_top=True takes K7 with its select and fma_slab,
+    per-ray counters with count_pops=True, and none of the other options.
+    inv_o belongs to the contract but is not read: the kernels slab-test
+    in the NaN-free (bound - org) * inv_dir form, or K7's fused form from
+    the clamped inverse."""
     del inv_o
+    if carry_top:
+        for name, on in (("prefetch", prefetch), ("row_loads", row_loads)):
+            if on:
+                raise ValueError(
+                    f"traverse_packet: carry_top=True with {name}: the "
+                    f"carry-top body takes neither the next-pop prefetch "
+                    f"(not ported) nor row loads; ask for one")
+        check_options(any_hit, ablate, pops, leaf_chain, frustum, tile_rows,
+                      carry_top=True, select=select)
+        return _traverse_ct(dev, org, dirv, inv_d, tmin, tmax, any_hit,
+                            count_pops, select, fma_slab)
+    check_options(any_hit, select=select)
     if tile_rows is not None:
         if prefetch or row_loads:
             raise ValueError("traverse_packet: the tile route (tile_rows=) "
@@ -341,7 +435,8 @@ def traverse_packet_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
 def traverse_packet(dev, rays, any_hit=False, prefetch=False,
                     count_pops=False, **options):
     """traverse_packet_components over a make_rays dict ((B, 3) org/dir);
-    options: ablate, pops, leaf_chain, row_loads, frustum, tile_rows."""
+    options: ablate, pops, leaf_chain, row_loads, frustum, tile_rows,
+    carry_top, select, fma_slab."""
     return traverse_packet_components(dev, *components(rays),
                                       any_hit=any_hit, prefetch=prefetch,
                                       count_pops=count_pops, **options)

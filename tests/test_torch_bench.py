@@ -33,10 +33,12 @@ FLT_MAX = 3.402823466e38
 TINY = ["--cpu", "--tris", "2000", "--side", "32", "--big-tris", "20000",
         "--blocks", "1"]
 # bench.py:261-267's keys and its detail keys, bench.py's primary rows
-# renamed for K1 and its cornell_* keys left out
+# named for the carry-top body (K7, "ct") beside K1's, and its cornell_*
+# keys left out
 TOP = {"metric", "value", "unit", "vs_baseline", "detail"}
 DETAIL = {"backend", "num_nodes", "num_packets", "primary_pk8_k1_mrays",
-          "primary_pk16_k1_mrays", "primary_config", "primary_mrays",
+          "primary_pk16_k1_mrays", "primary_pk8_ct_mrays",
+          "primary_pk16_ct_mrays", "primary_config", "primary_mrays",
           "primary_band", "primary_hit_fraction", "bigscene_transport",
           "bigscene_tris", "bigscene_mrays", "bigscene_band"} | {
     f"{kind}_{key}" for kind in ("ao", "bounces")
@@ -66,7 +68,8 @@ def test_bench_line_on_cpu(tmp_path, capsys):
     assert "373.1" in detail["baseline"]
     assert absent in detail["cornell"]
     assert detail["bigscene_transport"] == "prefetch"
-    assert detail["primary_config"] in ("pk8-K1", "pk16-K1")
+    assert detail["primary_config"] in ("pk8-K1", "pk16-K1", "pk8-ct",
+                                        "pk16-ct")
     assert {detail["ao_engine"], detail["bounces_engine"]} <= {
         "packet", "tiled-c"}
     assert set(packet.launches.values()) == {0}

@@ -1,8 +1,8 @@
 """The CUDA kernels K1, K2 (prefetch), K3 (pop counters), each in both
 bodies (the group stack and the first body), K4 (the options of the
 legacy Pallas body), K5 (the tile-shared stack), K6 (the
-pair layout) and the micro-probes (csrc/probes.cu) and the port's slices
-on a CUDA card.
+pair layout), K7 (the carry-top body) and the micro-probes
+(csrc/probes.cu) and the port's slices on a CUDA card.
 
 Every test here is marked `cuda` and skips where torch sees no card. The
 file imports no jax, so it also runs where jax is not installed:
@@ -207,7 +207,8 @@ def test_prefetch_and_count_kernels(card, width):
                                    "bvh_traverse_count": 1,
                                    "bvh_traverse_option": 0,
                                    "bvh_traverse_tile": 0,
-                                   "bvh_traverse_pair": 0}
+                                   "bvh_traverse_pair": 0,
+                                   "bvh_traverse_ct": 0}
         for key in ("t", "u", "v", "prim_id", "geom_id"):
             assert torch.equal(k2[key], k1[key]), key
             assert torch.equal(k3[key], k1[key]), key
@@ -215,6 +216,61 @@ def test_prefetch_and_count_kernels(card, width):
             assert torch.equal(k3[key], p[key]), key
         np.testing.assert_array_equal(k1["prim_id"].cpu().numpy() >= 0,
                                       p["prim_id"].cpu().numpy() >= 0)
+
+
+# K7's variants: traverse_packet's carry-top arguments
+CT_BODIES = [{"select": sel, "fma_slab": fma} for sel in ("fold", "sort")
+             for fma in (True, False)]
+CT_IDS = [f"{b['select']}-fma{int(b['fma_slab'])}" for b in CT_BODIES]
+
+
+@pytest.mark.parametrize("width", packet.CT_PACKETS)
+@pytest.mark.parametrize("body", CT_BODIES, ids=CT_IDS)
+def test_ct_kernel_matches_plain(card, width, body):
+    """K7, each variant, against its plain version bit for bit (hits and,
+    with counters, pops and leaf pops), closest-hit and any-hit, on BVH8
+    soups with axis-parallel and dead rays; one launch counted per call.
+    With sort and the unfused slab K7 returns K1's hits and K3's counters
+    bit for bit."""
+    verts, idx = _soup(3000, seed=11 * width)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=width),
+                            card)
+    for any_hit, tmax in ((False, 1e30), (True, 2.0)):
+        rays = _rays(8192, width + 3, card, tmax)
+        packet.reset_launches()
+        k = packet.traverse_packet(dev, rays, any_hit=any_hit,
+                                   carry_top=True, **body)
+        kc = packet.traverse_packet(dev, rays, any_hit=any_hit,
+                                    count_pops=True, carry_top=True, **body)
+        assert packet.launches["bvh_traverse_ct"] == 2
+        p = api.traverse(dev, rays, any_hit=any_hit, count_pops=True,
+                         carry_top=True, **body)
+        for key in p:
+            assert torch.equal(kc[key], p[key]), key
+            if key not in ("pops", "leaf_pops"):
+                assert torch.equal(k[key], p[key]), key
+        if body == {"select": "sort", "fma_slab": False}:
+            k3 = packet.traverse_packet(dev, rays, any_hit=any_hit,
+                                        count_pops=True)
+            for key in k3:
+                assert torch.equal(kc[key], k3[key]), key
+
+
+def test_ct_kernel_refusals(card):
+    """K7 is built for BVH8 with Tri8/16/24 rows: other tables raise before
+    a launch, as do the options the carry-top body does not take."""
+    verts, idx = _soup(300, seed=3)
+    rays = _rays(256, 4, card, 1e30)
+    for arity, width in ((4, 8), (8, 4)):
+        dev = api.bvh_to_device(build_bvh(verts, idx, arity=arity,
+                                          packet=width), card)
+        with pytest.raises(ValueError, match="bvh_traverse_ct is built"):
+            packet.traverse_packet(dev, rays, carry_top=True)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8), card)
+    with pytest.raises(ValueError, match="prefetch"):
+        packet.traverse_packet(dev, rays, carry_top=True, prefetch=True)
+    with pytest.raises(ValueError, match="demotes"):
+        packet.traverse_packet(dev, rays, carry_top=True, pops=2)
 
 
 @pytest.mark.parametrize("arity,width", CASES)

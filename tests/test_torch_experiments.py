@@ -300,6 +300,8 @@ PROGRAMS = {
     "sweep_arity_tiled": (TINY + ["--grid", "4x4"], r"bounces a4pk4:"),
     "probe_sb_depth": (TINY + ["--subs", "2"], r"sb2  -c5"),
     "bigscene_demo": (["--card"] + TINY, r"\[tiled\] .* hit fraction"),
+    "measure_ct": (TINY, r"legacy .* K1 in turns .*\nct-fold .*\n"
+                         r"ct-sort .*pops/ray [\d.]+ .*\nct-fold-nofma "),
     "ab_gather_take": (["--cpu", "--blocks", "1"],
                        r"axis0 \(65536, 128\): kernel .* torch\.gather .*"
                        r"\n.*axis1 \(65536, 128\)"),

@@ -69,7 +69,8 @@ def test_port_imports_no_jax():
                  "experiments.probe_sb_depth",
                  "experiments.bigscene_demo",
                  "experiments.make_goldens",
-                 "experiments.ab_gather_take"):
+                 "experiments.ab_gather_take",
+                 "experiments.measure_ct"):
         assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
@@ -122,12 +123,18 @@ def test_cpu_traversal_never_launches_the_kernel():
     dev8 = api.bvh_to_device(build_bvh(verts, idx.reshape(-1), arity=8,
                                        packet=8), "cpu")
     pair.traverse_pair(dev8, rays, tile_rays=128, count_pops=True)
+    for select in ("fold", "sort"):
+        for any_hit in (False, True):
+            packet.traverse_packet(dev8, rays, any_hit=any_hit,
+                                   count_pops=True, carry_top=True,
+                                   select=select, fma_slab=select == "fold")
     assert packet.launches == {"bvh_traverse": 0,
                                "bvh_traverse_prefetch": 0,
                                "bvh_traverse_count": 0,
                                "bvh_traverse_option": 0,
                                "bvh_traverse_tile": 0,
-                               "bvh_traverse_pair": 0}
+                               "bvh_traverse_pair": 0,
+                               "bvh_traverse_ct": 0}
     assert hit["t"].device.type == "cpu"
 
 

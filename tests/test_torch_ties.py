@@ -9,8 +9,10 @@ the JAX package's Pallas traversal in interpret mode
 (pallas_packet.traverse_packet, in both of its per-ray bodies: with the
 package's defaults, MULTI 2 and CARRY_TOP False, it runs _kernel_multi;
 with carry_top=True and multi=1, _kernel_ct) and through the port's
-traverse_components (the plain version of K1-K3): prim_id equal, t/u/v
-within the North star's atol 1e-5 / rtol 1e-6, any-hit hit/miss equal.
+traverse_components (the plain version of K1-K3) and its carry-top body
+(traverse_ct_components, K7's plain version, against _kernel_ct with the
+same select): prim_id equal, t/u/v within the North star's atol 1e-5 /
+rtol 1e-6, any-hit hit/miss equal.
 Both keep the first hit (`tv < t_cur`, pallas_packet.py:384). The JAX
 package's api.traverse keeps the later of two leaves' hits (`t <= abs_det
 * t_cur`, api.py:237) and the lower lane of one row (its min-select tree,
@@ -74,6 +76,37 @@ def test_first_of_two_equal_hits(layout, body):
     jany = np.asarray(jpacket(jdev, jr, any_hit=True, tile_rows=4,
                               interpret=True, **kw)["prim_id"]) >= 0
     tany = tapi.traverse(tdev, tr, any_hit=True)["prim_id"].numpy()
+    np.testing.assert_array_equal(tany >= 0, jany)
+    assert (tany[tany >= 0] == TIE_PRIMS[0]).all()
+
+
+@pytest.mark.parametrize("select", tapi.SELECTS)
+@pytest.mark.parametrize("layout", TIE_LAYOUTS)
+def test_carry_top_keeps_the_first_hit(layout, select):
+    """The port's plain carry-top body (api.traverse_ct_components, K7's
+    plain version) against _kernel_ct with the same select, fused slab:
+    the same triangle of each tie (prim 5: the fold's strict < keeps the
+    first of two equal keys, as the lane order and the sort do), the same
+    t/u/v, and any-hit hit/miss equal."""
+    jdev, tdev = _both(layout)
+    jr, tr = _rays(256)
+    kw = dict(JAX_BODIES["_kernel_ct"], select=select)
+    want = {k: np.asarray(v) for k, v in jpacket(
+        jdev, jr, tile_rows=4, interpret=True, **kw).items()}
+    got = {k: v.numpy() for k, v in tapi.traverse(
+        tdev, tr, carry_top=True, select=select).items()}
+    hit = got["prim_id"] >= 0
+    assert 100 < hit.sum() < 256
+    assert (got["prim_id"][hit] == TIE_PRIMS[0]).all()
+    np.testing.assert_array_equal(got["prim_id"], want["prim_id"])
+    np.testing.assert_array_equal(got["geom_id"], want["geom_id"])
+    for key in ("t", "u", "v"):
+        np.testing.assert_allclose(got[key][hit], want[key][hit],
+                                   atol=1e-5, rtol=1e-6)
+    jany = np.asarray(jpacket(jdev, jr, any_hit=True, tile_rows=4,
+                              interpret=True, **kw)["prim_id"]) >= 0
+    tany = tapi.traverse(tdev, tr, any_hit=True, carry_top=True,
+                         select=select)["prim_id"].numpy()
     np.testing.assert_array_equal(tany >= 0, jany)
     assert (tany[tany >= 0] == TIE_PRIMS[0]).all()
 

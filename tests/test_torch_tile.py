@@ -175,8 +175,8 @@ def test_tile_libraries_and_flags():
     argument."""
     from rodent_tpu_torch.kernels import build
     assert build.LIBRARIES["tile"] == ("bvh_tile.cu", ())
-    assert set(build.LIBRARIES) == {"main", "options", "group", "tile",
-                                    "probes"}
+    assert set(build.LIBRARIES) == {"main", "ct", "options", "group",
+                                    "tile", "probes"}
     assert set(build._ENTRIES) == set(build.LIBRARIES)
     flags = build._flags("tile")
     assert "arch=compute_90a,code=sm_90a" in flags
@@ -215,7 +215,8 @@ def test_tile_launch_keys():
     from rodent_tpu_torch.experiments import ab_tile_body as ab
     assert set(tpacket.launches) == {
         "bvh_traverse", "bvh_traverse_prefetch", "bvh_traverse_count",
-        "bvh_traverse_option", "bvh_traverse_tile", "bvh_traverse_pair"}
+        "bvh_traverse_option", "bvh_traverse_tile", "bvh_traverse_pair",
+        "bvh_traverse_ct"}
     tpacket.reset_launches()
     for i, k in enumerate(ab.KERNELS):
         tpacket.launches[ab.NAMES[k]] = i + 1

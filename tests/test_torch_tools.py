@@ -79,6 +79,37 @@ def test_benchmark_refusals(monkeypatch, capsys):
         benchmark.main(["--scenes", "hall", "--sizes", "hall=2000"])
 
 
+def test_benchmark_hall_primaries_take_the_carry_top_body(monkeypatch,
+                                                          capsys):
+    """As the JAX tool does (rodent_tpu/tools/benchmark.py:182-184), the
+    packet variant traces hall's primaries through the carry-top body (K7
+    on a card), with select "fold" and the fused slab, and its other rays
+    through K1; packet-k1 is K1 everywhere. Both find the same
+    intersections."""
+    from rodent_tpu_torch.traversal import packet as tpacket
+    calls = []
+    real = tpacket.traverse_packet_components
+
+    def spy(dev, *comps, **kw):
+        calls.append(kw)
+        return real(dev, *comps, **kw)
+    monkeypatch.setattr(tpacket, "traverse_packet_components", spy)
+    assert benchmark.main([
+        "--cpu", "--scenes", "hall", "--sizes", "hall=2000", "--rays",
+        "1024", "--dists", "primary,ao", "--variants", "packet,packet-k1",
+        "--iters", "1"]) == 0
+    rows = [ROW.match(line)
+            for line in capsys.readouterr().out.strip().splitlines()]
+    assert [(r.group(2), r.group(3)) for r in rows] == [
+        ("primary", "packet"), ("primary", "packet-k1"), ("ao", "packet"),
+        ("ao", "packet-k1")]
+    assert rows[0].group(5) == rows[1].group(5) != "0"
+    ct = {"carry_top": True, "select": "fold", "fma_slab": True}
+    # the first call traces the primaries for the ao rays' hit points
+    assert [all(c.get(k) == v for k, v in ct.items()) for c in calls] == [
+        False, True, False, False, False]
+
+
 def test_benchmark_renderer_row(capsys):
     """--mode renderer: render_iteration_persistent under the port's
     policy at 16x8 prints one Msamples/s row."""
@@ -193,7 +224,9 @@ EXPERIMENTS = {
         [r"^pk=8 lc=def: \d+ BVH8 nodes .* Tri8 rows .*; pops/ray [\d.]+, "
          r"leaf pops/ray [\d.]+, warp-max [\d.]+; hit ",
          r"^pk=24 lc=0.6: .* Tri24 rows ",
-         r"^  K1: [\d.]+ ms = [\d.]+ Mrays/s; in turns with pk=8 lc=def "]),
+         r"^  K1: [\d.]+ ms = [\d.]+ Mrays/s; in turns with pk=8 lc=def ",
+         r"^  K7 ct-fold: [\d.]+ ms = [\d.]+ Mrays/s; in turns with this "
+         r"build's K1 [\d.]+ ms: [\d.]+x; pops/ray [\d.]+, leaf pops/ray "]),
     "sweep_bigscene_leaf": (
         sweep_bigscene_leaf, ["--tris", "20000", "--rays", "256", "--lts",
                               "12", "--lcs", "0,0.45", "--packets", "24"],
@@ -243,6 +276,10 @@ def test_experiment_on_cpu(name, capsys):
         with pytest.raises(SystemExit):
             mod.main(["--cpu", "--packets", "8,12"])
         assert "--packets 12: K1 is built for Tri 4/8/16/24" in (
+            capsys.readouterr().err)
+        with pytest.raises(SystemExit):
+            mod.main(["--cpu", "--packets", "4"])
+        assert "--packets 4: K7 is built for Tri 8/16/24" in (
             capsys.readouterr().err)
 
 
