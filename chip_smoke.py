@@ -6,11 +6,12 @@ calls real, and checks it:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. builds the kernels with nvcc, six libraries at once: K1, its
-   prefetching variant K2 and its pop-counting variant K3; K4, the options
-   of the legacy Pallas body; K1-K3's two bodies (all csrc/bvh_traverse.cu);
-   K7, the carry-top body (csrc/bvh_ct.cu); K5 and K6, the
-   tile-shared-stack kernels (csrc/bvh_tile.cu); and the micro-probes
-   (csrc/probes.cu);
+   prefetching variant K2 and its pop-counting variant K3 (112 kernels);
+   K4, the options of the legacy Pallas body; K1-K3's two bodies (224; all
+   csrc/bvh_traverse.cu); K7, the carry-top body, and K7-PF, K7 with the
+   next-pop prefetch (144, csrc/bvh_ct.cu), whose registers and spills it
+   reports apart; K5 and K6, the tile-shared-stack kernels
+   (csrc/bvh_tile.cu); and the micro-probes (csrc/probes.cu);
 3. K1 against its plain torch version on random triangle soups, arity
    2/4/8 and Tri4/8/16 packets, closest-hit and any-hit;
 4. hall-260K: 1024x1024 sorted primary rays timed through K1 and through
@@ -25,7 +26,8 @@ calls real, and checks it:
 8. the big-scene traversal: 1,048,576 sorted primaries through K1, K2
    and the plain version (K2 == K1 bit for bit, K1 == plain up to exact-t
    ties), the pop attribution through K3 held against the plain
-   counters, and 65,536 any-hit ao rays through K2;
+   counters, and 65,536 any-hit ao rays through K2 (and the sorted ao and
+   bounce rays of phase 20);
 9. the persistent renderer on powerplant-4.3M at 1920x1088, spp 4, max
    path length 20 under the port's select_render_policy (K2, pool sort),
    three iterations, with every kernel's launch count read around them,
@@ -44,14 +46,17 @@ calls real, and checks it:
    versions on the soups of phase 11, bit for bit in hits and per-tile
    pops, and against K1, and on a stack or a guard too small for some
    tiles, which stop with pops -1; then the measurement path on
-   hall-260K (1M sorted primaries, ao and bounce rays: K5 at tile_rows 1,
-   2, 4, 16, frustum off and on, and nopure at 16 on the primaries; K6 at
-   tiles of 256, 1024, 2048 rays) and powerplant-4.3M's sorted primaries
-   (K5, Tri24, at tile_rows 2 and 16, frustum off and on): K1 and the
-   kernel timed in turns (K1, kernel, kernel, K1), counted, beside the
+   hall-260K (1M sorted primaries: K5 at tile_rows 1, 2, 4, 16, frustum
+   off and on, and nopure at 16; K6 at tiles of 256, 1024, 2048 rays; ao
+   rays: K5 at tile_rows 1 and 16, frustum off and on, K6 at 1024 and
+   2048; timed_tile_config) and powerplant-4.3M's sorted primaries (K5,
+   Tri24, at tile_rows 2 and 16, frustum off and on): K1 and the kernel
+   timed in turns (K1, kernel, kernel, K1), counted, beside the
    bound of the pops made, with each instance's registers, shared memory
-   and resident blocks, held against the plain version on up to 65,536 of
-   their rays (whole tiles of at most ab_tile_body.PLAIN_POPS pops);
+   and resident blocks; these and the others (hall's ao rays at tile_rows
+   2 and 4 and K6 256, and every configuration on its bounce rays),
+   launched once untimed, held against the plain version on up to 65,536
+   of their rays (whole tiles of at most ab_tile_body.PLAIN_POPS pops);
 13. the micro-probes (csrc/probes.cu, rodent_tpu_torch.experiments.probe_*
    and vpu_dtype_bench, the ports of the TPU probes of experiments/): every
    body of the eight probe files through its kernel as its main() drives
@@ -119,10 +124,14 @@ calls real, and checks it:
    on hall-260K (K1) at pools of 64K and 512K, and all-packet beside
    all-tiled at 160x90, the films bit for bit equal across pools and
    engines; profile_renderer on hall-260K at 480x272 spp 1; race_hall_packet
-   at Tri8/Tri24 x leaf_cost 0/0.6 (K1 and K7); sweep_bigscene_leaf on two
-   powerplant-4.3M builds; bigscene_12m's primaries at 14.6M triangles
-   (K1 and K2); shard_scaling_table at its defaults. Their K1, K2, K3 and
-   K7 launches join the kernels line's.
+   at Tri8/Tri12/Tri24 x leaf_cost 0/0.6 (K1 and K7); tools.benchmark on
+   hall-260K's primaries, variants packet, hbm and hbm-nopf (K7, K7-PF,
+   K7: the carry-top body in every packet variant, as the JAX tool), with
+   its launches checked (K7-PF in the hbm row, no K2);
+   sweep_bigscene_leaf on two powerplant-4.3M builds; bigscene_12m's
+   primaries at 14.6M triangles (K1 and K2); shard_scaling_table at its
+   defaults. Their K1, K2, K3, K7 and K7-PF launches join the kernels
+   line's.
 
 19. the last measuring programs of rodent_tpu_torch.experiments, each
    through its run() (phase_programs): sass_audit's SASS audit of K1
@@ -147,7 +156,15 @@ calls real, and checks it:
    sorted primaries (Tri24), sort with the unfused slab also against K1's
    hits and K3's counters; then each timed in turns with K1
    (experiments.measure_ct) with its pops per ray, its bound and the rays
-   where it keeps another hit than K1.
+   where it keeps another hit than K1. K7-PF (phase_pf) on powerplant-4.3M's
+   1M sorted primaries, bounce and ao rays (Tri24): every variant bit for
+   bit against its plain version and against K7 in hits, then timed in
+   turns with K7 and in turns with K2 (measure_ct.measure_pf) beside its
+   bound and its registers. Tri12 (phase_tri12) on a pk12 build of
+   hall-260K, 1M sorted primaries and ao rays: K1 against the plain
+   version (exact-t ties allowed), K2 equal to K1, K3's counters and K7's
+   fold and sort (with and without counters) bit for bit against their
+   plain versions, K1 and K7 timed in turns.
 
 Every kernel's time stands beside its bound, the least time the card
 could take for the same pops and the table rows they read
@@ -253,9 +270,29 @@ def phase_env():
     log(f"[1] nvcc: {ver[-1]}")
 
 
+# the kernels each library must hold (phase 2): main K1 72, K2 20, K3 20;
+# ct K7 96, K7-PF 48; group both bodies of main's
+LIBRARY_KERNELS = {"main": 112, "ct": 144, "group": 224}
+
+
+def ptxas_registers(nvcc_log):
+    """{function: registers} of ptxas -v's output."""
+    out, cur = {}, None
+    for line in nvcc_log.splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1]
+        elif cur and "Used" in line and "registers" in line:
+            out[cur] = int(line.split("Used")[1].split()[0])
+            cur = None
+    return out
+
+
 def phase_build():
+    """Builds every library at once and reports each one's kernels,
+    registers and spills from ptxas' lines of its build. Returns the ct
+    library's {bvh_ct_kernel's template arguments: registers}."""
     from rodent_tpu_torch.kernels.build import (LIBRARIES, build_all,
-                                                load_library)
+                                                kept_log, load_library)
     from concurrent.futures import ThreadPoolExecutor
     from rodent_tpu_torch.experiments import sass_audit
     t0 = time.perf_counter()
@@ -273,27 +310,39 @@ def phase_build():
             "group": "K1-K3's two bodies (-DRT_GROUP, phase 14)",
             "tile": "K5 and K6",
             "probes": "the micro-probes"}
+    ct_regs = None
     for kind, (path, nvcc_log) in built.items():
         load_library(kind=kind)
+        done = "built" if nvcc_log is not None else "already built:"
         if nvcc_log is None:
-            log(f"[2] {what[kind]} already built: "
-                f"{os.path.relpath(path, REPO)}")
-            continue
-        with open(f"{path}.nvcc.log", "w") as f:
-            f.write(nvcc_log)
-        regs = [int(w) for line in nvcc_log.splitlines()
-                if "Used" in line and "registers" in line
-                for w in [line.split("Used")[1].split()[0]]]
-        spills = sum("0 bytes spill stores" not in line
-                     for line in nvcc_log.splitlines()
-                     if "spill stores" in line)
-        log(f"[2] built {what[kind]} from rodent_tpu_torch/csrc/"
+            nvcc_log = kept_log(path)
+        regs_of = ptxas_registers(nvcc_log)
+        spill = sass_audit.spills(nvcc_log)
+        regs = list(regs_of.values())
+        log(f"[2] {done} {what[kind]} from rodent_tpu_torch/csrc/"
             f"{LIBRARIES[kind][0]}: {len(regs)} kernels, registers "
-            f"{min(regs)}-{max(regs)}, {spills} with spills -> "
+            f"{min(regs)}-{max(regs)}, "
+            f"{sum(v != (0, 0) for v in spill.values())} with spills -> "
             f"{os.path.relpath(path, REPO)}")
+        want = LIBRARY_KERNELS.get(kind)
+        check(want is None or len(regs) == want,
+              f"the {kind} library holds {len(regs)} kernels, not {want}")
+        if kind == "ct":
+            # K7-PF's instantiations (the last template argument, PF, 1)
+            # beside K7's
+            ct_regs = {sass_audit.demangle(n)[1]: r
+                       for n, r in regs_of.items()}
+            for pf in (0, 1):
+                names = [n for n in regs_of
+                         if sass_audit.demangle(n)[1][-1] == pf]
+                r = [regs_of[n] for n in names]
+                sp = sum(1 for n in names if spill.get(n, (0, 0)) != (0, 0))
+                log(f"[2] {'K7-PF' if pf else 'K7'}: {len(names)} kernels, "
+                    f"registers {min(r)}-{max(r)}, {sp} with spills")
     log(f"[2] all {len(built)} libraries and the -lineinfo copies of "
         f"{', '.join(sass_audit.AUDITED)} (phase 19) built at once in "
         f"{dt:.1f} s")
+    return ct_regs
 
 
 def soups(device):
@@ -546,7 +595,7 @@ def phase_bigscene_traversal(device, scene, side=1024):
     bvh = scene.device["bvh"]
     dists = common.distributions("powerplant", scene.mesh.vertices,
                                  scene.mesh.indices, bvh, side, device,
-                                 ("primary", "ao-unsorted"))
+                                 ("primary", "ao-unsorted", "ao", "bounces"))
     comps = dists["primary"][0]
     o, d, inv, _, tmin, tmax = comps
     n = tmin.shape[0]
@@ -635,7 +684,9 @@ def phase_bigscene_traversal(device, scene, side=1024):
     check(bool(torch.equal(k1a, pa)), "powerplant ao: K1 hit/miss differs")
     log(f"[8] {SUBSET} ao any-hit rays: K2 and K1 hit/miss identical to "
         f"plain, occluded fraction {float(ka.float().mean()):.4f}")
-    return k_ms, p_ms, err, k3_launches, bounds, comps, aoc
+    # phase 20's K7-PF rays: the sorted primaries, bounce and ao rays
+    pf_dists = {k: dists[k] for k in ("primary", "bounces", "ao")}
+    return k_ms, p_ms, err, k3_launches, bounds, comps, aoc, pf_dists
 
 
 def phase_bigscene_render(device, scene, w=1920, h=1088):
@@ -1056,16 +1107,27 @@ def phase_tile_soups(device):
         "plain")
 
 
+def timed_tile_config(name, size):
+    """Whether phase 12 times one of ab_tile_body.configs on the
+    distribution `name`: every one on the primaries; on hall's ao rays
+    tile_rows 1 and 16 (plain and frustum) and K6 at 1024 and 2048 rays;
+    none on the bounce rays. The others run once, untimed, and are held
+    against the plain version all the same."""
+    return name == "primary" or name == "ao" and size in (1, 16, 1024, 2048)
+
+
 def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
     """[12] The tile kernels' measurement path
     (rodent_tpu_torch.experiments.ab_tile_body, as measure_packet --rows
     1,2,4,16 with and without --frustum and measure_pair --tiles
     256,1024,2048 run them) on hall-260K's 1M sorted primaries, ao and
     bounce rays, then K5 on powerplant-4.3M's sorted primaries: each
-    configuration timed in turns with K1 through the wrappers, counted,
-    beside its bound, equal to the plain version on a subset, with each
-    kernel's launch count read around it; then the headline
-    configurations' plain versions on all of their rays. Returns (the
+    configuration equal to the plain version on a subset
+    (ab_tile_body.check_subset); those of timed_tile_config timed in turns
+    with K1 through the wrappers, counted, beside its bound, the others
+    launched once; with each kernel's launch count read around them; then
+    the headline configurations' plain versions on all of their rays.
+    Returns (the
     launches per kernel, the results, the plain versions' times)."""
     from rodent_tpu_torch.experiments import ab_tile_body as ab
     from rodent_tpu_torch.experiments import common
@@ -1075,7 +1137,7 @@ def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
     runs = [("hall", name, comps, any_hit, hall_bvh)
             for name, (comps, any_hit) in dists.items()]
     runs.append(("powerplant", "primary", big_prim, False, big_bvh))
-    res = {}
+    res, want = {}, {k: 0 for k in ab.KERNELS}
     packet.reset_launches()
     t0 = time.perf_counter()
     for scene, name, comps, any_hit, dev in runs:
@@ -1083,6 +1145,15 @@ def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
             key = (scene, name, kernel, size, mode)
             what = f"{scene} {name} {ab.label(kernel, size, mode)}"
             t1 = time.perf_counter()
+            if not timed_tile_config(name, size):
+                out = ab.launch(dev, comps, kernel, any_hit, size, mode)
+                rays, tiles, _ = ab.check_subset(dev, comps, any_hit, kernel,
+                                                 size, mode, out, what)
+                want[kernel] += 1
+                log(f"[12] {what}, untimed: {rays} rays in {tiles} tiles "
+                    f"== plain; {time.perf_counter() - t1:.1f} s")
+                continue
+            want[kernel] += 2
             r = ab.measure(dev, comps, any_hit, device, kernel, size, mode,
                            blocks=2, what=f"{scene} {name}")
             res[key] = r
@@ -1096,14 +1167,14 @@ def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
                 f"{time.perf_counter() - t1:.1f} s")
     torch.cuda.synchronize()
     launched = {k: ab.launch_count(k) for k in ab.KERNELS}
-    log(f"[12] measurement path: {len(res)} configurations in "
+    log(f"[12] measurement path: {len(res)} configurations timed, "
+        f"{sum(want.values()) - 2 * len(res)} untimed, in "
         f"{time.perf_counter() - t0:.1f} s, launches {launched} (clock, "
         f"power after: {sm_clock()})")
     for kernel in ab.KERNELS:
-        want = sum(1 for key in res if key[2] == kernel)
-        check(launched[kernel] >= 2 * want,
-              f"tile phase: {kernel} launched {launched[kernel]} times in "
-              f"{want} configurations")
+        check(launched[kernel] >= want[kernel],
+              f"tile phase: {kernel} launched {launched[kernel]} times, "
+              f"fewer than its configurations need ({want[kernel]})")
     # the headline configurations' plain versions on all of their rays
     plain = {}
     o, d, inv, _, tmin, tmax = dists["primary"][0]
@@ -2427,6 +2498,7 @@ def phase_tools(device, verts, idx):
     from rodent_tpu_torch.experiments import (
         ab_render_policy, bigscene_12m, common, profile_renderer,
         race_hall_packet, shard_scaling_table, sweep_bigscene_leaf)
+    from rodent_tpu_torch.tools import benchmark
     from rodent_tpu_torch.traversal import api, packet
     times = {}
 
@@ -2463,14 +2535,29 @@ def phase_tools(device, verts, idx):
     run("profile_renderer", profile_renderer.main, [
         "--spp", 1, "--iters", 1])
     run("race_hall_packet", race_hall_packet.main, [
-        "--packets", "8,24", "--lcs", "0,0.6"])
+        "--packets", "8,12,24", "--lcs", "0,0.6"])
+    # hall's primaries through every packet variant of the tool: the
+    # carry-top body in each (K7, K7-PF in hbm, K7), no K2
+    before = dict(packet.launches)
+    text = run("benchmark hall primary", benchmark.main, [
+        "--scenes", "hall", "--dists", "primary", "--variants",
+        "packet,hbm,hbm-nopf", "--iters", 3])
+    made = {k: packet.launches[k] - before[k] for k in before}
+    rows = [line for line in text.splitlines() if " Mrays (" in line]
+    check(len(rows) == 3 and len({r.rsplit("; ", 1)[1] for r in rows}) == 1,
+          f"benchmark: rows {rows}")
+    check(made["bvh_traverse_ct_prefetch"] > 0 and made["bvh_traverse_ct"] > 0
+          and made["bvh_traverse_prefetch"] == 0,
+          f"benchmark on hall's primaries: launches {made}")
+    log(f"[18] tools.benchmark on hall's primaries: {' | '.join(rows)}; "
+        f"launches {json.dumps(made)}")
     run("sweep_bigscene_leaf", sweep_bigscene_leaf.main, [
         "--packets", 24, "--lts", 12, "--lcs", "0.45,0.6"])
     run("bigscene_12m", bigscene_12m.main, ["--dists", "primary"])
     run("shard_scaling_table", shard_scaling_table.main, [])
     launched = {k: packet.launches[k] for k in (
         "bvh_traverse", "bvh_traverse_prefetch", "bvh_traverse_count",
-        "bvh_traverse_ct")}
+        "bvh_traverse_ct", "bvh_traverse_ct_prefetch")}
     check(all(launched.values()), f"phase 18: launches {launched}")
     # the hit fraction against K1's on the bench's rays and winning build
     name = detail["primary_config"].split("-")[0]
@@ -2484,7 +2571,7 @@ def phase_tools(device, verts, idx):
           f"bench: primary_hit_fraction {detail['primary_hit_fraction']} "
           f"against K1's {frac}")
     log(f"[18] bench and tools on {common.card(device)}: seconds "
-        f"{json.dumps(times)}; K1-K3 and K7 launches "
+        f"{json.dumps(times)}; K1-K3, K7 and K7-PF launches "
         f"{json.dumps(launched)}; the bench's hit fraction {frac} "
         f"({detail['primary_config']}) equals K1's on its rays and {name} "
         "build")
@@ -2626,7 +2713,10 @@ def phase_ct(device, hall, big_bvh, big_prim, side=1024):
     bounce rays (closest-hit: fold and sort, fused and unfused slab) and ao
     rays (any-hit: fused and unfused), and on powerplant-4.3M's 1M sorted
     primaries (Tri24); sort with the unfused slab also against K1's hits
-    and K3's counters, bit for bit. Each variant is then timed in turns
+    and K3's counters, bit for bit. On hall, K7-PF (the instantiations
+    tools.benchmark's hbm row launches in phase 18: Tri8, hall's stack
+    cap) is held against each variant's plain version and K7 in hits, bit
+    for bit. Each variant is then timed in turns
     with K1 (experiments.measure_ct.measure: K1, K7, K7, K1) beside its
     pops per ray from its counting instantiation, its bound and the rays
     where it keeps another hit than K1. Returns the kernels-line entry's
@@ -2657,6 +2747,13 @@ def phase_ct(device, hall, big_bvh, big_prim, side=1024):
             check_equal(kc, p, f"[20] {what} K7 {name} with counters")
             del p["pops"], p["leaf_pops"]
             check_equal(k, p, f"[20] {what} K7 {name}")
+            if scene == "hall-260K":
+                # K7-PF as tools.benchmark's hbm row runs it (phase 18):
+                # hall's Tri8 build and stack cap
+                kp = measure_ct.call(bvh, comps, dict(body, prefetch=True),
+                                     any_hit)
+                check_equal(kp, p, f"[20] {what} K7-PF {name}")
+                check_equal(kp, k, f"[20] {what} K7-PF {name} against K7")
             if name == "ct-sort-nofma":
                 k1 = packet.traverse_packet_components(bvh, *comps)
                 k3 = packet.traverse_packet_components(bvh, *comps,
@@ -2671,6 +2768,8 @@ def phase_ct(device, hall, big_bvh, big_prim, side=1024):
                         comps[5], any_hit, **body), device, blocks=1)
         log(f"[20] {what}: K7 {', '.join(bodies)} == the plain version bit "
             f"for bit (hits, pops, leaf pops, rows read)"
+            + ("; K7-PF == the plain version and K7 bit for bit in hits"
+               if scene == "hall-260K" else "")
             + ("" if any_hit else "; ct-sort-nofma == K1's hits and K3's "
                "counters bit for bit"))
         out = measure_ct.measure(bvh, comps, device, bodies, any_hit,
@@ -2684,11 +2783,165 @@ def phase_ct(device, hall, big_bvh, big_prim, side=1024):
     return {"res": res, "plain_ms": plain_ms}
 
 
-def ct_entry(ct, launched):
+def phase_pf(device, bvh, dists, regs):
+    """[20] K7-PF, the carry-top body with the exact next-pop L2 prefetch,
+    on powerplant-4.3M's 1M sorted primaries, bounce and ao rays (Tri24,
+    phase 8's dists): every variant of measure_ct.VARIANTS (closest-hit) and
+    ANY_HIT_VARIANTS bit for bit against its plain version (K7's) and
+    against K7 in hits; then each timed in turns with K7 and in turns with
+    K2 (measure_ct.measure_pf) beside its pops per ray, its bound (K7's own
+    pops and rows) and the registers of its instantiation and K7's (regs:
+    phase_build's map). Returns
+    {"res": {(kind, variant): measure_pf's result with "registers"},
+    "plain_ms": the plain version's time on the primaries (ct-fold)}."""
+    from rodent_tpu_torch.experiments import common, measure_ct
+    from rodent_tpu_torch.traversal import api, packet
+    cap = packet.stack_cap(bvh)
+    m = bvh["tris"].shape[1] // 14
+    res, plain_ms = {}, None
+    for i, kind in enumerate(measure_ct.PF_DISTS):
+        comps, any_hit = dists[kind]
+        what = f"powerplant-4.3M {kind}"
+        bodies = (measure_ct.ANY_HIT_VARIANTS if any_hit
+                  else measure_ct.VARIANTS)
+        rows = {}
+        for name, body in bodies.items():
+            p = common.ct_plain(bvh, comps, any_hit, **body)
+            rows[name] = (int(p["nodes_read"].sum()),
+                          int(p["tris_read"].sum()))
+            for key in ("nodes_read", "tris_read", "pops", "leaf_pops"):
+                del p[key]
+            kp = measure_ct.call(bvh, comps, dict(body, prefetch=True),
+                                 any_hit)
+            k = measure_ct.call(bvh, comps, body, any_hit)
+            check_equal(kp, p, f"[20] {what} K7-PF {name}")
+            check_equal(kp, k, f"[20] {what} K7-PF {name} against K7")
+            if kind == "primary" and name == "ct-fold":
+                plain_ms, _ = common.timed(
+                    lambda body=body: api.traverse_ct_components(
+                        bvh, comps[0], comps[1], comps[2], comps[4],
+                        comps[5], any_hit, **body), device, blocks=1)
+        log(f"[20] {what}: K7-PF {', '.join(bodies)} == the plain version "
+            f"and K7 bit for bit in hits")
+        out = measure_ct.measure_pf(
+            bvh, comps, device, bodies, any_hit,
+            warmup_s=common.WARMUP_S if i == 0 else 0.0, rows=rows)
+        for name, r in out.items():
+            body = bodies[name]
+            targs = (int(any_hit), 8, m, cap,
+                     int(body["select"] == "sort" and not any_hit),
+                     int(body["fma_slab"]), 0)
+            r["registers"] = {"K7-PF": regs.get(targs + (1,)),
+                              "K7": regs.get(targs + (0,))}
+            res[(kind, name)] = r
+            log(f"[20] {what} {measure_ct.report_pf(name, r)}; registers "
+                f"{r['registers']['K7-PF']} (K7 {r['registers']['K7']})")
+    log(f"[20] powerplant primary ct-fold's plain version: {plain_ms:.1f} "
+        f"ms")
+    return {"res": res, "plain_ms": plain_ms}
+
+
+def phase_tri12(device, hall, side=1024):
+    """[20] Tri12 leaves on hall-260K: a pk12 build (leaf_threshold 12, as
+    race_hall_packet's), its 1M sorted primaries and ao rays. K1 against
+    the plain version (prim_id equal but exact-t ties, t/u/v within atol
+    1e-5 / rtol 1e-6; any-hit hit/miss equal), K2 equal to K1, K3's hits
+    and counters and K7's fold and sort (with the fused slab; with and
+    without counters) bit for bit against their plain versions; then K1
+    and K7's fold timed in turns (measure_ct.measure) on the primaries.
+    Returns the kernels line's variants: {"K1": {...}, "K7": {...}}."""
+    from rodent_tpu_torch.accel import build_bvh
+    from rodent_tpu_torch.experiments import common, measure_ct
+    from rodent_tpu_torch.traversal import api, packet
+    t0 = time.perf_counter()
+    verts, idx = hall.mesh.vertices, hall.mesh.indices
+    bvh = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=12,
+                                      leaf_threshold=12), device)
+    check(bvh["tris"].shape[1] == 14 * 12, "the pk12 build's rows")
+    dists = common.distributions("hall", verts, idx, bvh, side, device,
+                                 ("primary", "ao"))
+    for kind, (comps, any_hit) in dists.items():
+        what = f"hall-260K pk12 {kind}"
+        n = comps[4].shape[0]
+        o, d, inv, _, tmin, tmax = comps
+        plain = api.traverse_components(bvh, o, d, inv, tmin, tmax,
+                                        any_hit=any_hit, count_pops=True)
+        k1 = packet.traverse_packet_components(bvh, *comps, any_hit=any_hit)
+        k2 = packet.traverse_packet_components(bvh, *comps, any_hit=any_hit,
+                                               prefetch=True)
+        k3 = packet.traverse_packet_components(bvh, *comps, any_hit=any_hit,
+                                               count_pops=True)
+        check_equal(k2, k1, f"[20] {what} K2 against K1")
+        check_equal(k3, plain, f"[20] {what} K3")
+        if any_hit:
+            check(bool(torch.equal(k1["prim_id"] >= 0,
+                                   plain["prim_id"] >= 0)),
+                  f"[20] {what}: K1 hit/miss differs")
+            ties = 0
+        else:
+            ties, _ = compare_hits(k1, plain, f"[20] {what} K1")
+            check(ties < TIE_LIMIT * n, f"[20] {what}: {ties} ties")
+        bodies = (measure_ct.ANY_HIT_VARIANTS if any_hit else
+                  {k: measure_ct.VARIANTS[k] for k in ("ct-fold",
+                                                       "ct-sort")})
+        for name, body in bodies.items():
+            p = api.traverse_components(bvh, o, d, inv, tmin, tmax,
+                                        any_hit=any_hit, count_pops=True,
+                                        carry_top=True, **body)
+            kc = measure_ct.call(bvh, comps, body, any_hit, True)
+            k = measure_ct.call(bvh, comps, body, any_hit)
+            check_equal(kc, p, f"[20] {what} K7 {name} with counters")
+            del p["pops"], p["leaf_pops"]
+            check_equal(k, p, f"[20] {what} K7 {name}")
+        log(f"[20] {what}: {n} rays; K2 == K1, K3 (hits, counters) and K7 "
+            f"{', '.join(bodies)} == plain bit for bit; K1 against plain "
+            f"{ties} exact-t ties, pops/ray "
+            f"{float(plain['pops'].double().mean()):.4f}")
+    comps, _ = dists["primary"]
+    r = measure_ct.measure(bvh, comps, device,
+                           {"ct-fold": measure_ct.VARIANTS["ct-fold"]})
+    r = r["ct-fold"]
+    log(f"[20] hall-260K pk12 primary {measure_ct.report('ct-fold', r)}; "
+        f"the Tri12 runs took {time.perf_counter() - t0:.1f} s")
+    return {"K1": {"ms": r["k1_ms"], "rows": bvh["tris"].shape[0]},
+            "K7": {"ms": r["ms"], "k1_ms": r["k1_ms"], "ratio": r["ratio"],
+                   "pops_ray": r["stats"]["pops_ray"],
+                   "leaf_ray": r["stats"]["leaf_ray"],
+                   "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                   "share": r["share"], "k1_differences": r["differences"]}}
+
+
+def pf_entry(pf, launched):
+    """The kernels-line entry of K7-PF: its headline on powerplant-4.3M's
+    1M sorted primaries (ct-fold, the JAX tools' body on the big-scene
+    tiers), every (distribution, variant) under "variants"; its hits
+    equalled the plain version's bit for bit (max_abs_err 0)."""
+    head = pf["res"][("primary", "ct-fold")]
+    variants = {
+        f"powerplant-4.3M {kind} {name}": {
+            "ms": r["ms"], "k7_ms": r["k7_ms"], "ratio_k7": r["ratio_k7"],
+            "k2_ms": r["k2_ms"], "ratio_k2": r["ratio_k2"],
+            "pops_ray": r["stats"]["pops_ray"],
+            "leaf_ray": r["stats"]["leaf_ray"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "share": r["share"],
+            "k2_differences": r["differences"],
+            "registers": r["registers"]}
+        for (kind, name), r in pf["res"].items()}
+    return {"name": "bvh_traverse_ct_prefetch", "route": "cuda",
+            "source": "rodent_tpu_torch/csrc/bvh_ct.cu",
+            "replaces": "rodent_tpu/traversal/pallas_packet.py:96",
+            "used_at": "rodent_tpu/traversal/pallas_packet.py:905-931",
+            "launches": launched, "max_abs_err": 0.0, "ms": head["ms"],
+            "plain_ms": pf["plain_ms"], "bound_ms": head["bound"][0],
+            "bound_by": head["bound"][1], "library_ms": None,
+            "variants": variants}
+
+
+def ct_entry(ct, launched, tri12):
     """The kernels-line entry of K7: its headline on hall-260K's 1M sorted
     primaries (ct-fold, the JAX bench's body), every variant under
-    "variants"; its hits equalled the plain version's bit for bit
-    (max_abs_err 0)."""
+    "variants" with the pk12 build's ct-fold (tri12); its hits equalled the
+    plain version's bit for bit (max_abs_err 0)."""
     head = ct["res"][("hall-260K", "primary", "ct-fold")]
     variants = {
         f"{scene} {kind} {name}": {
@@ -2699,6 +2952,7 @@ def ct_entry(ct, launched):
             "bound_by": r["bound"][1], "share": r["share"],
             "k1_differences": r["differences"]}
         for (scene, kind, name), r in ct["res"].items()}
+    variants["hall-260K pk12 primary ct-fold"] = tri12
     return {"name": "bvh_traverse_ct", "route": "cuda",
             "source": "rodent_tpu_torch/csrc/bvh_ct.cu",
             "replaces": "rodent_tpu/traversal/pallas_packet.py:878",
@@ -2770,7 +3024,7 @@ def main():
     device = cuda_device()
     t_start = time.perf_counter()
     phase_env()
-    phase_build()
+    ct_regs = phase_build()
     phase_soups(device)
 
     t0 = time.perf_counter()
@@ -2790,7 +3044,7 @@ def main():
     del scene, bvh
     big = phase_bigscene(device)
     (big_ms, big_plain_ms, big_err, k3_launches, bounds, big_prim,
-     big_ao) = phase_bigscene_traversal(device, big)
+     big_ao, big_dists) = phase_bigscene_traversal(device, big)
     k2_launches, pool = phase_bigscene_render(device, big)
     big_bvh = big.device["bvh"]
     del big
@@ -2849,6 +3103,8 @@ def main():
         f"{time.perf_counter() - t_prog:.1f} s")
     t_ct = time.perf_counter()
     ct = phase_ct(device, hall, big_bvh, big_prim)
+    pf = phase_pf(device, big_bvh, big_dists, ct_regs)
+    tri12 = phase_tri12(device, hall)
     log(f"[20] the carry-top phase took {time.perf_counter() - t_ct:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     src = "rodent_tpu_torch/csrc/bvh_traverse.cu"
@@ -2875,7 +3131,9 @@ def main():
          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "library_ms": None,
-         "variants": bodies["bvh_traverse"], "sass": sass_of("K1")},
+         "variants": dict(bodies["bvh_traverse"],
+                          **{"hall-260K pk12 primary": tri12["K1"]}),
+         "sass": sass_of("K1")},
         {"name": "bvh_traverse_prefetch", "route": "cuda", "source": src,
          "replaces": f"{pallas}:96",
          "launches": k2_launches + obj_k2 + tools["bvh_traverse_prefetch"]
@@ -2911,11 +3169,16 @@ def main():
                         "experiments/pallas_pair.py:127", "K6",
                         tile_launches, tile_plain["K6"], tiles),
              sass=sass_of("K6")),
-        # launches: the bench's and race_hall_packet's primary rows (phase
-        # 18) and sass_audit's runs (phase 19); phase 20's are measurement
+        # launches: the bench's, race_hall_packet's and tools.benchmark's
+        # primary rows (phase 18) and sass_audit's runs (phase 19); phase
+        # 20's are measurement
         dict(ct_entry(ct, tools["bvh_traverse_ct"]
-                      + prog_launches["bvh_traverse_ct"]),
-             sass=sass_of("K7"))]
+                      + prog_launches["bvh_traverse_ct"], tri12["K7"]),
+             sass=sass_of("K7")),
+        # launches: tools.benchmark's hbm row on hall's primaries (phase
+        # 18); phase 20's are measurement
+        pf_entry(pf, tools["bvh_traverse_ct_prefetch"]
+                 + prog_launches["bvh_traverse_ct_prefetch"])]
         + probe_entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 // bvh_ct.cu: K7) and the tile-shared-stack kernels (bvh_tile.cu: K5, K6): a
 // ray's inputs, the Batcher network over a node's children and the
 // sign-trick Moller-Trumbore of one Tri lane, in the float operation order
-// of the plain torch versions (traversal/api.py). Built with -fmad=false, so
-// every operation is rounded on its own, as torch computes it.
+// of the plain torch versions (traversal/api.py), and the exact next-pop
+// L2 prefetch of a Tri row (K2, K7-PF). Built with -fmad=false, so every
+// operation is rounded on its own, as torch computes it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -97,6 +98,24 @@ __device__ __forceinline__ bool mt_lane(const float (&f)[12], const Ray& r,
     return true;
   }
   return false;
+}
+
+// Prefetches the `bytes` at p into L2, one `prefetch.global.L2` per
+// 128-byte line (the last one covers a row that ends on a fresh line); the
+// thread does not wait for them.
+__device__ __forceinline__ void prefetch_l2(const float* p, unsigned bytes) {
+  const char* c = reinterpret_cast<const char*>(p);
+  for (unsigned off = 0; off < bytes; off += 128) {
+    asm volatile("prefetch.global.L2 [%0];" :: "l"(c + off));
+  }
+  asm volatile("prefetch.global.L2 [%0];" :: "l"(c + bytes - 1));
+}
+
+// K2, K7-PF: when stack entry `code` (the exact next pop; 0 = none) is a
+// leaf, start bringing its Tri row (a.tris, 14M floats a row) into L2.
+template <int M, typename Args>
+__device__ __forceinline__ void prefetch_entry(const Args& a, int code) {
+  if (code < 0) prefetch_l2(a.tris + (long long)(~code) * (14 * M), 56 * M);
 }
 
 }  // namespace

@@ -36,6 +36,32 @@
 //       updated on the strict t < t_cur, the first hit found kept; any-hit
 //       ends the ray at the leaf that hits.
 //   COUNT: K3's counters, every pop and its leaf pops.
+//   PF (K7-PF): the exact next-pop L2 prefetch of _pf_helpers
+//       (pallas_packet.py:96-219), as _kernel_ct drives it with the carried
+//       code (:905-931, :1054-1055, :1076-1080): at each pop the next pop
+//       is known exactly (_next_top, :222-228), `next` when it is not 0,
+//       else the peek; where that pop is a leaf, its whole Tri row is
+//       brought into L2 with K2's prefetch_entry (bvh_common.cuh), one
+//       prefetch.global.L2 per 128-byte line (6 for a 672 B Tri12 row, 11
+//       for a 1,344 B Tri24 row, and one for a row's last byte). A node
+//       pop issues it after the child selection and before the pushes; a
+//       leaf pop as soon as lane M-1's pid gives the continuation, before
+//       the M-lane loop, so the row's fetch flies during the intersection
+//       arithmetic. Any-hit issues it at the same points; a prefetch still
+//       in flight at the ray's break is harmless (the TPU's pf_drain waits
+//       on a DMA; nothing here waits). It moves bytes into L2 and no bit
+//       of the result, so K7-PF returns K7's hits. Tri rows only, as K2:
+//       on the card every table sits behind the 50 MB L2, powerplant-4.3M's
+//       6.3 MB node table stays L2-resident, and prefetching node rows as
+//       well ran up to 3% slower than Tri rows alone for K2
+//       (bvh_traverse.cu, PERF.md), so the JAX nodes_hbm (the giga tier)
+//       takes the same kernel. The JAX wrapper never prefetches with
+//       counters (:1537-1538): PF excludes COUNT. Measured against K7 in
+//       turns on powerplant-4.3M's sorted primaries, bounce and ao rays
+//       (PERF.md), K7-PF ran 1-6% slower, with fewer registers (56 against
+//       64 for the fused closest-hit body): at 32 or more resident warps
+//       an SM the row loads' latency is already hidden, and the
+//       prefetches are issued work, most of it on the leaf pops.
 //
 // With SORT and without FMA the kernel pops what K1 pops, in K1's order
 // (K1 pushes the nearest child and pops it at once; a leaf's continuation
@@ -54,15 +80,16 @@
 // not by distance, which can add pops; chip_smoke.py and
 // experiments/measure_ct.py time both against K1.
 //
-// Instantiated for BVH8 x Tri8/16/24 x stack 64/128 x {closest-hit fold,
-// closest-hit sort, any-hit} x {FMA, not} x {counters, not}: 72 kernels,
-// the "ct" library (kernels/build.py).
+// Instantiated for BVH8 x Tri8/12/16/24 x stack 64/128 x {closest-hit
+// fold, closest-hit sort, any-hit} x {FMA, not} x {counters, not}, and the
+// same with PF and without counters: 96 + 48 = 144 kernels, the "ct"
+// library (kernels/build.py).
 
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
 
-#include "bvh_common.cuh"  // Ray, sort_children, mt_lane
+#include "bvh_common.cuh"  // Ray, sort_children, mt_lane, prefetch_entry
 
 namespace {
 
@@ -97,8 +124,9 @@ __device__ __forceinline__ float plane(float b, float s, float o) {
 }
 
 template <bool ANY_HIT, int A, int M, int STACK, bool SORT, bool FMA,
-          bool COUNT>
+          bool COUNT, bool PF>
 __global__ void __launch_bounds__(kBlock) bvh_ct_kernel(Args a) {
+  static_assert(!(PF && COUNT), "the prefetch runs without counters");
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= a.n) return;
   const Ray r{a.ix[i], a.iy[i], a.iz[i], a.ox[i], a.oy[i], a.oz[i],
@@ -178,6 +206,9 @@ __global__ void __launch_bounds__(kBlock) bvh_ct_kernel(Args a) {
           next = sw ? ch[c] : next;
         }
       }
+      // PF: the next pop is the chosen child, else the peek (nothing is
+      // pushed when no child counts)
+      if constexpr (PF) prefetch_entry<M>(a, next != 0 ? next : peek);
 #pragma unroll
       for (int c = A - 1; c >= 0; --c) {
         if (ch[c] != 0 && ch[c] != next) stack[sp++] = ch[c];
@@ -186,6 +217,8 @@ __global__ void __launch_bounds__(kBlock) bvh_ct_kernel(Args a) {
       const float* row = a.tris + (long long)(~code) * (14 * M);
       const int* rowi = reinterpret_cast<const int*>(row);
       next = __ldg(rowi + 12 * M + M - 1) < 0 ? 0 : code - 1;
+      // PF: the continuation, else the peek, before the lane loop
+      if constexpr (PF) prefetch_entry<M>(a, next != 0 ? next : peek);
       const float t_test = t;
       bool found = false;
 #pragma unroll 4
@@ -220,34 +253,37 @@ __global__ void __launch_bounds__(kBlock) bvh_ct_kernel(Args a) {
   }
 }
 
-template <bool AH, int M, int S, bool SORT, bool FMA, bool COUNT>
+template <bool AH, int M, int S, bool SORT, bool FMA, bool COUNT, bool PF>
 int launch(const Args& a, cudaStream_t stream) {
   const unsigned grid = (unsigned)((a.n + kBlock - 1) / kBlock);
-  bvh_ct_kernel<AH, 8, M, S, SORT, FMA, COUNT>
+  bvh_ct_kernel<AH, 8, M, S, SORT, FMA, COUNT, PF>
       <<<grid, kBlock, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool AH, bool SORT, bool FMA, bool COUNT>
+template <bool AH, bool SORT, bool FMA, bool COUNT, bool PF>
 int by_shape(const Args& a, int arity, int m, int cap, cudaStream_t s) {
   if (arity != 8) return (int)cudaErrorInvalidValue;
   switch (m * 1000 + cap) {
-    case 8064: return launch<AH, 8, 64, SORT, FMA, COUNT>(a, s);
-    case 8128: return launch<AH, 8, 128, SORT, FMA, COUNT>(a, s);
-    case 16064: return launch<AH, 16, 64, SORT, FMA, COUNT>(a, s);
-    case 16128: return launch<AH, 16, 128, SORT, FMA, COUNT>(a, s);
-    case 24064: return launch<AH, 24, 64, SORT, FMA, COUNT>(a, s);
-    case 24128: return launch<AH, 24, 128, SORT, FMA, COUNT>(a, s);
+    case 8064: return launch<AH, 8, 64, SORT, FMA, COUNT, PF>(a, s);
+    case 8128: return launch<AH, 8, 128, SORT, FMA, COUNT, PF>(a, s);
+    case 12064: return launch<AH, 12, 64, SORT, FMA, COUNT, PF>(a, s);
+    case 12128: return launch<AH, 12, 128, SORT, FMA, COUNT, PF>(a, s);
+    case 16064: return launch<AH, 16, 64, SORT, FMA, COUNT, PF>(a, s);
+    case 16128: return launch<AH, 16, 128, SORT, FMA, COUNT, PF>(a, s);
+    case 24064: return launch<AH, 24, 64, SORT, FMA, COUNT, PF>(a, s);
+    case 24128: return launch<AH, 24, 128, SORT, FMA, COUNT, PF>(a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-template <bool FMA, bool COUNT>
+template <bool FMA, bool COUNT, bool PF>
 int by_mode(const Args& a, int any_hit, int sort, int arity, int m, int cap,
             cudaStream_t s) {
-  if (any_hit) return by_shape<true, false, FMA, COUNT>(a, arity, m, cap, s);
-  if (sort) return by_shape<false, true, FMA, COUNT>(a, arity, m, cap, s);
-  return by_shape<false, false, FMA, COUNT>(a, arity, m, cap, s);
+  if (any_hit)
+    return by_shape<true, false, FMA, COUNT, PF>(a, arity, m, cap, s);
+  if (sort) return by_shape<false, true, FMA, COUNT, PF>(a, arity, m, cap, s);
+  return by_shape<false, false, FMA, COUNT, PF>(a, arity, m, cap, s);
 }
 
 }  // namespace
@@ -256,30 +292,38 @@ int by_mode(const Args& a, int any_hit, int sort, int arity, int m, int cap,
 // org xyz, dir xyz, tmin, tmax), each to n floats; pops and leaf_pops are
 // (n,) int32 outputs, or both null for the kernel without counters; sort:
 // 1 for Batcher's network, 0 for the min-fold (closest-hit; any-hit takes
-// 0); fma: 1 for the fused slab. Launches on `stream`, never synchronizes
-// or allocates, and returns cudaGetLastError() after the launch (0 =
-// success); cudaErrorInvalidValue for a shape that is not instantiated.
+// 0); fma: 1 for the fused slab; prefetch: 1 for K7-PF (without
+// counters). Launches on `stream`, never synchronizes or allocates, and
+// returns cudaGetLastError() after the launch (0 = success);
+// cudaErrorInvalidValue for a shape that is not instantiated and for the
+// prefetch with counters.
 extern "C" int rt_bvh_traverse_ct(
     const float* nodes, const float* tris, const float* const* rays,
     long long n, int arity, int packet, int any_hit, int stack_cap,
     float* t, float* u, float* v, int* prim, int* geom, int* pops,
-    int* leaf_pops, int sort, int fma, void* stream) {
+    int* leaf_pops, int sort, int fma, int prefetch, void* stream) {
   if (n <= 0) return 0;
-  if ((pops == nullptr) != (leaf_pops == nullptr) || (any_hit && sort))
+  if ((pops == nullptr) != (leaf_pops == nullptr) || (any_hit && sort) ||
+      (prefetch && pops != nullptr))
     return (int)cudaErrorInvalidValue;
   const Args a{nodes, tris,
                rays[0], rays[1], rays[2], rays[3], rays[4], rays[5],
                rays[6], rays[7], rays[8], rays[9], rays[10],
                n, t, u, v, prim, geom, pops, leaf_pops};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (prefetch)
+    return fma ? by_mode<true, false, true>(a, any_hit, sort, arity, packet,
+                                            stack_cap, s)
+               : by_mode<false, false, true>(a, any_hit, sort, arity, packet,
+                                             stack_cap, s);
   const bool count = pops != nullptr;
   if (fma)
-    return count ? by_mode<true, true>(a, any_hit, sort, arity, packet,
-                                       stack_cap, s)
-                 : by_mode<true, false>(a, any_hit, sort, arity, packet,
-                                        stack_cap, s);
-  return count ? by_mode<false, true>(a, any_hit, sort, arity, packet,
-                                      stack_cap, s)
-               : by_mode<false, false>(a, any_hit, sort, arity, packet,
-                                       stack_cap, s);
+    return count ? by_mode<true, true, false>(a, any_hit, sort, arity,
+                                              packet, stack_cap, s)
+                 : by_mode<true, false, false>(a, any_hit, sort, arity,
+                                               packet, stack_cap, s);
+  return count ? by_mode<false, true, false>(a, any_hit, sort, arity, packet,
+                                             stack_cap, s)
+               : by_mode<false, false, false>(a, any_hit, sort, arity,
+                                              packet, stack_cap, s);
 }

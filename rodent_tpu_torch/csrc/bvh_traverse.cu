@@ -62,7 +62,8 @@
 // what bounds K1, and the renderers keep the first body.
 //
 // K2 (kPrefetch) replaces _pf_helpers (pallas_packet.py:96-219) and the
-// tris_hbm / nodes_hbm transport of the three Pallas bodies. On the TPU a
+// tris_hbm / nodes_hbm transport of the legacy Pallas bodies (the
+// carry-top body's is K7-PF, csrc/bvh_ct.cu). On the TPU a
 // big scene's Tri table does not fit VMEM, and each leaf pop DMAs one row
 // from HBM; _pf_helpers predicts the exact next pop and starts its DMA
 // before the current pop's arithmetic. On the H100 the fast memory is the
@@ -105,9 +106,11 @@
 // every retired stack entry, and the leaf entries alone. Attribution only;
 // the render path never launches it.
 //
-// K2 and K3 are instantiated for BVH8 with Tri4/8/16/24 rows only (the
-// builds that use them); the C entries return cudaErrorInvalidValue for
-// the rest and the wrapper raises before that.
+// K1 is instantiated for arity 2/4/8 with Tri1/4/8/12/16/24 rows, K2 and
+// K3 for BVH8 with Tri4/8/12/16/24 rows only (the builds that use them):
+// the main library's 112 kernels (72 of K1, 20 each of K2 and K3; 224 in
+// the group library, which holds both bodies). The C entries return
+// cudaErrorInvalidValue for the rest and the wrapper raises before that.
 //
 // K4 (bvh_traverse_option_kernel, -DRT_OPTIONS) is K3 with one option of
 // the legacy body _kernel (pallas_packet.py:395-876) compiled in, so each
@@ -220,23 +223,8 @@ constexpr int kCount = 2;     // K3: per-ray pop counters
 constexpr int kGroup = 0;     // one stack entry per expanded node
 constexpr int kStackV1 = 1;   // the first body: one entry per hit child
 
-// Prefetches the `bytes` at p into L2, one `prefetch.global.L2` per
-// 128-byte line (the last one covers a row that ends on a fresh line); the
-// thread does not wait for them.
-__device__ __forceinline__ void prefetch_l2(const float* p, unsigned bytes) {
-  const char* c = reinterpret_cast<const char*>(p);
-  for (unsigned off = 0; off < bytes; off += 128) {
-    asm volatile("prefetch.global.L2 [%0];" :: "l"(c + off));
-  }
-  asm volatile("prefetch.global.L2 [%0];" :: "l"(c + bytes - 1));
-}
-
-// K2: when stack entry `code` (the exact next pop; 0 = none) is a leaf,
-// start bringing its Tri row into L2.
-template <int M>
-__device__ __forceinline__ void prefetch_entry(const Args& a, int code) {
-  if (code < 0) prefetch_l2(a.tris + (long long)(~code) * (14 * M), 56 * M);
-}
+// K2's prefetch of the exact next pop's Tri row, prefetch_entry, is in
+// bvh_common.cuh, which K7-PF (bvh_ct.cu) shares.
 
 template <bool ANY_HIT, int A, int M, int STACK, int VAR>
 __global__ void __launch_bounds__(kBlock) bvh_traverse_kernel(Args a) {
@@ -529,13 +517,15 @@ int by_stack(const Args& a, int cap, cudaStream_t s, int* occ) {
   }
 }
 
-// K1: every arity and packet width the builder makes
+// K1: every arity, with the Tri widths the repository's builds use (the
+// builder makes any width; the others are refused)
 template <int BODY, bool AH, int A>
 int by_packet(const Args& a, int m, int cap, cudaStream_t s, int* occ) {
   switch (m) {
     case 1: return by_stack<BODY, kPlain, AH, A, 1>(a, cap, s, occ);
     case 4: return by_stack<BODY, kPlain, AH, A, 4>(a, cap, s, occ);
     case 8: return by_stack<BODY, kPlain, AH, A, 8>(a, cap, s, occ);
+    case 12: return by_stack<BODY, kPlain, AH, A, 12>(a, cap, s, occ);
     case 16: return by_stack<BODY, kPlain, AH, A, 16>(a, cap, s, occ);
     case 24: return by_stack<BODY, kPlain, AH, A, 24>(a, cap, s, occ);
     default: return (int)cudaErrorInvalidValue;
@@ -553,7 +543,7 @@ int by_arity(const Args& a, int arity, int m, int cap, cudaStream_t s,
   }
 }
 
-// K2 and K3: BVH8 with Tri4/8/16/24 rows only
+// K2 and K3: BVH8 with Tri4/8/12/16/24 rows only
 template <int BODY, int VAR, bool AH>
 int wide(const Args& a, int arity, int m, int cap, cudaStream_t s,
          int* occ) {
@@ -561,6 +551,7 @@ int wide(const Args& a, int arity, int m, int cap, cudaStream_t s,
   switch (m) {
     case 4: return by_stack<BODY, VAR, AH, 8, 4>(a, cap, s, occ);
     case 8: return by_stack<BODY, VAR, AH, 8, 8>(a, cap, s, occ);
+    case 12: return by_stack<BODY, VAR, AH, 8, 12>(a, cap, s, occ);
     case 16: return by_stack<BODY, VAR, AH, 8, 16>(a, cap, s, occ);
     case 24: return by_stack<BODY, VAR, AH, 8, 24>(a, cap, s, occ);
     default: return (int)cudaErrorInvalidValue;

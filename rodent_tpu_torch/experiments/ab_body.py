@@ -189,16 +189,7 @@ def nvcc_log(kind="group"):
     """ptxas' output of the library's build: built now, or kept beside the
     library when an earlier run built it."""
     path, log = build.build(kind=kind)
-    keep = f"{path}.nvcc.log"
-    if log is not None:
-        with open(keep, "w") as f:
-            f.write(log)
-        return log
-    if not os.path.exists(keep):
-        raise RuntimeError(f"{path} was built without keeping ptxas' lines; "
-                           "delete it and run again")
-    with open(keep) as f:
-        return f.read()
+    return build.kept_log(path) if log is None else log
 
 
 def demangle(names):

@@ -21,13 +21,24 @@ with its share of it. The JAX program's tile rows (its argument) are the
 TPU kernel's tile shape, which a ray per thread does not have, so they
 went.
 
+--prefetch times K7-PF, each K7 variant with the exact next-pop L2
+prefetch (the JAX package's _kernel_ct with tris_hbm and prefetch, which
+its tools run on the big-scene tiers), on powerplant-4.3M's 1M sorted
+primaries, bounce rays and ao rays (the Tri24 build): each variant in
+turns with the same variant without the prefetch (K7), then in turns with
+K2 (K1 with the same prefetch, the legacy body the big-scene tiers take),
+beside its pops per ray, its bound and its share of it; K7-PF's hits must
+equal K7's bit for bit.
+
 Usage: python -m rodent_tpu_torch.experiments.measure_ct [--blocks 5]
-    [--cpu [--tris 2000 --side 32]]
+    [--prefetch] [--cpu [--tris 2000 --side 32]]
 """
 from __future__ import annotations
 
 import argparse
 import sys
+
+import torch
 
 from ..traversal import packet
 from . import common
@@ -47,11 +58,14 @@ VARIANTS = {"ct-fold": BODIES["ct-fold"], "ct-sort": BODIES["ct-sort"],
             "ct-sort-nofma": {"select": "sort", "fma_slab": False}}
 ANY_HIT_VARIANTS = {"ct": {"select": "fold", "fma_slab": True},
                     "ct-nofma": {"select": "fold", "fma_slab": False}}
+# the big-scene distributions --prefetch times K7-PF on
+PF_DISTS = ("primary", "bounces", "ao")
 
 
 def call(dev, comps, body, any_hit=False, count_pops=False):
-    """One launch of BODIES' `body` ({"select", "fma_slab"} or None) on the
-    ray components, without synchronising."""
+    """One launch of BODIES' `body` ({"select", "fma_slab"}, with
+    "prefetch" for K7-PF, or None) on the ray components, without
+    synchronising."""
     kw = {} if body is None else dict(carry_top=True, **body)
     return packet.traverse_packet_components(dev, *comps, any_hit=any_hit,
                                              count_pops=count_pops, **kw)
@@ -108,6 +122,61 @@ def measure(dev, comps, device, bodies=BODIES, any_hit=False, blocks=5,
     return res
 
 
+def measure_pf(dev, comps, device, bodies=VARIANTS, any_hit=False, blocks=5,
+               warmup_s=common.WARMUP_S, rows=None):
+    """K7-PF on these rays, each of `bodies` (K7 variants) with the
+    prefetch: in turns with K7 (the same body without it: K7, K7-PF, K7-PF,
+    K7), then in turns with K2 (K2, K7-PF, K7-PF, K2). Raises unless
+    K7-PF's hits equal K7's bit for bit. {name: {"ms" (K7-PF, the mean of
+    its four turns), "k7_ms", "ratio_k7" (K7-PF over K7 in their turns),
+    "k2_ms", "ratio_k2", "differences" (from K2's hits, which are K1's),
+    "stats" (common.pop_stats of K7's counters), "bound", "share"}}. rows
+    as in measure()."""
+    n = comps[4].shape[0]
+
+    def k2():
+        return packet.traverse_packet_components(dev, *comps, any_hit=any_hit,
+                                                 prefetch=True)
+    res = {}
+    for i, (name, body) in enumerate(bodies.items()):
+        pf_body = dict(body, prefetch=True)
+
+        def k7(body=body):
+            return call(dev, comps, body, any_hit)
+
+        def pf(body=pf_body):
+            return call(dev, comps, body, any_hit)
+        k7_ms, pf1, k7_out, pf_out = common.in_turns(
+            k7, pf, device, blocks, warmup_s if i == 0 else 0.0)
+        for key in ("t", "u", "v", "prim_id", "geom_id"):
+            if not torch.equal(pf_out[key], k7_out[key]):
+                raise RuntimeError(f"{name}: K7-PF's {key} differs from K7's")
+        k2_ms, pf2, k2_out, _ = common.in_turns(k2, pf, device, blocks)
+        s = common.pop_stats(call(dev, comps, body, any_hit, True))
+        read = (rows[name] if rows and name in rows else
+                common.rows_read(dev, comps, any_hit, ct=body))
+        bound = common.bound_ms(dev, n, s["node"], s["leaf"], read, any_hit,
+                                select=body["select"])
+        ms = (pf1 + pf2) / 2
+        res[name] = {"ms": ms, "k7_ms": k7_ms, "ratio_k7": pf1 / k7_ms,
+                     "k2_ms": k2_ms, "ratio_k2": pf2 / k2_ms,
+                     "differences": differences(pf_out, k2_out, any_hit,
+                                                name),
+                     "stats": s, "bound": bound, "share": bound[0] / ms}
+    return res
+
+
+def report_pf(name, r):
+    s = r["stats"]
+    return (f"{name + '-pf':17s} {r['ms']:.4f} ms; K7 in turns "
+            f"{r['k7_ms']:.4f} ms: {r['ratio_k7']:.4f}x; K2 in turns "
+            f"{r['k2_ms']:.4f} ms: {r['ratio_k2']:.4f}x; pops/ray "
+            f"{s['pops_ray']:.4f} (leaf {s['leaf_ray']:.4f}); hits other "
+            f"than K2's: {r['differences'][0]} ties, {r['differences'][1]} "
+            f"others; bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+            f"{r['share']:.1%} of it")
+
+
 def report(name, r):
     s = r["stats"]
     return (f"{name:14s} {r['ms']:.4f} ms = {r['mrays']:.2f} Mrays/s; K1 in "
@@ -135,16 +204,45 @@ def run(device, blocks=5, tris=None, side=1024):
     return res
 
 
+def run_pf(device, blocks=5, tris=None, side=1024):
+    """K7-PF on powerplant's distributions (PF_DISTS), printed; returns
+    {kind: measure_pf's result}."""
+    print(f"card: {common.card(device)}", flush=True)
+    verts, idx, dev, secs = common.load("powerplant", common.TRI24, device,
+                                        tris)
+    print(f"powerplant: {len(idx) // 4} tris, {dev['nodes'].shape[0]} BVH8 "
+          f"nodes, {dev['tris'].shape[0]} Tri24 rows (built in {secs:.1f} "
+          f"s)", flush=True)
+    dists = common.distributions("powerplant", verts, idx, dev, side, device,
+                                 PF_DISTS)
+    out = {}
+    for i, (kind, (comps, any_hit)) in enumerate(dists.items()):
+        out[kind] = measure_pf(dev, comps, device,
+                               ANY_HIT_VARIANTS if any_hit else VARIANTS,
+                               any_hit, blocks,
+                               common.WARMUP_S if i == 0 else 0.0)
+        for name, r in out[kind].items():
+            print(f"{kind} ({comps[4].shape[0]} sorted rays) "
+                  f"{report_pf(name, r)}", flush=True)
+    return out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="measure_ct")
     p.add_argument("--tris", type=int, default=None,
-                   help="hall's size (default 260,000)")
+                   help="the scene's size (default: hall 260,000, "
+                   "powerplant 5,000,000)")
     p.add_argument("--side", type=int, default=1024,
                    help="side x side rays")
+    p.add_argument("--prefetch", action="store_true",
+                   help="K7-PF against K7 and K2 on powerplant")
     common.add_args(p)
     args = p.parse_args(argv)
     device = common.device_of(args, "measure_ct")
-    run(device, args.blocks, args.tris, args.side)
+    if args.prefetch:
+        run_pf(device, args.blocks, args.tris, args.side)
+    else:
+        run(device, args.blocks, args.tris, args.side)
     return 0
 
 

@@ -9,13 +9,15 @@ primaries from K3, and K1's time, timed in turns (common.in_turns)
 against the first build. The JAX tool races the builds through the
 carry-top body (traverse_packet(carry_top=True), :66), so each build's
 K7 (csrc/bvh_ct.cu, select "fold", the fused slab) is timed too, in turns
-with that build's K1, with its own pops per ray from its counters. K1
-takes Tri 4/8/16/24 leaves at arity 8 (csrc/bvh_traverse.cu:537-540) and
-K7 Tri 8/16/24: the JAX tool's Tri12 has no instantiation, and its --rows
-(the TPU kernel's tile rows) no meaning.
+with that build's K1, with its own pops per ray from its counters. --packets takes the JAX
+tool's default, 8,12,16,24: K1 is built for Tri 1/4/8/12/16/24 leaves and
+K3, which counts the pops, and K7 for Tri 8/12/16/24 at arity 8
+(packet.WIDE_PACKETS, packet.CT_PACKETS), so a width that one of them
+lacks is refused. The JAX tool's --rows (the TPU kernel's tile rows) has
+no meaning here.
 
 Usage: python -m rodent_tpu_torch.experiments.race_hall_packet
-    [--tris 260000] [--rays 1048576] [--packets 8,16,24] [--lcs 0,0.6]
+    [--tris 260000] [--rays 1048576] [--packets 8,12,16,24] [--lcs 0,0.6]
     [--blocks 5] [--cpu]
 """
 from __future__ import annotations
@@ -34,14 +36,14 @@ CT_BODY = {"carry_top": True, "select": "fold", "fma_slab": True}
 
 
 def packets_arg(p, text):
-    """The Tri widths of --packets; refuses one that K1 was not built
-    for."""
+    """The Tri widths of --packets; refuses one that K3 (which counts the
+    pops) or K7 was not built for."""
     out = [int(x) for x in text.split(",")]
     for pk in out:
         if pk not in packet.WIDE_PACKETS:
-            p.error(f"--packets {pk}: K1 is built for Tri "
+            p.error(f"--packets {pk}: K1 and K3 are built for Tri "
                     f"{'/'.join(map(str, packet.WIDE_PACKETS))} leaves at "
-                    "arity 8 (csrc/bvh_traverse.cu:537-540)")
+                    "arity 8 (csrc/bvh_traverse.cu)")
         if pk not in packet.CT_PACKETS:
             p.error(f"--packets {pk}: K7 is built for Tri "
                     f"{'/'.join(map(str, packet.CT_PACKETS))} leaves at "
@@ -65,7 +67,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="race_hall_packet")
     p.add_argument("--tris", type=int, default=common.SIZES["hall"])
     p.add_argument("--rays", type=int, default=1024 * 1024)
-    p.add_argument("--packets", default="8,16,24")
+    p.add_argument("--packets", default="8,12,16,24")
     p.add_argument("--lcs", default="0,0.6")
     common.add_args(p)
     args = p.parse_args(argv)

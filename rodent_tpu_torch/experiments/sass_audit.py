@@ -74,7 +74,8 @@ FOLD_FMA = {"select": "fold", "fma_slab": True}
 # any_hit, variant, K7's {"select", "fma_slab"} or (kernel, size)). K1-K3:
 # <ANY_HIT, A, M, STACK, VAR> (VAR 0 K1, 1 K2, 2 K3; STACK the hall
 # build's stack_cap, None here); K7: <ANY_HIT, A, M, STACK, SORT, FMA,
-# COUNT>; K5: <M, ANY_HIT, FRUSTUM, R>; K6: <ANY_HIT, R>
+# COUNT, PF> (PF 0: K7 without the prefetch); K5: <M, ANY_HIT, FRUSTUM, R>;
+# K6: <ANY_HIT, R>
 INSTANCES = (
     ("K1 closest Tri8", "main", "bvh_traverse_kernel", (0, 8, 8, None, 0),
      ("tri8", False, "K1")),
@@ -89,14 +90,14 @@ INSTANCES = (
     ("K3 closest Tri8", "main", "bvh_traverse_kernel", (0, 8, 8, None, 2),
      ("tri8", False, "K3")),
     ("K7 closest Tri8 fold fma", "ct", "bvh_ct_kernel",
-     (0, 8, 8, None, 0, 1, 0), ("tri8", False, FOLD_FMA)),
+     (0, 8, 8, None, 0, 1, 0, 0), ("tri8", False, FOLD_FMA)),
     ("K7 closest Tri8 sort nofma", "ct", "bvh_ct_kernel",
-     (0, 8, 8, None, 1, 0, 0),
+     (0, 8, 8, None, 1, 0, 0, 0),
      ("tri8", False, {"select": "sort", "fma_slab": False})),
-    ("K7 any-hit Tri8 fma", "ct", "bvh_ct_kernel", (1, 8, 8, None, 0, 1, 0),
-     ("tri8", True, FOLD_FMA)),
+    ("K7 any-hit Tri8 fma", "ct", "bvh_ct_kernel",
+     (1, 8, 8, None, 0, 1, 0, 0), ("tri8", True, FOLD_FMA)),
     ("K7 closest Tri24 fold fma", "ct", "bvh_ct_kernel",
-     (0, 8, 24, None, 0, 1, 0), ("tri24", False, FOLD_FMA)),
+     (0, 8, 24, None, 0, 1, 0, 0), ("tri24", False, FOLD_FMA)),
     ("K5 rows 1", "tile", "bvh_tile_warp_kernel", (8, 0, 0, 1),
      ("tri8", False, ("K5", 1))),
     ("K5 rows 16", "tile", "bvh_tile_warp_kernel", (8, 0, 0, 4),
@@ -329,12 +330,7 @@ def build_lineinfo(kind):
     under AUDIT_DIR. The output is kept beside the library, so a build
     made earlier (chip_smoke.py starts it with the others) is read back."""
     path, log = build.build(AUDIT_DIR, kind, LINEINFO)
-    log_path = path.with_suffix(".nvcc.log")
-    if log is None:
-        log = log_path.read_text()
-    else:
-        log_path.write_text(log)
-    return path, log
+    return path, build.kept_log(path) if log is None else log
 
 
 def lineinfo_listing(kind):

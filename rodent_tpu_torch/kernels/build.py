@@ -9,8 +9,9 @@ for a library raises: there is no fallback.
 
 Six libraries: "main" (bvh_traverse.cu) holds K1, K2 and K3, the kernels
 of the render and benchmark paths; "ct" (bvh_ct.cu) holds K7, the
-carry-top body of the bench's and the tools' primary rows, in a library of
-its own so that the main library's source and binary stay as they were;
+carry-top body of the bench's and the tools' primary rows, and K7-PF, its
+next-pop prefetch (the tools' hbm and giga rows), in a library of its own
+so that the main library's source and binary stay as they were;
 "options" (the same source with
 -DRT_OPTIONS) holds K4, the options of the legacy Pallas body; "group"
 (the same source with -DRT_GROUP) holds K1-K3 in two bodies, the group
@@ -68,8 +69,8 @@ _ENTRIES = {
     },
     "ct": {
         # ..., pops, leaf_pops (both null without counters), sort, fma,
-        # stream
-        "rt_bvh_traverse_ct": (ctypes.c_int, _TRAVERSE + [_P, _P, _I, _I,
+        # prefetch (K7-PF, without counters), stream
+        "rt_bvh_traverse_ct": (ctypes.c_int, _TRAVERSE + [_P, _P, _I, _I, _I,
                                                           _P]),
     },
     "group": {
@@ -166,8 +167,8 @@ def build(build_dir=None, kind="main", extra=(), csrc=None):
     experiments/sass_audit.py's -lineinfo) unless it exists for these
     exact sources. Returns (path, nvcc's output) — the output,
     which carries ptxas' per-kernel register and spill lines, is None when
-    nothing was built. Raises RuntimeError without nvcc or when nvcc
-    fails. Processes that ask for one library at once (the ranks of a
+    nothing was built; it is kept beside the library (kept_log). Raises
+    RuntimeError without nvcc or when nvcc fails. Processes that ask for one library at once (the ranks of a
     sharded render) wait on a lock file per library, so it is built
     once."""
     out = library_path(build_dir, kind, extra, csrc)
@@ -189,8 +190,15 @@ def build(build_dir=None, kind="main", extra=(), csrc=None):
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on the {kind} library:\n"
                                + res.stdout + res.stderr)
+        Path(f"{out}.nvcc.log").write_text(res.stdout + res.stderr)
         os.replace(tmp, out)
     return out, res.stdout + res.stderr
+
+
+def kept_log(lib):
+    """nvcc's output of the build of the library at `lib`, kept beside it
+    by build()."""
+    return Path(f"{lib}.nvcc.log").read_text()
 
 
 def build_all(build_dir=None):

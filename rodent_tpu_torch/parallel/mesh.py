@@ -251,12 +251,14 @@ def traverse_sharded(dev, rays, mesh=None, any_hit=False, engine="packet",
     order, padded with dead rays (tmax -1) to equal shares, traced on each
     rank's device and the hits gathered: every rank returns all B hits.
     engine: "packet" (K1; the port's default), "packet-hbm" and
-    "packet-giga" (K2, the prefetching kernel, which the big-scene
-    tiers take), or "tiled" (the dual-queue engine,
-    traversal/tiled.py, the JAX default). engine_kwargs are the engine's
-    own options: traverse_packet's (tile_rows, ablate, carry_top, ...;
-    the TPU knobs multi, tris_hbm and the like are refused there) or
-    traverse_tiled's
+    "packet-giga" (traverse_packet with prefetch=True: K2, the
+    prefetching kernel, which the big-scene tiers take, or with
+    carry_top=True K7-PF, the carry-top body with the same prefetch, as
+    the JAX engines run _kernel_ct with tris_hbm/nodes_hbm and its
+    prefetch), or "tiled" (the dual-queue engine, traversal/tiled.py, the
+    JAX default). engine_kwargs are the engine's own options:
+    traverse_packet's (tile_rows, ablate, carry_top, ...; the TPU knobs
+    multi, tris_hbm and the like are refused there) or traverse_tiled's
     (compact_stages, sub_batches)."""
     if mesh is None:
         mesh = make_mesh()

@@ -7,16 +7,21 @@ config, `scene : distribution : variant : N Mrays (avg A, min B, max C,
 n=I; K intersections)`, on the procedural scene fixtures (sponza-class
 hall, crown-class, powerplant-class). Variants:
 
-  packet     K1, the traversal kernel (csrc/bvh_traverse.cu); on hall's
-             primaries K7, the carry-top body (csrc/bvh_ct.cu, select
-             "fold", the fused slab), as the JAX tool runs hall's
-             primaries through the carry-top body
-             (rodent_tpu/tools/benchmark.py:182-184)
+  packet     K1, the traversal kernel (csrc/bvh_traverse.cu)
   packet-k1  K1 everywhere: the legacy body beside K7 on hall's primaries
   hbm, giga  K2, K1 plus the exact next-pop L2 prefetch (the big-scene
              tiers; on the card one kernel serves both TPU transports)
   hbm-nopf, giga-nopf
              K1 again: the no-prefetch A/B rows of the big-scene tiers
+
+On hall's primaries every packet variant but packet-k1 takes the carry-top
+body (csrc/bvh_ct.cu, select "fold", the fused slab), as the JAX tool's
+per-distribution config (pcfg, rodent_tpu/tools/benchmark.py:176-184)
+gives it to every packet variant there: packet, hbm-nopf and giga-nopf
+run K7, hbm and giga K7-PF, K7 with the next-pop prefetch (the JAX
+variants' tris_hbm / nodes_hbm with prefetch). Other scenes and
+distributions take the kernels above, as the JAX tool gives them no
+config.
   tiled      the dual-queue engine (traversal/tiled.py, torch ops)
   tiled-c    the same with staged row compaction (compact_stages=5)
 
@@ -49,8 +54,9 @@ import numpy as np
 import torch
 
 # variant -> (engine, option): traverse_packet's prefetch flag (K2 when
-# True, else K1 or, for "packet" on hall's primaries, K7), or the
-# dual-queue engine's compact_stages
+# True, else K1; on hall's primaries, where every variant but packet-k1
+# takes CT_BODY, K7-PF when True, else K7), or the dual-queue engine's
+# compact_stages
 VARIANTS = {"packet": ("packet", False), "packet-k1": ("packet", False),
             "hbm": ("packet", True),
             "giga": ("packet", True), "hbm-nopf": ("packet", False),
@@ -131,10 +137,11 @@ def _traverse_one(args, device, scene):
     for dist, (comps, ah) in dists.items():
         for variant in args.variants:
             engine, opt = VARIANTS[variant]
-            # the JAX tool's per-scene primary body (:176-184): hall's
-            # primaries through the carry-top body
-            kw = (CT_BODY if variant == "packet" and scene == "hall"
-                  and dist == "primary" else {})
+            # the JAX tool's per-distribution config (:176-184): every
+            # packet variant on hall's primaries through the carry-top body
+            # but packet-k1, the port's own A/B row
+            kw = (CT_BODY if engine == "packet" and scene == "hall"
+                  and dist == "primary" and variant != "packet-k1" else {})
 
             def fn(engine=engine, opt=opt, kw=kw):
                 if engine == "tiled":

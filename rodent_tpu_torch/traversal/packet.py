@@ -23,7 +23,13 @@ rodent_tpu/traversal/pallas_packet.py.
                             carry_top=True with select="fold" (the
                             default) or "sort" and fma_slab=True (the
                             default) or False, per-ray counters with
-                            count_pops=True; BVH8 with Tri8/16/24 rows
+                            count_pops=True; BVH8 with Tri8/12/16/24 rows
+  K7-PF bvh_traverse_ct_prefetch
+                            K7 plus the exact next-pop L2 prefetch that
+                            _kernel_ct runs with _pf_helpers in the HBM
+                            modes (tris_hbm, and nodes_hbm, the giga tier:
+                            on the card Tri rows only, as K2):
+                            carry_top=True, prefetch=True
 
 K6, bvh_traverse_pair (experiments/pallas_pair.py's tile stack of whole
 nodes), has its wrapper in traversal/pair.py; its launches are counted here.
@@ -53,11 +59,16 @@ they are rules of a ray's traversal, not tile shapes, so they keep their
 meaning for one ray per thread. Where the JAX wrapper silently runs the
 legacy body instead of the carry-top one (frustum, pops > 1, ablate,
 leaf_chain > 1: pallas_packet.py:1517-1520), the port raises, naming the
-demotion; carry_top also refuses tile_rows=, row_loads and prefetch (the
-carry-top body's next-pop prefetch is not ported), and a select other than
-"fold" or "sort". The Pallas wrapper's other TPU knobs (multi, tris_hbm,
-nodes_hbm, scalar_reads, interpret, ...) have no meaning on the card and
-are not accepted.
+demotion; carry_top also refuses tile_rows=, row_loads and a select other
+than "fold" or "sort". carry_top with prefetch=True is K7-PF, the JAX
+wrapper's carry_top with tris_hbm (or nodes_hbm) and prefetch
+(:1532-1536): one kernel for both TPU transports, since on the card every
+table sits behind the L2 and the node table of a big scene stays there
+(csrc/bvh_ct.cu). Its plain version is K7's, a prefetch moves no bit.
+Where the JAX wrapper silently drops the prefetch, under count_pops
+(:1537-1538), the port raises. The Pallas wrapper's other TPU knobs
+(multi, tris_hbm, nodes_hbm, scalar_reads, interpret, ...) have no meaning
+on the card and are not accepted.
 """
 from __future__ import annotations
 
@@ -71,11 +82,11 @@ from .api import (check_options, components, stack_entries,
                   traverse_tile_components)
 
 ARITIES = (2, 4, 8)
-PACKETS = (1, 4, 8, 16, 24)
+PACKETS = (1, 4, 8, 12, 16, 24)
 STACK_CAPS = (64, 128)   # the kernels' compile-time per-thread stack sizes
 # K2 and K3 are built for these shapes only (the builds that use them)
 WIDE_ARITY = 8
-WIDE_PACKETS = (4, 8, 16, 24)
+WIDE_PACKETS = (4, 8, 12, 16, 24)
 # K4's options, in the order of csrc/bvh_traverse.cu (kNoNodeTest ...
 # kRowLoads), with the traverse_packet arguments that ask for each, and the
 # Tri rows it is built for
@@ -100,15 +111,15 @@ TILE_STACK_MAX = 256
 # (16 x 4 B an entry) and the frustum's row boxes (9,344 B) within the
 # card's 232,448 B a block (csrc/bvh_tile.cu)
 TILE_FRUSTUM_R32_STACK_MAX = 158
-# K7 is built for BVH8 (WIDE_ARITY) with these Tri rows
-CT_PACKETS = (8, 16, 24)
+# K7 and K7-PF are built for BVH8 (WIDE_ARITY) with these Tri rows
+CT_PACKETS = (8, 12, 16, 24)
 
 # launches per kernel since the last reset_launches(); raised by one where
 # the kernel is launched and nowhere else
 launches = {"bvh_traverse": 0, "bvh_traverse_prefetch": 0,
             "bvh_traverse_count": 0, "bvh_traverse_option": 0,
             "bvh_traverse_tile": 0, "bvh_traverse_pair": 0,
-            "bvh_traverse_ct": 0}
+            "bvh_traverse_ct": 0, "bvh_traverse_ct_prefetch": 0}
 
 _ENTRY = {"bvh_traverse": "rt_bvh_traverse",
           "bvh_traverse_prefetch": "rt_bvh_traverse_prefetch",
@@ -233,19 +244,23 @@ def _launch(dev, comps, any_hit, kernel, option=None):
     return out
 
 
-def _launch_ct(dev, comps, any_hit, count_pops, select, fma_slab):
-    """K7 on CUDA tensors; comps as in _launch. Returns the hits, and with
-    count_pops the per-ray "pops" and "leaf_pops"."""
+def _launch_ct(dev, comps, any_hit, count_pops, select, fma_slab,
+               prefetch=False):
+    """K7, or K7-PF with prefetch (without counters), on CUDA tensors;
+    comps as in _launch. Returns the hits, and with count_pops the per-ray
+    "pops" and "leaf_pops"."""
+    kernel = "bvh_traverse_ct_prefetch" if prefetch else "bvh_traverse_ct"
+    if prefetch and count_pops:
+        raise ValueError(f"{kernel} has no counters")
     nodes, tris = dev["nodes"], dev["tris"]
     arity = nodes.shape[1] // 7
     m = tris.shape[1] // 14
     if nodes.shape[1] != 7 * WIDE_ARITY or m not in CT_PACKETS or \
             tris.shape[1] != 14 * m:
-        raise ValueError(f"bvh_traverse_ct is built for BVH{WIDE_ARITY} "
-                         f"with Tri-M rows, M in {CT_PACKETS}; got "
-                         f"BVH{arity}, Tri{m}")
+        raise ValueError(f"{kernel} is built for BVH{WIDE_ARITY} with Tri-M "
+                         f"rows, M in {CT_PACKETS}; got BVH{arity}, Tri{m}")
     cap = stack_cap(dev)
-    n = check_inputs("bvh_traverse_ct", comps, nodes, tris)
+    n = check_inputs(kernel, comps, nodes, tris)
     device = nodes.device
 
     def empty(dtype):
@@ -268,21 +283,20 @@ def _launch_ct(dev, comps, any_hit, count_pops, select, fma_slab):
         ptrs, n, arity, m, int(bool(any_hit)), cap,
         *(out[k].data_ptr() for k in ("t", "u", "v", "prim_id", "geom_id")),
         *counters, int(select == "sort" and not any_hit),
-        int(bool(fma_slab)))
+        int(bool(fma_slab)), int(bool(prefetch)))
     if err != 0:
-        raise RuntimeError(f"bvh_traverse_ct launch failed with CUDA error "
-                           f"{err}")
-    launches["bvh_traverse_ct"] += 1
+        raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
+    launches[kernel] += 1
     return out
 
 
 def _traverse_ct(dev, org, dirv, inv_d, tmin, tmax, any_hit, count_pops,
-                 select, fma_slab):
-    """The carry-top route of traverse_packet_components: K7 on CUDA
-    tensors, its plain version on CPU tensors."""
+                 select, fma_slab, prefetch=False):
+    """The carry-top route of traverse_packet_components: K7 (K7-PF with
+    prefetch) on CUDA tensors, its plain version on CPU tensors."""
     if tmin.device.type == "cuda":
         return _launch_ct(dev, [*inv_d, *org, *dirv, tmin, tmax], any_hit,
-                          count_pops, select, fma_slab)
+                          count_pops, select, fma_slab, prefetch)
     if tmin.device.type == "cpu":
         return traverse_ct_components(dev, org, dirv, inv_d, tmin, tmax,
                                       any_hit, count_pops, select=select,
@@ -377,22 +391,28 @@ def traverse_packet_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
     excludes the others. tile_rows= takes the tile route, K5, with
     frustum=True or ablate=("nopure",) at most, and per-tile counters with
     count_pops=True. carry_top=True takes K7 with its select and fma_slab,
-    per-ray counters with count_pops=True, and none of the other options.
+    per-ray counters with count_pops=True, or K7-PF with prefetch=True
+    (without counters), and none of the other options.
     inv_o belongs to the contract but is not read: the kernels slab-test
     in the NaN-free (bound - org) * inv_dir form, or K7's fused form from
     the clamped inverse."""
     del inv_o
     if carry_top:
-        for name, on in (("prefetch", prefetch), ("row_loads", row_loads)):
-            if on:
-                raise ValueError(
-                    f"traverse_packet: carry_top=True with {name}: the "
-                    f"carry-top body takes neither the next-pop prefetch "
-                    f"(not ported) nor row loads; ask for one")
+        if row_loads:
+            raise ValueError("traverse_packet: carry_top=True with "
+                             "row_loads: the carry-top body has no row "
+                             "loads (K4's option of the legacy body); ask "
+                             "for one")
+        if prefetch and count_pops:
+            raise ValueError("traverse_packet: carry_top=True with prefetch "
+                             "and count_pops: the JAX wrapper drops the "
+                             "prefetch under count_pops "
+                             "(pallas_packet.py:1537-1538) and K7-PF has no "
+                             "counters; ask for one")
         check_options(any_hit, ablate, pops, leaf_chain, frustum, tile_rows,
                       carry_top=True, select=select)
         return _traverse_ct(dev, org, dirv, inv_d, tmin, tmax, any_hit,
-                            count_pops, select, fma_slab)
+                            count_pops, select, fma_slab, prefetch)
     check_options(any_hit, select=select)
     if tile_rows is not None:
         if prefetch or row_loads:

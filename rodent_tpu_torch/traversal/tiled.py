@@ -62,9 +62,12 @@ something): "nopop" pops slot 0 instead of the top, "leafalways" and
 "nopush" writes no stack entry (the pointers still move), "nosort" pushes
 the hit children in slot order. fixed_iters=N runs exactly N trips, so
 that runs with different ablations share one pop schedule; it needs
-debug_counters, whose trip counter it reads. As in the JAX engine, the
-staged cascade (compact_stages) runs without the hooks, and sub_batches
-is ignored under fixed_iters.
+debug_counters, whose trip counter it reads. The staged cascade
+(compact_stages on a bundle of at least 8 rows, without counters) has no
+hooks: where the JAX engine drops ablate= there without a word
+(tiled.py:452), the port raises ValueError; with debug_counters=True the
+single-stage loop runs the hooks. sub_batches is ignored under
+fixed_iters, as in the JAX engine.
 
 Not ported (TPU measurement machinery): the `_LEAF_GATHER` shard modes
 (:68), which split a gather of a table past the TPU's fast-gather cliff.
@@ -308,7 +311,8 @@ def traverse_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
     compact_stages > 0 takes the staged compaction (bundles of at least 8
     rows, without counters); sub_batches=k > 1 traces k chunks of rows one
     after the other; ablate and fixed_iters are the waterfall hooks (see
-    the module docstring)."""
+    the module docstring), and ablate with the staged compaction raises
+    ValueError."""
     ablate = tuple(ablate)
     for ab in ablate:
         if ab not in ABLATIONS:
@@ -319,6 +323,12 @@ def traverse_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
                          "debug_counters=True")
     b = tmin.shape[0]
     n_rows = -(-b // ROW)
+    if ablate and compact_stages and not debug_counters and n_rows >= 8:
+        raise ValueError(f"ablate={ablate} with compact_stages="
+                         f"{compact_stages}: the staged cascade has no "
+                         "waterfall hooks (the JAX engine drops the "
+                         "ablation there); drop one, or pass "
+                         "debug_counters=True for the single-stage loop")
     k = sub_batches
     if (k > 1 and n_rows % k == 0 and n_rows // k >= 8
             and not debug_counters and not fixed_iters):

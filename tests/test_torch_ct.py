@@ -18,8 +18,14 @@ csrc/bvh_ct.cu), against _kernel_ct itself run in interpret mode.
   output bit.
 - fma_f32 equals the exact rational a * b + c rounded to float32
   (fractions.Fraction) on random and edge triples.
+- The next-pop prefetch (K7-PF on a card): the port's
+  traverse_packet(carry_top=True, prefetch=True) on CPU tensors against
+  _kernel_ct with tris_hbm=True and prefetch=True (_pf_helpers' DMAs), with
+  and without nodes_hbm, on the soup and at Tri16, every select and slab
+  form, closest-hit and any-hit: the same tolerance.
 - The wrapper's refusals: the options the JAX wrapper demotes the carry-top
-  body for, tile_rows=, row_loads, prefetch and an unknown select.
+  body for, tile_rows=, row_loads, the prefetch with count_pops (which the
+  JAX wrapper drops there) and an unknown select.
 """
 import struct
 from fractions import Fraction
@@ -127,6 +133,57 @@ def test_pops_per_ray_match_kernel_ct(scene, body, any_hit):
     assert got["pops"][live].mean() > 2, name      # rays walk the tree
 
 
+def _pf_soup(packet):
+    """The soup of tests/test_traversal.py at Tri8, or at Tri16 as its Tri16
+    test builds it (leaves of up to 32 triangles: two VMEM lines a row, one
+    DMA in the HBM modes)."""
+    verts, idx = random_tri_soup(257, seed=47)
+    kw = {"leaf_threshold": 32} if packet == 16 else {}
+    bvh = build_bvh(verts, idx, arity=8, packet=packet, **kw)
+    assert bvh.tri_v0.shape[1] == packet
+    return japi.bvh_to_device(bvh), tapi.bvh_to_device(bvh, "cpu")
+
+
+@pytest.fixture(scope="module", params=[8, 16], ids=["soup", "soup-tri16"])
+def pf_soup(request):
+    return _pf_soup(request.param)
+
+
+@pytest.mark.parametrize("nodes_hbm", [False, True],
+                         ids=["tris_hbm", "giga"])
+@pytest.mark.parametrize("body", BODIES, ids=IDS)
+def test_prefetch_matches_kernel_ct(pf_soup, body, nodes_hbm):
+    jdev, tdev = pf_soup
+    r = np.random.RandomState(49)
+    org = r.randn(300, 3).astype(np.float32) * 3.0
+    d = r.randn(300, 3).astype(np.float32)
+    n = len(org)
+    tpacket.reset_launches()
+    for any_hit, tmax in ((False, FLT_MAX), (True, np.float32(2.0))):
+        jr = japi.make_rays(jnp.asarray(org), jnp.asarray(d),
+                            jnp.zeros(n, jnp.float32),
+                            jnp.full(n, tmax, jnp.float32))
+        want = {k: np.asarray(v) for k, v in traverse_packet(
+            jdev, jr, any_hit=any_hit, tile_rows=4, interpret=True,
+            carry_top=True, tris_hbm=True, nodes_hbm=nodes_hbm,
+            prefetch=True, **body).items()}
+        got = {k: v.numpy() for k, v in tpacket.traverse_packet(
+            tdev, tapi.make_rays(org, d, 0.0, tmax), any_hit=any_hit,
+            carry_top=True, prefetch=True, **body).items()}
+        hit = want["prim_id"] >= 0
+        assert 0 < hit.sum()
+        if any_hit:
+            np.testing.assert_array_equal(got["prim_id"] >= 0, hit)
+            continue
+        np.testing.assert_array_equal(got["prim_id"], want["prim_id"])
+        np.testing.assert_array_equal(got["geom_id"], want["geom_id"])
+        for key in ("t", "u", "v"):
+            np.testing.assert_allclose(got[key][hit], want[key][hit],
+                                       atol=1e-5, rtol=1e-6)
+        np.testing.assert_array_equal(got["t"][~hit], want["t"][~hit])
+    assert set(tpacket.launches.values()) == {0}
+
+
 @pytest.mark.parametrize("name", ["soup", "hall"])
 def test_sort_unfused_is_the_legacy_order(name):
     """carry_top with select="sort" and the unfused slab pops the legacy
@@ -225,8 +282,10 @@ def test_fma_f32_is_correctly_rounded():
 def test_wrapper_refusals():
     """The carry-top route refuses what the JAX wrapper silently demotes
     to the legacy body (pallas_packet.py:1517-1520), naming the demotion,
-    and tile_rows=, row_loads, prefetch and a select other than fold or
-    sort; the CPU route counts no launch."""
+    tile_rows=, row_loads, the prefetch with count_pops (the JAX wrapper
+    drops the prefetch there, :1537-1538) and a select other than fold or
+    sort; the prefetch alone takes the plain version on CPU tensors, and
+    the CPU route counts no launch."""
     verts, idx = random_tri_soup(257, seed=47)
     tdev = tapi.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8),
                               "cpu")
@@ -241,9 +300,16 @@ def test_wrapper_refusals():
         tpacket.traverse_packet(tdev, rays, carry_top=True, tile_rows=1)
     with pytest.raises(ValueError, match="tile_rows="):
         tapi.traverse(tdev, rays, carry_top=True, tile_rows=1)
-    for kw in ({"row_loads": True}, {"prefetch": True}):
-        with pytest.raises(ValueError, match="carry_top=True with"):
+    for kw in ({"row_loads": True}, {"row_loads": True, "prefetch": True}):
+        with pytest.raises(ValueError, match="carry_top=True with row_loads"):
             tpacket.traverse_packet(tdev, rays, carry_top=True, **kw)
+    with pytest.raises(ValueError, match="carry_top=True with prefetch and "
+                       "count_pops"):
+        tpacket.traverse_packet(tdev, rays, carry_top=True, prefetch=True,
+                                count_pops=True)
+    with pytest.raises(ValueError, match="tile_rows="):
+        tpacket.traverse_packet(tdev, rays, carry_top=True, prefetch=True,
+                                tile_rows=1)
     for carry_top in (True, False):
         with pytest.raises(ValueError, match="select='min'"):
             tpacket.traverse_packet(tdev, rays, carry_top=carry_top,
@@ -251,14 +317,23 @@ def test_wrapper_refusals():
     with pytest.raises(ValueError, match="stack_depth"):
         tapi.traverse(tdev, rays, carry_top=True, stack_depth=8)
     tpacket.reset_launches()
-    tpacket.traverse_packet(tdev, rays, carry_top=True)
-    assert tpacket.launches["bvh_traverse_ct"] == 0
+    ct = tpacket.traverse_packet(tdev, rays, carry_top=True)
+    pf = tpacket.traverse_packet(tdev, rays, carry_top=True, prefetch=True)
+    for key in ct:
+        assert torch.equal(pf[key], ct[key]), key
+    assert set(tpacket.launches.values()) == {0}
     dev4 = tapi.bvh_to_device(build_bvh(verts, idx, arity=4, packet=8),
                               "cpu")
     comps = [*tapi.components(rays)[2], *tapi.components(rays)[0],
              *tapi.components(rays)[1], rays["tmin"], rays["tmax"]]
     with pytest.raises(ValueError, match="bvh_traverse_ct is built for"):
         tpacket._launch_ct(dev4, comps, False, False, "fold", True)
+    with pytest.raises(ValueError,
+                       match="bvh_traverse_ct_prefetch is built for"):
+        tpacket._launch_ct(dev4, comps, False, False, "fold", True, True)
+    with pytest.raises(ValueError,
+                       match="bvh_traverse_ct_prefetch has no counters"):
+        tpacket._launch_ct(dev4, comps, False, True, "fold", True, True)
 
 
 def test_sass_audit_reads_the_ct_kernel():

@@ -1,7 +1,8 @@
 """The CUDA kernels K1, K2 (prefetch), K3 (pop counters), each in both
 bodies (the group stack and the first body), K4 (the options of the
 legacy Pallas body), K5 (the tile-shared stack), K6 (the
-pair layout), K7 (the carry-top body) and the micro-probes
+pair layout), K7 (the carry-top body), K7-PF (K7 with the next-pop
+prefetch) and the micro-probes
 (csrc/probes.cu) and the port's slices on a CUDA card.
 
 Every test here is marked `cuda` and skips where torch sees no card. The
@@ -33,7 +34,7 @@ from rodent_tpu_torch.utils import testscenes
 
 pytestmark = pytest.mark.cuda
 
-CASES = [(a, m) for a in (2, 4, 8) for m in (1, 4, 8, 16, 24)]
+CASES = [(a, m) for a in (2, 4, 8) for m in (1, 4, 8, 12, 16, 24)]
 
 
 @pytest.fixture
@@ -185,11 +186,11 @@ def test_textured_render_on_card_matches_cpu(card):
     assert abs(gpu.mean() / cpu.mean() - 1.0) < 5e-3
 
 
-@pytest.mark.parametrize("width", [8, 16, 24])
+@pytest.mark.parametrize("width", [8, 12, 16, 24])
 def test_prefetch_and_count_kernels(card, width):
     """K2 returns K1's hits bit for bit and K3 K1's hits plus counters
     equal to the plain version's, closest-hit and any-hit, on BVH8 soups
-    with Tri8/16/24 rows; one launch of each per call."""
+    with Tri8/12/16/24 rows; one launch of each per call."""
     verts, idx = _soup(3000, seed=7 * width)
     dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=width),
                             card)
@@ -208,7 +209,8 @@ def test_prefetch_and_count_kernels(card, width):
                                    "bvh_traverse_option": 0,
                                    "bvh_traverse_tile": 0,
                                    "bvh_traverse_pair": 0,
-                                   "bvh_traverse_ct": 0}
+                                   "bvh_traverse_ct": 0,
+                                   "bvh_traverse_ct_prefetch": 0}
         for key in ("t", "u", "v", "prim_id", "geom_id"):
             assert torch.equal(k2[key], k1[key]), key
             assert torch.equal(k3[key], k1[key]), key
@@ -256,9 +258,35 @@ def test_ct_kernel_matches_plain(card, width, body):
                 assert torch.equal(kc[key], k3[key]), key
 
 
+@pytest.mark.parametrize("width", packet.CT_PACKETS)
+@pytest.mark.parametrize("body", CT_BODIES, ids=CT_IDS)
+def test_ct_prefetch_kernel_matches_plain(card, width, body):
+    """K7-PF, each variant, against its plain version (K7's) and against K7
+    bit for bit in hits, closest-hit and any-hit, on the soups of
+    test_ct_kernel_matches_plain; one bvh_traverse_ct_prefetch launch
+    counted per call."""
+    verts, idx = _soup(3000, seed=11 * width)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=width),
+                            card)
+    for any_hit, tmax in ((False, 1e30), (True, 2.0)):
+        rays = _rays(8192, width + 3, card, tmax)
+        packet.reset_launches()
+        k = packet.traverse_packet(dev, rays, any_hit=any_hit,
+                                   carry_top=True, **body)
+        kp = packet.traverse_packet(dev, rays, any_hit=any_hit,
+                                    carry_top=True, prefetch=True, **body)
+        assert packet.launches["bvh_traverse_ct_prefetch"] == 1
+        assert packet.launches["bvh_traverse_ct"] == 1
+        p = api.traverse(dev, rays, any_hit=any_hit, carry_top=True, **body)
+        for key in p:
+            assert torch.equal(kp[key], p[key]), key
+            assert torch.equal(kp[key], k[key]), key
+
+
 def test_ct_kernel_refusals(card):
-    """K7 is built for BVH8 with Tri8/16/24 rows: other tables raise before
-    a launch, as do the options the carry-top body does not take."""
+    """K7 and K7-PF are built for BVH8 with Tri8/12/16/24 rows: other tables
+    raise before a launch, as do the options the carry-top body does not
+    take and the prefetch with counters."""
     verts, idx = _soup(300, seed=3)
     rays = _rays(256, 4, card, 1e30)
     for arity, width in ((4, 8), (8, 4)):
@@ -266,11 +294,17 @@ def test_ct_kernel_refusals(card):
                                           packet=width), card)
         with pytest.raises(ValueError, match="bvh_traverse_ct is built"):
             packet.traverse_packet(dev, rays, carry_top=True)
+        with pytest.raises(ValueError,
+                           match="bvh_traverse_ct_prefetch is built"):
+            packet.traverse_packet(dev, rays, carry_top=True, prefetch=True)
     dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8), card)
-    with pytest.raises(ValueError, match="prefetch"):
-        packet.traverse_packet(dev, rays, carry_top=True, prefetch=True)
+    packet.reset_launches()
+    with pytest.raises(ValueError, match="prefetch and count_pops"):
+        packet.traverse_packet(dev, rays, carry_top=True, prefetch=True,
+                               count_pops=True)
     with pytest.raises(ValueError, match="demotes"):
         packet.traverse_packet(dev, rays, carry_top=True, pops=2)
+    assert set(packet.launches.values()) == {0}
 
 
 @pytest.mark.parametrize("arity,width", CASES)

@@ -321,6 +321,81 @@ def test_program_cpu_run(name, capsys):
     assert re.search(pattern, out), out
 
 
+def test_measure_ct_prefetch_cpu_run(capsys):
+    """measure_ct --prefetch --cpu at a tiny powerplant: K7-PF's plain
+    version (K7's) in turns with K7 and K2 on the three distributions,
+    every variant, with pops per ray and the bound."""
+    from rodent_tpu_torch.experiments import measure_ct
+    assert measure_ct.main(TINY + ["--prefetch"]) == 0
+    out = capsys.readouterr().out
+    assert "cpu: the plain torch version" in out
+    for kind, names in (("primary", measure_ct.VARIANTS),
+                        ("bounces", measure_ct.VARIANTS),
+                        ("ao", measure_ct.ANY_HIT_VARIANTS)):
+        for name in names:
+            assert re.search(rf"^{kind} \(1024 sorted rays\) {name}-pf +"
+                             r"[\d.]+ ms; K7 in turns [\d.]+ ms: [\d.]+x; "
+                             r"K2 in turns [\d.]+ ms: [\d.]+x; pops/ray "
+                             r"[\d.]+ .* bound [\d.]+ ms", out, re.M), out
+
+
+def _listing(functions):
+    """A cuobjdump -sass listing of {name: [instruction text]}."""
+    out = ["\tcode for sm_90a"]
+    for name, insns in functions.items():
+        out.append(f"\t\tFunction : {name}")
+        out += [f"        /*{16 * i:04x}*/                   {t} ;"
+                for i, t in enumerate(insns)]
+    return common.parse_sass("\n".join(out))
+
+
+def test_sass_compare_maps_instantiations():
+    """sass_compare matches functions by kernel and template arguments
+    with the anonymous namespace's hash set aside, K7's instantiations
+    that gained PF (0) to the other tree's without it, and finds an
+    instantiation that differs by one instruction, one that is missing and
+    the ones that were added; without nvcc it refuses."""
+    from rodent_tpu_torch.experiments import sass_compare
+
+    def ct(ns, args):
+        return (f"_ZN{len(ns)}{ns}13bvh_ct_kernelI"
+                + "".join(f"L{'b' if i > 3 else 'i'}{a}E"
+                          for i, a in enumerate(args)) + "EEvNS_4ArgsE")
+
+    def k1(ns, args):
+        return (f"_ZN{len(ns)}{ns}19bvh_traverse_kernelI"
+                + "".join(f"L{'b' if i == 0 else 'i'}{a}E"
+                          for i, a in enumerate(args)) + "EEvNS_4ArgsE")
+    old_ns = "_GLOBAL__N__1a2b3c4d_9_bvh_ct_cu_0123abcd"
+    new_ns = "_GLOBAL__N__9f8e7d6c_9_bvh_ct_cu_fedc9876"
+    body = ["LDC R1, c[0x0][0x28]", "FMUL R2, R0, 2", "EXIT"]
+    other = _listing({
+        ct(old_ns, (0, 8, 8, 64, 0, 1, 0)): body,
+        ct(old_ns, (0, 8, 24, 64, 0, 1, 0)): body,
+        k1(old_ns, (0, 8, 8, 64, 0)): body,
+        k1(old_ns, (0, 8, 4, 64, 1)): body,
+        "_Z3fooPf": body})
+    mine = _listing({
+        ct(new_ns, (0, 8, 8, 64, 0, 1, 0, 0)): body,
+        ct(new_ns, (0, 8, 8, 64, 0, 1, 0, 1)): body + ["NOP"],
+        ct(new_ns, (0, 8, 12, 64, 0, 1, 0, 0)): body,
+        ct(new_ns, (0, 8, 24, 64, 0, 1, 0, 0)): body[:1] + ["FADD R2, R0, 2",
+                                                             "EXIT"],
+        k1(new_ns, (0, 8, 8, 64, 0)): body,
+        k1(new_ns, (0, 8, 12, 64, 0)): body})
+    r = sass_compare.compare(mine, other)
+    assert (r["other"], r["mine"], r["equal"]) == (4, 6, 2)
+    assert r["differ"] == [ct(old_ns, (0, 8, 24, 64, 0, 1, 0))]
+    assert r["missing"] == [k1(old_ns, (0, 8, 4, 64, 1))]
+    assert r["added"] == {"bvh_ct_kernel": 2, "bvh_traverse_kernel": 1}
+    assert sass_compare.instructions(
+        _listing({"f": [f"CALL {new_ns}_x"]})["f"]) == ["CALL _GLOBAL__N__x"]
+    import unittest.mock
+    with unittest.mock.patch.object(build, "find_nvcc", lambda: None):
+        with pytest.raises(SystemExit):
+            sass_compare.main(["--against", "."])
+
+
 def test_ab_gather_take_builds_the_other_checkouts_source(tmp_path):
     """ab_gather_take builds another checkout's probes.cu: its library's
     name hashes that source (the same bytes give this checkout's name, an

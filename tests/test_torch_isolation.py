@@ -70,7 +70,8 @@ def test_port_imports_no_jax():
                  "experiments.bigscene_demo",
                  "experiments.make_goldens",
                  "experiments.ab_gather_take",
-                 "experiments.measure_ct"):
+                 "experiments.measure_ct",
+                 "experiments.sass_compare"):
         assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
@@ -128,13 +129,17 @@ def test_cpu_traversal_never_launches_the_kernel():
             packet.traverse_packet(dev8, rays, any_hit=any_hit,
                                    count_pops=True, carry_top=True,
                                    select=select, fma_slab=select == "fold")
+            packet.traverse_packet(dev8, rays, any_hit=any_hit,
+                                   carry_top=True, prefetch=True,
+                                   select=select)
     assert packet.launches == {"bvh_traverse": 0,
                                "bvh_traverse_prefetch": 0,
                                "bvh_traverse_count": 0,
                                "bvh_traverse_option": 0,
                                "bvh_traverse_tile": 0,
                                "bvh_traverse_pair": 0,
-                               "bvh_traverse_ct": 0}
+                               "bvh_traverse_ct": 0,
+                               "bvh_traverse_ct_prefetch": 0}
     assert hit["t"].device.type == "cpu"
 
 

@@ -137,6 +137,9 @@ def group(hall, box_files):
     for engine in ("tiled", "packet"):
         add(("traverse", engine), mesh.traverse_sharded, (4, 1),
             (scene["bvh"], rays), {"engine": engine})
+    # the big-scene engine with the carry-top body: K7-PF on a card
+    add(("traverse", "packet-hbm"), mesh.traverse_sharded, (4, 1),
+        (scene["bvh"], rays), {"engine": "packet-hbm", "carry_top": True})
     add("tools.render", render_tool.run, None,
         ([str(box_files / "box.obj"), "--sharded", *BOX_ARGS],))
     add("tools.bench_traversal", bench_traversal.main, None,
@@ -233,13 +236,20 @@ def test_persistent_sharded_matches_jax(group, jax_films):
     np.testing.assert_array_equal(got, _film(group[("persistent", 2, 2)][0]))
 
 
-@pytest.mark.parametrize("engine", ["tiled", "packet"])
+@pytest.mark.parametrize("engine", ["tiled", "packet", "packet-hbm"])
 def test_traverse_sharded_matches_jax(hall, group, engine):
     """299 rays over 4 ranks (dead padding rays in the last share) against
-    the JAX traverse_sharded over 8 devices (its dual-queue engine)."""
+    the JAX traverse_sharded over 8 devices: its dual-queue engine, and for
+    engine="packet-hbm" with carry_top=True (the carry-top body with the
+    next-pop prefetch, K7-PF on a card) its own packet-hbm engine with
+    carry_top=True (_kernel_ct with tris_hbm and the prefetch, in interpret
+    mode, in tiles of 4 rows)."""
     jscene, _ = hall
+    kw = ({"engine": "packet-hbm", "carry_top": True, "tile_rows": 4}
+          if engine == "packet-hbm" else {})
     want = jmesh.traverse_sharded(jscene.device["bvh"],
-                                  jmake_rays(*map(jnp.asarray, _rays())))
+                                  jmake_rays(*map(jnp.asarray, _rays())),
+                                  **kw)
     for res in group[("traverse", engine)]:
         got = res["out"]
         assert got["t"].shape == (N_RAYS,)

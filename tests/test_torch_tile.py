@@ -216,7 +216,7 @@ def test_tile_launch_keys():
     assert set(tpacket.launches) == {
         "bvh_traverse", "bvh_traverse_prefetch", "bvh_traverse_count",
         "bvh_traverse_option", "bvh_traverse_tile", "bvh_traverse_pair",
-        "bvh_traverse_ct"}
+        "bvh_traverse_ct", "bvh_traverse_ct_prefetch"}
     tpacket.reset_launches()
     for i, k in enumerate(ab.KERNELS):
         tpacket.launches[ab.NAMES[k]] = i + 1

@@ -277,6 +277,33 @@ def test_tiled_waterfall_hooks_preserve_results(waterfall_soup):
     assert_hits(got, tiled.traverse_tiled(tdev, tr4))
 
 
+def test_tiled_ablate_refused_under_staged_compaction(waterfall_soup):
+    """The staged cascade has no waterfall hooks: where the JAX engine
+    drops ablate= there without a word (rodent_tpu/traversal/tiled.py:452),
+    the port raises ValueError naming both options, on a bundle of 16 rows
+    with compact_stages=5, also through sub-batches of 8 rows. With
+    debug_counters=True the single-stage loop runs the hook, and hits and
+    counters equal the JAX engine's under the same options; a bundle under
+    8 rows never takes the cascade and keeps the hook."""
+    jdev, tdev, runs = waterfall_soup
+    org, d, tm = soup_rays(2048, 51, 1e30)
+    jr4 = japi.make_rays(org, d, np.zeros(2048, np.float32), tm)
+    tr4 = tapi.make_rays(org, d, 0.0, tm)
+    for kw in ({}, {"sub_batches": 2}):
+        with pytest.raises(ValueError, match=r"ablate=\('nosort',\) with "
+                           r"compact_stages=5"):
+            tiled.traverse_tiled(tdev, tr4, ablate=("nosort",),
+                                 compact_stages=5, **kw)
+    kw = dict(ablate=("nosort",), compact_stages=5, debug_counters=True)
+    got = tiled.traverse_tiled(tdev, tr4, **kw)
+    want = jtiled(jdev, jr4, **kw)
+    assert_hits(got, want)
+    assert _counters(got) == _counters(want)
+    jr, tr, _ = runs[False]
+    kw = dict(ablate=("nosort",), compact_stages=5)
+    assert_hits(tiled.traverse_tiled(tdev, tr, **kw), jtiled(jdev, jr, **kw))
+
+
 @pytest.fixture(scope="module")
 def hall():
     """hall-20K compiled by the JAX package, and the port's copy of its

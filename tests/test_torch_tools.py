@@ -110,6 +110,45 @@ def test_benchmark_hall_primaries_take_the_carry_top_body(monkeypatch,
         False, True, False, False, False]
 
 
+def test_benchmark_hbm_rows_take_the_prefetching_carry_top_body(
+        monkeypatch, capsys):
+    """As the JAX tool's per-distribution config gives the carry-top body
+    to every packet variant on hall's primaries
+    (rodent_tpu/tools/benchmark.py:176-184), the hbm and giga rows trace
+    them with CT_BODY and the prefetch (K7-PF on a card) and hbm-nopf and
+    giga-nopf with CT_BODY without it (K7); on the ao rays the same rows
+    take neither body (K2 with the prefetch, K1 without). Every row finds
+    the same intersections."""
+    from rodent_tpu_torch.traversal import packet as tpacket
+    calls = []
+    real = tpacket.traverse_packet_components
+
+    def spy(dev, *comps, **kw):
+        calls.append(kw)
+        return real(dev, *comps, **kw)
+    monkeypatch.setattr(tpacket, "traverse_packet_components", spy)
+    variants = ["hbm", "giga", "hbm-nopf", "giga-nopf"]
+    assert benchmark.main([
+        "--cpu", "--scenes", "hall", "--sizes", "hall=2000", "--rays",
+        "1024", "--dists", "primary,ao", "--variants", ",".join(variants),
+        "--iters", "1"]) == 0
+    rows = [ROW.match(line)
+            for line in capsys.readouterr().out.strip().splitlines()]
+    assert [(r.group(2), r.group(3)) for r in rows] == [
+        (d, v) for d in ("primary", "ao") for v in variants]
+    for dist in ("primary", "ao"):
+        assert len({r.group(5) for r in rows if r.group(2) == dist}) == 1
+    # the first call traces the primaries for the ao rays' hit points
+    assert "carry_top" not in calls[0] and not calls[0]["prefetch"]
+    ct = {"carry_top": True, "select": "fold", "fma_slab": True}
+    pf = [True, True, False, False]
+    for c, p in zip(calls[1:5], pf):
+        assert c == dict(ct, any_hit=False, prefetch=p), c
+    for c, p in zip(calls[5:], pf):
+        assert c == {"any_hit": True, "prefetch": p}, c
+    assert len(calls) == 9
+
+
 def test_benchmark_renderer_row(capsys):
     """--mode renderer: render_iteration_persistent under the port's
     policy at 16x8 prints one Msamples/s row."""
@@ -273,13 +312,23 @@ def test_experiment_on_cpu(name, capsys):
         with pytest.raises(ValueError, match="frustum.*tile_rows="):
             api.check_options(False, frustum=True)
     if name == "race_hall_packet":
+        # the JAX tool's Tri12 runs (K1, K3 and K7 take it); a width that
+        # is still not built is refused
+        assert mod.main(["--cpu", "--blocks", "1", "--tris", "2000",
+                         "--rays", "256", "--packets", "8,12", "--lcs",
+                         "0"]) == 0
+        out = capsys.readouterr().out
+        assert re.search(r"^pk=12 lc=def: \d+ BVH8 nodes .* Tri12 rows ",
+                         out, re.M), out
+        assert len(re.findall(r"^  K7 ct-fold: ", out, re.M)) == 2, out
+        assert set(packet.launches.values()) == {0}
         with pytest.raises(SystemExit):
-            mod.main(["--cpu", "--packets", "8,12"])
-        assert "--packets 12: K1 is built for Tri 4/8/16/24" in (
+            mod.main(["--cpu", "--packets", "8,32"])
+        assert "--packets 32: K1 and K3 are built for Tri 4/8/12/16/24" in (
             capsys.readouterr().err)
         with pytest.raises(SystemExit):
             mod.main(["--cpu", "--packets", "4"])
-        assert "--packets 4: K7 is built for Tri 8/16/24" in (
+        assert "--packets 4: K7 is built for Tri 8/12/16/24" in (
             capsys.readouterr().err)
 
 
