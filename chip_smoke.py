@@ -2625,6 +2625,13 @@ def phase_programs(device):
               f"{st['spills']} spills, {st['audit']['count']})")
         check(0.0 < est["share"] < 10.0 and est["ns_pop"] > 0,
               f"sass_audit {label}: issue estimate {est}")
+        if label.startswith("K7 "):
+            # the while-while form: a node loop, and a leaf loop apart
+            # from the lane loop it holds
+            loops = st["audit"]["loops"]
+            check(loops.get("node", 0) >= 1 and loops.get("leaf", 0) >= 2,
+                  f"sass_audit {label}: the node and leaf loops are not "
+                  f"two loops in the SASS ({loops})")
     step("attribute_crown", lambda: attribute_crown.run(
         device, ("hall", "crown"), rows=16, blocks=3))
     step("ab_crown_build", lambda: ab_crown_build.run(
@@ -2672,7 +2679,9 @@ def phase_programs(device):
             "ns_pop": r["estimate"]["ns_pop"],
             "issue_ms": r["estimate"]["issue_ms"],
             "issue_ns_pop": r["estimate"]["issue_ns_pop"],
-            "share": r["estimate"]["share"]}
+            "share": r["estimate"]["share"],
+            "loops": r["static"]["audit"]["loops"],
+            "rules": r["estimate"].get("rules")}
             for label, r in out["sass_audit"].items()},
         "attribute_crown": {s: {
             "pops_ray": r["k3"]["pops_ray"], "warp_pops": r["k3"]["warp_pops"],
@@ -2710,26 +2719,29 @@ def phase_ct(device, hall, big_bvh, big_prim, side=1024):
     """[20] K7, the carry-top body (csrc/bvh_ct.cu, the "ct" library):
     every variant held bit for bit against its plain version (hits,
     counters and the rows it reads) on hall-260K's 1M sorted primaries,
-    bounce rays (closest-hit: fold and sort, fused and unfused slab) and ao
-    rays (any-hit: fused and unfused), and on powerplant-4.3M's 1M sorted
-    primaries (Tri24); sort with the unfused slab also against K1's hits
-    and K3's counters, bit for bit. On hall, K7-PF (the instantiations
-    tools.benchmark's hbm row launches in phase 18: Tri8, hall's stack
-    cap) is held against each variant's plain version and K7 in hits, bit
-    for bit. Each variant is then timed in turns
-    with K1 (experiments.measure_ct.measure: K1, K7, K7, K1) beside its
-    pops per ray from its counting instantiation, its bound and the rays
-    where it keeps another hit than K1. Returns the kernels-line entry's
-    numbers: {"res": {(scene, kind, variant): measure's result},
-    "plain_ms": the plain version's time on hall's primaries (ct-fold)}."""
+    bounce rays (closest-hit: fold and sort, fused and unfused slab), ao
+    rays (any-hit: fused and unfused) and the primaries and bounces
+    interleaved ray by ray (2M rays in one launch, so that nearly every
+    warp's rays take K7's node and leaf loops in turns), and on
+    powerplant-4.3M's 1M sorted primaries (Tri24); sort with the unfused
+    slab also against K1's hits and K3's counters, bit for bit. On hall,
+    K7-PF (the instantiations tools.benchmark's hbm row launches in phase
+    18: Tri8, hall's stack cap) is held against each variant's plain
+    version and K7 in hits, bit for bit. Each variant is then timed in
+    turns with K1 (experiments.measure_ct.measure: K1, K7, K7, K1; not on
+    the interleaved rays) beside its pops per ray from its counting
+    instantiation, its bound and the rays where it keeps another hit than
+    K1. Returns the kernels-line entry's numbers: {"res": {(scene, kind,
+    variant): measure's result}, "plain_ms": the plain version's time on
+    hall's primaries (ct-fold)}."""
     from rodent_tpu_torch.experiments import common, measure_ct
     from rodent_tpu_torch.traversal import api, packet
     hall_bvh = hall.device["bvh"]
-    hall_d = common.distributions("hall", hall.mesh.vertices,
-                                  hall.mesh.indices, hall_bvh, side, device,
-                                  ("primary", "ao", "bounces"))
+    hall_d = common.distributions(
+        "hall", hall.mesh.vertices, hall.mesh.indices, hall_bvh, side,
+        device, ("primary", "ao", "bounces", "interleaved"))
     runs = [("hall-260K", hall_bvh, kind, hall_d[kind])
-            for kind in ("primary", "bounces", "ao")]
+            for kind in ("primary", "bounces", "ao", "interleaved")]
     runs.append(("powerplant-4.3M", big_bvh, "primary", (big_prim, False)))
     res, plain_ms, first = {}, None, True
     for scene, bvh, kind, (comps, any_hit) in runs:
@@ -2772,6 +2784,8 @@ def phase_ct(device, hall, big_bvh, big_prim, side=1024):
                if scene == "hall-260K" else "")
             + ("" if any_hit else "; ct-sort-nofma == K1's hits and K3's "
                "counters bit for bit"))
+        if kind == "interleaved":
+            continue
         out = measure_ct.measure(bvh, comps, device, bodies, any_hit,
                                  warmup_s=common.WARMUP_S if first else 0.0,
                                  rows=rows)
@@ -2846,8 +2860,9 @@ def phase_tri12(device, hall, side=1024):
     race_hall_packet's), its 1M sorted primaries and ao rays. K1 against
     the plain version (prim_id equal but exact-t ties, t/u/v within atol
     1e-5 / rtol 1e-6; any-hit hit/miss equal), K2 equal to K1, K3's hits
-    and counters and K7's fold and sort (with the fused slab; with and
-    without counters) bit for bit against their plain versions; then K1
+    and counters, K7's fold and sort (with the fused slab; with and
+    without counters) and K7-PF's bit for bit against their plain
+    versions; then K1
     and K7's fold timed in turns (measure_ct.measure) on the primaries.
     Returns the kernels line's variants: {"K1": {...}, "K7": {...}}."""
     from rodent_tpu_torch.accel import build_bvh
@@ -2890,12 +2905,15 @@ def phase_tri12(device, hall, side=1024):
                                         carry_top=True, **body)
             kc = measure_ct.call(bvh, comps, body, any_hit, True)
             k = measure_ct.call(bvh, comps, body, any_hit)
+            kp = measure_ct.call(bvh, comps, dict(body, prefetch=True),
+                                 any_hit)
             check_equal(kc, p, f"[20] {what} K7 {name} with counters")
             del p["pops"], p["leaf_pops"]
             check_equal(k, p, f"[20] {what} K7 {name}")
-        log(f"[20] {what}: {n} rays; K2 == K1, K3 (hits, counters) and K7 "
-            f"{', '.join(bodies)} == plain bit for bit; K1 against plain "
-            f"{ties} exact-t ties, pops/ray "
+            check_equal(kp, p, f"[20] {what} K7-PF {name}")
+        log(f"[20] {what}: {n} rays; K2 == K1, K3 (hits, counters), K7 and "
+            f"K7-PF {', '.join(bodies)} == plain bit for bit; K1 against "
+            f"plain {ties} exact-t ties, pops/ray "
             f"{float(plain['pops'].double().mean()):.4f}")
     comps, _ = dists["primary"]
     r = measure_ct.measure(bvh, comps, device,

@@ -2,9 +2,10 @@
 // bvh_ct.cu: K7) and the tile-shared-stack kernels (bvh_tile.cu: K5, K6): a
 // ray's inputs, the Batcher network over a node's children and the
 // sign-trick Moller-Trumbore of one Tri lane, in the float operation order
-// of the plain torch versions (traversal/api.py), and the exact next-pop
-// L2 prefetch of a Tri row (K2, K7-PF). Built with -fmad=false, so every
-// operation is rounded on its own, as torch computes it.
+// of the plain torch versions (traversal/api.py), the lanes of a wide row
+// load (K4, K7) and the exact next-pop L2 prefetch of a Tri row (K2,
+// K7-PF). Built with -fmad=false, so every operation is rounded on its
+// own, as torch computes it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -98,6 +99,12 @@ __device__ __forceinline__ bool mt_lane(const float (&f)[12], const Ray& r,
     return true;
   }
   return false;
+}
+
+// Lane j of a 16-byte row load (K4's and K7's rows are laid out by field,
+// so neighbouring lanes of a field are neighbouring floats).
+__device__ __forceinline__ float lane_of(const float4& x, int j) {
+  return j == 0 ? x.x : j == 1 ? x.y : j == 2 ? x.z : x.w;
 }
 
 // Prefetches the `bytes` at p into L2, one `prefetch.global.L2` per

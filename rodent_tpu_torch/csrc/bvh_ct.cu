@@ -63,6 +63,25 @@
 //       an SM the row loads' latency is already hidden, and the
 //       prefetches are issued work, most of it on the leaf pops.
 //
+// The loop is a while-while loop, as the reference's GPU traversal
+// (mapping_gpu.impala:94-178) and the Aila-Laine kernel it is measured
+// against are: an outer loop over two inner ones, node pops while a ray's
+// next pop is a node, then leaf pops while it is a Tri row. A warp runs a
+// path whenever any of its rays takes it. In the if-if form (`if (code >
+// 0) node; else leaf;` once a trip) a warp whose rays are split between
+// node and leaf pops runs both paths in that trip; here a ray that holds
+// a leaf waits in the node loop until every ray of the warp holds one or
+// is done, and the leaves run together (experiments/ct_warp_model.py
+// counts each form's path runs per warp from the rays' pop kinds). Each
+// ray still pops the same entries in the same order, with the same t,
+// stack and carried next pop, so hits and counters are unchanged.
+// Rows are read in 16-byte read-only loads, as the reference's nvvm_ldg4
+// (mapping_gpu.impala:18-70) and K4's row_loads: a BVH8 node row (224 B)
+// as 14, each plane's 8 children and the child codes as two; a Tri row's
+// fields kLeafLanes lanes at a time (a row is 56M bytes, a field 4M),
+// the lanes still tested in order 0..M-1. The wrapper refuses tables that
+// are not 16-byte aligned (traversal/packet.py).
+//
 // With SORT and without FMA the kernel pops what K1 pops, in K1's order
 // (K1 pushes the nearest child and pops it at once; a leaf's continuation
 // likewise), so it returns K1's hits bit for bit and K3's counts.
@@ -123,23 +142,33 @@ __device__ __forceinline__ float plane(float b, float s, float o) {
   else return (b - o) * s;
 }
 
+// A leaf reads its Tri row kLeafLanes lanes at a time, one float4 load a
+// field (the row is laid out by field: lanes of a field are neighbours).
+// The 13 loads of a quad hold 52 registers, 92-96 in all (20 warps an SM);
+// 8-byte pairs held 62-70 and ran slower on hall's primaries (PERF.md).
+constexpr int kLeafLanes = 4;
+
 template <bool ANY_HIT, int A, int M, int STACK, bool SORT, bool FMA,
           bool COUNT, bool PF>
 __global__ void __launch_bounds__(kBlock) bvh_ct_kernel(Args a) {
   static_assert(!(PF && COUNT), "the prefetch runs without counters");
+  static_assert(A % 4 == 0 && M % kLeafLanes == 0,
+                "rows are read in 16-byte loads");
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= a.n) return;
   const Ray r{a.ix[i], a.iy[i], a.iz[i], a.ox[i], a.oy[i], a.oz[i],
               a.dx[i], a.dy[i], a.dz[i], a.tmin[i]};
   const float tmax = a.tmax[i];
 
-  // per ray: the near and far plane rows of each axis (the row holds
-  // xmin, xmax, ymin, ymax, zmin, zmax, A floats each), the scale and the
-  // offset of each plane's distance
-  const int nx = r.ix >= 0.0f ? 0 : A;
-  const int ny = r.iy >= 0.0f ? 2 * A : 3 * A;
-  const int nz = r.iz >= 0.0f ? 4 * A : 5 * A;
-  const int fx = A - nx, fy = 5 * A - ny, fz = 9 * A - nz;
+  // per ray: the near and far plane of each axis as float4 offsets into a
+  // node row (xmin, xmax, ymin, ymax, zmin, zmax, child codes: A floats
+  // each, Q = A / 4 float4s), the scale and the offset of each plane's
+  // distance
+  constexpr int Q = A / 4;
+  const int nx = r.ix >= 0.0f ? 0 : Q;
+  const int ny = r.iy >= 0.0f ? 2 * Q : 3 * Q;
+  const int nz = r.iz >= 0.0f ? 4 * Q : 5 * Q;
+  const int fx = Q - nx, fy = 5 * Q - ny, fz = 9 * Q - nz;
   float sx = r.ix, sy = r.iy, sz = r.iz;
   float bx = r.ox, by = r.oy, bz = r.oz;
   if constexpr (FMA) {
@@ -158,36 +187,44 @@ __global__ void __launch_bounds__(kBlock) bvh_ct_kernel(Args a) {
   int sp = 0;
   int pops = 0, leaf_pops = 0;
   int code = tmax >= r.tmin ? 1 : 0;  // root ref; dead rays never start
+  const float4* nodes4 = reinterpret_cast<const float4*>(a.nodes);
 
   while (code != 0) {
-    if constexpr (COUNT) {
-      ++pops;
-      leaf_pops += code < 0 ? 1 : 0;
-    }
-    // the peek: the next pop when this one chooses none
-    const int below = stack[sp > 0 ? sp - 1 : 0];
-    const int peek = sp > 0 ? below : 0;
-    int next;
-    if (code > 0) {
-      const float* row = a.nodes + (long long)(code - 1) * (7 * A);
+    // node pops while the next pop is a node: a warp leaves this loop once
+    // every ray in it holds a leaf or is done, and runs the leaves together
+    while (code > 0) {
+      if constexpr (COUNT) ++pops;
+      // the peek: the next pop when this one chooses none
+      const int below = stack[sp > 0 ? sp - 1 : 0];
+      const int peek = sp > 0 ? below : 0;
+      const float4* row = nodes4 + (long long)(code - 1) * (7 * Q);
       float key[A];
       int ch[A];
 #pragma unroll
-      for (int c = 0; c < A; ++c) {
-        const float entry =
-            fmaxf(fmaxf(plane<FMA>(__ldg(row + nx + c), sx, bx),
-                        plane<FMA>(__ldg(row + ny + c), sy, by)),
-                  fmaxf(plane<FMA>(__ldg(row + nz + c), sz, bz), r.tmin));
-        const float exit =
-            fminf(fminf(plane<FMA>(__ldg(row + fx + c), sx, bx),
-                        plane<FMA>(__ldg(row + fy + c), sy, by)),
-                  fminf(plane<FMA>(__ldg(row + fz + c), sz, bz), t));
-        const int child = __float_as_int(__ldg(row + 6 * A + c));
-        const float k = entry <= exit ? entry : FLT_MAX;
-        const bool ok = child != 0 && k < FLT_MAX;
-        key[c] = ok ? k : FLT_MAX;
-        ch[c] = ok ? child : 0;
+      for (int h = 0; h < Q; ++h) {
+        const float4 xn = __ldg(row + nx + h), xf = __ldg(row + fx + h);
+        const float4 yn = __ldg(row + ny + h), yf = __ldg(row + fy + h);
+        const float4 zn = __ldg(row + nz + h), zf = __ldg(row + fz + h);
+        const float4 cc = __ldg(row + 6 * Q + h);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = 4 * h + j;
+          const float entry =
+              fmaxf(fmaxf(plane<FMA>(lane_of(xn, j), sx, bx),
+                          plane<FMA>(lane_of(yn, j), sy, by)),
+                    fmaxf(plane<FMA>(lane_of(zn, j), sz, bz), r.tmin));
+          const float exit =
+              fminf(fminf(plane<FMA>(lane_of(xf, j), sx, bx),
+                          plane<FMA>(lane_of(yf, j), sy, by)),
+                    fminf(plane<FMA>(lane_of(zf, j), sz, bz), t));
+          const int child = __float_as_int(lane_of(cc, j));
+          const float k = entry <= exit ? entry : FLT_MAX;
+          const bool ok = child != 0 && k < FLT_MAX;
+          key[c] = ok ? k : FLT_MAX;
+          ch[c] = ok ? child : 0;
+        }
       }
+      int next;
       if constexpr (ANY_HIT) {
         next = 0;
 #pragma unroll
@@ -213,34 +250,59 @@ __global__ void __launch_bounds__(kBlock) bvh_ct_kernel(Args a) {
       for (int c = A - 1; c >= 0; --c) {
         if (ch[c] != 0 && ch[c] != next) stack[sp++] = ch[c];
       }
-    } else {
+      if (next == 0) {
+        next = peek;
+        sp -= sp > 0 ? 1 : 0;
+      }
+      code = next;
+    }
+    // leaf pops while the next pop is a Tri row: the row's continuation,
+    // else the peek
+    while (code < 0) {
+      if constexpr (COUNT) {
+        ++pops;
+        ++leaf_pops;
+      }
+      const int below = stack[sp > 0 ? sp - 1 : 0];
+      const int peek = sp > 0 ? below : 0;
       const float* row = a.tris + (long long)(~code) * (14 * M);
       const int* rowi = reinterpret_cast<const int*>(row);
-      next = __ldg(rowi + 12 * M + M - 1) < 0 ? 0 : code - 1;
+      const float4* rowv = reinterpret_cast<const float4*>(row);
+      int next = __ldg(rowi + 12 * M + M - 1) < 0 ? 0 : code - 1;
       // PF: the continuation, else the peek, before the lane loop
       if constexpr (PF) prefetch_entry<M>(a, next != 0 ? next : peek);
       const float t_test = t;
       bool found = false;
-#pragma unroll 4
-      for (int l = 0; l < M; ++l) {
-        const int pid = __ldg(rowi + 12 * M + l);
-        if (pid == -1) continue;
-        float f[12];
+#pragma unroll 1
+      for (int q = 0; q < M / kLeafLanes; ++q) {
+        float4 x[13];
 #pragma unroll
-        for (int k = 0; k < 12; ++k) f[k] = __ldg(row + k * M + l);
-        if (mt_lane(f, r, t_test, t, t, u, v)) {
-          prim = pid & 0x7FFFFFFF;
-          geom = __ldg(rowi + 13 * M + l);
-          found = true;
+        for (int k = 0; k < 13; ++k)
+          x[k] = __ldg(rowv + k * (M / kLeafLanes) + q);
+#pragma unroll
+        for (int j = 0; j < kLeafLanes; ++j) {
+          const int pid = __float_as_int(lane_of(x[12], j));
+          if (pid == -1) continue;
+          float f[12];
+#pragma unroll
+          for (int k = 0; k < 12; ++k) f[k] = lane_of(x[k], j);
+          if (mt_lane(f, r, t_test, t, t, u, v)) {
+            prim = pid & 0x7FFFFFFF;
+            geom = __ldg(rowi + 13 * M + kLeafLanes * q + j);
+            found = true;
+          }
         }
       }
-      if (ANY_HIT && found) break;
+      if (ANY_HIT && found) {  // the ray ends: leave both loops
+        code = 0;
+        break;
+      }
+      if (next == 0) {
+        next = peek;
+        sp -= sp > 0 ? 1 : 0;
+      }
+      code = next;
     }
-    if (next == 0) {
-      next = peek;
-      sp -= sp > 0 ? 1 : 0;
-    }
-    code = next;
   }
   a.t[i] = t;
   a.u[i] = u;

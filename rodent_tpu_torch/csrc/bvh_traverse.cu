@@ -603,10 +603,6 @@ struct Hit {
   int prim, geom;
 };
 
-__device__ __forceinline__ float lane_of(const float4& x, int j) {
-  return j == 0 ? x.x : j == 1 ? x.y : j == 2 ? x.z : x.w;
-}
-
 // Expands one node row: the children to push (in push order) and their
 // mask. NODETEST=false pushes every nonzero child in slot order.
 template <int A, bool NODETEST, bool SORT, bool ROW>

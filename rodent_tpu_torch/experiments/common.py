@@ -182,12 +182,30 @@ def load(scene, build, device, tris=None):
     return verts, idx, dev, time.perf_counter() - t0
 
 
+def interleave(a, b):
+    """Two sets of ray components (api.components' tuples, of one length)
+    merged ray by ray: a's first ray, b's first, a's second, ..."""
+    if isinstance(a, tuple):
+        return tuple(interleave(x, y) for x, y in zip(a, b))
+    return torch.stack([a, b], 1).reshape(-1)
+
+
 def distributions(scene, verts, idx, dev, side, device, kinds=DISTS):
     """{kind: (ray components, any_hit)} of side x side rays: the scene's
     primaries, sorted (octant + Morton key) or, as "primary-unsorted", in
     pixel order; "ao" (any-hit) and "bounces" rays from the primaries' hit
     points (testscenes.secondary_rays_from_trace, the fixture of the JAX
-    package's benchmarks), sorted unless the kind ends in "-unsorted"."""
+    package's benchmarks), sorted unless the kind ends in "-unsorted";
+    "interleaved" (closest-hit), the sorted primaries and bounces merged
+    ray by ray (interleave), twice the rays, so that nearly every warp
+    holds rays at node pops and rays at leaf pops at once."""
+    if "interleaved" in kinds:
+        rest = dict.fromkeys([k for k in kinds if k != "interleaved"]
+                             + ["primary", "bounces"])
+        out = distributions(scene, verts, idx, dev, side, device, rest)
+        out["interleaved"] = (interleave(out["primary"][0],
+                                         out["bounces"][0]), False)
+        return {k: out[k] for k in kinds}
     org, dirs = testscenes.SCENES[scene][1](side, side)
     lo, hi = verts.min(0), verts.max(0)
     prim = api.make_rays(org, dirs, 0.0, FLT_MAX, device=device)

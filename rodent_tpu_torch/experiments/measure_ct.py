@@ -30,16 +30,32 @@ K2 (K1 with the same prefetch, the legacy body the big-scene tiers take),
 beside its pops per ray, its bound and its share of it; K7-PF's hits must
 equal K7's bit for bit.
 
+--against DIR [DIR ...] times another checkout's K7 body against this
+one's: the other tree's csrc/bvh_ct.cu (a parent commit unpacked with `git
+archive` into a directory that .gitignore lists, or a trial copy) is built
+with this tree's nvcc flags into build/measure_ct/ and launched through
+K7's wrapper on the same tensors, in turns (other, this, this, other), for
+every variant on hall-260K's 1M sorted primaries, bounce rays, ao rays and
+the primaries and bounces interleaved ray by ray (2M rays), and on
+powerplant-4.3M's primaries; with --prefetch, K7-PF on powerplant's three
+distributions. Both bodies' outputs must equal each other bit for bit
+(hits, and pops and leaf pops from the counting instantiations; each equals
+its plain version, which chip_smoke.py checks). Beside each: this body's
+pops per ray, its bound and its share of it. Needs the card.
+
 Usage: python -m rodent_tpu_torch.experiments.measure_ct [--blocks 5]
-    [--prefetch] [--cpu [--tris 2000 --side 32]]
+    [--prefetch] [--against DIR [DIR ...]] [--cpu [--tris 2000 --side 32]]
 """
 from __future__ import annotations
 
 import argparse
 import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
+from ..kernels import build
 from ..traversal import packet
 from . import common
 
@@ -60,15 +76,36 @@ ANY_HIT_VARIANTS = {"ct": {"select": "fold", "fma_slab": True},
                     "ct-nofma": {"select": "fold", "fma_slab": False}}
 # the big-scene distributions --prefetch times K7-PF on
 PF_DISTS = ("primary", "bounces", "ao")
+# --against: (scene, build, distributions) of K7's turns
+AGAINST = (("hall", common.TRI8, ("primary", "bounces", "ao", "interleaved")),
+           ("powerplant", common.TRI24, ("primary",)))
+OTHER_BUILD = build.BUILD_DIR.parent / "measure_ct"
 
 
-def call(dev, comps, body, any_hit=False, count_pops=False):
+def call(dev, comps, body, any_hit=False, count_pops=False, lib=None):
     """One launch of BODIES' `body` ({"select", "fma_slab"}, with
     "prefetch" for K7-PF, or None) on the ray components, without
-    synchronising."""
+    synchronising; lib: another checkout's "ct" library (other_library)
+    to launch K7 from."""
+    if lib is not None:
+        return packet._launch_ct(
+            dev, [*comps[2], *comps[0], *comps[1], comps[4], comps[5]],
+            any_hit, count_pops, body["select"], body["fma_slab"],
+            body.get("prefetch", False), lib)
     kw = {} if body is None else dict(carry_top=True, **body)
     return packet.traverse_packet_components(dev, *comps, any_hit=any_hit,
                                              count_pops=count_pops, **kw)
+
+
+def other_library(root):
+    """The "ct" library of the checkout at root, built (under OTHER_BUILD,
+    a directory per checkout's name, since a build directory builds one
+    library of a kind at a time) and loaded."""
+    csrc = Path(root) / "rodent_tpu_torch" / "csrc"
+    if not (csrc / "bvh_ct.cu").exists():
+        raise FileNotFoundError(f"{csrc / 'bvh_ct.cu'}: no K7 source")
+    return build.load_library(OTHER_BUILD / Path(root).resolve().name, "ct",
+                              csrc=csrc)
 
 
 def differences(out, ref, any_hit, what):
@@ -166,6 +203,96 @@ def measure_pf(dev, comps, device, bodies=VARIANTS, any_hit=False, blocks=5,
     return res
 
 
+def measure_against(dev, comps, device, libs, bodies=VARIANTS,
+                    any_hit=False, prefetch=False, blocks=5,
+                    warmup_s=common.WARMUP_S):
+    """Other checkouts' K7 (libs: {root: library}; K7-PF with prefetch)
+    each in turns with this one's on these rays (other, this, this, other),
+    each of `bodies`. Raises unless each returns this body's hits bit for
+    bit, and (K7) the same pops and leaf pops from their counting
+    instantiations. {name: {"stats" (common.pop_stats of this body's
+    counters), "bound", root: {"ms" (this body), "other_ms", "ratio"
+    (this over the other), "share" (of the bound, this body)}}}."""
+    n = comps[4].shape[0]
+    res = {}
+    for i, (name, body) in enumerate(bodies.items()):
+        run = dict(body, prefetch=True) if prefetch else body
+        counted = call(dev, comps, body, any_hit, True)
+        s = common.pop_stats(counted)
+        read = common.rows_read(dev, comps, any_hit, ct=body)
+        bound = common.bound_ms(dev, n, s["node"], s["leaf"], read, any_hit,
+                                select=body["select"])
+        res[name] = {"stats": s, "bound": bound}
+        for j, (root, lib) in enumerate(libs.items()):
+            def other(run=run, lib=lib):
+                return call(dev, comps, run, any_hit, lib=lib)
+
+            def this(run=run):
+                return call(dev, comps, run, any_hit)
+            other_ms, ms, other_out, out = common.in_turns(
+                other, this, device, blocks,
+                warmup_s if i == j == 0 else 0.0)
+            pairs = [(out, other_out)]
+            if not prefetch:
+                pairs.append((counted, call(dev, comps, body, any_hit, True,
+                                            lib)))
+            for a, b in pairs:
+                for key in a:
+                    if not torch.equal(a[key], b[key]):
+                        raise RuntimeError(f"{name}: {root}'s {key} differs "
+                                           "from this body's")
+            res[name][root] = {"ms": ms, "other_ms": other_ms,
+                               "ratio": ms / other_ms,
+                               "share": bound[0] / ms}
+    return res
+
+
+def report_against(name, r, root):
+    s, a = r["stats"], r[root]
+    return (f"{name:17s} {a['ms']:.4f} ms; {root} in turns "
+            f"{a['other_ms']:.4f} ms: {a['ratio']:.4f}x; pops/ray "
+            f"{s['pops_ray']:.4f} (leaf {s['leaf_ray']:.4f}); bound "
+            f"{r['bound'][0]:.4f} ms ({r['bound'][1]}), {a['share']:.1%} of "
+            "it")
+
+
+def run_against(device, roots, prefetch=False, blocks=5, tris=None,
+                side=1024):
+    """The checkouts at roots each against this one (measure_against) on
+    AGAINST's distributions, or K7-PF on powerplant's PF_DISTS with
+    prefetch, printed; returns {(scene, kind): measure_against's
+    result}."""
+    print(f"card: {common.card(device)}", flush=True)
+    with ThreadPoolExecutor(len(roots) + 1) as pool:
+        mine = pool.submit(build.build, None, "ct")
+        libs = dict(zip(roots, pool.map(other_library, roots)))
+        mine.result()
+    plan = ((("powerplant", common.TRI24, PF_DISTS),) if prefetch
+            else AGAINST)
+    out, first = {}, True
+    for scene, cfg, kinds in plan:
+        verts, idx, dev, secs = common.load(scene, cfg, device, tris)
+        print(f"{scene}: {len(idx) // 4} tris, {dev['nodes'].shape[0]} BVH8 "
+              f"nodes, {dev['tris'].shape[0]} Tri{cfg['packet']} rows "
+              f"(built in {secs:.1f} s)", flush=True)
+        dists = common.distributions(scene, verts, idx, dev, side, device,
+                                     kinds)
+        for kind, (comps, any_hit) in dists.items():
+            res = measure_against(
+                dev, comps, device, libs,
+                ANY_HIT_VARIANTS if any_hit else VARIANTS, any_hit, prefetch,
+                blocks, common.WARMUP_S if first else 0.0)
+            first = False
+            out[(scene, kind)] = res
+            for name, r in res.items():
+                for root in roots:
+                    print(f"{scene} {kind} ({comps[4].shape[0]} rays) "
+                          + report_against(name + ("-pf" if prefetch
+                                                   else ""), r, root),
+                          flush=True)
+    return out
+
+
 def report_pf(name, r):
     s = r["stats"]
     return (f"{name + '-pf':17s} {r['ms']:.4f} ms; K7 in turns "
@@ -230,16 +357,25 @@ def run_pf(device, blocks=5, tris=None, side=1024):
 def main(argv=None):
     p = argparse.ArgumentParser(prog="measure_ct")
     p.add_argument("--tris", type=int, default=None,
-                   help="the scene's size (default: hall 260,000, "
+                   help="the scenes' size (default: hall 260,000, "
                    "powerplant 5,000,000)")
     p.add_argument("--side", type=int, default=1024,
                    help="side x side rays")
     p.add_argument("--prefetch", action="store_true",
                    help="K7-PF against K7 and K2 on powerplant")
+    p.add_argument("--against", nargs="+", metavar="DIR",
+                   help="the roots of other checkouts whose K7 body "
+                   "(K7-PF with --prefetch) is timed against this one's")
     common.add_args(p)
     args = p.parse_args(argv)
+    if args.against and args.cpu:
+        p.error("--against times two builds of a CUDA kernel: it needs the "
+                "card")
     device = common.device_of(args, "measure_ct")
-    if args.prefetch:
+    if args.against:
+        run_against(device, args.against, args.prefetch, args.blocks,
+                    args.tris, args.side)
+    elif args.prefetch:
         run_pf(device, args.blocks, args.tris, args.side)
     else:
         run(device, args.blocks, args.tris, args.side)

@@ -40,7 +40,13 @@ tables and leaves the code alone: the audit checks that both copies hold
 the same instructions, opcode for opcode) and disassembled with nvdisasm
 -gi, whose source lines, inlined call sites included, place each
 instruction in the kernel's source: the block of `if (code > 0)` is the
-node path, its else block the leaf path, the rest of the loop the pop.
+node path, its else block the leaf path, the rest of the loop the pop;
+in K7's while-while form the inner loops `while (code > 0)` and `while
+(code < 0)` are the node and the leaf path, the rest of the outer loop
+the pop. For K7 the issue estimate also counts each path's runs under
+the warp model (experiments/ct_warp_model.py: the if-if loop, the
+while-while loop and the busiest ray), from the plain version's record of
+each ray's pop kinds, and the audit lists each region's loops.
 
 Usage: python -m rodent_tpu_torch.experiments.sass_audit [--blocks 3]
     [--cpu [--tris 20000 --side 64]]
@@ -60,7 +66,7 @@ import torch
 
 from ..kernels import build
 from ..traversal import api, packet
-from . import ab_tile_body, common, measure_ct
+from . import ab_tile_body, common, ct_warp_model, measure_ct
 
 LINEINFO = ("-lineinfo",)
 AUDITED = ("main", "ct", "tile")  # the libraries of the audited kernels
@@ -146,7 +152,11 @@ def _match_brace(lines, i):
 def kernel_regions(src_text, kernel):
     """The kernel's blocks in its source, as 1-based inclusive line ranges:
     {"body", "loop", "node", "leaf"}, and the lines of "node pure" and
-    "node mixed" (K5's calls of its two slab forms; empty elsewhere)."""
+    "node mixed" (K5's calls of its two slab forms; empty elsewhere). The
+    loop is the kernel's outer loop; in the if-if form (`if (code > 0)
+    {...} else {...}`) the node and leaf paths are its two blocks, in the
+    while-while form (K7: `while (code > 0) {...}` then `while (code < 0)
+    {...}`) its two inner loops."""
     lines = src_text.splitlines()
     start = next(i for i, s in enumerate(lines)
                  if re.search(rf"\b{kernel}\(Args a\) {{", s))
@@ -156,40 +166,65 @@ def kernel_regions(src_text, kernel):
                              r"for \(;;\) \{", lines[i]))
     loop_end = _match_brace(lines, loop)
     node = next(i for i in range(loop, loop_end)
-                if re.search(r"\bif \(code > 0", lines[i]))
-    leaf = _match_brace(lines, node)
-    if "else" not in lines[leaf]:
-        raise ValueError(f"{kernel}: the node block is not followed by an "
-                         "else block")
+                if re.search(r"\b(?:if|while) \(code > 0", lines[i]))
+    node_end = _match_brace(lines, node)
+    if lines[node].lstrip().startswith("while"):
+        leaf = next((i for i in range(node_end + 1, loop_end)
+                     if re.search(r"\bwhile \(code < 0\) \{", lines[i])),
+                    None)
+        if leaf is None:
+            raise ValueError(f"{kernel}: the node loop is not followed by a "
+                             "leaf loop")
+        node_lines = (node + 1, node_end + 1)
+    else:
+        leaf = node_end
+        if "else" not in lines[leaf]:
+            raise ValueError(f"{kernel}: the node block is not followed by "
+                             "an else block")
+        node_lines = (node + 1, leaf)
     leaf_end = _match_brace(lines, leaf)
 
     def calls(form):
-        return {i + 1 for i in range(node, leaf)
+        return {i + 1 for i in range(node, node_end)
                 if re.search(rf"node_keys<R, ANY_HIT, {form}>", lines[i])}
     return {"body": (start + 1, end + 1), "loop": (loop + 1, loop_end + 1),
-            "node": (node + 1, leaf), "leaf": (leaf + 1, leaf_end + 1),
+            "node": node_lines, "leaf": (leaf + 1, leaf_end + 1),
             "node pure": calls("true"), "node mixed": calls("false")}
 
 
-def lane_unroll(src_text, kernel):
-    """The unroll of the leaf's loop over a row's M lanes (`#pragma unroll
-    N` or a named constant before `for (int l = 0; l < M; ++l)`): within
-    the kernel's leaf block if it has the loop, else the helper's."""
-    lines = src_text.splitlines()
-    reg = kernel_regions(src_text, kernel)
-    pat = re.compile(r"#pragma unroll (\w+)\s*\n\s*for \(int l = 0; "
-                     r"l < M; \+\+l\)")
-    lo, hi = reg["leaf"]
-    m = pat.search("\n".join(lines[lo - 1:hi])) or pat.search(src_text)
-    if m is None:
-        raise ValueError(f"{kernel}: no unrolled loop over a row's lanes")
-    tok = m.group(1)
+def _constant(src_text, kernel, tok):
+    """The value of an unroll or width token: a number or a named
+    constexpr int of the source."""
     if tok.isdigit():
         return int(tok)
     c = re.search(rf"constexpr int {tok} = (\d+);", src_text)
     if c is None:
-        raise ValueError(f"{kernel}: unroll constant {tok} not found")
+        raise ValueError(f"{kernel}: constant {tok} not found")
     return int(c.group(1))
+
+
+def lane_unroll(src_text, kernel):
+    """The lanes of a row that one trip of the leaf's lane loop tests: the
+    unroll of `for (int l = 0; l < M; ++l)` (`#pragma unroll N` or a named
+    constant before it), or of a loop over groups of W lanes read by one
+    wide load each, `for (int q = 0; q < M / W; ++q)`, times W; within the
+    kernel's leaf block if it has such a loop, else the helper's."""
+    lines = src_text.splitlines()
+    reg = kernel_regions(src_text, kernel)
+    pats = (re.compile(r"#pragma unroll (\w+)\s*\n\s*for \(int l = 0; "
+                       r"l < M; \+\+l\)"),
+            re.compile(r"#pragma unroll (\w+)\s*\n\s*for \(int q = 0; "
+                       r"q < M / (\w+); \+\+q\)"))
+    lo, hi = reg["leaf"]
+    leaf = "\n".join(lines[lo - 1:hi])
+    m = next((m for text in (leaf, src_text) for pat in pats
+              for m in [pat.search(text)] if m), None)
+    if m is None:
+        raise ValueError(f"{kernel}: no unrolled loop over a row's lanes")
+    out = 1
+    for tok in m.groups():
+        out *= _constant(src_text, kernel, tok)
+    return out
 
 
 def region_of(frames, src_name, reg):
@@ -218,17 +253,34 @@ def audit_function(fn, src_text, src_name, kernel, m):
     """One instantiation's loop: {"count": {region: instructions},
     "hist": {region: Counter of opcodes}, "weighted": {region: executed
     instructions per pop of that region, NOPs left out}, "lane_loop":
-    (instructions in the leaf's lane loop, its trips), "unattributed":
+    (instructions in the leaf's lane loop, its trips), "loops": {region:
+    backward branches closing in it}, "unattributed":
     instructions without a frame between the loop's first and last
-    instruction}. The lane loop is a backward branch whose both ends are
-    leaf instructions; its body runs M / unroll times a leaf pop (every
-    lane taken as valid)."""
+    instruction}. The lane loop is an innermost backward branch whose both
+    ends are leaf instructions (in K7's while-while form the leaf loop
+    holds it); its body runs M / lane_unroll times a leaf pop (every lane
+    taken as valid)."""
     reg = kernel_regions(src_text, kernel)
     regions = [region_of(fr, src_name, reg) for _, _, fr in fn.insns]
+    found = common.loops(fn)
+    # a loop belongs to the region of its closing branch (its condition's
+    # line); an instruction inside it whose line lies in the body outside
+    # the kernel's loop (a value of the ray's set-up that the compiler
+    # recomputes there) runs with it, innermost loop first
+    branch_region = {b: r for (b, _, _), r in zip(fn.insns, regions)}
+    for t, b in sorted(found, key=lambda tb: tb[1] - tb[0]):
+        if branch_region[b] in REGIONS:
+            regions = [branch_region[b] if r == "outside" and t <= a <= b
+                       else r for (a, _, _), r in zip(fn.insns, regions)]
     addr_region = {a: r for (a, _, _), r in zip(fn.insns, regions)}
     trips = max(1, m // lane_unroll(src_text, kernel))
-    inner = [(t, b) for t, b in common.loops(fn)
+    nloops = Counter(addr_region[b] for _, b in found
+                     if addr_region[b] in REGIONS)
+    leafy = [(t, b) for t, b in found
              if addr_region.get(t) == "leaf" and addr_region.get(b) == "leaf"]
+    inner = [(t, b) for t, b in leafy
+             if not any(t <= t2 and b2 <= b and (t2, b2) != (t, b)
+                        for t2, b2 in leafy)]
     count, hist, weighted = Counter(), {r: Counter() for r in REGIONS}, \
         Counter()
     lane = 0
@@ -248,6 +300,7 @@ def audit_function(fn, src_text, src_name, kernel, m):
                 if r == "unattributed" and lo <= a <= hi)
     return {"count": dict(count), "hist": hist, "weighted": dict(weighted),
             "lane_loop": (lane, trips if inner else 1),
+            "loops": {r: nloops[r] for r in REGIONS if nloops[r]},
             "unattributed": stray}
 
 
@@ -465,6 +518,9 @@ def measure(device, blocks=3, tris=None, side=1024):
                       "leaf": st["leaf"], "warp_node": st["warp_node"],
                       "warp_leaf": st["warp_leaf"],
                       "warps": -(-n // common.WARP)}
+        if isinstance(what, dict):
+            res[label]["model"] = ct_warp_model.warp_counts(
+                ct_warp_model.kinds(dev, comps, any_hit, what))
     clock = common.sm_clock_mhz() if device.type == "cuda" else None
     return res, clock, stack
 
@@ -481,10 +537,19 @@ def estimate(static, meas, mhz, sms):
                 + meas["node_mixed"] * pp.get("node mixed", pp["node"]))
         instr = meas["warps"] * (node + meas["leaf"] * pp["leaf"])
     iss = issue_ms(instr, mhz, sms)
-    return {"instr": instr, "issue_ms": iss,
-            "issue_ns_pop": iss * 1e6 / meas["pops"],
-            "ns_pop": meas["ms"] * 1e6 / meas["pops"],
-            "share": iss / meas["ms"], "per_pop": pp}
+    out = {"instr": instr, "issue_ms": iss,
+           "issue_ns_pop": iss * 1e6 / meas["pops"],
+           "ns_pop": meas["ms"] * 1e6 / meas["pops"],
+           "share": iss / meas["ms"], "per_pop": pp}
+    if "model" in meas:
+        # K7: the warp model's path runs under each loop form
+        out["rules"] = {}
+        for rule, v in ct_warp_model.instructions(
+                meas["model"], pp["node"], pp["leaf"]).items():
+            ms = issue_ms(v, mhz, sms)
+            out["rules"][rule] = {"instr": v, "issue_ms": ms,
+                                  "share": ms / meas["ms"]}
+    return out
 
 
 def _top(hist, k=8):
@@ -504,7 +569,9 @@ def report(label, s, meas=None, est=None, mhz=None):
     lines.append("  loop instructions: " + ", ".join(
         f"{r} {c[r]}" for r in REGIONS if r in c)
         + f"; leaf lane loop {a['lane_loop'][0]} x {a['lane_loop'][1]} "
-        f"trips; {a['unattributed']} without a source line")
+        f"trips; {a['unattributed']} without a source line; loops by "
+        "region: " + (", ".join(
+            f"{r} {k}" for r, k in a["loops"].items()) or "none"))
     if "fit" in s:
         for r, f in s["fit"].items():
             lines.append(f"  {r}: per ray {f['per_ray']:g} ({_top(f['per_ray_hist'])}); "
@@ -524,6 +591,18 @@ def report(label, s, meas=None, est=None, mhz=None):
             f"{est['issue_ms']:.4f} ms at {mhz:g} MHz "
             f"({est['issue_ns_pop']:.4f} ns per pop, {est['instr']:.4g} warp "
             f"instructions): {est['share']:.1%} of the time")
+    if meas and "model" in meas:
+        md, w = meas["model"], meas["model"]["warps"]
+        runs = []
+        for rule in ct_warp_model.RULES:
+            text = (f"{rule} {md[rule]['node'] / w:.3f} / "
+                    f"{md[rule]['leaf'] / w:.3f}")
+            if est:
+                e = est["rules"][rule]
+                text += f", issue {e['issue_ms']:.4f} ms ({e['share']:.1%})"
+            runs.append(text)
+        lines.append("  warp model, path runs a warp (node / leaf): "
+                     + "; ".join(runs))
     return lines
 
 
@@ -537,6 +616,9 @@ def run(device, blocks=3, tris=None, side=1024):
             print(f"{label}: {m['pops']} pops ({m['node']} node, "
                   f"{m['leaf']} leaf) on the plain version; SASS not read "
                   "(no card)", flush=True)
+            if "model" in m:
+                for line in ct_warp_model.report(label, m["model"])[1:]:
+                    print(line, flush=True)
         return {label: {"measured": m} for label, m in meas.items()}
     mhz = clock[0] if clock[0] > 0 else clock[1]
     sms = torch.cuda.get_device_properties(device).multi_processor_count

@@ -624,7 +624,7 @@ def _ct_node(dev, org, inv, io, pos, tmin, t_cur, code, any_hit, select):
 
 def traverse_ct_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
                            count_pops=False, count_rows=False, select="fold",
-                           fma_slab=True):
+                           fma_slab=True, record_kinds=False):
     """The carry-top body (_kernel_ct, pallas_packet.py:878-1131) for one
     ray per stack, the plain version of K7 (csrc/bvh_ct.cu); arguments
     and outputs as traverse_components'. Its rules, per ray:
@@ -644,7 +644,11 @@ def traverse_ct_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
     - a leaf is K1's: its M lanes tested against t as the pop began,
       updated on the strict t < t_cur, the first hit found kept; any-hit
       ends a ray at the leaf that hits;
-    - count_pops counts every pop and its leaf pops (:1001-1003).
+    - count_pops counts every pop and its leaf pops (:1001-1003);
+    - record_kinds adds "kinds", (B, L) int8: each ray's pops in order, 1
+      a node pop, -1 a leaf pop, then 0 once it is done (L is the longest
+      ray's pops, at least 1), the sequence experiments.ct_warp_model
+      schedules over a warp's rays.
 
     A ray with tmax < tmin never starts and counts 0 pops (on the TPU it
     pops the root once, whose children its empty interval rejects). The
@@ -680,10 +684,13 @@ def traverse_ct_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
                                  device=device)
         tris_read = torch.zeros(dev["tris"].shape[0], dtype=torch.bool,
                                 device=device)
+    kinds = []
     while True:
         act = torch.nonzero(code != 0).squeeze(1)
         if act.numel() == 0:
             break
+        if record_kinds:
+            kinds.append(torch.sign(code).to(torch.int8))
         c = code[act]
         s = sp[act]
         has = s > 0
@@ -739,6 +746,9 @@ def traverse_ct_components(dev, org, dirv, inv_d, tmin, tmax, any_hit=False,
     if count_rows:
         out["nodes_read"] = nodes_read
         out["tris_read"] = tris_read
+    if record_kinds:
+        out["kinds"] = (torch.stack(kinds, 1) if kinds else
+                        torch.zeros((b, 1), dtype=torch.int8, device=device))
     return out
 
 

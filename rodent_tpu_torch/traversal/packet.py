@@ -245,10 +245,12 @@ def _launch(dev, comps, any_hit, kernel, option=None):
 
 
 def _launch_ct(dev, comps, any_hit, count_pops, select, fma_slab,
-               prefetch=False):
+               prefetch=False, lib=None):
     """K7, or K7-PF with prefetch (without counters), on CUDA tensors;
     comps as in _launch. Returns the hits, and with count_pops the per-ray
-    "pops" and "leaf_pops"."""
+    "pops" and "leaf_pops". lib: another build of the "ct" library to
+    launch instead of this package's (experiments.measure_ct --against
+    times another checkout's body); its launches are not counted."""
     kernel = "bvh_traverse_ct_prefetch" if prefetch else "bvh_traverse_ct"
     if prefetch and count_pops:
         raise ValueError(f"{kernel} has no counters")
@@ -262,6 +264,9 @@ def _launch_ct(dev, comps, any_hit, count_pops, select, fma_slab,
     cap = stack_cap(dev)
     n = check_inputs(kernel, comps, nodes, tris)
     device = nodes.device
+    if nodes.data_ptr() % 16 or tris.data_ptr() % 16:
+        raise ValueError(f"{kernel} reads rows in 16-byte loads: the node "
+                         "and Tri tables must be 16-byte aligned")
 
     def empty(dtype):
         return torch.empty(n, dtype=dtype, device=device)
@@ -276,7 +281,9 @@ def _launch_ct(dev, comps, any_hit, count_pops, select, fma_slab,
         counters = [out["pops"].data_ptr(), out["leaf_pops"].data_ptr()]
     if n == 0:
         return out
-    lib = load_library(kind="ct")
+    own = lib is None
+    if own:
+        lib = load_library(kind="ct")
     ptrs = (ctypes.c_void_p * 11)(*(x.data_ptr() for x in comps))
     err = call_on_card(
         device, lib.rt_bvh_traverse_ct, nodes.data_ptr(), tris.data_ptr(),
@@ -286,7 +293,8 @@ def _launch_ct(dev, comps, any_hit, count_pops, select, fma_slab,
         int(bool(fma_slab)), int(bool(prefetch)))
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
-    launches[kernel] += 1
+    if own:
+        launches[kernel] += 1
     return out
 
 

@@ -336,14 +336,115 @@ def test_wrapper_refusals():
         tpacket._launch_ct(dev4, comps, False, True, "fold", True, True)
 
 
+def test_wrapper_refuses_unaligned_tables():
+    """K7 and K7-PF read node and Tri rows in 16-byte loads: a table view
+    that starts 4 bytes into its storage makes the wrapper raise before a
+    launch, with or without counters and the prefetch."""
+    verts, idx = random_tri_soup(257, seed=47)
+    tdev = tapi.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8),
+                              "cpu")
+    r = np.random.RandomState(3)
+    rays = tapi.make_rays(r.randn(64, 3), r.randn(64, 3), 0.0, 1e30)
+    org, dirv, inv, _, tmin, tmax = tapi.components(rays)
+    comps = [*inv, *org, *dirv, tmin, tmax]
+    tpacket.reset_launches()
+    for table in ("nodes", "tris"):
+        x = tdev[table]
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype)
+        flat[1:] = x.reshape(-1)
+        off = dict(tdev, **{table: flat[1:].view(x.shape)})
+        assert off[table].is_contiguous() and off[table].data_ptr() % 16
+        for count, pf in ((False, False), (True, False), (False, True)):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                tpacket._launch_ct(off, comps, False, count, "fold", True,
+                                   pf)
+    assert set(tpacket.launches.values()) == {0}
+
+
+def test_plain_records_pop_kinds(scene):
+    """record_kinds=True adds each ray's pop kinds in order (1 node, -1
+    leaf, then 0): as many node and leaf pops as the counters, every 0
+    after the last pop, and no other output bit moves."""
+    _, _, tdev, org, d, ah_tmax = scene
+    for any_hit, tmax in ((False, FLT_MAX), (True, ah_tmax)):
+        o, dv, inv, _, tmin, tm = tapi.components(
+            tapi.make_rays(org, d, 0.0, tmax))
+        for body in BODIES:
+            base = tapi.traverse_ct_components(tdev, o, dv, inv, tmin, tm,
+                                               any_hit, count_pops=True,
+                                               **body)
+            rec = tapi.traverse_ct_components(tdev, o, dv, inv, tmin, tm,
+                                              any_hit, count_pops=True,
+                                              record_kinds=True, **body)
+            k = rec.pop("kinds")
+            assert set(rec) == set(base)
+            for key in base:
+                assert torch.equal(rec[key], base[key]), key
+            assert k.dtype == torch.int8 and k.shape[0] == tmin.shape[0]
+            assert k.shape[1] == int(base["pops"].max())
+            assert torch.equal((k == 1).sum(1).int(),
+                               base["pops"] - base["leaf_pops"])
+            assert torch.equal((k == -1).sum(1).int(), base["leaf_pops"])
+            done = (k == 0).int().cumsum(1) > 0
+            assert not bool((done & (k != 0)).any())
+
+
+def test_warp_model_on_hand_made_sequences():
+    """ct_warp_model's three rules on kind sequences whose counts are
+    known. Two lanes that alternate node and leaf pops out of step: the
+    if-if loop runs both paths every trip (4 and 4); the while-while loop
+    runs node pops while either lane's next pop is a node (3 node runs, 2
+    leaf runs, 3 outer trips); the busiest ray takes 2 of each. Lanes with
+    equal sequences run each path once a pop under every rule. A ray that
+    never starts pads its warp; the instructions are runs times a pop's."""
+    from rodent_tpu_torch.experiments import ct_warp_model as wm
+    k = torch.tensor([[1, -1, 1, -1], [-1, 1, -1, 1]], dtype=torch.int8)
+    c = wm.warp_counts(k, warp=2)
+    assert (c["rays"], c["warps"], c["node_pops"], c["leaf_pops"]) == (
+        2, 1, 4, 4)
+    assert (c["if-if"]["node"], c["if-if"]["leaf"]) == (4, 4)
+    assert (c["while-while"]["node"], c["while-while"]["leaf"],
+            c["while-while"]["outer"]) == (3, 2, 3)
+    assert (c["busiest"]["node"], c["busiest"]["leaf"]) == (2, 2)
+    assert c["if-if"]["node_busy"] == pytest.approx(4 / 8)
+    assert c["while-while"]["node_busy"] == pytest.approx(4 / 6)
+    assert c["while-while"]["leaf_busy"] == pytest.approx(4 / 4)
+    assert wm.instructions(c, 10, 100) == {"if-if": 440, "while-while": 230,
+                                            "busiest": 220}
+    same = torch.tensor([[1, 1, -1, 1, -1, -1]] * 3 + [[0] * 6],
+                        dtype=torch.int8)
+    c = wm.warp_counts(same, warp=2)
+    assert c["warps"] == 2 and c["node_pops"] == 9 and c["leaf_pops"] == 9
+    for rule in wm.RULES:
+        assert (c[rule]["node"], c[rule]["leaf"]) == (6, 6), rule
+    assert c["while-while"]["outer"] == 2 * 2   # two trips a warp
+    # a leaf first, a lane that ends early: the node loop waits on no one
+    k = torch.tensor([[-1, 1, 1, 1], [1, -1, 0, 0]], dtype=torch.int8)
+    c = wm.warp_counts(k, warp=2)
+    assert (c["if-if"]["node"], c["if-if"]["leaf"]) == (4, 2)
+    assert (c["while-while"]["node"], c["while-while"]["leaf"]) == (4, 1)
+    assert (c["busiest"]["node"], c["busiest"]["leaf"]) == (3, 1)
+    assert wm.parse_instr(["8=316,775", "24=316,2251"]) == {
+        8: (316.0, 775.0), 24: (316.0, 2251.0)}
+    with pytest.raises(ValueError, match="M=NODE,LEAF"):
+        wm.parse_instr(["8:316"])
+
+
 def test_sass_audit_reads_the_ct_kernel():
-    """sass_audit finds K7's loop, node and leaf blocks and its lane loop's
-    unroll in csrc/bvh_ct.cu, demangles its instantiations, and the "ct"
-    library builds from that source alone (with the shared header)."""
+    """sass_audit finds K7's outer loop, its node loop and the leaf loop
+    after it (the while-while form) and its lane loop's lanes a trip (a
+    loop over groups of kLeafLanes lanes, each field read by one wide
+    load, unrolled once) in csrc/bvh_ct.cu, demangles its instantiations,
+    and the "ct" library builds from that source alone (with the shared
+    header)."""
     src = (build.CSRC / "bvh_ct.cu").read_text()
     reg = sass_audit.kernel_regions(src, "bvh_ct_kernel")
     assert reg["body"][0] < reg["loop"][0] < reg["node"][0] < reg["leaf"][0]
+    assert reg["node"][1] < reg["leaf"][0]
     assert reg["leaf"][1] < reg["loop"][1] < reg["body"][1]
+    lines = src.splitlines()
+    assert "while (code > 0) {" in lines[reg["node"][0] - 1]
+    assert "while (code < 0) {" in lines[reg["leaf"][0] - 1]
     assert sass_audit.lane_unroll(src, "bvh_ct_kernel") == 4
     assert sass_audit.demangle(
         "_ZN12_GLOBAL__N_113bvh_ct_kernelILb0ELi8ELi24ELi128ELb1ELb0ELb1EEE"

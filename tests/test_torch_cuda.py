@@ -283,6 +283,53 @@ def test_ct_prefetch_kernel_matches_plain(card, width, body):
             assert torch.equal(kp[key], k[key]), key
 
 
+@pytest.mark.parametrize("width", (8, 24))
+def test_ct_kernels_on_interleaved_rays(card, width):
+    """K7, every variant with and without counters, and K7-PF against the
+    plain version bit for bit on a hall's sorted primaries and bounce rays
+    interleaved ray by ray in one launch (common.distributions'
+    "interleaved"), where nearly every warp holds rays at node pops and
+    rays at leaf pops at once, so K7's node and leaf loops take turns."""
+    verts, idx, dev, _ = common.load(
+        "hall", {"packet": width, "leaf_threshold": 12}, card, 20_000)
+    comps, any_hit = common.distributions("hall", verts, idx, dev, 128, card,
+                                          ("interleaved",))["interleaved"]
+    assert not any_hit and comps[4].shape[0] == 2 * 128 * 128
+    for body in CT_BODIES:
+        p = common.ct_plain(dev, comps, **body)
+        del p["nodes_read"], p["tris_read"]
+        kc = packet.traverse_packet_components(dev, *comps, count_pops=True,
+                                               carry_top=True, **body)
+        k = packet.traverse_packet_components(dev, *comps, carry_top=True,
+                                              **body)
+        kp = packet.traverse_packet_components(dev, *comps, carry_top=True,
+                                               prefetch=True, **body)
+        for key in p:
+            assert torch.equal(kc[key], p[key]), key
+            if key not in ("pops", "leaf_pops"):
+                assert torch.equal(k[key], p[key]), key
+                assert torch.equal(kp[key], p[key]), key
+
+
+def test_ct_kernel_refuses_unaligned_tables(card):
+    """K7 reads rows in 16-byte loads: a node or Tri table view offset by 4
+    bytes into its storage makes the wrapper raise, and nothing
+    launches."""
+    verts, idx = _soup(300, seed=3)
+    rays = _rays(256, 4, card, 1e30)
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=8), card)
+    packet.reset_launches()
+    for table in ("nodes", "tris"):
+        x = dev[table]
+        flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=card)
+        flat[1:] = x.reshape(-1)
+        off = dict(dev, **{table: flat[1:].view(x.shape)})
+        for kw in ({}, {"count_pops": True}, {"prefetch": True}):
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                packet.traverse_packet(off, rays, carry_top=True, **kw)
+    assert set(packet.launches.values()) == {0}
+
+
 def test_ct_kernel_refusals(card):
     """K7 and K7-PF are built for BVH8 with Tri8/12/16/24 rows: other tables
     raise before a launch, as do the options the carry-top body does not

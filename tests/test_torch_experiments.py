@@ -305,6 +305,12 @@ PROGRAMS = {
     "ab_gather_take": (["--cpu", "--blocks", "1"],
                        r"axis0 \(65536, 128\): kernel .* torch\.gather .*"
                        r"\n.*axis1 \(65536, 128\)"),
+    "ct_warp_model": (["--cpu", "--tris", "10000", "--side", "32",
+                       "--instr", "8=316,775"],
+                      r"hall interleaved ct-fold: 2048 rays, 64 warps.*\n"
+                      r"  if-if .*\n  while-while .*outer trips/warp .*\n"
+                      r"  busiest .*\n.*while-while / if-if [\d.]+\n"
+                      r"(?:.*\n)*powerplant ao ct: 1024 rays"),
 }
 
 
@@ -337,6 +343,95 @@ def test_measure_ct_prefetch_cpu_run(capsys):
                              r"[\d.]+ ms; K7 in turns [\d.]+ ms: [\d.]+x; "
                              r"K2 in turns [\d.]+ ms: [\d.]+x; pops/ray "
                              r"[\d.]+ .* bound [\d.]+ ms", out, re.M), out
+
+
+def test_measure_ct_against_refusals(tmp_path, capsys):
+    """measure_ct --against takes one or more checkout roots and refuses
+    the CPU (it times two builds of a CUDA kernel); other_library refuses
+    a root without rodent_tpu_torch/csrc/bvh_ct.cu, naming it; the other
+    tree's library name hashes its own source."""
+    from rodent_tpu_torch.experiments import measure_ct
+    other = tmp_path / "parent" / "rodent_tpu_torch" / "csrc"
+    other.mkdir(parents=True)
+    for name in ("bvh_ct.cu", *build.HEADERS):
+        (other / name).write_bytes((build.CSRC / name).read_bytes())
+    root = str(tmp_path / "parent")
+    with pytest.raises(SystemExit):
+        measure_ct.main(["--cpu", "--against", root])
+    assert "needs the card" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        measure_ct.main(["--cpu", "--against", root, str(tmp_path / "x")])
+    assert "needs the card" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        measure_ct.main(["--against"])
+    with pytest.raises(FileNotFoundError, match="no K7 source"):
+        measure_ct.other_library(tmp_path / "absent")
+    here = build.library_path(tmp_path, "ct")
+    assert build.library_path(tmp_path, "ct", csrc=other) == here
+    with open(other / "bvh_ct.cu", "a") as f:
+        f.write("// the parent's body\n")
+    assert build.library_path(tmp_path, "ct", csrc=other) != here
+    assert [scene for scene, _, _ in measure_ct.AGAINST] == ["hall",
+                                                              "powerplant"]
+
+
+def _ct_listing(reg, fname):
+    """A fake K7 loop in nvdisasm -gi's form, the while-while form: an
+    outer-loop instruction, a node loop of 4 (one of them recomputing a
+    value of the ray's set-up, whose line lies before the loop; its
+    backward branch last), a leaf loop of 5 holding a lane loop of 3, and
+    the outer loop's branch."""
+    pop, node, leaf = reg["loop"][0], reg["node"][0] + 2, reg["leaf"][0] + 3
+    setup = reg["body"][0] + 20
+    assert reg["body"][0] < setup < reg["loop"][0]
+    rows = [(pop, None, "ISETP.NE.AND P0, PT, R3, RZ, PT"),
+            (node, ".L_x_1", "LDG.E.128.CONSTANT R4, desc[UR4][R12.64]"),
+            (setup, None, "FSETP.GE.AND P4, PT, R70, RZ, PT"),
+            (node, None, "FMNMX R5, R4, R6, PT"),
+            (node, None, "@P1 BRA `(.L_x_1)"),
+            (leaf, ".L_x_2", "LDG.E.CONSTANT R10, desc[UR4][R14.64]"),
+            (leaf, ".L_x_3", "LDG.E.128.CONSTANT R16, desc[UR4][R14.64]"),
+            (leaf, None, "FMUL R11, R16, R17"),
+            (leaf, None, "@P2 BRA `(.L_x_3)"),
+            (leaf, None, "@P3 BRA `(.L_x_2)"),
+            (pop, None, "@P0 BRA `(.L_x_1)")]
+    text = [".text._Zk7:", "_Zk7:"]
+    for i, (line, label, ins) in enumerate(rows):
+        if label:
+            text.append(f"{label}:")
+        text.append(f'\t//## File "{fname}", line {line}')
+        text.append(f"        /*{0x10 * i:04x}*/  {ins} ;")
+    return "\n".join(text)
+
+
+def test_sass_audit_reads_a_while_while_listing():
+    """K7's while-while form: the node loop's and the leaf loop's
+    instructions count once a pop, a set-up value recomputed in the node
+    loop counts with it, only the innermost leaf loop (the lane loop) is
+    weighted M / 4 times, and each loop counts in the region of its
+    closing branch (the outer loop, a node loop, a leaf loop and its lane
+    loop); the issue estimate adds each warp-model rule's
+    instructions."""
+    from rodent_tpu_torch.experiments import ct_warp_model
+    src = (build.CSRC / "bvh_ct.cu").read_text()
+    reg = sass_audit.kernel_regions(src, "bvh_ct_kernel")
+    fn = common.parse_sass(_ct_listing(reg, "/x/bvh_ct.cu"))["_Zk7"]
+    a = sass_audit.audit_function(fn, src, "bvh_ct.cu", "bvh_ct_kernel", 8)
+    assert a["count"] == {"pop": 2, "node": 4, "leaf": 5}
+    assert a["loops"] == {"pop": 1, "node": 1, "leaf": 2}
+    assert a["lane_loop"] == (3, 2)
+    assert a["weighted"] == {"pop": 2, "node": 4, "leaf": 2 + 3 * 2}
+    assert sass_audit.per_pop(a) == {"node": 6, "leaf": 10}
+    k = torch.tensor([[1, -1, 1, -1], [-1, 1, -1, 1]], dtype=torch.int8)
+    meas = {"ms": 1.0, "pops": 8, "warps": 1, "warp_node": 2.0,
+            "warp_leaf": 2.0, "model": ct_warp_model.warp_counts(k, 2)}
+    est = sass_audit.estimate({"audit": a}, meas, 1000.0, 100)
+    assert est["instr"] == 2 * 6 + 2 * 10
+    assert {r: v["instr"] for r, v in est["rules"].items()} == {
+        "if-if": 4 * 6 + 4 * 10, "while-while": 3 * 6 + 2 * 10,
+        "busiest": 2 * 6 + 2 * 10}
+    assert est["rules"]["busiest"]["issue_ms"] == pytest.approx(
+        est["issue_ms"])
 
 
 def _listing(functions):
