@@ -166,6 +166,16 @@ calls real, and checks it:
    fold and sort (with and without counters) bit for bit against their
    plain versions, K1 and K7 timed in turns.
 
+21. the cornell programs (phase_cornell), each through its run(), on the
+   stand-in for the absent cornell box (experiments.common's open box,
+   12 triangles, the dense tier) at 1080x720, spp 4, max path length 64,
+   with the reference's camera: ab_cornell_engine's eight engine variants
+   (dense, tiled, packet, retire_every=2, pools of 16K and 64K, the pool
+   sort, 64K with retire 2), one untimed and one timed iteration each,
+   their films bit for bit equal, K1 launched by the packet variants and
+   no kernel by dense and tiled; measure_splat at 3 iterations. Their K1
+   launches join the kernels line's.
+
 Every kernel's time stands beside its bound, the least time the card
 could take for the same pops and the table rows they read
 (experiments.common.bound_ms). The scenes' builds, the ray distributions
@@ -1800,61 +1810,8 @@ def write_obj_scene(mesh, materials, tex_images, out_dir, name="scene"):
     return os.path.join(out_dir, f"{name}.obj")
 
 
-# phase 16: a closed box with a ceiling lamp (14 triangles, the dense
-# tier), and the same box open at z = +1 for quality_gate's fixed camera
-BOX_OBJ = """mtllib box.mtl
-v -1 0 -1
-v  1 0 -1
-v  1 2 -1
-v -1 2 -1
-v -1 0  1
-v  1 0  1
-v  1 2  1
-v -1 2  1
-v -0.3 1.99 -0.3
-v  0.3 1.99 -0.3
-v  0.3 1.99  0.3
-v -0.3 1.99  0.3
-usemtl wall
-f 1 2 3 4
-f 5 8 7 6
-f 1 5 6 2
-f 4 3 7 8
-usemtl red
-f 1 4 8 5
-usemtl green
-f 2 6 7 3
-usemtl lamp
-f 9 10 11 12
-"""
-BOX_MTL = """newmtl wall
-Kd 0.8 0.8 0.8
-newmtl red
-Kd 0.6 0.1 0.1
-newmtl green
-Kd 0.1 0.6 0.1
-Ks 0.2 0.2 0.2
-Ns 20
-newmtl lamp
-Ke 6 6 6
-"""
-BOX_FRONT = "f 5 8 7 6\n"
+# phase 16: the closed box's view (the boxes are experiments.common's)
 BOX_VIEW = ((0.0, 1.0, 0.9), (0.0, 0.0, -1.0), (0.0, 1.0, 0.0), 60.0)
-
-
-def write_boxes(out_dir):
-    """Writes the closed and the open box (OBJ + MTL) into out_dir and
-    returns their paths."""
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "box.mtl"), "w") as f:
-        f.write(BOX_MTL)
-    paths = []
-    for name, text in (("box", BOX_OBJ),
-                       ("open", BOX_OBJ.replace(BOX_FRONT, ""))):
-        paths.append(os.path.join(out_dir, f"{name}.obj"))
-        with open(paths[-1], "w") as f:
-            f.write(text)
-    return paths
 
 
 def no_k1(before, what):
@@ -2101,6 +2058,7 @@ def phase_engine_tools(device):
     a scripted view session."""
     import re
     import shutil
+    from rodent_tpu_torch.experiments import common
     from rodent_tpu_torch.io import png
     from rodent_tpu_torch.render import film as film_mod
     from rodent_tpu_torch.render.camera import Camera
@@ -2112,7 +2070,7 @@ def phase_engine_tools(device):
     from rodent_tpu_torch.traversal import packet
     out = os.path.join(REPO, "build", "phase16")
     shutil.rmtree(out, ignore_errors=True)
-    box, open_box = write_boxes(out)
+    box, open_box = common.write_boxes(out)
     args = [box, "--width", 160, "--height", 120, "--spp", 2, "--bench", 2,
             "--max-path-len", 8, "--eye", *BOX_VIEW[0], "--dir",
             *BOX_VIEW[1]]
@@ -2929,6 +2887,65 @@ def phase_tri12(device, hall, side=1024):
                    "share": r["share"], "k1_differences": r["differences"]}}
 
 
+def phase_cornell(device, w=1080, h=720, spp=4, mpl=64):
+    """[21] The cornell programs through their run() on the stand-in (the
+    open box of experiments.common, the dense tier) at the reference's
+    camera: ab_cornell_engine's eight variants, one untimed and one timed
+    iteration each, whose films must be equal bit for bit, the packet
+    variants launching K1 and dense and tiled no kernel; then measure_splat
+    at 3 iterations. Returns (K1's launches, the rows for the log)."""
+    from rodent_tpu_torch.experiments import ab_cornell_engine as ace
+    from rodent_tpu_torch.experiments import measure_splat
+    from rodent_tpu_torch.render.compiler import packet_mode
+    from rodent_tpu_torch.traversal import packet
+    t0 = time.perf_counter()
+    scene, _, size, line = ace.load_scene(None, device, mpl, (w, h))
+    check(packet_mode(scene.device) == "dense"
+          and scene.mesh.num_tris == 12,
+          f"cornell stand-in: {scene.mesh.num_tris} triangles, tier "
+          f"{packet_mode(scene.device)}")
+    policy, policy_name = ace.policy_variant(scene)
+    log(f"[21] {line}; {w}x{h} spp {spp} mpl {mpl}; select_render_policy "
+        f"{policy} = {policy_name}")
+    packet.reset_launches()
+    rows, film = ace.run(device, scene, size, spp, 2,
+                         out=lambda m: log(f"[21] {m}"))
+    k1_rows = packet.launches["bvh_traverse"]
+    splat = measure_splat.run(device, scene, None, size, spp, 3,
+                              out=lambda m: log(f"[21] measure_splat: {m}"))
+    torch.cuda.synchronize()
+    launched = dict(packet.launches)
+    splat_k1 = launched["bvh_traverse"] - k1_rows
+    check(len(rows) == len(ace.VARIANTS) and policy_name in ace.VARIANTS,
+          f"cornell: rows {[r['name'] for r in rows]}, policy {policy}")
+    check(film.shape == (w * h, 3) and bool(torch.isfinite(film).all())
+          and float(film.min()) >= 0.0 and float(film.mean()) > 0.0,
+          "cornell: the film is not finite, negative or black")
+    check(bool(torch.isfinite(splat["film"]).all()) and splat["mean"] > 1.0,
+          f"cornell: measure_splat's film is not finite or its image is "
+          f"black (mean {splat['mean']:.2f})")
+    for r in rows:
+        k1 = r["launches"]["bvh_traverse"]
+        others = {k: v for k, v in r["launches"].items()
+                  if k != "bvh_traverse" and v}
+        engine = r["kw"]["packet"]
+        check(not others and (k1 > 0 if engine is True else k1 == 0),
+              f"cornell {r['name']} (packet={engine!r}): launches "
+              f"{r['launches']}")
+    check(k1_rows == sum(r["launches"]["bvh_traverse"] for r in rows)
+          and splat["packet"] is True and splat_k1 > 0,
+          f"cornell: K1 launches {launched}, measure_splat's {splat_k1} "
+          f"(packet={splat['packet']})")
+    log(f"[21] the cornell phase took {time.perf_counter() - t0:.1f} s, K1 "
+        f"launches {launched['bvh_traverse']}")
+    return launched["bvh_traverse"], {
+        "rows": {r["name"]: {k: r[k] for k in ("ms", "msamples", "steps")}
+                 | {"k1_launches": r["launches"]["bvh_traverse"]}
+                 for r in rows},
+        "measure_splat": {k: splat[k] for k in ("ms", "msamples", "mean")}
+        | {"k1_launches": splat_k1}}
+
+
 def pf_entry(pf, launched):
     """The kernels-line entry of K7-PF: its headline on powerplant-4.3M's
     1M sorted primaries (ct-fold, the JAX tools' body on the big-scene
@@ -3099,7 +3116,7 @@ def main():
     log(f"[15] the OBJ scene phase took {time.perf_counter() - t_obj:.1f} s")
     t_eng = time.perf_counter()
     engines = phase_dual_queue(device, hall_bvh, verts, idx)
-    box, _ = write_boxes(os.path.join(REPO, "build", "phase16"))
+    box, _ = common.write_boxes(os.path.join(REPO, "build", "phase16"))
     engines["dense"] = phase_dense(device, box)
     engines["crown_mse"], engines["crown_s"] = phase_golden_tiled(device)
     engines["hybrid_policy"] = phase_hybrid_policy(device, hall)
@@ -3124,13 +3141,16 @@ def main():
     pf = phase_pf(device, big_bvh, big_dists, ct_regs)
     tri12 = phase_tri12(device, hall)
     log(f"[20] the carry-top phase took {time.perf_counter() - t_ct:.1f} s")
+    cornell_k1, cornell = phase_cornell(device)
+    log(f"[21] cornell {json.dumps(cornell)}")
     log(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     src = "rodent_tpu_torch/csrc/bvh_traverse.cu"
     pallas = "rodent_tpu/traversal/pallas_packet.py"
     # no PyTorch call computes a BVH traversal: library_ms is null. K1-K3
     # run the first body; "variants" holds both bodies' times from phase
     # 14. K1's launches: hall's render (phase 5), mathall's (15a) and the
-    # sharded renders of phase 17 (all ranks); K2's: powerplant's
+    # sharded renders of phase 17 (all ranks) and the cornell programs of
+    # phase 21; K2's: powerplant's
     # persistent render (phase 9) and tools.render's hbm run on the mathall
     # OBJ (15b); K1-K3's launches in the bench and the tools of phase 18
     # and the measuring programs of phase 19; "sass": each kernel's
@@ -3145,7 +3165,7 @@ def main():
          "replaces": f"{pallas}:1132",
          "launches": launches + mathall_k1 + shard_k1
                      + tools["bvh_traverse"]
-                     + prog_launches["bvh_traverse"],
+                     + prog_launches["bvh_traverse"] + cornell_k1,
          "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
          "library_ms": None,

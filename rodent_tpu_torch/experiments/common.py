@@ -5,9 +5,10 @@ and the least time the card could take for a traversal launch (its bound,
 per-ray kernels and tile kernels); for the micro-probes (probe_*.py,
 vpu_dtype_bench.py), the call into their library, the launch that fills
 the card and their bound; and a reader of the card's assembly (SASS, as
-cuobjdump and nvdisasm print it) for vpu_dtype_bench and sass_audit. The
-experiments here, tools/benchmark.py and chip_smoke.py all take them from
-this module."""
+cuobjdump and nvdisasm print it) for vpu_dtype_bench and sass_audit; and
+a box with a ceiling lamp, closed and open, as OBJ + MTL text (the cornell
+programs' stand-in). The experiments here, tools/benchmark.py and
+chip_smoke.py all take them from this module."""
 from __future__ import annotations
 
 import ctypes
@@ -95,6 +96,62 @@ CT_SLAB_OPS = 25
 #     FLT_MAX select of a failed lane and the fold's compare and 5 selects
 #     = 63.
 TILE_PURE_OPS, TILE_MIXED_OPS, FRUSTUM_OPS, PAIR_LANE_OPS = 21, 27, 33, 63
+
+
+# A closed box with a ceiling lamp (14 triangles, the dense tier), and the
+# same box open at z = +1 (12 triangles): chip_smoke.py phase 16's engines
+# and tools, and the cornell programs' stand-in (ab_cornell_engine)
+BOX_OBJ = """mtllib box.mtl
+v -1 0 -1
+v  1 0 -1
+v  1 2 -1
+v -1 2 -1
+v -1 0  1
+v  1 0  1
+v  1 2  1
+v -1 2  1
+v -0.3 1.99 -0.3
+v  0.3 1.99 -0.3
+v  0.3 1.99  0.3
+v -0.3 1.99  0.3
+usemtl wall
+f 1 2 3 4
+f 5 8 7 6
+f 1 5 6 2
+f 4 3 7 8
+usemtl red
+f 1 4 8 5
+usemtl green
+f 2 6 7 3
+usemtl lamp
+f 9 10 11 12
+"""
+BOX_MTL = """newmtl wall
+Kd 0.8 0.8 0.8
+newmtl red
+Kd 0.6 0.1 0.1
+newmtl green
+Kd 0.1 0.6 0.1
+Ks 0.2 0.2 0.2
+Ns 20
+newmtl lamp
+Ke 6 6 6
+"""
+BOX_FRONT = "f 5 8 7 6\n"
+
+
+def write_boxes(out_dir):
+    """Writes the closed and the open box (OBJ + MTL) into out_dir and
+    returns their paths."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "box.mtl").write_text(BOX_MTL)
+    paths = []
+    for name, text in (("box", BOX_OBJ),
+                       ("open", BOX_OBJ.replace(BOX_FRONT, ""))):
+        paths.append(str(out_dir / f"{name}.obj"))
+        Path(paths[-1]).write_text(text)
+    return paths
 
 
 def add_args(p):

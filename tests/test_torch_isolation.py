@@ -71,7 +71,9 @@ def test_port_imports_no_jax():
                  "experiments.make_goldens",
                  "experiments.ab_gather_take",
                  "experiments.measure_ct",
-                 "experiments.sass_compare"):
+                 "experiments.sass_compare",
+                 "experiments.ab_cornell_engine",
+                 "experiments.measure_splat"):
         assert f"rodent_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
