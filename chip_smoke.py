@@ -35,11 +35,14 @@ calls real, and checks it:
 10. the hall and crown golden gates through render_iteration_persistent
    (K1);
 11. the attribution path (rodent_tpu_torch.experiments): K4 against the
-   plain version on two soups with multi-row leaves, every option; then
-   on hall-260K and powerplant-4.3M, every option against K3 in turns on
-   1M sorted primaries and on the ao rays (nonodetest, which pops the
-   whole tree, on fewer rays), with K4's launch count read around them,
-   and each option's counters and hits held against the plain version;
+   plain version on two soups with multi-row leaves, every option and the
+   base (K4 with no option), the base and row_loads also bit for bit
+   against K3; then on hall-260K and powerplant-4.3M, every option in
+   turns with K3 and the base (K3, base, the options, and back) on 1M
+   sorted primaries and on the ao rays (nonodetest, which pops the whole
+   tree, on fewer rays), with K4's launch count read around them, and
+   each option's counters and hits held against the plain version (the
+   base's and row_loads' every output bit against K3's);
 12. the tile-shared-stack kernels (csrc/bvh_tile.cu), K5 (_kernel's tile
    stack: plain, frustum, nopure) and K6 (the pair layout, each ablation;
    rodent_tpu_torch.experiments.ab_tile_body): against their plain
@@ -168,8 +171,9 @@ calls real, and checks it:
 
 21. the cornell programs (phase_cornell), each through its run(), on the
    stand-in for the absent cornell box (experiments.common's open box,
-   12 triangles, the dense tier) at 1080x720, spp 4, max path length 64,
-   with the reference's camera: ab_cornell_engine's eight engine variants
+   12 triangles, the dense tier) at 1080x720, spp 2 (the programs'
+   default is 4; the run's time limit cut it), max path length 64, with
+   the reference's camera: ab_cornell_engine's eight engine variants
    (dense, tiled, packet, retire_every=2, pools of 16K and 64K, the pool
    sort, 64K with retire 2), one untimed and one timed iteration each,
    their films bit for bit equal, K1 launched by the packet variants and
@@ -281,8 +285,9 @@ def phase_env():
 
 
 # the kernels each library must hold (phase 2): main K1 72, K2 20, K3 20;
-# ct K7 96, K7-PF 48; group both bodies of main's
-LIBRARY_KERNELS = {"main": 112, "ct": 144, "group": 224}
+# ct K7 96, K7-PF 48; options K4's seven options and its base, 60; group
+# both bodies of main's
+LIBRARY_KERNELS = {"main": 112, "ct": 144, "options": 60, "group": 224}
 
 
 def ptxas_registers(nvcc_log):
@@ -299,8 +304,9 @@ def ptxas_registers(nvcc_log):
 
 def phase_build():
     """Builds every library at once and reports each one's kernels,
-    registers and spills from ptxas' lines of its build. Returns the ct
-    library's {bvh_ct_kernel's template arguments: registers}."""
+    registers and spills from ptxas' lines of its build, K4's by option.
+    Returns the ct library's {bvh_ct_kernel's template arguments:
+    registers}."""
     from rodent_tpu_torch.kernels.build import (LIBRARIES, build_all,
                                                 kept_log, load_library)
     from concurrent.futures import ThreadPoolExecutor
@@ -349,6 +355,16 @@ def phase_build():
                 sp = sum(1 for n in names if spill.get(n, (0, 0)) != (0, 0))
                 log(f"[2] {'K7-PF' if pf else 'K7'}: {len(names)} kernels, "
                     f"registers {min(r)}-{max(r)}, {sp} with spills")
+        if kind == "options":
+            # K4's instantiations by option (the last template argument)
+            from rodent_tpu_torch.traversal.packet import OPTIONS
+            for i, opt in enumerate(OPTIONS):
+                names = [n for n in regs_of
+                         if sass_audit.demangle(n)[1][-1] == i]
+                r = sorted(regs_of[n] for n in names)
+                sp = sum(1 for n in names if spill.get(n, (0, 0)) != (0, 0))
+                log(f"[2] K4 {opt}: {len(names)} kernels, registers "
+                    f"{r[0]}-{r[-1]}, {sp} with spills")
     log(f"[2] all {len(built)} libraries and the -lineinfo copies of "
         f"{', '.join(sass_audit.AUDITED)} (phase 19) built at once in "
         f"{dt:.1f} s")
@@ -815,20 +831,13 @@ def phase_golden_persistent(device):
             f"{m['mean_u8']})")
 
 
-def options_for(any_hit, nonodetest=True):
-    """K4's options for closest-hit or any-hit (nosort is closest-hit
-    only)."""
-    from rodent_tpu_torch.traversal.packet import OPTIONS
-    return [o for o in OPTIONS if not (any_hit and o == "nosort")
-            and (nonodetest or o != "nonodetest")]
-
-
 def phase_option_soups(device):
     """K4 against the plain version on two soups whose leaves span several
-    Tri rows (so leaf chains run): every option, closest-hit and any-hit,
-    counters and hits."""
+    Tri rows (so leaf chains run): every option and the base, closest-hit
+    and any-hit, counters and hits; the base and row_loads also against
+    K3, every output bit."""
     from rodent_tpu_torch.accel import build_bvh
-    from rodent_tpu_torch.experiments.common import plain_args
+    from rodent_tpu_torch.experiments.common import options_for, plain_args
     from rodent_tpu_torch.traversal import api
     from rodent_tpu_torch.traversal.packet import OPTION_ARGS, traverse_packet
     err, runs = 0.0, 0
@@ -846,6 +855,7 @@ def phase_option_soups(device):
         for any_hit in (False, True):
             rays = api.make_rays(org, d, 0.0, np.minimum(tmax, 2.0)
                                  if any_hit else tmax, device=device)
+            k3 = traverse_packet(dev, rays, any_hit=any_hit, count_pops=True)
             for opt in options_for(any_hit):
                 k = traverse_packet(dev, rays, any_hit=any_hit,
                                     count_pops=True, **OPTION_ARGS[opt])
@@ -858,22 +868,29 @@ def phase_option_soups(device):
                 ties, e = compare_hits(k, p, what)
                 check(ties == 0, f"{what}: {ties} ties")
                 err = max(err, e)
+                if opt in ("base", "row_loads"):
+                    for key in k3:
+                        check(bool(torch.equal(k[key], k3[key])),
+                              f"{what}: {key} differs from K3")
                 runs += 1
     log(f"[11] K4 == plain on 2 soups (BVH8/Tri8, Tri24, leaves of up to "
-        f"32 tris), {runs} option runs, closest-hit and any-hit: counters "
-        f"equal, prim_id identical, max |dt,du,dv| {err:.3g}")
+        f"32 tris), {runs} runs of the options and the base, closest-hit "
+        f"and any-hit: counters equal, prim_id identical, max |dt,du,dv| "
+        f"{err:.3g}; the base and row_loads equal to K3 in every output "
+        "bit")
     return err
 
 
 def phase_options(device, name, bvh, prim, ao, nonode_rays):
-    """[11] The attribution path on one scene: every K4 option against K3
-    in turns on 1M sorted primaries and on the ao rays, the way
+    """[11] The attribution path on one scene: every K4 option in turns
+    with K3 and the base (K3, base, the options, and back) on 1M sorted
+    primaries and on the ao rays (as CUDA-graph replays), the way
     rodent_tpu_torch.experiments drives it (nonodetest, which pops the
-    whole tree per ray, on the first `nonode_rays` rays of each); then
-    each option's counters and hits against the plain version on 65,536
-    of those rays, which also count the table rows read for each option's
-    bound (fewer than all the rays read, so the bound stays a lower one).
-    Returns (K4's launches in the path, results, max |dt,du,dv|)."""
+    whole tree per ray, on the first `nonode_rays` rays of each); then each option's counters and hits
+    against the plain version on 65,536 of those rays, which also count
+    the table rows read for each option's bound (fewer than all the rays
+    read, so the bound stays a lower one). Returns (K4's launches in the
+    path, results, max |dt,du,dv|)."""
     from rodent_tpu_torch.experiments import common
     from rodent_tpu_torch.traversal import api, packet
     head = common.head
@@ -883,10 +900,12 @@ def phase_options(device, name, bvh, prim, ao, nonode_rays):
     t0 = time.perf_counter()
     runs = {
         "primary": common.option_turns(
-            bvh, prim, device, options_for(False, False), blocks=3),
+            bvh, prim, device, common.options_for(False, False), blocks=3),
+        # ao launches are about as short as the wrapper's host time per
+        # call: timed as CUDA-graph replays
         "ao": common.option_turns(
-            bvh, ao, device, options_for(True, False), any_hit=True,
-            blocks=3),
+            bvh, ao, device, common.options_for(True, False), any_hit=True,
+            blocks=3, graphs=True),
         "primary nonodetest": common.option_turns(
             bvh, sub_prim, device, ["nonodetest"], blocks=1),
         "ao nonodetest": common.option_turns(
@@ -895,7 +914,8 @@ def phase_options(device, name, bvh, prim, ao, nonode_rays):
     torch.cuda.synchronize()
     launched = packet.launches["bvh_traverse_option"]
     dt = time.perf_counter() - t0
-    check(launched >= 2 * (len(options_for(False)) + len(options_for(True))),
+    check(launched >= 2 * (len(common.options_for(False))
+                          + len(common.options_for(True))),
           f"{name}: {launched} K4 launches")
     log(f"[11] {name}: K4 launched {launched} times in {dt:.1f} s "
         f"(clock, power after: {sm_clock()})")
@@ -949,7 +969,7 @@ def phase_options(device, name, bvh, prim, ao, nonode_rays):
             if opt == "noleaftest":
                 check(bool((out["prim_id"] < 0).all()),
                       f"{what}: a ray hit with the leaf tests off")
-            if opt == "row_loads":
+            if opt in ("base", "row_loads"):
                 for key in out:
                     check(bool(torch.equal(out[key], k3[key])),
                           f"{what}: {key} differs from K3")
@@ -960,8 +980,10 @@ def phase_options(device, name, bvh, prim, ao, nonode_rays):
             bound = common.bound_ms(bvh, s["n"], s["node"], tested, rows,
                                     any_hit, opt, counters=True)
             log(f"[11] {what}: {r['ms']:.4f} ms vs K3 {r['k3_ms']:.4f} ms "
-                f"in turns ({r['ms'] / r['k3_ms']:.3f}x) on "
-                f"{out['t'].shape[0]} rays; pops/ray {s['pops_ray']:.3f} "
+                f"({r['ms'] / r['k3_ms']:.3f}x), vs the base "
+                f"{r['base_ms']:.4f} ms ({r['ms'] / r['base_ms']:.3f}x) in "
+                f"turns on {out['t'].shape[0]} rays; pops/ray "
+                f"{s['pops_ray']:.3f} "
                 f"(leaf {s['leaf_ray']:.3f}); bound {bound[0]:.4f} ms "
                 f"({bound[1]}; rows read by {sub} rays {rows[0]} + "
                 f"{rows[1]}); {note}")
@@ -2583,7 +2605,7 @@ def phase_programs(device):
               f"{st['spills']} spills, {st['audit']['count']})")
         check(0.0 < est["share"] < 10.0 and est["ns_pop"] > 0,
               f"sass_audit {label}: issue estimate {est}")
-        if label.startswith("K7 "):
+        if label.startswith(("K7 ", "K4 ")):
             # the while-while form: a node loop, and a leaf loop apart
             # from the lane loop it holds
             loops = st["audit"]["loops"]
@@ -2887,7 +2909,7 @@ def phase_tri12(device, hall, side=1024):
                    "share": r["share"], "k1_differences": r["differences"]}}
 
 
-def phase_cornell(device, w=1080, h=720, spp=4, mpl=64):
+def phase_cornell(device, w=1080, h=720, spp=2, mpl=64):
     """[21] The cornell programs through their run() on the stand-in (the
     open box of experiments.common, the dense tier) at the reference's
     camera: ab_cornell_engine's eight variants, one untimed and one timed
@@ -3055,7 +3077,7 @@ def main():
     from rodent_tpu_torch.experiments import common
     from rodent_tpu_torch.render.compiler import compile_mesh
     from rodent_tpu_torch.utils import testscenes
-    from rodent_tpu_torch.traversal.packet import stack_cap
+    from rodent_tpu_torch.traversal.packet import OPTIONS, stack_cap
     device = cuda_device()
     t_start = time.perf_counter()
     phase_env()
@@ -3093,7 +3115,8 @@ def main():
         n, runs, e = phase_options(device, name, bvh, prim, ao, nonode)
         k4_launches += n
         k4_err = max(k4_err, e)
-        variants[name] = {run: {o: {"ms": r["ms"], "k3_ms": r["k3_ms"]}
+        variants[name] = {run: {o: {"ms": r["ms"], "k3_ms": r["k3_ms"],
+                                    "base_ms": r["base_ms"]}
                                 for o, r in res.items() if o != "K3"}
                           for run, res in runs.items()}
     log(f"[11] the attribution phase took {time.perf_counter() - t_att:.1f} s")
@@ -3189,9 +3212,12 @@ def main():
          "bound_by": bounds["K3"][1], "library_ms": None,
          "variants": bodies["bvh_traverse_count"], "sass": sass_of("K3")},
         # ms: row_loads on the powerplant primaries, which does K3's work
-        # (so K3's bound); every variant's time is under "variants"
+        # (so K3's bound); every option's time and the base's (K4 with no
+        # option, "base") are under "variants", each beside K3's and the
+        # base's in its turns
         {"name": "bvh_traverse_option", "route": "cuda", "source": src,
          "replaces": f"{pallas}:395", "launches": k4_launches,
+         "options": list(OPTIONS),
          "max_abs_err": k4_err,
          "ms": variants["powerplant-4.3M"]["primary"]["row_loads"]["ms"],
          "plain_ms": big_plain_ms, "bound_ms": bounds["K3"][0],

@@ -113,11 +113,14 @@
 // cudaErrorInvalidValue for the rest and the wrapper raises before that.
 //
 // K4 (bvh_traverse_option_kernel, -DRT_OPTIONS) is K3 with one option of
-// the legacy body _kernel (pallas_packet.py:395-876) compiled in, so each
-// option is timed against K3 with the same counting overhead. The options
-// are the TPU's levers against the per-pop dependent chain; on this card
-// the same chain (a row load whose address comes from the previous pop)
-// and warp divergence bound K1, so each is asked again here:
+// the legacy body _kernel (pallas_packet.py:395-876) compiled in, or with
+// none (kBase), so each option is timed against the base and against K3
+// with the same counting overhead. The options are the TPU's levers against
+// the per-pop dependent chain; on this card the same chain (a row load
+// whose address comes from the previous pop) and warp divergence bound K1,
+// so each is asked again here:
+//   kBase        no option: K3's pops in K3's order on K4's loop; every
+//                output is K3's, bit for bit.
 //   kNoNodeTest  ablate "nonodetest" (:575-578): push every nonzero child
 //                in slot order without a slab test; hits stay right, pops
 //                grow; the time per pop without the 8 slab tests.
@@ -136,24 +139,56 @@
 //                consecutive Tri rows of a leaf in registers, with no
 //                stack store or load between them; still one pop and one
 //                leaf pop on the counters.
-//   kRowLoads    the counterpart of scalar_reads (:449-460). K1 already
-//                reads each field with its own __ldg, which is what
-//                scalar_reads=True was on the TPU; this variant instead
-//                reads a node row (224 B for BVH8) as 14 16-byte
-//                ld.global.nc.v4.f32 loads, and a Tri row's fields four
-//                lanes at a time the same way (rows are laid out by field,
-//                so four lanes of a field are contiguous; rows are 28A and
-//                56M bytes, so 16-byte aligned). Fewer, wider loads per
-//                pop; it changes no bit of any output.
+//   kRowLoads    the counterpart of scalar_reads (:449-460). K1 and the
+//                base read each field with its own __ldg, which is what
+//                scalar_reads=True was on the TPU; this option reads rows
+//                as K7 does (bvh_ct.cu): a node row (224 B for BVH8) as 14
+//                16-byte ld.global.nc.v4.f32 loads, and a Tri row's fields
+//                four lanes at a time (rows are laid out by field, so four
+//                lanes of a field are contiguous; rows are 28A and 56M
+//                bytes, so 16-byte aligned), 13 loads a group of four
+//                lanes and the geometry id alone where a lane hits. Fewer,
+//                wider loads per pop; it changes no bit of K3's output.
+// The other options keep the base's scalar loads, so each is one lever
+// against the base, and row_loads against K3 is the loop and the loads
+// together.
+//
+// The loop is a while-while loop, as K7's (bvh_ct.cu): an outer loop over
+// two inner ones, node pops while a ray's popped entry is a node, then
+// leaf pops while it is a Tri row. A warp runs a path whenever any of its
+// rays takes it; in K3's if-if form a warp whose rays are split between
+// node and leaf pops runs both paths in one trip, here a ray that holds a
+// leaf waits in the node loop until every ray of the warp holds one or is
+// done. The order is K3's, the legacy one: a node pushes its hit children
+// far-to-near after the Batcher network, a leaf pushes its continuation,
+// and every pop takes the stack's top. Each ray pops the same entries in
+// the same order with the same t and stack as in K3's loop, so hits and
+// both counters are unchanged.
+// kPops2 runs its pairs on the same loop: each trip of either inner loop
+// is one iteration of the phased body and pops the stack's top two
+// entries. Its node loop runs while both are node rows (the two-row
+// block), its other loop while one is a Tri row or the stack held one
+// entry. Either pops the pair the if-if body pops from the same stack, so
+// the pairing, and both counters, stay the plain version's.
+// Measured in turns against the if-if body this loop replaced (PERF.md),
+// on 1M sorted primaries: 0.75-0.92x for nonodetest, nosort, the chains
+// and row_loads, 1.01-1.03x for kPops2, 1.05-1.25x for noleaftest, whose
+// leaf pop is one load; the base ran 0.92-0.94x K3. On 65,536 any-hit
+// rays (512 blocks, under one wave), timed as CUDA-graph replays, the
+// base ran 0.96-1.09x K3 by ray set and round, row_loads 0.62-0.73x K3,
+// and kPops2 1.04-1.52x the if-if body.
+//
 // The octant-pure ordered slab test (ablation "nopure", :794-799) and the
 // row-frustum test (frustum=True, :493-550) belong to one stack shared by
 // a tile of rays: they are K5's (bvh_tile.cu), not K4's. K4 is
 // instantiated for BVH8 x Tri8/Tri24 x stack 64/128 x closest/any-hit
-// (kNoSort closest-hit only): 52 kernels. kPops2 takes stacks of 128/256:
-// expanding the second entry early leaves up to A more entries per level,
-// and the wrapper sizes it at twice the pops=1 worst case, a bound that is
-// not proven. So K4 checks every push: a stack that would overflow is
-// never written past; the ray stops and its pop counter reads -1.
+// (kNoSort closest-hit only): 60 kernels, 8 of them the base's. Stacks of
+// 64/128 hold the tree's worst case for one pop a trip (the wrapper's
+// stack_cap, K1's), so only kPops2 checks its pushes. It takes stacks of
+// 128/256: expanding the second entry early leaves up to A more entries
+// per level, and the wrapper sizes it at twice the pops=1 worst case, a
+// bound that is not proven. A kPops2 stack that would overflow is never
+// written past; the ray stops and its pop counter reads -1.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -596,6 +631,7 @@ constexpr int kPops2 = 3;
 constexpr int kChain2 = 4;
 constexpr int kChain4 = 5;
 constexpr int kRowLoads = 6;
+constexpr int kBase = 7;
 
 // the running hit of a ray
 struct Hit {
@@ -604,7 +640,8 @@ struct Hit {
 };
 
 // Expands one node row: the children to push (in push order) and their
-// mask. NODETEST=false pushes every nonzero child in slot order.
+// mask. NODETEST=false pushes every nonzero child in slot order; ROW reads
+// the row in 16-byte loads.
 template <int A, bool NODETEST, bool SORT, bool ROW>
 __device__ __forceinline__ void expand_node(const float* row, const Ray& r,
                                             float t_test, int (&ch)[A],
@@ -639,18 +676,19 @@ __device__ __forceinline__ void expand_node(const float* row, const Ray& r,
 
 // Moller-Trumbore over the M lanes of one Tri row, folded into h: lanes
 // test against t_test and update on a strict < against the running h.t.
+// ROW reads four lanes of each field in one 16-byte load (K7's leaf).
 template <int M, bool ROW>
 __device__ __forceinline__ void leaf_row(const float* row, const Ray& r,
                                          float t_test, Hit& h) {
   const int* rowi = reinterpret_cast<const int*>(row);
   if constexpr (ROW) {
     static_assert(M % 4 == 0, "row loads need M a multiple of 4");
+    const float4* rowv = reinterpret_cast<const float4*>(row);
 #pragma unroll 1
     for (int q = 0; q < M / 4; ++q) {
-      float4 x[14];
+      float4 x[13];
 #pragma unroll
-      for (int k = 0; k < 14; ++k)
-        x[k] = __ldg(reinterpret_cast<const float4*>(row + k * M) + q);
+      for (int k = 0; k < 13; ++k) x[k] = __ldg(rowv + k * (M / 4) + q);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int pid = __float_as_int(lane_of(x[12], j));
@@ -660,7 +698,7 @@ __device__ __forceinline__ void leaf_row(const float* row, const Ray& r,
         for (int k = 0; k < 12; ++k) f[k] = lane_of(x[k], j);
         if (mt_lane(f, r, t_test, h.t, h.t, h.u, h.v)) {
           h.prim = pid & 0x7FFFFFFF;
-          h.geom = __float_as_int(lane_of(x[13], j));
+          h.geom = __ldg(rowi + 13 * M + 4 * q + j);
         }
       }
     }
@@ -697,16 +735,16 @@ __device__ __forceinline__ int leaf_pop(const Args& a, int code, const Ray& r,
   return code;
 }
 
-// Pushes the masked children so the first one in push order ends on top;
-// false (and nothing written) where they do not fit.
-template <int A, int STACK>
+// Pushes the masked children so the first one in push order ends on top.
+// GUARD: false, and nothing written, where they do not fit.
+template <int A, int STACK, bool GUARD>
 __device__ __forceinline__ bool push(int (&stack)[STACK], int& sp,
                                      const int (&ch)[A],
                                      const bool (&hit)[A]) {
   int k = 0;
 #pragma unroll
   for (int c = 0; c < A; ++c) k += hit[c] ? 1 : 0;
-  if (sp + k > STACK) return false;
+  if (GUARD && sp + k > STACK) return false;
   int rank = 0;
 #pragma unroll
   for (int c = 0; c < A; ++c) {
@@ -719,17 +757,16 @@ __device__ __forceinline__ bool push(int (&stack)[STACK], int& sp,
   return true;
 }
 
-// One popped entry of K4: a node's children, or a leaf pop folded into h
-// with its continuation as the only child.
-template <int A, int M, int OPT, bool ANY_HIT>
-__device__ __forceinline__ void expand_entry(const Args& a, int code,
-                                             const Ray& r, float t_test,
-                                             Hit& h, int (&ch)[A],
-                                             bool (&hit)[A]) {
-  constexpr bool ROW = OPT == kRowLoads;
+// One entry of a kPops2 pair: a node's children, or a leaf pop folded into
+// h with its continuation as the only child; code 0 (no second entry)
+// pushes nothing.
+template <int A, int M, bool ANY_HIT>
+__device__ __forceinline__ void pair_entry(const Args& a, int code,
+                                           const Ray& r, float t_test,
+                                           Hit& h, int (&ch)[A],
+                                           bool (&hit)[A]) {
   if (code > 0) {
-    expand_node<A, OPT != kNoNodeTest,
-                !ANY_HIT && OPT != kNoSort && OPT != kNoNodeTest, ROW>(
+    expand_node<A, true, !ANY_HIT, false>(
         a.nodes + (long long)(code - 1) * (7 * A), r, t_test, ch, hit);
     return;
   }
@@ -739,9 +776,7 @@ __device__ __forceinline__ void expand_entry(const Args& a, int code,
     hit[c] = false;
   }
   if (code < 0) {
-    constexpr int CHAIN = OPT == kChain2 ? 2 : OPT == kChain4 ? 4 : 1;
-    ch[0] = leaf_pop<M, CHAIN, OPT != kNoLeafTest, ROW>(a, code, r, t_test,
-                                                        h);
+    ch[0] = leaf_pop<M, 1, true, false>(a, code, r, t_test, h);
     hit[0] = ch[0] != 0;
   }
 }
@@ -749,6 +784,11 @@ __device__ __forceinline__ void expand_entry(const Args& a, int code,
 template <bool ANY_HIT, int M, int STACK, int OPT>
 __global__ void __launch_bounds__(kBlock) bvh_traverse_option_kernel(Args a) {
   constexpr int A = 8;
+  constexpr bool ROW = OPT == kRowLoads;
+  constexpr bool NODETEST = OPT != kNoNodeTest;
+  constexpr bool SORT = !ANY_HIT && NODETEST && OPT != kNoSort;
+  constexpr bool LEAFTEST = OPT != kNoLeafTest;
+  constexpr int CHAIN = OPT == kChain2 ? 2 : OPT == kChain4 ? 4 : 1;
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i >= a.n) return;
   const Ray r = load_ray(a, i);
@@ -759,43 +799,90 @@ __global__ void __launch_bounds__(kBlock) bvh_traverse_option_kernel(Args a) {
   int sp = 0;
   int pops = 0, leaf_pops = 0;
   bool overflow = false;
-  if (tmax >= r.tmin) stack[sp++] = 1;  // root ref; dead rays never start
+  // the popped entry: first the root, pushed and popped at once; dead rays
+  // never start
+  int code = tmax >= r.tmin ? 1 : 0;
 
-  while (sp > 0) {
-    int ch0[A], ch1[A];
-    bool hit0[A], hit1[A];
-    if constexpr (OPT != kPops2) {
-      const int code = stack[--sp];
-      ++pops;
-      leaf_pops += code < 0 ? 1 : 0;
-      expand_entry<A, M, OPT, ANY_HIT>(a, code, r, h.t, h, ch0, hit0);
-      overflow = !push<A, STACK>(stack, sp, ch0, hit0);
-    } else {
-      // the phased body: both entries start from the same hit and t
-      const int c0 = stack[--sp];
-      const int c1 = sp > 0 ? stack[--sp] : 0;
-      pops += 1 + (c1 != 0 ? 1 : 0);
-      leaf_pops += (c0 < 0 ? 1 : 0) + (c1 < 0 ? 1 : 0);
-      const float t_test = h.t;
-      Hit h0 = h, h1 = h;
-      if (c0 > 0 && c1 > 0) {
-        // two node rows in one basic block: their loads fly together
-        expand_node<A, true, !ANY_HIT, false>(
-            a.nodes + (long long)(c0 - 1) * (7 * A), r, t_test, ch0, hit0);
-        expand_node<A, true, !ANY_HIT, false>(
-            a.nodes + (long long)(c1 - 1) * (7 * A), r, t_test, ch1, hit1);
-      } else {
-        expand_entry<A, M, OPT, ANY_HIT>(a, c0, r, t_test, h0, ch0, hit0);
-        expand_entry<A, M, OPT, ANY_HIT>(a, c1, r, t_test, h1, ch1, hit1);
+  if constexpr (OPT != kPops2) {
+    while (code != 0) {
+      // node pops while the popped entry is a node: a warp leaves this loop
+      // once every ray in it holds a leaf or is done, and runs the leaves
+      // together
+      while (code > 0) {
+        ++pops;
+        int ch[A];
+        bool hit[A];
+        expand_node<A, NODETEST, SORT, ROW>(
+            a.nodes + (long long)(code - 1) * (7 * A), r, h.t, ch, hit);
+        push<A, STACK, false>(stack, sp, ch, hit);
+        code = sp > 0 ? stack[--sp] : 0;
       }
-      h = h1.t < h0.t ? h1 : h0;  // first-wins on a tie
-      // the second entry's children go in first, so the first entry's
-      // first child in push order ends on top
-      overflow = !push<A, STACK>(stack, sp, ch1, hit1) ||
-                 !push<A, STACK>(stack, sp, ch0, hit0);
+      // leaf pops while the popped entry is a Tri row: the continuation is
+      // pushed, and the stack's top popped
+      while (code < 0) {
+        ++pops;
+        ++leaf_pops;
+        const int cont = leaf_pop<M, CHAIN, LEAFTEST, ROW>(a, code, r, h.t,
+                                                           h);
+        if (cont != 0) stack[sp++] = cont;
+        if (ANY_HIT && h.prim >= 0) {  // the ray ends: leave both loops
+          code = 0;
+          break;
+        }
+        code = sp > 0 ? stack[--sp] : 0;
+      }
     }
-    if (overflow) break;
-    if (ANY_HIT && h.prim >= 0) break;
+  } else {
+    // the phased body: each trip pops the stack's top two entries (c1 = 0
+    // where the stack held one), both tested against t as the trip began
+    int c0 = code, c1 = 0;
+    while (c0 != 0) {
+      // pairs of node rows, in one basic block: their loads fly together
+      while (c0 > 0 && c1 > 0) {
+        pops += 2;
+        int ch0[A], ch1[A];
+        bool hit0[A], hit1[A];
+        expand_node<A, true, !ANY_HIT, false>(
+            a.nodes + (long long)(c0 - 1) * (7 * A), r, h.t, ch0, hit0);
+        expand_node<A, true, !ANY_HIT, false>(
+            a.nodes + (long long)(c1 - 1) * (7 * A), r, h.t, ch1, hit1);
+        // the second entry's children go in first, so the first entry's
+        // first child in push order ends on top
+        if (!push<A, STACK, true>(stack, sp, ch1, hit1) ||
+            !push<A, STACK, true>(stack, sp, ch0, hit0)) {
+          overflow = true;
+          c0 = 0;
+          break;
+        }
+        c0 = sp > 0 ? stack[--sp] : 0;
+        c1 = sp > 0 ? stack[--sp] : 0;
+      }
+      // pairs with a Tri row, and the last entry alone
+      while (c0 != 0 && (c0 < 0 || c1 <= 0)) {
+        pops += 1 + (c1 != 0 ? 1 : 0);
+        leaf_pops += (c0 < 0 ? 1 : 0) + (c1 < 0 ? 1 : 0);
+        // both entries start from the same hit and t
+        const float t_test = h.t;
+        Hit h0 = h, h1 = h;
+        int ch0[A], ch1[A];
+        bool hit0[A], hit1[A];
+        pair_entry<A, M, ANY_HIT>(a, c0, r, t_test, h0, ch0, hit0);
+        pair_entry<A, M, ANY_HIT>(a, c1, r, t_test, h1, ch1, hit1);
+        h = h1.t < h0.t ? h1 : h0;  // first-wins on a tie
+        if (!push<A, STACK, true>(stack, sp, ch1, hit1) ||
+            !push<A, STACK, true>(stack, sp, ch0, hit0)) {
+          overflow = true;
+          c0 = 0;
+          break;
+        }
+        if (ANY_HIT && h.prim >= 0) {
+          c0 = 0;
+          break;
+        }
+        c0 = sp > 0 ? stack[--sp] : 0;
+        c1 = sp > 0 ? stack[--sp] : 0;
+      }
+    }
   }
   a.t[i] = h.t;
   a.u[i] = h.u;
@@ -840,6 +927,7 @@ int by_option(const Args& a, int option, int arity, int m, int cap,
     case kChain2: return option_shape<kChain2, AH>(a, arity, m, cap, s);
     case kChain4: return option_shape<kChain4, AH>(a, arity, m, cap, s);
     case kRowLoads: return option_shape<kRowLoads, AH>(a, arity, m, cap, s);
+    case kBase: return option_shape<kBase, AH>(a, arity, m, cap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -932,7 +1020,7 @@ extern "C" int rt_bvh_traverse_count(
 
 #else
 
-// K4: K3's arguments plus the option (kNoNodeTest ... kRowLoads)
+// K4: K3's arguments plus the option (kNoNodeTest ... kBase)
 extern "C" int rt_bvh_traverse_option(
     const float* nodes, const float* tris, const float* const* rays,
     long long n, int arity, int packet, int any_hit, int stack_cap,

@@ -8,10 +8,11 @@ six times the card's L2) with 1M sorted primaries:
   largest counts, and the node-row and Tri-row bytes a ray's pops read
   (a node row is 28A bytes, a Tri24 row 1,344);
 - K1 against K2 (the next-pop L2 prefetch) in turns (K1, K2, K2, K1);
-- K3 against each K4 option in turns (K3, option, option, K3): the
-  row-load and leaf-chain variants matter most here, where Tri rows miss
-  L2. nonodetest is not run by default: without slab tests a ray pops
-  all of the tree's 250,000 entries.
+- K3 and K4's base (K4 with no option) against each K4 option in turns
+  (K3, base, the options, and back: common.option_turns): the row-load
+  and leaf-chain variants matter most here, where Tri rows miss L2.
+  nonodetest is not run by default: without slab tests a ray pops all
+  of the tree's 250,000 entries.
 
 Each row prints its time, Mrays/s, pops per ray and its bound, the least
 time the card could take for the same pops and the table rows they read
@@ -92,12 +93,13 @@ def main(argv=None):
     row("K1", k1_ms, k3, counters=False)
     row("K2", k2_ms, k3, counters=False)
     res = common.option_turns(dev, comps, device, options, blocks=args.blocks)
-    if options:
-        row("K3", res["K3"]["ms"], k3)
-    for o in options:
+    row("K3", res["K3"]["ms"], k3)
+    for o in ["base"] + [o for o in options if o != "base"]:
         row(o, res[o]["ms"], common.pop_stats(res[o]["out"]), option=o)
         print(f"{'':>10}  in turns with K3: {res[o]['k3_ms']:.4f} ms, "
-              f"{o} {res[o]['ms'] / res[o]['k3_ms']:.3f}x", flush=True)
+              f"{o} {res[o]['ms'] / res[o]['k3_ms']:.3f}x; with the base: "
+              f"{res[o]['base_ms']:.4f} ms, "
+              f"{res[o]['ms'] / res[o]['base_ms']:.3f}x", flush=True)
     return 0
 
 

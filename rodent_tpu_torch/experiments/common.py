@@ -17,6 +17,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -24,6 +25,7 @@ import torch
 
 from ..accel import build_bvh
 from ..core.math import FLT_MAX
+from ..kernels import build
 from ..kernels.build import find_nvcc, load_library
 from ..traversal import api, packet, pair
 from ..traversal.sorting import sort_rays
@@ -353,13 +355,73 @@ def rounds(fns, device, blocks=5, warmup_s=0.0, graphs=False):
     return ms, res
 
 
-def in_turns(first, second, device, blocks=5, warmup_s=0.0):
+def in_turns(first, second, device, blocks=5, warmup_s=0.0, graphs=False):
     """Two calls timed in turns (first, second, second, first), the first
-    turn after warmup_s seconds of warm-up. Returns (first's ms, second's
-    ms, first's result, second's result), each time the mean of its two
-    turns."""
-    (a, b), (ra, rb) = rounds([first, second], device, blocks, warmup_s)
+    turn after warmup_s seconds of warm-up (as rounds(), graphs too).
+    Returns (first's ms, second's ms, first's result, second's result),
+    each time the mean of its two turns."""
+    (a, b), (ra, rb) = rounds([first, second], device, blocks, warmup_s,
+                              graphs)
     return a, b, ra, rb
+
+
+# Another checkout's libraries build here, a directory per checkout's name
+# (a build directory builds one library of a kind at a time)
+AGAINST_BUILD = build.BUILD_DIR.parent / "measure_ct"
+
+
+def other_library(root, kind):
+    """The library `kind` ("ct" for K7, measure_ct --against; "options"
+    for K4, ablate_packet --against) of the checkout at root, built under
+    AGAINST_BUILD with this tree's nvcc flags, and loaded."""
+    csrc = Path(root) / "rodent_tpu_torch" / "csrc"
+    src = csrc / build.LIBRARIES[kind][0]
+    if not src.exists():
+        raise FileNotFoundError(f"{src}: no {'K7' if kind == 'ct' else 'K4'} "
+                                "source")
+    return build.load_library(AGAINST_BUILD / Path(root).resolve().name,
+                              kind, csrc=csrc)
+
+
+def against_libraries(kind, roots):
+    """This tree's library `kind` and each root's (other_library), built
+    side by side in one thread pool. Returns {root: its library}."""
+    with ThreadPoolExecutor(len(roots) + 1) as pool:
+        mine = pool.submit(build.build, None, kind)
+        libs = dict(zip(roots, pool.map(
+            lambda r: other_library(r, kind), roots)))
+        mine.result()
+    return libs
+
+
+def same_outputs(out, ref, what):
+    """Raises unless every output of `out` equals ref's bit for bit."""
+    for key in out:
+        if not torch.equal(out[key], ref[key]):
+            raise RuntimeError(f"{what} {key} differs from this body's")
+
+
+def against(this, others, device, blocks=5, warmup_s=0.0, graphs=False,
+            what="this body"):
+    """Each other checkout's call (others: {root: its call}) in turns with
+    this tree's on the same inputs (other, this, this, other; in_turns,
+    warmup_s before the first pair). Raises unless every output of each
+    equals this one's bit for bit. Returns {root: {"ms" (this), "other_ms",
+    "ratio" (this over the other)}}."""
+    res = {}
+    for j, (root, other) in enumerate(others.items()):
+        other_ms, ms, other_out, out = in_turns(
+            other, this, device, blocks, warmup_s if j == 0 else 0.0, graphs)
+        same_outputs(out, other_out, f"{what}: {root}'s")
+        res[root] = {"ms": ms, "other_ms": other_ms, "ratio": ms / other_ms}
+    return res
+
+
+def scene_line(scene, idx, dev, secs):
+    """The line a measuring program prints for a loaded scene (load())."""
+    return (f"{scene}: {len(idx) // 4} tris, {dev['nodes'].shape[0]} BVH8 "
+            f"nodes, {dev['tris'].shape[0]} Tri{dev['tris'].shape[1] // 14} "
+            f"rows (built in {secs:.1f} s)")
 
 
 def pop_stats(out):
@@ -483,24 +545,32 @@ def tile_bound_ms(dev, out, size, n_rays, rows, any_hit=False, pure=None,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def option_turns(dev, comps, device, options, any_hit=False, blocks=5):
-    """Each K4 option against K3 in turns (K3, option, option, K3) on the
-    same rays, counters on for both, after WARMUP_S seconds of K3 calls.
-    Returns {option: {"ms", "k3_ms", "out"}} and, under "K3", K3's mean
-    time over all turns and its result."""
-    def run(option=None):
-        return lambda: counted(dev, comps, any_hit, option)
-
-    res, k3 = {}, []
-    for i, name in enumerate(options):
-        k3_ms, ms, k3_out, out = in_turns(run(), run(name), device, blocks,
-                                          WARMUP_S if i == 0 else 0.0)
-        res[name] = {"ms": ms, "k3_ms": k3_ms, "out": out}
-        res["K3"] = {"out": k3_out}
-        k3.append(k3_ms)
-    if options:
-        res["K3"]["ms"] = float(np.mean(k3))
+def option_turns(dev, comps, device, options, any_hit=False, blocks=5,
+                 graphs=False):
+    """K3, K4's base and each K4 option of `options` in turns on the same
+    rays (rounds: K3, base, option 1, ..., option n, then back), counters
+    on for all, after WARMUP_S seconds of K3 calls; with graphs, each turn
+    as CUDA-graph replays (rounds), for launches about as short as the
+    wrapper's host time per call. Returns {option: {"ms", "k3_ms",
+    "base_ms", "out"}} ("base" among them) and, under "K3", K3's time and
+    its result."""
+    names = ["base"] + [o for o in options if o != "base"]
+    fns = [lambda: counted(dev, comps, any_hit)] + [
+        lambda o=o: counted(dev, comps, any_hit, o) for o in names]
+    ms, outs = rounds(fns, device, blocks, WARMUP_S, graphs)
+    res = {"K3": {"ms": ms[0], "out": outs[0]}}
+    for i, name in enumerate(names, 1):
+        res[name] = {"ms": ms[i], "k3_ms": ms[0], "base_ms": ms[1],
+                     "out": outs[i]}
     return res
+
+
+def options_for(any_hit, nonodetest=True):
+    """K4's options (packet.OPTIONS, the base among them) of a closest-hit
+    or an any-hit launch (nosort is closest-hit only), without nonodetest
+    where it is not asked for (its rays pop the whole tree)."""
+    return [o for o in packet.OPTIONS if not (any_hit and o == "nosort")
+            and (nonodetest or o != "nonodetest")]
 
 
 def head(comps, k):
@@ -510,12 +580,12 @@ def head(comps, k):
 
 
 def plain_args(option):
-    """The plain version's arguments for K4's `option` (row_loads changes
-    nothing the plain version computes)."""
+    """The plain version's arguments for K4's `option` (base and row_loads
+    change nothing the plain version computes)."""
     if option is None:
         return {}
     return {k: v for k, v in packet.OPTION_ARGS[option].items()
-            if k != "row_loads"}
+            if k not in ("row_loads", "base")}
 
 
 def rows_read(dev, comps, any_hit=False, option=None, ct=None):

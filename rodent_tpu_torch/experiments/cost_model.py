@@ -44,9 +44,8 @@ def measure(scene, tris, side, device, blocks):
         else common.TRI8
     verts, idx, dev, secs = common.load(scene, build, device, tris)
     n = side * side
-    print(f"{scene}: {len(idx) // 4} tris, {dev['nodes'].shape[0]} BVH8 "
-          f"nodes, {dev['tris'].shape[0]} Tri8 rows (built in {secs:.1f} s)"
-          f"; {n} rays per distribution", flush=True)
+    print(f"{common.scene_line(scene, idx, dev, secs)}; {n} rays per "
+          "distribution", flush=True)
     rows = []
     for name, (comps, any_hit) in common.distributions(
             scene, verts, idx, dev, side, device).items():

@@ -30,9 +30,14 @@ primaries and bounces interleaved ray by ray (the Tri8 build, ct-fold;
 any-hit "ct"), and powerplant-4.3M's three (the Tri24 build). The plain
 version runs on the card, or on the CPU with --cpu at a small size.
 
+--legacy counts the legacy order's pops instead, K1's and K3's (and K4's
+base's, csrc/bvh_traverse.cu): K7 with the Batcher network and without
+the fused slab (any-hit: without the fused slab) pops what K1 pops in
+K1's order (csrc/bvh_ct.cu), so its record is K3's pop sequence.
+
 Usage: python -m rodent_tpu_torch.experiments.ct_warp_model
     [--scenes hall,powerplant] [--instr 8=NODE,LEAF --instr 24=NODE,LEAF]
-    [--cpu --tris 20000 --side 64]
+    [--legacy] [--cpu --tris 20000 --side 64]
 """
 from __future__ import annotations
 
@@ -45,6 +50,9 @@ from ..traversal import api
 from . import common, measure_ct
 
 RULES = ("if-if", "while-while", "busiest")
+# K7's bodies whose pops are K1's, in K1's order: closest-hit, any-hit
+LEGACY = ({"select": "sort", "fma_slab": False},
+          {"select": "fold", "fma_slab": False})
 # scene -> (build, distributions)
 SCENES = {"hall": (common.TRI8, ("primary", "bounces", "ao", "interleaved")),
           "powerplant": (common.TRI24, ("primary", "bounces", "ao"))}
@@ -147,27 +155,28 @@ def report(what, c, instr=None):
     return lines
 
 
-def run(device, scenes=tuple(SCENES), instr=None, tris=None, side=1024):
+def run(device, scenes=tuple(SCENES), instr=None, tris=None, side=1024,
+        legacy=False):
     """The counts of each scene's distributions, printed: {(scene, kind):
-    warp_counts' result}. instr: {M: (node, leaf) warp instructions}."""
+    warp_counts' result}. instr: {M: (node, leaf) warp instructions};
+    legacy: the legacy order's pops (LEGACY) instead of ct-fold's."""
     print(f"card: {common.card(device)}", flush=True)
     out = {}
     for scene in scenes:
         build, kinds_of = SCENES[scene]
         verts, idx, dev, secs = common.load(scene, build, device, tris)
-        m = dev["tris"].shape[1] // 14
-        print(f"{scene}: {len(idx) // 4} tris, {dev['nodes'].shape[0]} BVH8 "
-              f"nodes, {dev['tris'].shape[0]} Tri{m} rows (built in "
-              f"{secs:.1f} s)", flush=True)
+        print(common.scene_line(scene, idx, dev, secs), flush=True)
         dists = common.distributions(scene, verts, idx, dev, side, device,
                                      kinds_of)
         for kind, (comps, any_hit) in dists.items():
             name, body = next(iter((measure_ct.ANY_HIT_VARIANTS if any_hit
                                     else measure_ct.VARIANTS).items()))
+            if legacy:
+                name, body = "legacy order (K3)", LEGACY[any_hit]
             c = warp_counts(kinds(dev, comps, any_hit, body))
             out[(scene, kind)] = c
             for line in report(f"{scene} {kind} {name}", c,
-                               (instr or {}).get(m)):
+                               (instr or {}).get(dev["tris"].shape[1] // 14)):
                 print(line, flush=True)
     return out
 
@@ -197,6 +206,8 @@ def main(argv=None):
                    help="the scenes' size (default: their full size)")
     p.add_argument("--side", type=int, default=1024,
                    help="side x side rays")
+    p.add_argument("--legacy", action="store_true",
+                   help="the legacy order's pops (K1, K3, K4's base)")
     p.add_argument("--cpu", action="store_true",
                    help="the plain version on the CPU, at a small size")
     args = p.parse_args(argv)
@@ -209,7 +220,7 @@ def main(argv=None):
     except ValueError as e:
         p.error(str(e))
     device = common.device_of(args, "ct_warp_model")
-    run(device, scenes, instr, args.tris, args.side)
+    run(device, scenes, instr, args.tris, args.side, args.legacy)
     return 0
 
 

@@ -50,12 +50,9 @@ from __future__ import annotations
 
 import argparse
 import sys
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import torch
 
-from ..kernels import build
 from ..traversal import packet
 from . import common
 
@@ -79,14 +76,13 @@ PF_DISTS = ("primary", "bounces", "ao")
 # --against: (scene, build, distributions) of K7's turns
 AGAINST = (("hall", common.TRI8, ("primary", "bounces", "ao", "interleaved")),
            ("powerplant", common.TRI24, ("primary",)))
-OTHER_BUILD = build.BUILD_DIR.parent / "measure_ct"
 
 
 def call(dev, comps, body, any_hit=False, count_pops=False, lib=None):
     """One launch of BODIES' `body` ({"select", "fma_slab"}, with
     "prefetch" for K7-PF, or None) on the ray components, without
-    synchronising; lib: another checkout's "ct" library (other_library)
-    to launch K7 from."""
+    synchronising; lib: another checkout's "ct" library
+    (common.other_library) to launch K7 from."""
     if lib is not None:
         return packet._launch_ct(
             dev, [*comps[2], *comps[0], *comps[1], comps[4], comps[5]],
@@ -95,17 +91,6 @@ def call(dev, comps, body, any_hit=False, count_pops=False, lib=None):
     kw = {} if body is None else dict(carry_top=True, **body)
     return packet.traverse_packet_components(dev, *comps, any_hit=any_hit,
                                              count_pops=count_pops, **kw)
-
-
-def other_library(root):
-    """The "ct" library of the checkout at root, built (under OTHER_BUILD,
-    a directory per checkout's name, since a build directory builds one
-    library of a kind at a time) and loaded."""
-    csrc = Path(root) / "rodent_tpu_torch" / "csrc"
-    if not (csrc / "bvh_ct.cu").exists():
-        raise FileNotFoundError(f"{csrc / 'bvh_ct.cu'}: no K7 source")
-    return build.load_library(OTHER_BUILD / Path(root).resolve().name, "ct",
-                              csrc=csrc)
 
 
 def differences(out, ref, any_hit, what):
@@ -223,27 +208,19 @@ def measure_against(dev, comps, device, libs, bodies=VARIANTS,
         bound = common.bound_ms(dev, n, s["node"], s["leaf"], read, any_hit,
                                 select=body["select"])
         res[name] = {"stats": s, "bound": bound}
-        for j, (root, lib) in enumerate(libs.items()):
-            def other(run=run, lib=lib):
-                return call(dev, comps, run, any_hit, lib=lib)
-
-            def this(run=run):
-                return call(dev, comps, run, any_hit)
-            other_ms, ms, other_out, out = common.in_turns(
-                other, this, device, blocks,
-                warmup_s if i == j == 0 else 0.0)
-            pairs = [(out, other_out)]
+        others = {root: (lambda run=run, lib=lib:
+                         call(dev, comps, run, any_hit, lib=lib))
+                  for root, lib in libs.items()}
+        turns = common.against(lambda run=run: call(dev, comps, run, any_hit),
+                               others, device, blocks,
+                               warmup_s if i == 0 else 0.0, what=name)
+        for root, lib in libs.items():
             if not prefetch:
-                pairs.append((counted, call(dev, comps, body, any_hit, True,
-                                            lib)))
-            for a, b in pairs:
-                for key in a:
-                    if not torch.equal(a[key], b[key]):
-                        raise RuntimeError(f"{name}: {root}'s {key} differs "
-                                           "from this body's")
-            res[name][root] = {"ms": ms, "other_ms": other_ms,
-                               "ratio": ms / other_ms,
-                               "share": bound[0] / ms}
+                common.same_outputs(
+                    counted, call(dev, comps, body, any_hit, True, lib),
+                    f"{name}: {root}'s")
+            res[name][root] = dict(turns[root],
+                                   share=bound[0] / turns[root]["ms"])
     return res
 
 
@@ -263,18 +240,13 @@ def run_against(device, roots, prefetch=False, blocks=5, tris=None,
     prefetch, printed; returns {(scene, kind): measure_against's
     result}."""
     print(f"card: {common.card(device)}", flush=True)
-    with ThreadPoolExecutor(len(roots) + 1) as pool:
-        mine = pool.submit(build.build, None, "ct")
-        libs = dict(zip(roots, pool.map(other_library, roots)))
-        mine.result()
+    libs = common.against_libraries("ct", roots)
     plan = ((("powerplant", common.TRI24, PF_DISTS),) if prefetch
             else AGAINST)
     out, first = {}, True
     for scene, cfg, kinds in plan:
         verts, idx, dev, secs = common.load(scene, cfg, device, tris)
-        print(f"{scene}: {len(idx) // 4} tris, {dev['nodes'].shape[0]} BVH8 "
-              f"nodes, {dev['tris'].shape[0]} Tri{cfg['packet']} rows "
-              f"(built in {secs:.1f} s)", flush=True)
+        print(common.scene_line(scene, idx, dev, secs), flush=True)
         dists = common.distributions(scene, verts, idx, dev, side, device,
                                      kinds)
         for kind, (comps, any_hit) in dists.items():
@@ -337,9 +309,7 @@ def run_pf(device, blocks=5, tris=None, side=1024):
     print(f"card: {common.card(device)}", flush=True)
     verts, idx, dev, secs = common.load("powerplant", common.TRI24, device,
                                         tris)
-    print(f"powerplant: {len(idx) // 4} tris, {dev['nodes'].shape[0]} BVH8 "
-          f"nodes, {dev['tris'].shape[0]} Tri24 rows (built in {secs:.1f} "
-          f"s)", flush=True)
+    print(common.scene_line("powerplant", idx, dev, secs), flush=True)
     dists = common.distributions("powerplant", verts, idx, dev, side, device,
                                  PF_DISTS)
     out = {}

@@ -5,14 +5,16 @@ and a part that grows with the tile's rows.
 
 For each instantiation the renderers and the measuring tools launch (K1,
 bvh_traverse_kernel, at arity 8 with Tri8 and Tri24 rows, closest-hit and
-any-hit; K2 on Tri24 rows and K3 on Tri8, closest-hit; K7, bvh_ct_kernel,
-the carry-top body, closest-hit Tri8 with the fold and the fused slab and
-with the sort and the unfused slab, any-hit Tri8 and closest-hit Tri24
-with the fold and the fused slab; K5, bvh_tile_warp_kernel, at tile_rows
-1 and 16; K6, bvh_pair_warp_kernel, at 2,048 rays) this tool prints:
+any-hit; K2 on Tri24 rows and K3 on Tri8, closest-hit; K4,
+bvh_traverse_option_kernel, its base and row_loads, closest-hit Tri8; K7,
+bvh_ct_kernel, the carry-top body, closest-hit Tri8 with the fold and the
+fused slab and with the sort and the unfused slab, any-hit Tri8 and
+closest-hit Tri24 with the fold and the fused slab; K5,
+bvh_tile_warp_kernel, at tile_rows 1 and 16; K6, bvh_pair_warp_kernel, at
+2,048 rays) this tool prints:
 
 - the opcode histogram of the traversal loop, split as asm_audit splits it:
-  for K1-K3 and K7 the pop (the loop's head), the node path and the leaf
+  for K1-K4 and K7 the pop (the loop's head), the node path and the leaf
   path;
   for K5 and K6 the per-ray part (the loop over a thread's R rays, which
   grows with the tile's rows) against the fixed part of a pop, from the
@@ -34,19 +36,21 @@ with the fold and the fused slab; K5, bvh_tile_warp_kernel, at tile_rows
   largest node and leaf pop counts) and every warp of a block runs every
   pop of its tile (K5, K6).
 
-How: the "main", "ct" and "tile" libraries are read with cuobjdump -sass and
+How: the "main", "options", "ct" and "tile" libraries are read with
+cuobjdump -sass and
 -res-usage. A copy of each is built with -lineinfo (which adds line
 tables and leaves the code alone: the audit checks that both copies hold
 the same instructions, opcode for opcode) and disassembled with nvdisasm
 -gi, whose source lines, inlined call sites included, place each
 instruction in the kernel's source: the block of `if (code > 0)` is the
 node path, its else block the leaf path, the rest of the loop the pop;
-in K7's while-while form the inner loops `while (code > 0)` and `while
-(code < 0)` are the node and the leaf path, the rest of the outer loop
-the pop. For K7 the issue estimate also counts each path's runs under
-the warp model (experiments/ct_warp_model.py: the if-if loop, the
-while-while loop and the busiest ray), from the plain version's record of
-each ray's pop kinds, and the audit lists each region's loops.
+in the while-while form of K7 and K4 the inner loops `while (code > 0)`
+and `while (code < 0)` are the node and the leaf path, the rest of the
+outer loop the pop. For K7 and K4 the issue estimate also counts each
+path's runs under the warp model (experiments/ct_warp_model.py: the if-if
+loop, the while-while loop and the busiest ray), from the plain version's
+record of each ray's pop kinds (K4's: the legacy order's,
+ct_warp_model.LEGACY), and the audit lists each region's loops.
 
 Usage: python -m rodent_tpu_torch.experiments.sass_audit [--blocks 3]
     [--cpu [--tris 20000 --side 64]]
@@ -69,7 +73,8 @@ from ..traversal import api, packet
 from . import ab_tile_body, common, ct_warp_model, measure_ct
 
 LINEINFO = ("-lineinfo",)
-AUDITED = ("main", "ct", "tile")  # the libraries of the audited kernels
+# the libraries of the audited kernels
+AUDITED = ("main", "options", "ct", "tile")
 AUDIT_DIR = build.BUILD_DIR.parent / "sass_audit"
 # Tri24 on hall: the big-scene row width on the scene whose pops the Tri8
 # rows are measured on
@@ -80,8 +85,9 @@ FOLD_FMA = {"select": "fold", "fma_slab": True}
 # any_hit, variant, K7's {"select", "fma_slab"} or (kernel, size)). K1-K3:
 # <ANY_HIT, A, M, STACK, VAR> (VAR 0 K1, 1 K2, 2 K3; STACK the hall
 # build's stack_cap, None here); K7: <ANY_HIT, A, M, STACK, SORT, FMA,
-# COUNT, PF> (PF 0: K7 without the prefetch); K5: <M, ANY_HIT, FRUSTUM, R>;
-# K6: <ANY_HIT, R>
+# COUNT, PF> (PF 0: K7 without the prefetch); K4: <ANY_HIT, M, STACK,
+# OPT> (OPT the option's index in packet.OPTIONS; measured as "K4 " and
+# the option); K5: <M, ANY_HIT, FRUSTUM, R>; K6: <ANY_HIT, R>
 INSTANCES = (
     ("K1 closest Tri8", "main", "bvh_traverse_kernel", (0, 8, 8, None, 0),
      ("tri8", False, "K1")),
@@ -95,6 +101,11 @@ INSTANCES = (
      ("tri24", False, "K2")),
     ("K3 closest Tri8", "main", "bvh_traverse_kernel", (0, 8, 8, None, 2),
      ("tri8", False, "K3")),
+    ("K4 base closest Tri8", "options", "bvh_traverse_option_kernel",
+     (0, 8, None, packet.OPTIONS.index("base")), ("tri8", False, "K4 base")),
+    ("K4 row_loads closest Tri8", "options", "bvh_traverse_option_kernel",
+     (0, 8, None, packet.OPTIONS.index("row_loads")),
+     ("tri8", False, "K4 row_loads")),
     ("K7 closest Tri8 fold fma", "ct", "bvh_ct_kernel",
      (0, 8, 8, None, 0, 1, 0, 0), ("tri8", False, FOLD_FMA)),
     ("K7 closest Tri8 sort nofma", "ct", "bvh_ct_kernel",
@@ -114,6 +125,7 @@ INSTANCES = (
 # the R = 1 instantiation each tile kernel's per-ray fit takes beside R = 4
 FIT_R1 = {"bvh_tile_warp_kernel": (8, 0, 0, 1), "bvh_pair_warp_kernel": (0, 1)}
 SOURCES = {"bvh_traverse_kernel": "bvh_traverse.cu",
+           "bvh_traverse_option_kernel": "bvh_traverse.cu",
            "bvh_ct_kernel": "bvh_ct.cu",
            "bvh_tile_warp_kernel": "bvh_tile.cu",
            "bvh_pair_warp_kernel": "bvh_tile.cu"}
@@ -437,7 +449,8 @@ def static_audit(stack):
             src = build.CSRC / SOURCES[kernel]
             m = targs[2] if kernel in ("bvh_traverse_kernel",
                                        "bvh_ct_kernel") else (
-                targs[0] if kernel == "bvh_tile_warp_kernel" else 8)
+                targs[0] if kernel == "bvh_tile_warp_kernel" else
+                targs[1] if kernel == "bvh_traverse_option_kernel" else 8)
             out[label] = {"name": name, "kernel": kernel, "targs": targs,
                           "audit": audit_function(lined[name],
                                                   src.read_text(),
@@ -473,7 +486,7 @@ def measure(device, blocks=3, tris=None, side=1024):
                                      ("primary", "ao"))
         scenes[bld] = (dev, dists)
         stack[bld] = packet.stack_cap(dev)
-    res, first = {}, True
+    res, first, kinds = {}, True, {}
     for label, _, _, _, (bld, any_hit, what) in INSTANCES:
         dev, dists = scenes[bld]
         comps = dists["ao" if any_hit else "primary"][0]
@@ -498,9 +511,14 @@ def measure(device, blocks=3, tris=None, side=1024):
                 "node_mixed": float(node[~pure].sum()),
                 "warps": min(tile, 512) // 32}
             continue
+        option = (what[3:] if isinstance(what, str)
+                  and what.startswith("K4 ") else None)
         if isinstance(what, dict):
             def run(dev=dev, comps=comps, body=what):
                 return measure_ct.call(dev, comps, body, any_hit)
+        elif option:
+            def run(dev=dev, comps=comps, option=option):
+                return common.counted(dev, comps, any_hit, option)
         else:
             kw = {"prefetch": what == "K2", "count_pops": what == "K3"}
 
@@ -513,14 +531,19 @@ def measure(device, blocks=3, tris=None, side=1024):
         st = common.pop_stats(
             measure_ct.call(dev, comps, what, any_hit, True)
             if isinstance(what, dict) else
-            common.counted(dev, comps, any_hit))
+            common.counted(dev, comps, any_hit, option))
         res[label] = {"ms": ms, "pops": st["pops"], "node": st["node"],
                       "leaf": st["leaf"], "warp_node": st["warp_node"],
                       "warp_leaf": st["warp_leaf"],
                       "warps": -(-n // common.WARP)}
-        if isinstance(what, dict):
-            res[label]["model"] = ct_warp_model.warp_counts(
-                ct_warp_model.kinds(dev, comps, any_hit, what))
+        if isinstance(what, dict) or option:
+            # every K4 instance on these rays pops the same sequence
+            body = ct_warp_model.LEGACY[any_hit] if option else what
+            key = (bld, any_hit, tuple(sorted(body.items())))
+            if key not in kinds:
+                kinds[key] = ct_warp_model.warp_counts(
+                    ct_warp_model.kinds(dev, comps, any_hit, body))
+            res[label]["model"] = kinds[key]
     clock = common.sm_clock_mhz() if device.type == "cuda" else None
     return res, clock, stack
 
@@ -542,7 +565,7 @@ def estimate(static, meas, mhz, sms):
            "ns_pop": meas["ms"] * 1e6 / meas["pops"],
            "share": iss / meas["ms"], "per_pop": pp}
     if "model" in meas:
-        # K7: the warp model's path runs under each loop form
+        # K7, K4: the warp model's path runs under each loop form
         out["rules"] = {}
         for rule, v in ct_warp_model.instructions(
                 meas["model"], pp["node"], pp["leaf"]).items():

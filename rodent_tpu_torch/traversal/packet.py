@@ -14,7 +14,9 @@ rodent_tpu/traversal/pallas_packet.py.
                             compiled in: ablate=("nonodetest",),
                             ("noleaftest",) or ("nosort",), pops=2,
                             leaf_chain=2 or 4, or row_loads=True (the
-                            counterpart of scalar_reads)
+                            counterpart of scalar_reads); or with none,
+                            base=True, the body each option is timed
+                            against
   K5 bvh_traverse_tile      _kernel's own contract (csrc/bvh_tile.cu): a
                             tile of tile_rows * 128 rays walks the BVH
                             from ONE shared stack: tile_rows=1-32, with
@@ -38,10 +40,10 @@ Contract (pallas_packet.py:1394-1459): rays in as flat (B,) components,
 {t, u, v, prim_id, geom_id} out; a ray with tmax < tmin is dead; on a miss
 t = tmax and prim_id = geom_id = -1. K2 returns K1's hits bit for bit; K3
 adds "pops" and "leaf_pops", (B,) int32 per ray. K4 follows the option's
-semantics (api.traverse_components), row_loads changes no bit of K3's
-output, and count_pops=True adds K4's counters, where a pops=2 ray whose
-stack would have overflowed reads -1 (without the counters, that call
-raises). K5 follows api.traverse_tile_components; count_pops=True adds its
+semantics (api.traverse_components), base and row_loads change no bit
+of K3's output, and count_pops=True adds K4's counters, where a pops=2
+ray whose stack would have overflowed reads -1 (without the counters,
+that call raises). K5 follows api.traverse_tile_components; count_pops=True adds its
 "pops" and "leaf_pops" per tile, (nt,) int32.
 
 The device of the tensors decides the route and nothing else: CUDA
@@ -88,15 +90,16 @@ STACK_CAPS = (64, 128)   # the kernels' compile-time per-thread stack sizes
 WIDE_ARITY = 8
 WIDE_PACKETS = (4, 8, 12, 16, 24)
 # K4's options, in the order of csrc/bvh_traverse.cu (kNoNodeTest ...
-# kRowLoads), with the traverse_packet arguments that ask for each, and the
-# Tri rows it is built for
+# kBase), with the traverse_packet arguments that ask for each, and the
+# Tri rows it is built for; "base" is K4 with no option
 OPTION_ARGS = {"nonodetest": {"ablate": ("nonodetest",)},
                "noleaftest": {"ablate": ("noleaftest",)},
                "nosort": {"ablate": ("nosort",)},
                "pops2": {"pops": 2},
                "chain2": {"leaf_chain": 2},
                "chain4": {"leaf_chain": 4},
-               "row_loads": {"row_loads": True}}
+               "row_loads": {"row_loads": True},
+               "base": {"base": True}}
 OPTIONS = tuple(OPTION_ARGS)
 OPTION_PACKETS = (8, 24)
 POPS2_STACK_CAPS = (128, 256)
@@ -154,9 +157,11 @@ def stack_cap(dev, pops=1):
                      f"most {caps[-1]}")
 
 
-def option_name(ablate=(), pops=1, leaf_chain=1, row_loads=False):
+def option_name(ablate=(), pops=1, leaf_chain=1, row_loads=False,
+                base=False):
     """The K4 option these arguments ask for (an entry of OPTIONS), or None
-    for none; the arguments must already pass api.check_options."""
+    for none (K1-K3); base=True asks for K4 with no option, "base". The
+    arguments must already pass api.check_options."""
     picked = list(ablate)
     if pops == 2:
         picked.append("pops2")
@@ -164,6 +169,8 @@ def option_name(ablate=(), pops=1, leaf_chain=1, row_loads=False):
         picked.append(f"chain{leaf_chain}")
     if row_loads:
         picked.append("row_loads")
+    if base:
+        picked.append("base")
     if len(picked) > 1:
         raise ValueError(f"traverse_packet: options {picked} at once; the "
                          "kernels take one at a time")
@@ -189,10 +196,13 @@ def check_inputs(kernel, comps, nodes, tris):
     return n
 
 
-def _launch(dev, comps, any_hit, kernel, option=None):
+def _launch(dev, comps, any_hit, kernel, option=None, lib=None):
     """One of K1-K4 on CUDA tensors. comps: the 11 (n,) ray components in
     the C entry's order (inv_dir xyz, org xyz, dir xyz, tmin, tmax);
-    option: K4's entry of OPTIONS."""
+    option: K4's entry of OPTIONS. lib: another build of the kernel's
+    library to launch instead of this package's
+    (experiments.ablate_packet --against times another checkout's K4);
+    its launches are not counted."""
     nodes, tris = dev["nodes"], dev["tris"]
     arity = nodes.shape[1] // 7
     m = tris.shape[1] // 14
@@ -230,7 +240,9 @@ def _launch(dev, comps, any_hit, kernel, option=None):
         extra.append(OPTIONS.index(option))
     if n == 0:
         return out
-    lib = load_library(kind="options" if option else "main")
+    own = lib is None
+    if own:
+        lib = load_library(kind="options" if option else "main")
     fn = getattr(lib, _ENTRY[kernel])
     ptrs = (ctypes.c_void_p * 11)(*(x.data_ptr() for x in comps))
     err = call_on_card(
@@ -240,7 +252,8 @@ def _launch(dev, comps, any_hit, kernel, option=None):
         *extra)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
-    launches[kernel] += 1
+    if own:
+        launches[kernel] += 1
     return out
 
 
@@ -391,11 +404,12 @@ def traverse_packet_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
                                count_pops=False, ablate=(), pops=1,
                                leaf_chain=1, row_loads=False, frustum=False,
                                tile_rows=None, carry_top=False,
-                               select="fold", fma_slab=True):
+                               select="fold", fma_slab=True, base=False):
     """Component-level traversal: Vec3 tuples of (B,) tensors in, hit dict
     of (B,) tensors out. prefetch=True takes K2, count_pops=True takes K3
     (and adds "pops"/"leaf_pops"); one of ablate, pops=2, leaf_chain=2/4
-    or row_loads takes K4 (its counters with count_pops=True). prefetch
+    or row_loads takes K4 (its counters with count_pops=True), and
+    base=True K4 with no option, whose plain version is K3's. prefetch
     excludes the others. tile_rows= takes the tile route, K5, with
     frustum=True or ablate=("nopure",) at most, and per-tile counters with
     count_pops=True. carry_top=True takes K7 with its select and fma_slab,
@@ -406,11 +420,11 @@ def traverse_packet_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
     the clamped inverse."""
     del inv_o
     if carry_top:
-        if row_loads:
+        if row_loads or base:
             raise ValueError("traverse_packet: carry_top=True with "
-                             "row_loads: the carry-top body has no row "
-                             "loads (K4's option of the legacy body); ask "
-                             "for one")
+                             f"{'row_loads' if row_loads else 'base'}: K4 "
+                             "runs the legacy body, not the carry-top one; "
+                             "ask for one")
         if prefetch and count_pops:
             raise ValueError("traverse_packet: carry_top=True with prefetch "
                              "and count_pops: the JAX wrapper drops the "
@@ -423,15 +437,15 @@ def traverse_packet_components(dev, org, dirv, inv_d, inv_o, tmin, tmax,
                             count_pops, select, fma_slab, prefetch)
     check_options(any_hit, select=select)
     if tile_rows is not None:
-        if prefetch or row_loads:
+        if prefetch or row_loads or base:
             raise ValueError("traverse_packet: the tile route (tile_rows=) "
-                             "has no prefetch and no row_loads")
+                             "has no prefetch, no row_loads and no base")
         ablate = check_options(any_hit, ablate, pops, leaf_chain, frustum,
                                tile_rows)
         return _traverse_tile(dev, org, dirv, inv_d, tmin, tmax, any_hit,
                               count_pops, ablate, tile_rows, frustum)
     ablate = check_options(any_hit, ablate, pops, leaf_chain, frustum)
-    option = option_name(ablate, pops, leaf_chain, row_loads)
+    option = option_name(ablate, pops, leaf_chain, row_loads, base)
     if prefetch and (count_pops or option):
         raise ValueError("traverse_packet: prefetch and count_pops or an "
                          "option are different kernels; ask for one")
@@ -464,7 +478,7 @@ def traverse_packet(dev, rays, any_hit=False, prefetch=False,
                     count_pops=False, **options):
     """traverse_packet_components over a make_rays dict ((B, 3) org/dir);
     options: ablate, pops, leaf_chain, row_loads, frustum, tile_rows,
-    carry_top, select, fma_slab."""
+    carry_top, select, fma_slab, base."""
     return traverse_packet_components(dev, *components(rays),
                                       any_hit=any_hit, prefetch=prefetch,
                                       count_pops=count_pops, **options)

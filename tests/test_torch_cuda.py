@@ -420,12 +420,12 @@ def test_persistent_films_through_k1_and_k2(card):
 
 @pytest.mark.parametrize("width", [8, 24])
 def test_option_kernels_match_plain(card, width):
-    """K4, every option, against its plain version on the same card: per
-    ray, pops, leaf pops, prim_id and geom_id equal, t/u/v within atol
-    1e-5 / rtol 1e-6 (as K1's test), closest-hit and any-hit, on BVH8
-    soups whose leaves span up to several Tri rows; noleaftest leaves every
-    ray missing; row_loads returns K3's outputs bit for bit; one launch per
-    call."""
+    """K4, every option and the base, against its plain version on the
+    same card: per ray, pops, leaf pops, prim_id and geom_id equal, t/u/v
+    within atol 1e-5 / rtol 1e-6 (as K1's test), closest-hit and any-hit,
+    on BVH8 soups whose leaves span up to several Tri rows; noleaftest
+    leaves every ray missing; the base and row_loads return K3's outputs
+    bit for bit; one launch per call."""
     verts, idx = _soup(3000, seed=70 + width)
     dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, packet=width,
                                       leaf_threshold=32, leaf_cost=0.2),
@@ -441,9 +441,8 @@ def test_option_kernels_match_plain(card, width):
             k = packet.traverse_packet(dev, rays, any_hit=any_hit,
                                        count_pops=True, **kw)
             assert packet.launches["bvh_traverse_option"] == 1
-            plain = {a: b for a, b in kw.items() if a != "row_loads"}
             p = api.traverse(dev, rays, any_hit=any_hit, count_pops=True,
-                             **plain)
+                             **common.plain_args(name))
             for key in ("prim_id", "geom_id", "pops", "leaf_pops"):
                 assert torch.equal(k[key], p[key]), (name, key)
             for key in ("t", "u", "v"):
@@ -452,13 +451,39 @@ def test_option_kernels_match_plain(card, width):
                                            rtol=1e-6, err_msg=name)
             if name == "noleaftest":
                 assert bool((k["prim_id"] < 0).all())
-            if name == "row_loads":
+            if name in ("base", "row_loads"):
                 for key in k3:
-                    assert torch.equal(k[key], k3[key]), key
+                    assert torch.equal(k[key], k3[key]), (name, key)
             uncounted = packet.traverse_packet(dev, rays, any_hit=any_hit,
                                                **kw)
             assert set(uncounted) == {"t", "u", "v", "prim_id", "geom_id"}
             assert torch.equal(uncounted["prim_id"], k["prim_id"])
+
+
+@pytest.mark.parametrize("width", [8, 24])
+def test_option_base_is_k3(card, width):
+    """K4's base (K4 with no option, on K4's while-while loop) returns
+    every output of K3 bit for bit, hits and both counters, on a hall
+    build's sorted primaries and ao rays, closest-hit and any-hit; K4's
+    launch is counted as K4's, and K3's as K3's."""
+    verts, idx = testscenes.make_hall(20_000)
+    cfg = common.TRI8 if width == 8 else {"packet": 24,
+                                          "leaf_threshold": 12}
+    dev = api.bvh_to_device(build_bvh(verts, idx, arity=8, **cfg), card)
+    dists = common.distributions("hall", verts, idx, dev, 128, card,
+                                 ("primary", "ao"))
+    for kind, (comps, any_hit) in dists.items():
+        packet.reset_launches()
+        k3 = packet.traverse_packet_components(dev, *comps, any_hit=any_hit,
+                                               count_pops=True)
+        base = packet.traverse_packet_components(
+            dev, *comps, any_hit=any_hit, count_pops=True, base=True)
+        assert packet.launches["bvh_traverse_count"] == 1
+        assert packet.launches["bvh_traverse_option"] == 1
+        assert set(base) == set(k3)
+        for key in k3:
+            assert torch.equal(base[key], k3[key]), (kind, key)
+        assert int(k3["pops"].sum()) > 0
 
 
 def test_option_refusals(card):

@@ -365,7 +365,7 @@ def test_measure_ct_against_refusals(tmp_path, capsys):
     with pytest.raises(SystemExit):
         measure_ct.main(["--against"])
     with pytest.raises(FileNotFoundError, match="no K7 source"):
-        measure_ct.other_library(tmp_path / "absent")
+        common.other_library(tmp_path / "absent", "ct")
     here = build.library_path(tmp_path, "ct")
     assert build.library_path(tmp_path, "ct", csrc=other) == here
     with open(other / "bvh_ct.cu", "a") as f:
@@ -373,6 +373,134 @@ def test_measure_ct_against_refusals(tmp_path, capsys):
     assert build.library_path(tmp_path, "ct", csrc=other) != here
     assert [scene for scene, _, _ in measure_ct.AGAINST] == ["hall",
                                                               "powerplant"]
+
+
+def test_ablate_packet_against_refusals(tmp_path, capsys):
+    """ablate_packet --against takes one or more checkout roots and refuses
+    the CPU (it times two builds of a CUDA kernel), as measure_ct does;
+    other_library(root, "options") refuses a root without
+    rodent_tpu_torch/csrc/bvh_traverse.cu, naming K4; the other tree's
+    options library name hashes its own source."""
+    from rodent_tpu_torch.experiments import ablate_packet
+    from rodent_tpu_torch.traversal import packet
+    other = tmp_path / "parent" / "rodent_tpu_torch" / "csrc"
+    other.mkdir(parents=True)
+    for name in ("bvh_traverse.cu", *build.HEADERS):
+        (other / name).write_bytes((build.CSRC / name).read_bytes())
+    root = str(tmp_path / "parent")
+    with pytest.raises(SystemExit):
+        ablate_packet.main(["--cpu", "--against", root])
+    assert "needs the card" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        ablate_packet.main(["--cpu", "--against", root,
+                            str(tmp_path / "x")])
+    assert "needs the card" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        ablate_packet.main(["--against"])
+    with pytest.raises(FileNotFoundError, match="no K4 source"):
+        common.other_library(tmp_path / "absent", "options")
+    here = build.library_path(tmp_path, "options")
+    assert build.library_path(tmp_path, "options", csrc=other) == here
+    with open(other / "bvh_traverse.cu", "a") as f:
+        f.write("// the parent's body\n")
+    assert build.library_path(tmp_path, "options", csrc=other) != here
+    assert [scene for scene, _ in ablate_packet.AGAINST] == ["hall",
+                                                             "powerplant"]
+    assert common.options_for(True) == [
+        o for o in packet.OPTIONS if o != "nosort"]
+    assert common.options_for(False, nonodetest=False) == [
+        o for o in packet.OPTIONS if o != "nonodetest"]
+    assert "base" in common.options_for(True)
+
+
+def test_against_times_in_turns_and_raises_on_a_difference():
+    """common.against times each other call in turns with this one
+    (other, this, this, other: four calls each) and returns this over the
+    other; an output that differs in one bit raises, naming the root and
+    the output, and so does same_outputs; scene_line names the Tri width
+    from the table."""
+    calls = []
+    x = torch.arange(8, dtype=torch.float32)
+
+    def run(name, t):
+        def fn():
+            calls.append(name)
+            return {"t": t.clone(), "prim_id": t.to(torch.int32)}
+        return fn
+    cpu = torch.device("cpu")
+    res = common.against(run("this", x), {"a": run("a", x),
+                                          "b": run("b", x)}, cpu, blocks=1)
+    assert calls == ["a", "this", "this", "a", "b", "this", "this", "b"]
+    for root in ("a", "b"):
+        assert res[root]["ratio"] == pytest.approx(
+            res[root]["ms"] / res[root]["other_ms"])
+    y = x.clone()
+    y[3] = torch.nextafter(y[3], torch.tensor(9.0))
+    with pytest.raises(RuntimeError, match="K4: old's t differs"):
+        common.against(run("this", x), {"old": run("old", y)}, cpu,
+                       blocks=1, what="K4")
+    with pytest.raises(RuntimeError, match="prim_id differs"):
+        common.same_outputs({"prim_id": x.to(torch.int32)},
+                            {"prim_id": (x + 1).to(torch.int32)}, "K7")
+    dev = {"nodes": torch.zeros(3, 56), "tris": torch.zeros(5, 14 * 24)}
+    assert common.scene_line("powerplant", [0] * 40, dev, 1.25) == (
+        "powerplant: 10 tris, 3 BVH8 nodes, 5 Tri24 rows (built in 1.2 s)")
+
+
+def test_ct_warp_model_legacy_order(capsys):
+    """ct_warp_model --legacy counts the legacy order's pops (K7 with the
+    sort and without the fused slab; any-hit without it): on each of
+    hall's distributions they are the plain version's K3 counters on the
+    same rays, node and leaf pops."""
+    from rodent_tpu_torch.experiments import ct_warp_model
+    from rodent_tpu_torch.traversal import api
+    cpu = torch.device("cpu")
+    res = ct_warp_model.run(cpu, ("hall",), tris=10_000, side=32,
+                            legacy=True)
+    out = capsys.readouterr().out
+    assert re.search(r"^hall ao legacy order \(K3\): 1024 rays, 32 warps",
+                     out, re.M), out
+    verts, idx, dev, _ = common.load("hall", common.TRI8, cpu, 10_000)
+    dists = common.distributions("hall", verts, idx, dev, 32, cpu,
+                                 ct_warp_model.SCENES["hall"][1])
+    for kind, (comps, any_hit) in dists.items():
+        k3 = api.traverse_components(dev, comps[0], comps[1], comps[2],
+                                     comps[4], comps[5], any_hit=any_hit,
+                                     count_pops=True)
+        c = res[("hall", kind)]
+        assert c["leaf_pops"] == int(k3["leaf_pops"].sum()), kind
+        assert c["node_pops"] + c["leaf_pops"] == int(k3["pops"].sum())
+
+
+def test_sass_audit_reads_k4s_while_while_loop():
+    """K4 (bvh_traverse_option_kernel, in bvh_traverse.cu's options build)
+    runs the while-while form: its regions are its first loop's node and
+    leaf loops, ahead of kPops2's pair loops; a listing reads as K7's; its
+    lanes are read four a trip; its mangled names carry the option's
+    index (packet.OPTIONS)."""
+    from rodent_tpu_torch.traversal import packet
+    src = (build.CSRC / "bvh_traverse.cu").read_text()
+    kernel = "bvh_traverse_option_kernel"
+    reg = sass_audit.kernel_regions(src, kernel)
+    lines = src.splitlines()
+    assert lines[reg["loop"][0] - 1].strip() == "while (code != 0) {"
+    assert lines[reg["node"][0] - 1].strip() == "while (code > 0) {"
+    assert lines[reg["leaf"][0] - 1].strip() == "while (code < 0) {"
+    assert (reg["body"][0] < reg["loop"][0] < reg["node"][1]
+            < reg["leaf"][0] < reg["leaf"][1] < reg["loop"][1]
+            < reg["body"][1])
+    assert "c0" not in "\n".join(lines[reg["loop"][0]:reg["loop"][1]])
+    assert sass_audit.lane_unroll(src, kernel) == 4
+    fn = common.parse_sass(_ct_listing(reg, "/x/bvh_traverse.cu"))["_Zk7"]
+    a = sass_audit.audit_function(fn, src, "bvh_traverse.cu", kernel, 8)
+    assert a["count"] == {"pop": 2, "node": 4, "leaf": 5}
+    assert sass_audit.per_pop(a) == {"node": 6, "leaf": 10}
+    assert sass_audit.demangle(
+        "_ZN12_GLOBAL__N_126bvh_traverse_option_kernelILb0ELi8ELi64ELi7EEEvN"
+        "S_4ArgsE") == (kernel, (0, 8, 64, packet.OPTIONS.index("base")))
+    labels = [i[0] for i in sass_audit.INSTANCES
+              if i[2] == kernel]
+    assert labels == ["K4 base closest Tri8", "K4 row_loads closest Tri8"]
 
 
 def _ct_listing(reg, fname):

@@ -9,7 +9,9 @@ that ray's own stack and its per-tile counters (rows 0 and 1 of the tile's
 test_pop_counters_match_the_legacy_body). The soup is built BVH8/Tri8 with
 leaves of up to five Tri rows, so leaf chains of 2 and 4 run and a chain
 of 4 pushes its continuation. Per ray, pops, leaf pops and prim_id are held
-equal, exactly. Any-hit rays are short (tmax 2), so some miss.
+equal, exactly. Any-hit rays are short (tmax 2), so some miss. K4's base
+(traverse_packet's base=True, K4 with no option) is held against _kernel
+with no option.
 """
 import numpy as np
 import pytest
@@ -99,6 +101,31 @@ def test_option_matches_the_legacy_body(soup, option, any_hit):
         assert got["leaf_pops"].sum() < base["leaf_pops"].sum()
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_base_matches_the_legacy_body(soup, any_hit):
+    """K4's base through the wrapper on CPU tensors (the plain version with
+    no option) against _kernel with count_pops=True and no option: per
+    ray, pops, leaf pops and prim_id equal."""
+    jdev, tdev, org, d = soup
+    tmax = _tmax(any_hit)
+    n = RAYS * 128
+    jr = japi.make_rays(jnp.asarray(np.repeat(org, 128, 0)),
+                        jnp.asarray(np.repeat(d, 128, 0)),
+                        jnp.zeros(n, jnp.float32), jnp.full(n, tmax))
+    packed, nt = pack_rays(jr, 1, 1)
+    outs = _call_kernel(jdev, packed, nt, 1, any_hit, True, count_pops=True,
+                        multi=1)
+    cnt = np.asarray(outs[5]).reshape(nt, 8, 128)
+    got = {k: v.numpy() for k, v in tpacket.traverse_packet(
+        tdev, tapi.make_rays(org, d, 0.0, tmax), any_hit=any_hit,
+        count_pops=True, **tpacket.OPTION_ARGS["base"]).items()}
+    np.testing.assert_array_equal(got["pops"], cnt[:, 0, 0])
+    np.testing.assert_array_equal(got["leaf_pops"], cnt[:, 1, 0])
+    np.testing.assert_array_equal(
+        got["prim_id"], np.asarray(outs[3]).reshape(nt, 128)[:, 0])
+    assert 0 < (got["prim_id"] >= 0).mean() < 1
+
+
 @pytest.mark.parametrize("option", [None, "chain4", "pops2", "nonodetest"])
 def test_rows_read_are_the_rays_rows(soup, option):
     """count_rows marks the node and Tri rows the pops read: the batch's
@@ -167,10 +194,44 @@ def test_cpu_options_launch_nothing(soup):
                 continue
             got = tpacket.traverse_packet(tdev, rays, any_hit=any_hit,
                                           count_pops=True, **kw)
-            plain = {k: v for k, v in kw.items() if k != "row_loads"}
+            plain = {k: v for k, v in kw.items()
+                     if k not in ("row_loads", "base")}
             want = (tapi.traverse(tdev, rays, any_hit=any_hit,
                                   count_pops=True, **plain)
                     if plain else base)
             for key in want:
                 assert torch.equal(got[key], want[key]), (name, key)
     assert set(tpacket.launches.values()) == {0}
+
+
+def test_cpu_base_routes_to_the_plain_traversal(soup):
+    """base=True on CPU tensors is the plain traversal with no option (K3's
+    plain version): the same hits, and its counters with count_pops=True,
+    without a launch; option_name() of no arguments stays None (K1-K3's
+    route); the base takes no other option, no carry-top body and no tile
+    route."""
+    _, tdev, org, d = soup
+    assert tpacket.option_name() is None
+    assert tpacket.option_name(base=True) == "base"
+    assert tpacket.OPTIONS[-1] == "base"
+    tpacket.reset_launches()
+    for any_hit in (False, True):
+        rays = tapi.make_rays(org, d, 0.0, _tmax(any_hit))
+        for count in (False, True):
+            got = tpacket.traverse_packet(tdev, rays, any_hit=any_hit,
+                                          count_pops=count, base=True)
+            want = tapi.traverse(tdev, rays, any_hit=any_hit,
+                                 count_pops=count)
+            assert set(got) == set(want)
+            for key in want:
+                assert torch.equal(got[key], want[key]), (any_hit, key)
+    assert set(tpacket.launches.values()) == {0}
+    rays = tapi.make_rays(org, d, 0.0, 1e30)
+    with pytest.raises(ValueError, match="one at a time"):
+        tpacket.traverse_packet(tdev, rays, base=True, pops=2)
+    with pytest.raises(ValueError, match="carry_top=True with base"):
+        tpacket.traverse_packet(tdev, rays, base=True, carry_top=True)
+    with pytest.raises(ValueError, match="no base"):
+        tpacket.traverse_packet(tdev, rays, base=True, tile_rows=1)
+    with pytest.raises(ValueError, match="prefetch"):
+        tpacket.traverse_packet(tdev, rays, base=True, prefetch=True)
