@@ -67,7 +67,9 @@ calls real, and checks it:
    copy (the TPU's one program) and at the copies that fill the card; every
    copy's output held bit for bit against the plain version; a table of
    their times beside the card's SM clock, and the vpu kernels' op counts
-   read from their SASS;
+   read from their SASS; probe_body's kernels without spills, and one
+   BAR.SYNC in each step loop; the network that its outputs do not read
+   held against the plain one;
 14. K1/K2/K3's two bodies, built together into the "group" library
    (-DRT_GROUP; rodent_tpu_torch.experiments.ab_body), which no renderer
    runs: the group stack and the first body held bit for bit against the
@@ -1337,6 +1339,7 @@ def phase_probes(device):
     Returns the kernels-line entries."""
     import importlib
     from rodent_tpu_torch.experiments import common, vpu_dtype_bench
+    from rodent_tpu_torch.kernels import build
     mods = {n: importlib.import_module(f"rodent_tpu_torch.experiments.{n}")
             for n in PROBE_SITES}
     clock0 = sm_clock()
@@ -1358,12 +1361,34 @@ def phase_probes(device):
     log(f"[13] the probes' main path: {sum(len(r) for r in res.values())} "
         f"bodies in {t_main:.1f} s, launches {launched} (SM clock, power "
         f"before: {clock0}; after: {clock1})")
-    sass = vpu_dtype_bench.sass_counts()
+    funcs = common.read_sass(build.library_path(kind="probes"))
+    sass = vpu_dtype_bench.sass_counts(funcs=funcs)
     for dtype, (per_word, ops) in sass.items():
         log(f"[13] vpu {dtype}: {per_word:g} SASS instructions per 32-bit "
             f"word and iteration {dict(ops)}")
     check(sass["float32"][0] == 4, f"vpu float32: {sass['float32']} "
           "instructions per iteration, not the probe's 4")
+    body = mods["probe_body"]
+    body_res = body.resources(funcs=funcs)
+    check(set(body_res) == set(body.CASES), f"probe_body: kernels "
+          f"{sorted(map(body.name, body_res))}, not the nine sets")
+    for feats, r in body_res.items():
+        check(r["spills"] == (0, 0) and r["barriers"] == 1,
+              f"probe_body {body.name(feats)}: {r}, not without spills "
+              "and one BAR.SYNC in the step loop")
+    log("[13] probe_body: " + ", ".join(
+        f"{body.name(f)} {r['regs']}" for f, r in body_res.items())
+        + " registers, no spills, one BAR.SYNC in each step loop")
+    # the network on keys with ties, against the serial one bit for bit
+    gen = torch.Generator().manual_seed(0)
+    keys = torch.randint(0, 4, (4096, 8), generator=gen).float()
+    kids = torch.argsort(torch.rand(4096, 8, generator=gen), 1).int()
+    got = body.sort8(keys.to(device), kids.to(device))
+    want = body.plain_sort8(keys, kids)
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "probe_body's network differs from the serial network")
+    log("[13] probe_body's network == the serial network on 4,096 sets of "
+        "8 keys with ties, keys and codes")
     entries = []
     for n, m in mods.items():
         ok = m.check(res[n])
@@ -1405,6 +1430,9 @@ def phase_probes(device):
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "variants": variants})
+        if n == "probe_body":
+            # the redesigned body's headline: its copies at the full card
+            entries[-1]["copies"] = res[n][head]["copies"]
         if n == "probe_gather":
             entries.append(gather_library(m, device, take_launched))
     return entries

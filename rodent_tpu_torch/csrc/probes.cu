@@ -556,89 +556,175 @@ __global__ void __launch_bounds__(1024) chain_vec_kernel(
 //   datacond (4): the loop also ends on a value of the body (idx < 1024);
 //   sort (8): the 19-exchange Batcher network on 8 keys with their codes
 //     (lanes 8-15 and 16-23 of the row; K1's sort_children);
-//   push8 (16): 8 predicated pushes of lanes 32-39 onto an 8-entry stack in
-//     per-thread local memory (K1's stack).
-// One block of 1024 threads per copy; each (64, 128) operand is spread 8
-// values a thread, so the five buffers (40 registers) stay in registers.
-// Every thread runs the scalar features itself, as K1's threads do. The
-// JAX body's dead values (kids[0] & 0, sp & 0, the buffers and stack, which
-// the output does not read) are kept alive the card's way: the masks take
-// a runtime zero, and the thread whose index is that zero writes its
-// first value of every buffer and a stack word to `aux`.
+//   push8 (16): 8 predicated pushes of lanes 32-39 onto an 8-entry stack
+//     (the JAX body's SMEM scratch).
+// One block of kBodyThreads = 256 threads per copy; each (64, 128) operand
+// is spread 32 values a thread, column t & 127, so the buffers stay in
+// registers. (1,024 and 512 threads a copy were slower at the full card
+// for all nine sets: PERF.md, section 6.)
+//
+// What bounds a step is its one dependent chain: the row's load, the
+// vector stage, the block's minimum, the next row's index. The design
+// keeps that chain short, in the warp schedule's way (bvh_tile.cu):
+// - one barrier a step. Each warp folds its minimum in 5 shuffles and
+//   writes it to its slot of `part`, double-buffered by the step's parity,
+//   so a slot is rewritten only after every warp has passed the next
+//   step's barrier; after the barrier every warp reads the partials, one
+//   a lane, and folds them in log2(warps) shuffles. A float
+//   minimum is exact in any order (the table holds no NaN; a signed zero
+//   only meets m > 1e30), so every order gives the plain version's bits.
+// - the scalar features once per copy, as the JAX body runs them once per
+//   program on its scalar unit: warp 0 alone runs them, after its share of
+//   the vector stage, on the row lanes its own load brought (lanes 8-23,
+//   shuffled out) and a second load (lanes 32-39); the network as its 6
+//   layers of disjoint exchanges across lanes 0-7, the pushes by every lane
+//   of the warp alike onto a stack in shared memory. Warp 0 also writes
+//   the next index but the minimum's part (the row's lane 0, which its
+//   lane 0 loaded, plus kid[0] & zero and sp & zero) to `word`, with sp
+//   (the JAX body's smem[8]), double-buffered as `part`: no other thread
+//   loads lane 0 or holds it across the step.
+// The JAX body's dead values (kids[0] & 0, sp & 0, the buffers and stack,
+// which the output does not read) are kept alive the card's way: the masks
+// take a runtime zero, and the thread whose index is that zero writes its
+// value 0 of every buffer (the others' bits, and'ed with zero, or'ed in)
+// and the stack's word 0 to `aux`.
 enum { kCarry5 = 1, kCond = 2, kDataCond = 4, kSort = 8, kPush8 = 16 };
-__device__ constexpr int kSortPairs[19][2] = {
-    {0, 1}, {2, 3}, {4, 5}, {6, 7}, {0, 2}, {1, 3}, {4, 6}, {5, 7},
-    {1, 2}, {5, 6}, {0, 4}, {1, 5}, {2, 6}, {3, 7}, {2, 4}, {3, 5},
-    {1, 2}, {3, 4}, {5, 6}};
+// The network of experiments/probe_body.py (_SORT_NETWORKS[8]), its 19
+// exchanges in order as 6 layers of disjoint pairs ((0, 1) (2, 3) (4, 5)
+// (6, 7); (0, 2) (1, 3) (4, 6) (5, 7); (1, 2) (5, 6); (0, 4) (1, 5) (2, 6)
+// (3, 7); (2, 4) (3, 5); (1, 2) (3, 4) (5, 6)): nibble l of layer s is
+// position l's partner in it, l itself where the layer leaves it alone.
+__device__ constexpr unsigned kSortLayers[6] = {
+    0x67452301u, 0x54761032u, 0x75643120u, 0x32107654u, 0x76325410u,
+    0x75634120u};
+constexpr int kBodyThreads = 256;
+
+// The network on a warp that holds position l of the 8 on lanes l, l + 8,
+// ...: each lane's key and code become position l's after the 6 layers.
+__device__ __forceinline__ void sort8(float& key, int& kid, int l) {
+#pragma unroll
+  for (int s = 0; s < 6; ++s) {
+    const int p = (kSortLayers[s] >> (4 * l)) & 7;
+    const float pk = __shfl_sync(~0u, key, p);
+    const int pid = __shfl_sync(~0u, kid, p);
+    // pair (a, b) swaps where key[a] > key[b]
+    const bool sw = l < p ? key > pk : pk > key;
+    key = sw ? pk : key;
+    kid = sw ? pid : kid;
+  }
+}
 
 template <int kF>
-__global__ void __launch_bounds__(1024) body_kernel(
+__global__ void __launch_bounds__(kBodyThreads) body_kernel(
     const float* __restrict__ tab, int* __restrict__ out,
     float* __restrict__ aux, int zero) {
-  __shared__ float red[32];
+  constexpr int kW = kBodyThreads / 32, kV = 64 * 128 / kBodyThreads;
   constexpr int kNC = (kF & kCarry5) ? 5 : 1;
-  const int t = threadIdx.x, j = t & 127;
-  float buf[kNC][8];
+  __shared__ float part[2][kW];        // each warp's minimum
+  __shared__ int word[2][2];           // the next index but m's part; sp
+  __shared__ int stack[8];
+  const int t = threadIdx.x, j = t & 127, lane = t & 31, w = t >> 5;
+  float buf[kNC][kV];
   for (int c = 0; c < kNC; ++c)
-    for (int k = 0; k < 8; ++k) buf[c][k] = (float)c;
-  volatile int stack[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  int sp_word = 0;                     // smem[8] of the JAX body
+    for (int k = 0; k < kV; ++k) buf[c][k] = (float)c;
+  if (w == 0) {                        // every lane alike
+    if (lane < 8) stack[lane] = 0;
+    word[1][1] = 0;
+    __syncwarp();
+  }
   int i = 0, idx = 0;
   while (i < kChainN && (!(kF & kDataCond) || idx < kChainNN)) {
+    const int b = i & 1;               // every step takes the barrier
     const float* row = tab + idx * 128;
-    int nxt;
-    if (!(kF & kCond) || idx >= 0) {
-      const float rj = __ldg(row + j);
-      float v[8];
+    const bool vec = !(kF & kCond) || idx >= 0;
+    const float rj = __ldg(row + j);
+    int val = 0;
+    if ((kF & kPush8) && w == 0)
+      val = __float_as_int(__ldg(row + 32 + (lane & 7)));
+    if (vec) {
       float m = kInfv;
-      for (int k = 0; k < 8; ++k) {
-        v[k] = rj * 1.000001f;
-        v[k] = fminf(v[k] * 1.5f, v[k] + buf[0][k]);
-        m = fminf(m, v[k]);
-      }
-      m = block_min(m, red);
-      nxt = __float_as_int(__ldg(row)) + (m > 1e30f ? 1 : 0);
-      for (int c = 0; c < kNC; ++c)
-        for (int k = 0; k < 8; ++k) buf[c][k] = v[k] < 0.5f ? v[k] : buf[c][k];
-    } else {
-      nxt = idx + 1;
-    }
-    if (kF & kSort) {
-      float key[8];
-      int kid[8];
-      for (int k = 0; k < 8; ++k) {
-        key[k] = __ldg(row + 8 + k);
-        kid[k] = __float_as_int(__ldg(row + 16 + k));
-      }
 #pragma unroll
-      for (int p = 0; p < 19; ++p) {
-        const int a = kSortPairs[p][0], b = kSortPairs[p][1];
-        const bool sw = key[a] > key[b];
-        const float ka = sw ? key[b] : key[a], kb = sw ? key[a] : key[b];
-        const int ia = sw ? kid[b] : kid[a], ib = sw ? kid[a] : kid[b];
-        key[a] = ka; key[b] = kb; kid[a] = ia; kid[b] = ib;
+      for (int k = 0; k < kV; ++k) {
+        float v = rj * 1.000001f;
+        v = fminf(v * 1.5f, v + buf[0][k]);
+        m = fminf(m, v);
+        for (int c = 0; c < kNC; ++c) buf[c][k] = v < 0.5f ? v : buf[c][k];
       }
-      nxt = nxt + (kid[0] & zero);
+      m = warp_min(m);
+      if (lane == 0) part[b][w] = m;
     }
-    if (kF & kPush8) {
-      int sp = sp_word;
-      for (int k = 0; k < 8; ++k) {
-        const int val = __float_as_int(__ldg(row + 32 + k));
-        const bool ok = val != 0;
-        stack[ok ? min(sp, 7) : 7] = val;
-        sp = sp + (ok ? 1 : 0);
+    if (w == 0) {
+      // lane 0's rj is the row's lane 0
+      int base = vec ? __float_as_int(rj) : idx + 1;
+      if (kF & kSort) {
+        // position l on lanes l, l + 8, ...; l is taken anew each step
+        // (i & zero is 0): nvcc would hold its six partners across the
+        // loop, six registers of every thread
+        const int l = (lane ^ (i & zero)) & 7;
+        float key = __shfl_sync(~0u, rj, 8 + l);
+        int kid = __float_as_int(__shfl_sync(~0u, rj, 16 + l));
+        sort8(key, kid, l);
+        base = base + (__shfl_sync(~0u, kid, 0) & zero);
       }
-      sp_word = sp - 8;
-      nxt = nxt + (sp & zero);
+      if (kF & kPush8) {
+        int sp = word[b ^ 1][1];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const int v = __shfl_sync(~0u, val, k);
+          const bool ok = v != 0;
+          stack[ok ? min(sp, 7) : 7] = v;
+          sp = sp + (ok ? 1 : 0);
+        }
+        word[b][1] = sp - 8;
+        base = base + (sp & zero);
+      }
+      if (lane == 0) word[b][0] = base;
+    }
+    __syncthreads();
+    int nxt = word[b][0];
+    if (vec) {
+      float m = part[b][lane & (kW - 1)];
+#pragma unroll
+      for (int o = kW / 2; o; o >>= 1)
+        m = fminf(m, __shfl_xor_sync(~0u, m, o));
+      nxt = nxt + (m > 1e30f ? 1 : 0);
     }
     idx = nxt;
     i += 1;
   }
   if (t == 0) out[blockIdx.x] = idx + i;
+  __syncthreads();                     // warp 0's stack, for thread zero
   if (t == zero) {
-    for (int c = 0; c < 5; ++c) aux[blockIdx.x * 6 + c] = c < kNC ? buf[c][0] : 0.f;
+    // value 0 with the bits of the others and'ed with zero or'ed in, so
+    // that nvcc keeps every value of every buffer (taking buf[c][0] alone,
+    // it drops the others of buffers 1-4, which nothing else reads)
+    for (int c = 0; c < 5; ++c) {
+      int a = 0;
+      if (c < kNC) {
+        a = __float_as_int(buf[c][0]);
+        for (int k = 1; k < kV; ++k) a |= __float_as_int(buf[c][k]) & zero;
+      }
+      aux[blockIdx.x * 6 + c] = __int_as_float(a);
+    }
     aux[blockIdx.x * 6 + 5] = (kF & kPush8) ? __int_as_float(stack[zero & 7])
                                             : 0.f;
+  }
+}
+
+// body_kernel folds the network's codes into the next index and'ed with
+// zero, so none of its outputs reads them: this kernel is the network's
+// check. One warp a set of 8 keys and codes, sorted by sort8 as warp 0 of
+// body_kernel sorts a row's.
+__global__ void __launch_bounds__(32) sort8_kernel(
+    const float* __restrict__ keys, const int* __restrict__ kids,
+    float* __restrict__ out_keys, int* __restrict__ out_kids) {
+  const int l = threadIdx.x & 7, at = blockIdx.x * 8 + l;
+  float key = keys[at];
+  int kid = kids[at];
+  sort8(key, kid, l);
+  if (threadIdx.x < 8) {
+    out_keys[at] = key;
+    out_kids[at] = kid;
   }
 }
 
@@ -880,15 +966,17 @@ Launch chain_launch(int mode, int streams) {
 // the nine feature sets of experiments/probe_body.py:126-136
 Launch body_launch(int feats) {
   switch (feats) {
-    case 0: return launch_of(body_kernel<0>, 1024);
-    case kCarry5: return launch_of(body_kernel<kCarry5>, 1024);
-    case kCond: return launch_of(body_kernel<kCond>, 1024);
-    case kDataCond: return launch_of(body_kernel<kDataCond>, 1024);
-    case kSort: return launch_of(body_kernel<kSort>, 1024);
-    case kPush8: return launch_of(body_kernel<kPush8>, 1024);
-    case kCond | kCarry5: return launch_of(body_kernel<kCond | kCarry5>, 1024);
-    case kSort | kPush8: return launch_of(body_kernel<kSort | kPush8>, 1024);
-    case 31: return launch_of(body_kernel<31>, 1024);
+    case 0: return launch_of(body_kernel<0>, kBodyThreads);
+    case kCarry5: return launch_of(body_kernel<kCarry5>, kBodyThreads);
+    case kCond: return launch_of(body_kernel<kCond>, kBodyThreads);
+    case kDataCond: return launch_of(body_kernel<kDataCond>, kBodyThreads);
+    case kSort: return launch_of(body_kernel<kSort>, kBodyThreads);
+    case kPush8: return launch_of(body_kernel<kPush8>, kBodyThreads);
+    case kCond | kCarry5:
+      return launch_of(body_kernel<kCond | kCarry5>, kBodyThreads);
+    case kSort | kPush8:
+      return launch_of(body_kernel<kSort | kPush8>, kBodyThreads);
+    case 31: return launch_of(body_kernel<31>, kBodyThreads);
   }
   return Launch();
 }
@@ -1032,6 +1120,15 @@ extern "C" int rt_probe_body(int feats, const float* tab, int* out,
                              void* stream) {
   void* args[] = {&tab, &out, &aux, &zero};
   return launch(body_launch(feats), copies, args, stream);
+}
+
+// body_kernel's network alone: keys (sets, 8) f32 and kids (sets, 8) int32
+// in, each set sorted into out_keys and out_kids.
+extern "C" int rt_probe_sort8(const float* keys, const int* kids,
+                              float* out_keys, int* out_kids, int sets,
+                              void* stream) {
+  void* args[] = {&keys, &kids, &out_keys, &out_kids};
+  return launch(launch_of(sort8_kernel, 32), sets, args, stream);
 }
 
 // probe_dyn_cost: tab (4096, 128) f32, out (copies, 8, 128) f32.

@@ -370,15 +370,19 @@ def in_turns(first, second, device, blocks=5, warmup_s=0.0, graphs=False):
 AGAINST_BUILD = build.BUILD_DIR.parent / "measure_ct"
 
 
+# library -> what other_library's refusal names
+AGAINST_KERNELS = {"ct": "K7", "options": "K4", "probes": "probes"}
+
+
 def other_library(root, kind):
     """The library `kind` ("ct" for K7, measure_ct --against; "options"
-    for K4, ablate_packet --against) of the checkout at root, built under
-    AGAINST_BUILD with this tree's nvcc flags, and loaded."""
+    for K4, ablate_packet --against; "probes" for probe_body --against)
+    of the checkout at root, built under AGAINST_BUILD with this tree's
+    nvcc flags, and loaded."""
     csrc = Path(root) / "rodent_tpu_torch" / "csrc"
     src = csrc / build.LIBRARIES[kind][0]
     if not src.exists():
-        raise FileNotFoundError(f"{src}: no {'K7' if kind == 'ct' else 'K4'} "
-                                "source")
+        raise FileNotFoundError(f"{src}: no {AGAINST_KERNELS[kind]} source")
     return build.load_library(AGAINST_BUILD / Path(root).resolve().name,
                               kind, csrc=csrc)
 
@@ -656,22 +660,24 @@ PROBE_IDS = {"gather": 0, "mosaic3": 1, "chain": 2, "body": 3,
              "dyn_cost": 4, "vpu": 5}
 
 
-def probe_call(entry, *args):
-    """Calls the C entry `entry` of the probes library on the current
-    stream (pointers as ints: tensor.data_ptr()); raises where the launch
-    was refused."""
-    fn = getattr(load_library(kind="probes"), entry)
+def probe_call(entry, *args, lib=None):
+    """Calls the C entry `entry` of the probes library (lib: another
+    checkout's, other_library; else this tree's) on the current stream
+    (pointers as ints: tensor.data_ptr()); raises where the launch was
+    refused."""
+    fn = getattr(lib or load_library(kind="probes"), entry)
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")
 
 
-def full_copies(probe, body, arg=0, arg2=0, per_block=1.0):
+def full_copies(probe, body, arg=0, arg2=0, per_block=1.0, lib=None):
     """(copies, copies per SM) of a probe's launch that fills every SM at
     its kernel's occupancy: SMs x resident blocks per SM x copies per block
-    (per_block < 1 where a copy spans several blocks)."""
+    (per_block < 1 where a copy spans several blocks); lib: another
+    checkout's probes library (other_library), else this tree's."""
     n = ctypes.c_int(0)
-    rc = load_library(kind="probes").rt_probe_occupancy(
+    rc = (lib or load_library(kind="probes")).rt_probe_occupancy(
         PROBE_IDS[probe], body, arg, arg2, ctypes.byref(n))
     if rc != 0 or n.value < 1:
         raise RuntimeError(f"rt_probe_occupancy({probe}, {body}): CUDA "

@@ -10,29 +10,42 @@ row), features compose:
   datacond: the loop also ends on a value of the body (idx < 1024);
   sort: the 19-exchange Batcher network on 8 keys (lanes 8-15) with their
       codes (lanes 16-23), K1's sort_children;
-  push8: 8 predicated pushes of lanes 32-39 onto an 8-entry stack, in
-      per-thread local memory as K1's stack.
+  push8: 8 predicated pushes of lanes 32-39 onto an 8-entry stack (the
+      JAX body's SMEM scratch).
 The nine feature sets of the JAX file run at two launch shapes: one copy
-(one block of 1,024 threads, each (64, 128) operand 8 values a thread: the
-TPU's one program) and as many copies as fill the card. The output is
-idx + i at the loop's end; `aux` holds each copy's first value of every
-carried buffer and a word of the push stack, which the card's kernel
-writes so that nvcc keeps them.
+(one block, each (64, 128) operand spread over its threads: the TPU's one
+program) and as many copies as fill the card. The output is idx + i at
+the loop's end; `aux` holds each copy's first value of every carried
+buffer and a word of the push stack, which the card's kernel writes so
+that nvcc keeps them.
 
-On a CUDA tensor run() launches the feature set's kernel (csrc/probes.cu);
-on a CPU tensor it takes the plain version. Nothing runs at import.
+The card's body (csrc/probes.cu, body_kernel) takes one barrier a step
+and runs the sort and the pushes once per copy, in one warp; a copy is a
+block of 256 threads. Its outputs do not read the network's result (a
+zero, as in the JAX body), so sort8() runs the network alone, as the
+body's warp 0 runs it, for its check.
+
+On a CUDA tensor run() and sort8() launch their kernels; on a CPU tensor
+they take the plain version. Nothing runs at import.
 
 Usage: python -m rodent_tpu_torch.experiments.probe_body [--cpu]
-    [--blocks 3]
+    [--blocks 3] [--against DIR [DIR ...]]
+--against times this tree's body against each other checkout's (its
+rodent_tpu_torch/csrc/probes.cu, built under common.AGAINST_BUILD) in
+turns at one copy and at the other's full shape, every output bit for bit
+equal; it needs the card.
 """
 from __future__ import annotations
 
 import argparse
+import re
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..kernels import build
 from ..traversal.api import _SORT_NETWORKS
 from . import common
 
@@ -51,6 +64,7 @@ def name(feats):
 
 
 def mask(feats):
+    """The C entry's mask: the feature bits."""
     return sum(FEATS[f] for f in feats)
 
 
@@ -67,19 +81,48 @@ def inputs(device="cpu"):
     return torch.from_numpy(tab).to(device)
 
 
-def _sort_zero(tab, rows):
-    """kids[0] & 0 of every visited row (a zero): the Batcher network over
-    keys (lanes 8-15) and codes (lanes 16-23), run on all the rows at
-    once, since its result adds nothing to the chase."""
-    keys = list(tab[rows, 8:16].unbind(1))
-    kids = list(tab[rows, 16:24].contiguous().view(torch.int32).unbind(1))
+def plain_sort8(keys, kids):
+    """The Batcher network (_SORT_NETWORKS[8], :60-68) over (sets, 8) keys
+    and their codes, every set at once: (keys, kids) sorted."""
+    keys, kids = list(keys.unbind(1)), list(kids.unbind(1))
     for a, b in _SORT_NETWORKS[8]:
         sw = keys[a] > keys[b]
         keys[a], keys[b] = (torch.where(sw, keys[b], keys[a]),
                             torch.where(sw, keys[a], keys[b]))
         kids[a], kids[b] = (torch.where(sw, kids[b], kids[a]),
                             torch.where(sw, kids[a], kids[b]))
-    return int((kids[0] & 0).sum())
+    return torch.stack(keys, 1), torch.stack(kids, 1)
+
+
+def sort8(keys, kids):
+    """(keys, kids) of (sets, 8) float32 keys and int32 codes, each set
+    sorted: body_kernel's network (csrc/probes.cu, sort8) on CUDA tensors,
+    plain_sort8 on CPU ones."""
+    if keys.device.type == "cpu":
+        return plain_sort8(keys, kids)
+    if (keys.device.type != "cuda" or keys.dtype != torch.float32
+            or kids.dtype != torch.int32 or keys.shape != kids.shape
+            or keys.dim() != 2 or keys.shape[1] != 8
+            or kids.device != keys.device or not keys.is_contiguous()
+            or not kids.is_contiguous() or keys.shape[0] < 1):
+        raise ValueError("sort8 takes contiguous (sets, 8) float32 keys and "
+                         f"int32 codes on one CUDA device, not {keys.dtype} "
+                         f"{tuple(keys.shape)} on {keys.device}, {kids.dtype} "
+                         f"{tuple(kids.shape)} on {kids.device}")
+    out_keys, out_kids = torch.empty_like(keys), torch.empty_like(kids)
+    common.probe_call("rt_probe_sort8", keys.data_ptr(), kids.data_ptr(),
+                      out_keys.data_ptr(), out_kids.data_ptr(),
+                      keys.shape[0])
+    return out_keys, out_kids
+
+
+def _sort_zero(tab, rows):
+    """kids[0] & 0 of every visited row (a zero): the network over keys
+    (lanes 8-15) and codes (lanes 16-23), run on all the rows at once,
+    since its result adds nothing to the chase."""
+    _, kids = plain_sort8(tab[rows, 8:16],
+                          tab[rows, 16:24].contiguous().view(torch.int32))
+    return int((kids[:, 0] & 0).sum())
 
 
 def _push8(tab, rows):
@@ -134,6 +177,17 @@ def plain(feats, tab, steps=N):
     return torch.tensor([idx + i], dtype=torch.int32, device=dev), aux
 
 
+def launch(lib, m, tab, copies):
+    """rt_probe_body of the probes library lib (None: this tree's) with the
+    mask m on `copies` copies, on the current stream: ((copies,) int32,
+    (copies, 6) float32)."""
+    out = torch.empty(copies, dtype=torch.int32, device=tab.device)
+    aux = torch.empty(copies, 6, dtype=torch.float32, device=tab.device)
+    common.probe_call("rt_probe_body", m, tab.data_ptr(), out.data_ptr(),
+                      aux.data_ptr(), 0, copies, lib=lib)
+    return out, aux
+
+
 def run(feats, tab, copies=1):
     """((copies,) int32, (copies, 6) float32 aux): the kernel on a CUDA
     table, the plain version on a CPU one."""
@@ -148,25 +202,27 @@ def run(feats, tab, copies=1):
                          f"CUDA table and a feature set of {CASES}, not "
                          f"{tab.dtype} {tuple(tab.shape)} on {tab.device}, "
                          f"{feats}")
-    out = torch.empty(copies, dtype=torch.int32, device=tab.device)
-    aux = torch.empty(copies, 6, dtype=torch.float32, device=tab.device)
-    common.probe_call("rt_probe_body", mask(feats), tab.data_ptr(),
-                      out.data_ptr(), aux.data_ptr(), 0, copies)
+    res = launch(None, mask(feats), tab, copies)
     launches += 1
-    return out, aux
+    return res
+
+
+def ops_per_step(feats):
+    """The JAX body's float32 operations in one step of one copy: on each
+    of the 8,192 values two multiplies, an add, a min, the min into the
+    step's minimum, the < 0.5 test and a select per carried buffer; and
+    once per copy, as the JAX body runs them on its scalar unit, the
+    network's 19 compares and 76 selects and the pushes' 8 x 4
+    operations."""
+    nc = 5 if "carry5" in feats else 1
+    return (64 * 128 * (6 + nc) + (19 * 5 if "sort" in feats else 0)
+            + (32 if "push8" in feats else 0))
 
 
 def bound(feats, copies):
-    """The full launch's bound, float32 operations per step: on each of
-    the 8,192 values two multiplies, an add, a min, the min into the
-    block's minimum, the < 0.5 test and a select per carried buffer; per
-    thread (1,024), the network's 19 compares and 76 selects and the
-    pushes' 8 x 4 operations; the table read once, outputs written."""
-    nc = 5 if "carry5" in feats else 1
-    per_step = 64 * 128 * (6 + nc)
-    per_step += 1024 * ((19 * 5 if "sort" in feats else 0)
-                        + (32 if "push8" in feats else 0))
-    return common.probe_bound_ms(per_step * N * copies,
+    """The launch's bound: ops_per_step over N steps of every copy, against
+    the table read once and the outputs written."""
+    return common.probe_bound_ms(ops_per_step(feats) * N * copies,
                                  NN * 512 + copies * 28)
 
 
@@ -186,35 +242,130 @@ def measure(device, blocks=3):
     return res
 
 
+def equal(got, want):
+    """Whether every copy of got (out, aux) equals want (plain()'s) bit for
+    bit."""
+    (o, a), (out, aux) = got, want
+    return (bool(torch.equal(o, out.expand_as(o)))
+            and bool(torch.equal(a.view(torch.int32),
+                                 aux.view(torch.int32).expand_as(a))))
+
+
 def check(res):
     """{feats: True where both shapes' every copy, output and aux, equals
     the plain version bit for bit}."""
-    tab = inputs(next(iter(res.values()))["out"][0].device)
-    ok = {}
+    tab, ok = inputs(next(iter(res.values()))["out"][0].device), {}
     for feats, r in res.items():
-        out, aux = plain(feats, tab)
-        ok[feats] = all(
-            bool(torch.equal(o, out.expand_as(o)))
-            and bool(torch.equal(a.view(torch.int32),
-                                 aux.view(torch.int32).expand_as(a)))
-            for o, a in (r["out1"], r["out"]))
+        want = plain(feats, tab)
+        ok[feats] = equal(r["out1"], want) and equal(r["out"], want)
     return ok
+
+
+def step_barriers(fn):
+    """The BAR.SYNC instructions in a body_kernel's step loop (fn: its
+    common.Sass): the backward branch to the earliest target, from that
+    target to its last branch there. A shuffle's out-of-line path for a
+    diverged warp also branches back into the loop, from past its end."""
+    back = common.loops(fn)
+    lo = min((t for t, _ in back), default=0)
+    hi = max((a for t, a in back if t == lo), default=-1)
+    return sum(1 for a, text, _ in fn.insns if lo <= a <= hi
+               and common.opcode(text, full=True).startswith("BAR.SYNC"))
+
+
+def resources(lib_path=None, funcs=None):
+    """{feats: {"regs", "spills" (bytes stored and loaded), "barriers"
+    (step_barriers)}} of every body_kernel of a probes library (this
+    tree's by default), from ptxas' lines of its build and cuobjdump;
+    funcs: the library's common.read_sass, where the caller has read it."""
+    from . import sass_audit
+    path, log = ((Path(lib_path), None) if lib_path
+                 else build.build(None, "probes"))
+    log = log or build.kept_log(path)
+    regs = {n: r["REG"] for n, r in sass_audit.res_usage(path).items()}
+    spill = sass_audit.spills(log)
+    bits = {mask(f): f for f in CASES}
+    out = {}
+    for fn_name, fn in (funcs or common.read_sass(path)).items():
+        m = re.search(r"body_kernelILi(\d+)EE", fn_name)
+        if m:
+            out[bits[int(m[1])]] = {
+                "regs": regs.get(fn_name), "spills": spill.get(fn_name),
+                "barriers": step_barriers(fn)}
+    return out
+
+
+def against(device, roots, blocks=3):
+    """Every feature set in turns with each other checkout's body (its
+    probes library, other_library, with the same mask), as graph replays
+    (common.against), at one copy and at the other body's full shape.
+    Raises unless out and aux equal the other's and the plain version's
+    bit for bit. {feats: {(root, copies): {"ms", "other_ms",
+    "ratio"}}}."""
+    libs = common.against_libraries("probes", roots)
+    tab, res = inputs(device), {}
+
+    def outputs(got):
+        return {"out": got[0], "aux": got[1].view(torch.int32)}
+
+    for j, feats in enumerate(CASES):
+        want = plain(feats, tab)
+        res[feats] = {}
+        for root, lib in libs.items():
+            full, _ = common.full_copies("body", mask(feats), lib=lib)
+            for copies in (1, full):
+                if not equal(run(feats, tab, copies), want):
+                    raise RuntimeError(f"probe_body {name(feats)} differs "
+                                       "from the plain version")
+                r = common.against(
+                    lambda c=copies: outputs(run(feats, tab, c)),
+                    {root: lambda c=copies, lib=lib: outputs(launch(
+                        lib, mask(feats), tab, c))},
+                    device, blocks, common.WARMUP_S if j == 0 else 0.0,
+                    graphs=True, what=f"probe_body {name(feats)}")
+                res[feats][(root, copies)] = r[root]
+    return res
+
+
+def report(feats, r):
+    return (f"{name(feats):>32}: {r['ns1']:7.1f} ns/iter; "
+            f"{r['ns_sm']:.2f} ns/iter per SM with {r['copies']} copies; "
+            f"bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}), {r['ms']:.4f} ms, "
+            f"{r['bound'][0] / r['ms']:.1%} of it")
 
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="probe_body")
     common.add_args(p)
+    p.add_argument("--against", nargs="+", metavar="DIR",
+                   help="the roots of other checkouts whose body is timed "
+                   "against this one's, every feature set")
     p.set_defaults(blocks=3)
     args = p.parse_args(argv)
+    if args.cpu and args.against:
+        p.error("--against times builds of a CUDA kernel: it needs the "
+                "card")
     device = common.device_of(args, "probe_body")
     print(f"card: {common.card(device)}", flush=True)
+    if args.against:
+        libs = {"this tree": None} | {root: common.other_library(
+            root, "probes")._name for root in args.against}
+        for label, path in libs.items():
+            print(f"{label}: " + ", ".join(
+                f"{name(f)} {r['regs']} registers, spills {r['spills']}, "
+                f"{r['barriers']} BAR.SYNC in the step loop"
+                for f, r in resources(path).items()), flush=True)
+        for feats, by in against(device, args.against, args.blocks).items():
+            print(f"{name(feats):>32}: " + "; ".join(
+                f"{root} {c} copies in turns: {r['other_ms']:.4f} -> "
+                f"{r['ms']:.4f} ms ({r['ratio']:.4f}x)"
+                for (root, c), r in by.items()) + "; equal bit for bit",
+                flush=True)
     res = measure(device, args.blocks)
     ok = check(res)
     for feats, r in res.items():
-        print(f"{name(feats):>32}: {r['ns1']:7.1f} ns/iter; "
-              f"{r['ns_sm']:.2f} ns/iter per SM with {r['copies']} copies; "
-              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
-              f"{r['ms']:.4f} ms; {'OK' if ok[feats] else 'WRONG'}",
+        print(f"{report(feats, r)}; {'OK' if ok[feats] else 'WRONG'}",
               flush=True)
     return 0
 

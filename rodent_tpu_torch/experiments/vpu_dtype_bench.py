@@ -108,13 +108,15 @@ def run(dtype, x, copies=1):
     return out
 
 
-def sass_counts(lib_path=None):
+def sass_counts(lib_path=None, funcs=None):
     """{dtype: (instructions per word and iteration, Counter of their
     opcodes)} read from the SASS of the probes library's vpu kernels: the
     instructions of the loop body (between the backward branch and its
     target) less the branch, the loop's compare and the counter's update,
-    over the unroll of 8."""
-    funcs = common.read_sass(lib_path or build.library_path(kind="probes"))
+    over the unroll of 8. funcs: the library's common.read_sass, where the
+    caller has read it."""
+    funcs = funcs or common.read_sass(
+        lib_path or build.library_path(kind="probes"))
     out = {}
     for name, fn in funcs.items():
         m = re.search(r"vpu_kernelILi(\d)E", name)

@@ -120,6 +120,8 @@ _ENTRIES = {
         "rt_probe_chain": (ctypes.c_int, [_I, _I, _P, _P, _I, _P]),
         # feats, tab, out, aux, zero, copies, stream
         "rt_probe_body": (ctypes.c_int, [_I, _P, _P, _P, _I, _I, _P]),
+        # keys, kids, out_keys, out_kids, sets, stream
+        "rt_probe_sort8": (ctypes.c_int, [_P, _P, _P, _P, _I, _P]),
         # body, tab, out, copies, stream
         "rt_probe_dyn_cost": (ctypes.c_int, [_I, _P, _P, _I, _P]),
         # dtype, x, out, words, copies, c1, c2, c3, stream
@@ -224,9 +226,12 @@ def load_library(build_dir=None, kind="main", csrc=None):
     if lib is None:
         lib = ctypes.CDLL(str(path))
         for name, (res, args) in _ENTRIES[kind].items():
-            fn = getattr(lib, name)
-            fn.restype = res
-            fn.argtypes = args
+            # another checkout's library may predate an entry
+            fn = getattr(lib, name) if csrc is None else getattr(
+                lib, name, None)
+            if fn is not None:
+                fn.restype = res
+                fn.argtypes = args
         _libs[path] = lib
     _loaded[key] = lib
     return lib

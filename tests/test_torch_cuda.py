@@ -693,6 +693,31 @@ def test_probe_kernels_match_plain(card, name):
     assert all(ok.values()), [k for k, v in ok.items() if not v]
 
 
+def test_body_resources(card):
+    """Every body_kernel instantiation, one a feature set, without spills
+    and with one BAR.SYNC in its step loop."""
+    res = probe_body.resources()
+    assert set(res) == set(probe_body.CASES)
+    assert all(r["spills"] == (0, 0) for r in res.values()), res
+    assert all(r["barriers"] == 1 for r in res.values()), res
+
+
+def test_body_sort8_matches_the_serial_network(card):
+    """body_kernel's network (sort8), which its outputs do not read, on
+    sets of 8 keys with ties and their codes, equal bit for bit to the
+    serial network (plain_sort8)."""
+    gen = torch.Generator().manual_seed(2)
+    keys = torch.randint(0, 4, (4096, 8), generator=gen).float()
+    keys[:8] = torch.arange(8.0).flip(0)
+    kids = torch.argsort(torch.rand(4096, 8, generator=gen), 1).int()
+    got = probe_body.sort8(keys.to(card), kids.to(card))
+    torch.cuda.synchronize()
+    want = probe_body.plain_sort8(keys, kids)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(want[0][0], torch.arange(8.0))
+
+
 TAKE_ROWS = (1, 3, 8, 64, 512, 4096, 65536)
 
 
@@ -760,6 +785,14 @@ def test_probe_refusals(card):
             0)
     with pytest.raises(ValueError):
         probe_body.run(("push8", "sort"), probe_body.inputs(card))
+    keys = torch.zeros(4, 8, device=card)
+    kids = torch.zeros(4, 8, dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        probe_body.sort8(keys[:, :7], kids[:, :7])
+    with pytest.raises(ValueError):
+        probe_body.sort8(keys, kids.float())
+    with pytest.raises(ValueError):
+        probe_body.sort8(keys.t().contiguous().t(), kids)
     with pytest.raises(ValueError):
         probe_chain.run("chase", 3, probe_chain.inputs(card))
     with pytest.raises(ValueError):

@@ -413,6 +413,35 @@ def test_ablate_packet_against_refusals(tmp_path, capsys):
     assert "base" in common.options_for(True)
 
 
+def test_probe_body_against_refusals(tmp_path, capsys):
+    """probe_body --against takes one or more checkout roots and refuses
+    the CPU (it times two builds of a CUDA kernel), as ablate_packet does;
+    other_library(root, "probes") refuses a root without
+    rodent_tpu_torch/csrc/probes.cu, naming it; the other tree's probes
+    library name hashes its own source."""
+    from rodent_tpu_torch.experiments import probe_body
+    other = tmp_path / "parent" / "rodent_tpu_torch" / "csrc"
+    other.mkdir(parents=True)
+    for name in ("probes.cu", *build.HEADERS):
+        (other / name).write_bytes((build.CSRC / name).read_bytes())
+    root = str(tmp_path / "parent")
+    with pytest.raises(SystemExit):
+        probe_body.main(["--cpu", "--against", root])
+    assert "needs the card" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        probe_body.main(["--cpu", "--against", root, str(tmp_path / "x")])
+    assert "needs the card" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        probe_body.main(["--against"])
+    with pytest.raises(FileNotFoundError, match="no probes source"):
+        common.other_library(tmp_path / "absent", "probes")
+    here = build.library_path(tmp_path, "probes")
+    assert build.library_path(tmp_path, "probes", csrc=other) == here
+    with open(other / "probes.cu", "a") as f:
+        f.write("// the parent's body\n")
+    assert build.library_path(tmp_path, "probes", csrc=other) != here
+
+
 def test_against_times_in_turns_and_raises_on_a_difference():
     """common.against times each other call in turns with this one
     (other, this, this, other: four calls each) and returns this over the

@@ -19,6 +19,7 @@ tests/test_torch_cuda.py and chip_smoke.py phase 13.
 import ast
 import functools
 import os
+import re
 from unittest import mock
 
 import jax
@@ -29,10 +30,12 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from rodent_tpu_torch.experiments import (probe_body, probe_chain,
+from rodent_tpu_torch.experiments import (common, probe_body, probe_chain,
                                           probe_dyn_cost, probe_gather,
                                           probe_mosaic, probe_mosaic2,
                                           probe_mosaic3, vpu_dtype_bench)
+from rodent_tpu_torch.kernels import build
+from rodent_tpu_torch.traversal.api import _SORT_NETWORKS
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -283,6 +286,151 @@ def test_body_matches_jax(feats):
     out, aux = probe_body.run(feats, probe_body.inputs(), copies=2)
     assert out.shape == (2,) and aux.shape == (2, 6)
     np.testing.assert_array_equal(out.numpy()[1:], want)
+
+
+def test_body_bound_counts_the_jax_bodys_work():
+    """probe_body's bound counts the JAX body's operations a step: 64 x 128
+    values x (6 + carried buffers) for the vector stage, and the network's
+    19 exchanges of 5 and the pushes' 8 x 4 once a copy, as the JAX body
+    runs them on its scalar unit, whatever the card's mapping; linear in
+    the copies, against the published float32 peak."""
+    ops = probe_body.ops_per_step
+    assert ops(()) == 57_344
+    assert ops(probe_body.HEAD) == 90_239
+    assert ops(("carry5",)) - ops(()) == 4 * 64 * 128
+    n, peak = probe_body.N, common.PROBE_PEAKS["float32"]
+    for copies in (1, 132, 528):
+        base, by = probe_body.bound((), copies)
+        assert by == "operations"
+        for feats, extra in ((("sort",), 95), (("push8",), 32),
+                             (("sort", "push8"), 127)):
+            ms = probe_body.bound(feats, copies)[0]
+            assert (ms - base) * 1e-3 * peak == pytest.approx(
+                extra * n * copies, rel=1e-9)
+    for feats in probe_body.CASES:
+        one = probe_body.bound(feats, 1)[0]
+        for copies in (132, 528):
+            assert probe_body.bound(feats, copies)[0] == pytest.approx(
+                copies * one, rel=1e-12)
+    assert probe_body.bound(probe_body.HEAD, 132)[0] == pytest.approx(
+        0.3646, abs=5e-5)
+
+
+@pytest.mark.parametrize("feats", probe_body.CASES,
+                         ids=[probe_body.name(f) for f in probe_body.CASES])
+def test_body_mask_is_a_case_of_the_launch(feats):
+    """The C entry's mask is the feature bits of csrc/probes.cu's enum, and
+    body_launch takes it to the body_kernel of those bits."""
+    src = (build.CSRC / "probes.cu").read_text()
+    enum = dict(re.findall(r"k(Carry5|Cond|DataCond|Sort|Push8) = (\d+)",
+                           re.search(r"enum \{ kCarry5[^}]*\}", src)[0]))
+    bits = {"carry5": "Carry5", "cond": "Cond", "datacond": "DataCond",
+            "sort": "Sort", "push8": "Push8"}
+    m = probe_body.mask(feats)
+    assert m == sum(int(enum[bits[f]]) for f in feats)
+    launch = re.search(r"Launch body_launch\(int feats\) \{(.*?)\n\}",
+                       src, re.S)[1]
+    cases = {}
+    for case, kernel in re.findall(
+            r"case ([^:]+):\s*return launch_of\(body_kernel<([^>]+)>",
+            launch):
+        value = eval(re.sub(r"k(\w+)", lambda k: enum[k[1]], case))
+        assert value == eval(re.sub(r"k(\w+)", lambda k: enum[k[1]],
+                                    kernel))
+        cases[value] = kernel
+    assert sorted(cases) == sorted(map(probe_body.mask, probe_body.CASES))
+    assert m in cases
+
+
+def test_body_sort8_on_the_cpu_is_the_serial_network():
+    """sort8 on CPU tensors takes plain_sort8, launches nothing, and sorts
+    each set of 8 keys with ties, and its codes, as the JAX body's serial
+    network does, exchange by exchange."""
+    rng = np.random.default_rng(1)
+    keys = rng.integers(0, 4, (300, 8)).astype(np.float32)
+    kids = np.argsort(rng.random((300, 8)), 1).astype(np.int32)
+    got_k, got_i = probe_body.sort8(torch.from_numpy(keys),
+                                    torch.from_numpy(kids))
+    for s in range(len(keys)):
+        k, i = keys[s].copy(), kids[s].copy()
+        for a, b in _SORT_NETWORKS[8]:
+            if k[a] > k[b]:
+                k[[a, b]], i[[a, b]] = k[[b, a]], i[[b, a]]
+        np.testing.assert_array_equal(got_k[s].numpy(), k)
+        np.testing.assert_array_equal(got_i[s].numpy(), i)
+    assert np.all(np.diff(got_k.numpy(), axis=1) >= 0)
+
+
+def _sort_layers():
+    """kSortLayers of csrc/probes.cu: six 32-bit words, nibble l of a word
+    position l's partner in that layer."""
+    src = (build.CSRC / "probes.cu").read_text()
+    body = re.search(r"kSortLayers\[6\] = \{([^}]*)\}", src).group(1)
+    return [int(w, 16) for w in re.findall(r"0x([0-9a-f]{8})u", body)]
+
+
+def test_body_sort_layers_are_the_network():
+    """body_kernel runs _SORT_NETWORKS[8]'s 19 exchanges in order as 6
+    layers of disjoint pairs (kSortLayers): each layer's partners pair up,
+    the layers are consecutive runs of the network; and the exchanges run
+    lane by lane as the kernel does (lane l keeps the partner's key and
+    code where the pair (a, b) has key[a] > key[b]) give the serial
+    network's codes on keys with ties."""
+    words = _sort_layers()
+    assert len(words) == 6
+    partners = [[(w >> 4 * l) & 7 for l in range(8)] for w in words]
+    for p in partners:
+        assert all(p[p[l]] == l for l in range(8))
+    pairs = [tuple(p) for p in _SORT_NETWORKS[8]]
+    at = 0
+    for p in partners:
+        layer = sorted((l, p[l]) for l in range(8) if p[l] > l)
+        assert sorted(pairs[at:at + len(layer)]) == layer
+        at += len(layer)
+    assert at == len(pairs) == 19
+    rng = np.random.default_rng(0)
+    for _ in range(500):
+        keys = rng.integers(0, 4, 8).astype(np.float32)
+        kids = rng.permutation(8)
+        sk, si = keys.copy(), kids.copy()
+        for a, b in pairs:
+            if sk[a] > sk[b]:
+                sk[[a, b]], si[[a, b]] = sk[[b, a]], si[[b, a]]
+        lk, li = keys.copy(), kids.copy()
+        for p in partners:
+            pk, pi = lk[p], li[p]
+            sw = np.where(np.arange(8) < p, lk > pk, pk > lk)
+            lk, li = np.where(sw, pk, lk), np.where(sw, pi, li)
+        np.testing.assert_array_equal(li, si)
+        np.testing.assert_array_equal(lk, sk)
+
+
+def test_body_step_barriers_reads_the_step_loop():
+    """step_barriers counts the BAR.SYNC between the step loop's target and
+    its closing branch: not the one after the loop, which a shuffle's
+    out-of-line path, branching back into the loop from past its end,
+    would put in range; two in a loop are two."""
+    listing = """
+		Function : _ZN12_GLOBAL__N_111body_kernelILi0EEEvPKfPiPfi
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDG.E.CONSTANT R2, desc[UR4][R4.64] ;
+        /*0020*/                   BRA.DIV UR4, 0x90 ;
+        /*0030*/                   SHFL.BFLY PT, R3, R2, 0x10, 0x1f ;
+        /*0040*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0050*/               @P1 BRA 0x10 ;
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0070*/                   EXIT ;
+        /*0080*/                   WARPSYNC.COLLECTIVE R4, 0x90 ;
+        /*0090*/                   BRA 0x30 ;
+        /*00a0*/                   BRA 0xa0;
+"""
+    fn = common.parse_sass(listing)[
+        "_ZN12_GLOBAL__N_111body_kernelILi0EEEvPKfPiPfi"]
+    assert probe_body.step_barriers(fn) == 1
+    two = listing.replace("SHFL.BFLY PT, R3, R2, 0x10, 0x1f",
+                          "BAR.SYNC.DEFER_BLOCKING 0x0")
+    assert probe_body.step_barriers(common.parse_sass(two)[
+        "_ZN12_GLOBAL__N_111body_kernelILi0EEEvPKfPiPfi"]) == 2
 
 
 def _interpret(*a, _orig=pl.pallas_call, **k):
