@@ -65,11 +65,14 @@ calls real, and checks it:
    body of the eight probe files through its kernel as its main() drives
    it, with the launch counts read around them, the timed probes at one
    copy (the TPU's one program) and at the copies that fill the card; every
-   copy's output held bit for bit against the plain version; a table of
-   their times beside the card's SM clock, and the vpu kernels' op counts
-   read from their SASS; probe_body's kernels without spills, and one
-   BAR.SYNC in each step loop; the network that its outputs do not read
-   held against the plain one;
+   copy's output held bit for bit against the plain version (and every
+   probe_dyn_cost body, at both shapes, on a seeded table on which its
+   index moves); a table of their times beside the card's SM clock, and
+   the vpu kernels' op counts read from their SASS; probe_body's kernels
+   without spills, and one BAR.SYNC in each step loop; the network that
+   its outputs do not read held against the plain one; probe_mosaic3's
+   and probe_dyn_cost's kernels without spills, and no BAR.SYNC in
+   dyn_cost's loops;
 14. K1/K2/K3's two bodies, built together into the "group" library
    (-DRT_GROUP; rodent_tpu_torch.experiments.ab_body), which no renderer
    runs: the group stack and the first body held bit for bit against the
@@ -90,8 +93,8 @@ calls real, and checks it:
    rest, device idle share); the mathall golden gate through both
    renderers; then the scene written as OBJ + MTL + PNG textures under
    build/phase15: converter -> load_data_dir equal to compile_obj tensor
-   for tensor on the card, tools.render at 1920x1088 through its policy
-   (K1, spp 4) and --traversal hybrid-hbm (K2, spp 1), and the traversal
+   for tensor on the card, tools.render through its policy (K1, 1920x1088
+   spp 1) and --traversal hybrid-hbm (K2, 960x544 spp 1), and the traversal
    file pipeline ray_gen (1024x1024 primaries) -> bvh_extractor ->
    bench_traversal (K1) -> fbuf2png, whose intersection count and t equal
    K1's on the rays and BVH read back from the files;
@@ -124,16 +127,18 @@ calls real, and checks it:
    bench's rows, and K1, ao and bounces through K1 and tiled-c,
    powerplant-4.3M through K2; no cornell row without a reference
    directory), its JSON line's keys checked and its hit fraction held
-   against K1's on the same rays and build; ab_render_policy on
-   powerplant-4.3M at 1920x1088 spp 1 through K2 at pools of 32K and 512K,
-   on hall-260K (K1) at pools of 64K and 512K, and all-packet beside
-   all-tiled at 160x90, the films bit for bit equal across pools and
-   engines; profile_renderer on hall-260K at 480x272 spp 1; race_hall_packet
-   at Tri8/Tri12/Tri24 x leaf_cost 0/0.6 (K1 and K7); tools.benchmark on
+   against K1's on the same rays and build; the tools at smaller widths
+   than their users': ab_render_policy on a 1M-triangle powerplant at
+   480x272 spp 1 through K2 at pools of 32K and 512K, on hall-260K (K1) at
+   480x272 at pools of 64K and 512K, and all-packet beside all-tiled at
+   96x54 and max path length 8, the films bit for bit equal across pools
+   and engines;
+   profile_renderer on hall-260K at 240x136 spp 1; race_hall_packet at
+   Tri8/Tri12/Tri24, leaf_cost 0.6 (K1 and K7); tools.benchmark on
    hall-260K's primaries, variants packet, hbm and hbm-nopf (K7, K7-PF,
    K7: the carry-top body in every packet variant, as the JAX tool), with
    its launches checked (K7-PF in the hbm row, no K2);
-   sweep_bigscene_leaf on two powerplant-4.3M builds; bigscene_12m's
+   sweep_bigscene_leaf on one powerplant-4.3M build; bigscene_12m's
    primaries at 14.6M triangles (K1 and K2); shard_scaling_table at its
    defaults. Their K1, K2, K3, K7 and K7-PF launches join the kernels
    line's.
@@ -146,8 +151,9 @@ calls real, and checks it:
    copies of the "main", "ct" and "tile" libraries that phase 2 builds,
    with each one's
    issue estimate beside its measured ns per pop on hall-260K;
-   attribute_crown on hall-260K and crown-800K, ab_crown_build,
-   probe_crown_sort and measure_sorts at one configuration each;
+   attribute_crown on crown-800K, ab_crown_build,
+   probe_crown_sort and measure_sorts at one configuration each (these
+   and the next timed at one block);
    waterfall_tiled, measure_tiled_iters, sweep_arity_tiled and
    probe_sb_depth on hall's ao rays at one configuration each;
    bigscene_demo --card (400K triangles) and --mesh (2 gloo ranks on the
@@ -173,7 +179,7 @@ calls real, and checks it:
 
 21. the cornell programs (phase_cornell), each through its run(), on the
    stand-in for the absent cornell box (experiments.common's open box,
-   12 triangles, the dense tier) at 1080x720, spp 2 (the programs'
+   12 triangles, the dense tier) at 1080x720, spp 1 (the programs'
    default is 4; the run's time limit cut it), max path length 64, with
    the reference's camera: ab_cornell_engine's eight engine variants
    (dense, tiled, packet, retire_every=2, pools of 16K and 64K, the pool
@@ -1334,7 +1340,8 @@ def phase_probes(device):
     """[13] The micro-probes: each probe file's main path (measure(): the
     correctness probes once, the timed ones at one copy and at the copies
     that fill the card), launch counts read around it; then every copy's
-    output against the plain version, bit for bit; the headline bodies'
+    output against the plain version, bit for bit (probe_dyn_cost's
+    check() also on its moving() table); the headline bodies'
     plain versions timed on the card; the vpu kernels' SASS op counts.
     Returns the kernels-line entries."""
     import importlib
@@ -1379,6 +1386,25 @@ def phase_probes(device):
     log("[13] probe_body: " + ", ".join(
         f"{body.name(f)} {r['regs']}" for f, r in body_res.items())
         + " registers, no spills, one BAR.SYNC in each step loop")
+    m3_res = mods["probe_mosaic3"].resources(funcs=funcs)
+    dyn_res = mods["probe_dyn_cost"].resources(funcs=funcs)
+    check(set(m3_res) == set(mods["probe_mosaic3"].MODES)
+          and set(dyn_res) == set(mods["probe_dyn_cost"].BODIES),
+          f"probes: mosaic3 kernels {sorted(m3_res)}, dyn_cost kernels "
+          f"{sorted(dyn_res)}, not one a mode and one a body")
+    for what, r in itertools.chain(
+            (("mosaic3 " + k, r) for k, r in m3_res.items()),
+            (("dyn_cost " + k, r) for k, r in dyn_res.items())):
+        check(r["spills"] == (0, 0) and r.get("barriers", 0) == 0,
+              f"probe_{what}: {r}, not without spills (and, dyn_cost, "
+              "without a BAR.SYNC in its loops)")
+    log("[13] probe_mosaic3: " + ", ".join(
+        f"{k} {r['regs']}" for k, r in m3_res.items()) + " registers; "
+        "probe_dyn_cost: " + ", ".join(
+            f"{k} {r['regs']}" for k, r in dyn_res.items())
+        + " registers; no spills, no BAR.SYNC in dyn_cost's loops")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    mhz = common.sm_clock_mhz()[1]
     # the network on keys with ties, against the serial one bit for bit
     gen = torch.Generator().manual_seed(0)
     keys = torch.randint(0, 4, (4096, 8), generator=gen).float()
@@ -1400,6 +1426,12 @@ def phase_probes(device):
             extra = f" ({r['memory']} memory)" if "memory" in r else ""
             rate = (f"; {r['tops1']:.3f} Top/s one copy, {r['tops']:.3f} "
                     f"with the card full" if "tops" in r else "")
+            if n == "probe_mosaic3":
+                one, full = (m.issue_ms(k, c, sms, mhz)
+                             for c in (1, r["copies"]))
+                rate = (f"; {one / r['ms1']:.1%} (one copy) and "
+                        f"{full / r['ms']:.1%} of the FADD issue rate at "
+                        f"{mhz:g} MHz")
             log(f"[13] {n} {probe_key(k)}{extra}: one copy {r['ms1']:.4f} "
                 f"ms = {r['ns1']:.1f} ns/iter; {r['copies']} copies "
                 f"{r['ms']:.4f} ms = {r['ns_sm']:.3f} ns/iter per SM; bound "
@@ -1430,8 +1462,8 @@ def phase_probes(device):
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "variants": variants})
-        if n == "probe_body":
-            # the redesigned body's headline: its copies at the full card
+        if n in ("probe_body", "probe_mosaic3", "probe_dyn_cost"):
+            # a redesigned body's headline: its copies at the full card
             entries[-1]["copies"] = res[n][head]["copies"]
         if n == "probe_gather":
             entries.append(gather_library(m, device, take_launched))
@@ -1753,12 +1785,12 @@ def phase_obj_files(device, scene, mats, texs):
     for traversal, key in ((None, "bvh_traverse"),
                            ("hybrid-hbm", "bvh_traverse_prefetch")):
         png_path = os.path.join(out, f"render-{traversal or 'auto'}.png")
-        # two iterations: the first warms up, the second is timed; K2's
-        # route at spp 1 (its 32K pool renders spp 4 in about 29 s an
-        # iteration, host-bound: ROADMAP B7)
-        argv = [obj, "--width", 1920, "--height", 1088, "--spp",
-                1 if traversal else 4, "--bench", 2, "--max-path-len", 20,
-                *view, "-o", png_path]
+        # two iterations at spp 1: the first warms up, the second is
+        # timed; K2's route at 960x544 (its 32K pool is host-bound: ROADMAP
+        # B7). Phase 15a renders the scene at spp 4 through K1.
+        w, h = (960, 544) if traversal else (1920, 1088)
+        argv = [obj, "--width", w, "--height", h, "--spp", 1, "--bench", 2,
+                "--max-path-len", 20, *view, "-o", png_path]
         if traversal:
             argv += ["--traversal", traversal]
         packet.reset_launches()
@@ -1907,8 +1939,8 @@ def phase_dual_queue(device, bvh, verts, idx, side=1024):
               and all(bool(torch.equal(staged[k], plain[k]))
                       for k in plain),
               f"dual-queue {name}: compaction or counters change the hits")
-        k_ms, d_ms, k_hit, _ = common.in_turns(k1, dq(0), device, blocks=3)
-        k_ms2, c_ms, _, _ = common.in_turns(k1, dq(5), device, blocks=3)
+        k_ms, d_ms, k_hit, _ = common.in_turns(k1, dq(0), device, blocks=1)
+        k_ms2, c_ms, _, _ = common.in_turns(k1, dq(5), device, blocks=1)
         if ah:
             check(bool(torch.equal(plain["prim_id"] >= 0,
                                    k_hit["prim_id"] >= 0)),
@@ -2530,20 +2562,23 @@ def phase_tools(device, verts, idx):
           and detail["backend"] == "cuda"
           and detail["bigscene_tris"] == 4_347_968,
           f"bench: the JSON line's keys {sorted(detail)}")
+    # the tools at smaller widths than their users' (phases 5, 9 and 15
+    # render at 1920x1088): powerplant at 1M triangles, not a second
+    # powerplant-4.3M build, still through K2
     run("ab_render_policy powerplant", ab_render_policy.main, [
-        "--scene", "powerplant", "--tris", 5_000_000, "--wh", "1920x1088",
+        "--scene", "powerplant", "--tris", 1_000_000, "--wh", "480x272",
         "--spp", 1, "--iters", 1, "--policies", "all-packet", "--packet",
         "hbm", "--pools", "32768,524288"])
     run("ab_render_policy hall", ab_render_policy.main, [
-        "--wh", "1920x1088", "--spp", 1, "--iters", 1, "--policies",
+        "--wh", "480x272", "--spp", 1, "--iters", 1, "--policies",
         "all-packet", "--pools", "65536,524288"])
     run("ab_render_policy engines", ab_render_policy.main, [
-        "--wh", "160x90", "--spp", 1, "--iters", 1, "--policies",
-        "all-packet,all-tiled"])
+        "--wh", "96x54", "--spp", 1, "--mpl", 8, "--iters", 1,
+        "--policies", "all-packet,all-tiled"])
     run("profile_renderer", profile_renderer.main, [
-        "--spp", 1, "--iters", 1])
+        "--wh", "240x136", "--spp", 1, "--iters", 1])
     run("race_hall_packet", race_hall_packet.main, [
-        "--packets", "8,12,24", "--lcs", "0,0.6"])
+        "--packets", "8,12,24", "--lcs", "0.6"])
     # hall's primaries through every packet variant of the tool: the
     # carry-top body in each (K7, K7-PF in hbm, K7), no K2
     before = dict(packet.launches)
@@ -2560,7 +2595,7 @@ def phase_tools(device, verts, idx):
     log(f"[18] tools.benchmark on hall's primaries: {' | '.join(rows)}; "
         f"launches {json.dumps(made)}")
     run("sweep_bigscene_leaf", sweep_bigscene_leaf.main, [
-        "--packets", 24, "--lts", 12, "--lcs", "0.45,0.6"])
+        "--packets", 24, "--lts", 12, "--lcs", "0.45"])
     run("bigscene_12m", bigscene_12m.main, ["--dists", "primary"])
     run("shard_scaling_table", shard_scaling_table.main, [])
     launched = {k: packet.launches[k] for k in (
@@ -2641,15 +2676,15 @@ def phase_programs(device):
                   f"sass_audit {label}: the node and leaf loops are not "
                   f"two loops in the SASS ({loops})")
     step("attribute_crown", lambda: attribute_crown.run(
-        device, ("hall", "crown"), rows=16, blocks=3))
+        device, ("crown",), rows=16, blocks=1))
     step("ab_crown_build", lambda: ab_crown_build.run(
-        device, "crown", ["q0-lt12-lc0.6"], rows=16, blocks=3))
+        device, "crown", ["q0-lt12-lc0.6"], rows=16, blocks=1))
     step("probe_crown_sort", lambda: probe_crown_sort.run(
-        device, rows=(16,), orders=("hit-prim",), blocks=3))
+        device, rows=(16,), orders=("hit-prim",), blocks=1))
     step("measure_sorts", lambda: measure_sorts.run(
-        device, "bounces", rows=(16,), keys=("org9+oct+dir",), blocks=3))
+        device, "bounces", rows=(16,), keys=("org9+oct+dir",), blocks=1))
     step("waterfall_tiled", lambda: waterfall_tiled.run(
-        device, ("ao",), rows=("full", "noleaf"), candidates=(), blocks=2))
+        device, ("ao",), rows=("full", "noleaf"), candidates=(), blocks=1))
     step("measure_tiled_iters", lambda: measure_tiled_iters.run(
         device, ("ao",), blocks=1))
     step("sweep_arity_tiled", lambda: sweep_arity_tiled.run(
@@ -2657,7 +2692,7 @@ def phase_programs(device):
     step("probe_sb_depth", lambda: probe_sb_depth.run(
         device, (16,), ("ao",), blocks=1))
     step("bigscene_demo --card", lambda: bigscene_demo.run_card(
-        device, 400_000, 1024, blocks=3))
+        device, 400_000, 1024, blocks=1))
     step("bigscene_demo --mesh", lambda: bigscene_demo.run_mesh(
         device, 2, 100_000, 512))
     goldens = os.path.join(REPO, "build", "phase19", "goldens")
@@ -2937,7 +2972,7 @@ def phase_tri12(device, hall, side=1024):
                    "share": r["share"], "k1_differences": r["differences"]}}
 
 
-def phase_cornell(device, w=1080, h=720, spp=2, mpl=64):
+def phase_cornell(device, w=1080, h=720, spp=1, mpl=64):
     """[21] The cornell programs through their run() on the stand-in (the
     open box of experiments.common, the dense tier) at the reference's
     camera: ab_cornell_engine's eight variants, one untimed and one timed

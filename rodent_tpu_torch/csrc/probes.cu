@@ -13,10 +13,10 @@
 //
 // What bounds them here: the correctness probes (mosaic, mosaic2) are one
 // block and bound by nothing worth timing. The chains (chain, body,
-// mosaic3's dep- modes, dyn_cost, gather's chain) are bound by the latency
-// of one dependent load or barrier per step with one copy, and by L1/shared
-// bandwidth or issue slots with the card full. vpu is bound by the CUDA
-// cores' issue rate per type.
+// dyn_cost, gather's chain) are bound by the latency of one dependent load
+// or barrier per step with one copy, and by L1/shared bandwidth or issue
+// slots with the card full. mosaic3 and vpu are bound by the CUDA cores'
+// issue rate.
 //
 // Numbers stay bit-exact against the plain torch versions: every float sum
 // is taken in the JAX body's order, and the library is built with
@@ -409,56 +409,87 @@ __global__ void __launch_bounds__(1024) gather_kernel(
 // and _kernel2 :78-98 (run2 :101-124). N = 4096 iterations add K = 24 words
 // of one table row (lanes j * 5 % 128) to a (64, 128) accumulator; the row
 // is (i * 7 + 3) % 1024, or, in the dep- modes, the int32 bits of lane 0 of
-// the last row (a pop's chase). One block of 1024 threads per copy, 8 of
-// the 8,192 values each.
+// the last row (a pop's chase).
 //   extract: each thread loads each word itself (K1's per-field __ldg);
 //   slice: each warp loads the row once with 16-byte loads (4 words a lane)
 //     and passes the words on with __shfl_sync (K4's row_loads).
-// Bound with one copy: a row load's latency (dep- modes) or the 24 x 8
-// adds per thread; with the card full, the adds (float32 issue) against the
-// loads or shuffles.
+// The float adds are the work: with -fmad=false the card issues one FADD
+// per lane and cycle, and every load, shuffle or loop instruction takes an
+// issue slot from them. So a copy is one block of kM3Threads = 256
+// threads, each holding kM3Vals = 32 of the 8,192 values: every word loaded
+// or shuffled feeds 32 adds. The next row's loads are issued before this
+// row's adds: its index is known ahead (the first three modes) or is word 0
+// of this row (the dep- modes, whose chain is that one load an iteration).
+// Each value takes its adds in the JAX order, word 0 to 23, iteration by
+// iteration. Bound with one copy or the card full: the FADD issue rate.
 enum { kNone, kExtract, kSlice, kDepExtract, kDepSlice };
-constexpr int kM3Iters = 4096, kM3Words = 24;
+constexpr int kM3Iters = 4096, kM3Words = 24, kM3Rows = 1024;
+constexpr int kM3Vals = 32, kM3Threads = 64 * 128 / kM3Vals;
+
+// One row as a thread holds it between its loads and its adds: extract's
+// 24 words, each loaded by the thread; slice's 16 bytes, lane l holding
+// words 4l to 4l + 3, from which word(j) shuffles word j to every lane.
+template <bool kSliced>
+struct M3Row {
+  float w[kM3Words];
+  __device__ __forceinline__ void load(const float* row) {
+#pragma unroll
+    for (int j = 0; j < kM3Words; ++j) w[j] = __ldg(row + j * 5 % 128);
+  }
+  __device__ __forceinline__ float word(int j) const { return w[j]; }
+};
+
+template <>
+struct M3Row<true> {
+  float4 q;
+  __device__ __forceinline__ void load(const float* row) {
+    q = __ldg(reinterpret_cast<const float4*>(row) + (threadIdx.x & 31));
+  }
+  __device__ __forceinline__ float word(int j) const {
+    const int lane = j * 5 % 128;
+    const float c = (lane & 3) == 0 ? q.x : (lane & 3) == 1 ? q.y
+                    : (lane & 3) == 2 ? q.z : q.w;
+    return __shfl_sync(~0u, c, lane >> 2);
+  }
+};
 
 template <int kMode>
-__global__ void __launch_bounds__(1024) mosaic3_kernel(
+__global__ void __launch_bounds__(kM3Threads) mosaic3_kernel(
     const float* __restrict__ tab, float* __restrict__ out) {
+  constexpr bool kDep = kMode == kDepExtract || kMode == kDepSlice;
   const int t = threadIdx.x;
   // a start of 0 that the compilers cannot see (tab is never null): from a
   // known start, nvcc and ptxas fold mode none's 4096 adds of 1.0 into one
   // constant, even when the add is written as inline PTX
   const float zero = tab == nullptr ? 1.f : 0.f;
-  float acc[8];
-  for (int k = 0; k < 8; ++k) acc[k] = zero;
-  int idx = 0;
-  for (int i = 0; i < kM3Iters; ++i) {
-    if (kMode < kDepExtract) idx = (i * 7 + 3) % 1024;
-    const float* row = tab + idx * 128;
-    if (kMode == kNone) {
-      for (int k = 0; k < 8; ++k) acc[k] = acc[k] + 1.f;
-    } else if (kMode == kExtract || kMode == kDepExtract) {
+  float acc[kM3Vals];
 #pragma unroll
-      for (int w = 0; w < kM3Words; ++w) {
-        const float v = __ldg(row + w * 5 % 128);
-        for (int k = 0; k < 8; ++k) acc[k] = acc[k] + v;
-      }
-      if (kMode == kDepExtract) idx = __float_as_int(__ldg(row));
-    } else {
-      const float4 q = __ldg(reinterpret_cast<const float4*>(row)
-                             + (t & 31));
+  for (int k = 0; k < kM3Vals; ++k) acc[k] = zero;
+  if (kMode == kNone) {
+    for (int i = 0; i < kM3Iters; ++i) {
 #pragma unroll
-      for (int w = 0; w < kM3Words; ++w) {
-        const int lane = w * 5 % 128;
-        const float c = (lane & 3) == 0 ? q.x : (lane & 3) == 1 ? q.y
-                        : (lane & 3) == 2 ? q.z : q.w;
-        const float v = __shfl_sync(~0u, c, lane >> 2);
-        for (int k = 0; k < 8; ++k) acc[k] = acc[k] + v;
+      for (int k = 0; k < kM3Vals; ++k) acc[k] = acc[k] + 1.f;
+    }
+  } else {
+    M3Row<kMode == kSlice || kMode == kDepSlice> cur, nxt;
+    cur.load(tab + (kDep ? 0 : 3) * 128);
+    for (int i = 0; i < kM3Iters; ++i) {
+      const float w0 = cur.word(0);
+      if (i + 1 < kM3Iters)
+        nxt.load(tab + (kDep ? __float_as_int(w0)
+                             : ((i + 1) * 7 + 3) % kM3Rows) * 128);
+#pragma unroll
+      for (int j = 0; j < kM3Words; ++j) {
+        const float v = j == 0 ? w0 : cur.word(j);
+#pragma unroll
+        for (int k = 0; k < kM3Vals; ++k) acc[k] = acc[k] + v;
       }
-      if (kMode == kDepSlice) idx = __float_as_int(__shfl_sync(~0u, q.x, 0));
+      cur = nxt;
     }
   }
-  for (int k = 0; k < 8; ++k)
-    out[blockIdx.x * 8192 + k * 1024 + t] = acc[k];
+#pragma unroll
+  for (int k = 0; k < kM3Vals; ++k)
+    out[blockIdx.x * 8192 + k * kM3Threads + t] = acc[k];
 }
 
 // ---------------------------------------------------------------------------
@@ -735,19 +766,45 @@ __global__ void __launch_bounds__(32) sort8_kernel(
 // is int(acc[0, 0]) % 64 + i % 64 (% 512 for dynrow1), so each load depends
 // on the last sum.
 //   static: tab[0:8] every iteration, loaded with an asm volatile load so
-//     that nvcc cannot hoist it out of the loop (no dependence, no barrier);
+//     that nvcc cannot hoist it out of the loop (no dependence);
 //   dyn1, dyn4: one, or four (64 rows apart), 4 KB tiles at the index;
 //   dynrow1: one 512-byte row broadcast over the 8 rows;
-//   async4: the four tiles of dyn4 as four bulk copies in flight at once
-//     (cp.async.bulk global -> shared, the TMA's bulk form, completing on
-//     one mbarrier with complete_tx), the card's counterpart of
-//     make_async_copy with DMA semaphores.
-// One block of 256 threads per copy, each owning 4 consecutive values (a
-// 16-byte load); acc[0, 0] reaches every thread through shared memory and
-// one barrier per iteration. Bound with one copy: an L2 load's latency plus
-// the barrier per iteration; with the card full, L2 bandwidth.
+//   async4: the four tiles of dyn4 as four bulk copies in flight for each
+//     iteration (cp.async.bulk global -> shared, the TMA's bulk form,
+//     completing on an mbarrier with complete_tx), the card's counterpart
+//     of make_async_copy with DMA semaphores.
+// One block of kDynThreads = 256 threads per copy: warp w owns row w of
+// every tile (dynrow1: the row), each lane 4 consecutive values, a 16-byte
+// load. Only acc[0, 0] is on the chain, and it reads nothing but column 0
+// of each tile's first row: each warp keeps its own copy of it and adds
+// those words in the same order, so the copy is acc[0, 0] bit for bit and
+// no barrier passes it on. The words (151 of them, 575 for dynrow1) are
+// staged in shared memory before the loop: L1 does not keep them between
+// the tiles it streams, so read from the table each step waited on L2.
+// The tiles leave the chain: a warp loads iteration i's as soon as the
+// chain gives its row, into a ring of kDynDepth iterations in registers,
+// and adds them while the chain runs ahead; the loads are marked to leave
+// L1 first (evict_first), which ran faster with the card full. async4's
+// ring is shared-memory stages, each with a `full` and an `empty`
+// mbarrier and their phase parities (the TMA pipeline). Bound with one
+// copy: the chain's shared load and arithmetic an iteration, or the
+// tiles' bytes through the SM; with the card full, those bytes through
+// L1 and L2.
 enum { kStatic, kDyn1, kDyn4, kDynRow1, kAsync4 };
-constexpr int kDynIters = 2000;
+constexpr int kDynIters = 2000, kDynThreads = 256, kDynWarps = 8;
+
+// Iterations in flight: 2 ran faster than 4 and 8 in every body and at
+// both shapes (a warp has 6 scoreboards for its loads in flight, and
+// each register a load holds costs copies a SM)
+constexpr int kDynDepth = 2;
+// async4's ring (dynamic shared memory): [stage][tile] 4 KB
+constexpr int kAsyncBytes = kDynDepth * 4 * 4096;
+static_assert(kDynIters % kDynDepth == 0, "whole rings");
+
+// tiles an iteration adds
+__host__ __device__ constexpr int dyn_tiles(int b) {
+  return b == kDyn4 || b == kAsync4 ? 4 : 1;
+}
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
@@ -760,70 +817,191 @@ __device__ __forceinline__ float4 load_volatile(const float4* p) {
   return v;
 }
 
+// a tile's 16 bytes, the first out of L1
+__device__ __forceinline__ float4 load_streamed(const float4* p) {
+  float4 v;
+  asm("ld.global.L1::evict_first.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "l"(p));
+  return v;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// Iteration i's index at a00 = acc[0, 0]: int(a00) % 64 (% 512) + i % 64,
+// Python's floor modulo, which by a power of two keeps the low bits
 template <int kB>
-__global__ void __launch_bounds__(256) dyn_cost_kernel(
-    const float* __restrict__ tab, float* __restrict__ out) {
-  __shared__ __align__(128) float4 buf[4 * 256];
-  __shared__ __align__(8) uint64_t bar;
-  __shared__ float a00[2];
-  const int t = threadIdx.x, r = t >> 5, c4 = t & 31;
-  const float4* tab4 = reinterpret_cast<const float4*>(tab);
-  if (kB == kAsync4 && t == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
-                 :: "r"(smem_addr(&bar)) : "memory");
+__device__ __forceinline__ int dyn_idx(float a00, int i) {
+  return ((int)a00 & (kB == kDynRow1 ? 511 : 63)) + (i & 63);
+}
+
+// The first row of tile q of the index: dynrow1's row idx; the others'
+// idx * 8 + 64 * q
+template <int kB>
+__device__ __forceinline__ int dyn_row(int idx, int q) {
+  return kB == kDynRow1 ? idx : idx * 8 + 64 * q;
+}
+
+// The rows whose column 0 a chain reads: dynrow1's rows 0-574 (idx <=
+// 511 + 63); the others' tiles' first rows, every 8th row of 0-1200 (idx <=
+// 126). col0[j] holds row j * chain_step's word, so tile q's is at idx + 8q.
+__host__ __device__ constexpr int chain_step(int b) {
+  return b == kDynRow1 ? 1 : 8;
+}
+__host__ __device__ constexpr int chain_words(int b) {
+  return b == kDynRow1 ? 575 : 151;
+}
+
+// a00 past the tiles of the index: column 0 of each tile's first row, in
+// order
+template <int kB>
+__device__ __forceinline__ float dyn_chain(const float* col0, float a00,
+                                           int idx) {
+  float c[dyn_tiles(kB)];
+#pragma unroll
+  for (int q = 0; q < dyn_tiles(kB); ++q) c[q] = col0[idx + 8 * q];
+#pragma unroll
+  for (int q = 0; q < dyn_tiles(kB); ++q) a00 = a00 + c[q];
+  return a00;
+}
+
+// dyn1, dyn4, dynrow1: the ring in registers. Returns the thread's acc.
+template <int kB>
+__device__ __forceinline__ float4 dyn_loads(const float* tab,
+                                            const float* col0) {
+  constexpr int kT = dyn_tiles(kB), kD = kDynDepth;
+  const int lane = threadIdx.x & 31;
+  const int rw = kB == kDynRow1 ? 0 : threadIdx.x >> 5;
+  const float4* at = reinterpret_cast<const float4*>(tab) + rw * 32 + lane;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f), ring[kD][kT];
+  float a00 = 0.f;                         // this warp's acc[0, 0]
+#pragma unroll
+  for (int s = 0; s < kD; ++s) {
+    const int idx = dyn_idx<kB>(a00, s);
+#pragma unroll
+    for (int q = 0; q < kT; ++q)
+      ring[s][q] = load_streamed(at + dyn_row<kB>(idx, q) * 32);
+    a00 = dyn_chain<kB>(col0, a00, idx);
+  }
+  for (int i = 0; i < kDynIters; i += kD) {
+#pragma unroll
+    for (int s = 0; s < kD; ++s) {
+      // slot s: iteration i + s's tiles added, i + s + kD's loaded
+      const bool more = i + s + kD < kDynIters;
+      const int idx = dyn_idx<kB>(a00, i + s + kD);
+      float4 v[kT];
+      if (more) {
+#pragma unroll
+        for (int q = 0; q < kT; ++q)
+          v[q] = load_streamed(at + dyn_row<kB>(idx, q) * 32);
+      }
+#pragma unroll
+      for (int q = 0; q < kT; ++q) acc = add4(acc, ring[s][q]);
+      if (more) {
+#pragma unroll
+        for (int q = 0; q < kT; ++q) ring[s][q] = v[q];
+        a00 = dyn_chain<kB>(col0, a00, idx);
+      }
+    }
+  }
+  return acc;
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// async4: iteration i's four tiles as four bulk copies of 4 KB into stage
+// i % kD, issued by thread 0 on the stage's `full` mbarrier once every
+// warp has arrived on its `empty` one, having read the stage's last
+// iteration. Returns the thread's acc.
+__device__ __forceinline__ float4 dyn_async4(const float* tab,
+                                             const float* col0) {
+  constexpr int kD = kDynDepth;
+  extern __shared__ __align__(128) float4 ring[];     // [stage][tile]
+  __shared__ __align__(8) uint64_t full[kD], empty[kD];
+  const int t = threadIdx.x;
+  if (t == 0) {
+    for (int s = 0; s < kD; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_addr(&full[s])) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+                   :: "r"(smem_addr(&empty[s])), "r"(kDynWarps)
+                   : "memory");
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int i = 0; i < kDynIters; ++i) {
-    if (kB == kStatic) {
-      acc = add4(acc, load_volatile(tab4 + r * 32 + c4));
-      continue;
-    }
-    if (t == 0) a00[i & 1] = acc.x;          // acc[0, 0]
-    __syncthreads();
-    const int idx = floor_mod((int)a00[i & 1], kB == kDynRow1 ? 512 : 64)
-                    + i % 64;
-    if (kB == kDyn1) {
-      acc = add4(acc, tab4[(idx * 8 + r) * 32 + c4]);
-    } else if (kB == kDyn4) {
-      const float4 a = tab4[(idx * 8 + r) * 32 + c4];
-      const float4 b = tab4[(idx * 8 + 64 + r) * 32 + c4];
-      const float4 c = tab4[(idx * 8 + 128 + r) * 32 + c4];
-      const float4 d = tab4[(idx * 8 + 192 + r) * 32 + c4];
-      acc = add4(add4(add4(add4(acc, a), b), c), d);
-    } else if (kB == kDynRow1) {
-      acc = add4(acc, tab4[idx * 32 + c4]);
-    } else {                                 // kAsync4
-      const uint32_t b = smem_addr(&bar);
-      if (t == 0) {
-        // the barrier above ordered every read of buf before these writes
-        asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-        asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-                     :: "r"(b), "r"(4 * 4096) : "memory");
-        for (int s = 0; s < 4; ++s)
-          asm volatile(
-              "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
-              "::bytes [%0], [%1], %2, [%3];"
-              :: "r"(smem_addr(buf + s * 256)),
-                 "l"(tab + (idx * 8 + s * 64) * 128), "r"(4096), "r"(b)
-              : "memory");
-      }
-      uint32_t done = 0;
-      while (!done)
+  float a00 = 0.f;                         // this warp's acc[0, 0]
+  // iteration i's copies into stage s, then a00 past its tiles
+  auto start = [&](int i, int s) {
+    const int idx = dyn_idx<kAsync4>(a00, i);
+    if (t == 0) {
+      if (i >= kD) mbar_wait(smem_addr(&empty[s]), (i / kD - 1) & 1);
+      const uint32_t b = smem_addr(&full[s]);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                   :: "r"(b), "r"(4 * 4096) : "memory");
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
         asm volatile(
-            "{\n .reg .pred p;\n"
-            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            " selp.u32 %0, 1, 0, p;\n}"
-            : "=r"(done) : "r"(b), "r"(i & 1) : "memory");
-      for (int s = 0; s < 4; ++s) acc = add4(acc, buf[s * 256 + t]);
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+            "::bytes [%0], [%1], %2, [%3];"
+            :: "r"(smem_addr(ring + (s * 4 + q) * 256)),
+               "l"(tab + dyn_row<kAsync4>(idx, q) * 128), "r"(4096),
+               "r"(b)
+            : "memory");
+    }
+    a00 = dyn_chain<kAsync4>(col0, a00, idx);
+  };
+#pragma unroll
+  for (int s = 0; s < kD; ++s) start(s, s);
+  for (int i = 0; i < kDynIters; i += kD) {
+#pragma unroll
+    for (int s = 0; s < kD; ++s) {
+      mbar_wait(smem_addr(&full[s]), (i / kD) & 1);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        acc = add4(acc, ring[(s * 4 + q) * 256 + t]);
+      __syncwarp();
+      if ((t & 31) == 0)
+        asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+                     :: "r"(smem_addr(&empty[s])) : "memory");
+      if (i + s + kD < kDynIters) start(i + s + kD, s);
     }
   }
-  reinterpret_cast<float4*>(out)[blockIdx.x * 256 + t] = acc;
+  return acc;
+}
+
+template <int kB>
+__global__ void __launch_bounds__(kDynThreads) dyn_cost_kernel(
+    const float* __restrict__ tab, float* __restrict__ out) {
+  const int t = threadIdx.x;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  if constexpr (kB == kStatic) {
+    const float4* at = reinterpret_cast<const float4*>(tab) + t;
+    for (int i = 0; i < kDynIters; ++i) acc = add4(acc, load_volatile(at));
+  } else {
+    // the chain's words, staged once: L1 does not keep them between the
+    // tiles it streams
+    __shared__ float col0[chain_words(kB)];
+    for (int j = t; j < chain_words(kB); j += kDynThreads)
+      col0[j] = tab[j * chain_step(kB) * 128];
+    __syncthreads();
+    if constexpr (kB == kAsync4)
+      acc = dyn_async4(tab, col0);
+    else
+      acc = dyn_loads<kB>(tab, col0);
+  }
+  reinterpret_cast<float4*>(out)[blockIdx.x * kDynThreads + t] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -933,11 +1111,16 @@ Launch gather_launch(int body, int smem, int pages) {
 
 Launch mosaic3_launch(int mode) {
   switch (mode) {
-    case kNone: return launch_of(mosaic3_kernel<kNone>, 1024);
-    case kExtract: return launch_of(mosaic3_kernel<kExtract>, 1024);
-    case kSlice: return launch_of(mosaic3_kernel<kSlice>, 1024);
-    case kDepExtract: return launch_of(mosaic3_kernel<kDepExtract>, 1024);
-    case kDepSlice: return launch_of(mosaic3_kernel<kDepSlice>, 1024);
+    case kNone:
+      return launch_of(mosaic3_kernel<kNone>, kM3Threads);
+    case kExtract:
+      return launch_of(mosaic3_kernel<kExtract>, kM3Threads);
+    case kSlice:
+      return launch_of(mosaic3_kernel<kSlice>, kM3Threads);
+    case kDepExtract:
+      return launch_of(mosaic3_kernel<kDepExtract>, kM3Threads);
+    case kDepSlice:
+      return launch_of(mosaic3_kernel<kDepSlice>, kM3Threads);
   }
   return Launch();
 }
@@ -983,11 +1166,12 @@ Launch body_launch(int feats) {
 
 Launch dyn_cost_launch(int body) {
   switch (body) {
-    case kStatic: return launch_of(dyn_cost_kernel<kStatic>, 256);
-    case kDyn1: return launch_of(dyn_cost_kernel<kDyn1>, 256);
-    case kDyn4: return launch_of(dyn_cost_kernel<kDyn4>, 256);
-    case kDynRow1: return launch_of(dyn_cost_kernel<kDynRow1>, 256);
-    case kAsync4: return launch_of(dyn_cost_kernel<kAsync4>, 256);
+    case kStatic: return launch_of(dyn_cost_kernel<kStatic>, kDynThreads);
+    case kDyn1: return launch_of(dyn_cost_kernel<kDyn1>, kDynThreads);
+    case kDyn4: return launch_of(dyn_cost_kernel<kDyn4>, kDynThreads);
+    case kDynRow1: return launch_of(dyn_cost_kernel<kDynRow1>, kDynThreads);
+    case kAsync4:
+      return launch_of(dyn_cost_kernel<kAsync4>, kDynThreads, kAsyncBytes);
   }
   return Launch();
 }

@@ -398,6 +398,37 @@ def against_libraries(kind, roots):
     return libs
 
 
+def probe_against(probe, cases, body, this, other, equal, device, roots,
+                  blocks=3):
+    """Each case of a timed probe in turns with each other checkout's
+    kernel (against_libraries: its probes library, the same C entry and
+    body), as graph replays (against), at one copy, at the other's full
+    shape and at this one's (full_copies of `probe` with body(case)).
+    this(case, copies) and other(lib, case, copies) launch without
+    synchronising and return {name: tensor}, which must be equal bit for
+    bit; equal(case, out) says whether this tree's out is the plain
+    version's, checked at each shape first. Raises on any difference.
+    Returns {case: {(root, copies): {"ms", "other_ms", "ratio"}}}."""
+    libs = against_libraries("probes", roots)
+    res = {}
+    for j, case in enumerate(cases):
+        own, _ = full_copies(probe, body(case))
+        res[case] = {}
+        for root, lib in libs.items():
+            full, _ = full_copies(probe, body(case), lib=lib)
+            for copies in sorted({1, full, own}):
+                if not equal(case, this(case, copies)):
+                    raise RuntimeError(f"{probe} {case} at {copies} copies "
+                                       "differs from the plain version")
+                r = against(lambda c=copies: this(case, c),
+                            {root: lambda c=copies, lib=lib: other(
+                                lib, case, c)},
+                            device, blocks, WARMUP_S if j == 0 else 0.0,
+                            graphs=True, what=f"{probe} {case}")
+                res[case][(root, copies)] = r[root]
+    return res
+
+
 def same_outputs(out, ref, what):
     """Raises unless every output of `out` equals ref's bit for bit."""
     for key in out:
@@ -837,3 +868,25 @@ def read_sass(lib_path):
     return parse_sass(subprocess.run(
         [sass_tool("cuobjdump"), "-sass", str(lib_path)],
         capture_output=True, text=True, check=True).stdout)
+
+
+def probe_kernels(pattern, lib_path=None, funcs=None):
+    """{template argument: {"regs", "spills" (bytes stored and loaded),
+    "sass" (its Sass)}} of a probes library's kernels (this tree's by
+    default) whose names match `pattern`, a regex whose one group is the
+    integer template argument; from ptxas' lines of its build
+    (build.kept_log) and cuobjdump. funcs: the library's read_sass, where
+    the caller has read it."""
+    from . import sass_audit
+    path, log = ((Path(lib_path), None) if lib_path
+                 else build.build(None, "probes"))
+    log = log or build.kept_log(path)
+    regs = {n: r["REG"] for n, r in sass_audit.res_usage(path).items()}
+    spill = sass_audit.spills(log)
+    out = {}
+    for name, fn in (funcs or read_sass(path)).items():
+        m = re.search(pattern, name)
+        if m:
+            out[int(m[1])] = {"regs": regs.get(name),
+                              "spills": spill.get(name), "sass": fn}
+    return out

@@ -32,20 +32,17 @@ Usage: python -m rodent_tpu_torch.experiments.probe_body [--cpu]
     [--blocks 3] [--against DIR [DIR ...]]
 --against times this tree's body against each other checkout's (its
 rodent_tpu_torch/csrc/probes.cu, built under common.AGAINST_BUILD) in
-turns at one copy and at the other's full shape, every output bit for bit
-equal; it needs the card.
+turns at one copy, at the other's full shape and at this one's, every
+output bit for bit equal; it needs the card.
 """
 from __future__ import annotations
 
 import argparse
-import re
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from ..kernels import build
 from ..traversal.api import _SORT_NETWORKS
 from . import common
 
@@ -276,55 +273,33 @@ def step_barriers(fn):
 def resources(lib_path=None, funcs=None):
     """{feats: {"regs", "spills" (bytes stored and loaded), "barriers"
     (step_barriers)}} of every body_kernel of a probes library (this
-    tree's by default), from ptxas' lines of its build and cuobjdump;
-    funcs: the library's common.read_sass, where the caller has read it."""
-    from . import sass_audit
-    path, log = ((Path(lib_path), None) if lib_path
-                 else build.build(None, "probes"))
-    log = log or build.kept_log(path)
-    regs = {n: r["REG"] for n, r in sass_audit.res_usage(path).items()}
-    spill = sass_audit.spills(log)
+    tree's by default; common.probe_kernels); funcs: the library's
+    common.read_sass, where the caller has read it."""
     bits = {mask(f): f for f in CASES}
-    out = {}
-    for fn_name, fn in (funcs or common.read_sass(path)).items():
-        m = re.search(r"body_kernelILi(\d+)EE", fn_name)
-        if m:
-            out[bits[int(m[1])]] = {
-                "regs": regs.get(fn_name), "spills": spill.get(fn_name),
-                "barriers": step_barriers(fn)}
-    return out
+    return {bits[m]: {"regs": r["regs"], "spills": r["spills"],
+                      "barriers": step_barriers(r["sass"])}
+            for m, r in common.probe_kernels(r"body_kernelILi(\d+)EE",
+                                             lib_path, funcs).items()}
 
 
 def against(device, roots, blocks=3):
     """Every feature set in turns with each other checkout's body (its
-    probes library, other_library, with the same mask), as graph replays
-    (common.against), at one copy and at the other body's full shape.
-    Raises unless out and aux equal the other's and the plain version's
-    bit for bit. {feats: {(root, copies): {"ms", "other_ms",
-    "ratio"}}}."""
-    libs = common.against_libraries("probes", roots)
-    tab, res = inputs(device), {}
+    probes library, with the same mask; common.probe_against), out and aux
+    bit for bit the other's and the plain version's. {feats: {(root,
+    copies): {"ms", "other_ms", "ratio"}}}."""
+    tab = inputs(device)
+    want = {feats: plain(feats, tab) for feats in CASES}
 
     def outputs(got):
         return {"out": got[0], "aux": got[1].view(torch.int32)}
 
-    for j, feats in enumerate(CASES):
-        want = plain(feats, tab)
-        res[feats] = {}
-        for root, lib in libs.items():
-            full, _ = common.full_copies("body", mask(feats), lib=lib)
-            for copies in (1, full):
-                if not equal(run(feats, tab, copies), want):
-                    raise RuntimeError(f"probe_body {name(feats)} differs "
-                                       "from the plain version")
-                r = common.against(
-                    lambda c=copies: outputs(run(feats, tab, c)),
-                    {root: lambda c=copies, lib=lib: outputs(launch(
-                        lib, mask(feats), tab, c))},
-                    device, blocks, common.WARMUP_S if j == 0 else 0.0,
-                    graphs=True, what=f"probe_body {name(feats)}")
-                res[feats][(root, copies)] = r[root]
-    return res
+    return common.probe_against(
+        "body", CASES, mask,
+        lambda feats, c: outputs(run(feats, tab, c)),
+        lambda lib, feats, c: outputs(launch(lib, mask(feats), tab, c)),
+        lambda feats, out: equal((out["out"], out["aux"].view(
+            torch.float32)), want[feats]),
+        device, roots, blocks)
 
 
 def report(feats, r):

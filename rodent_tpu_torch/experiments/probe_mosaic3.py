@@ -10,16 +10,26 @@ float32 table (lanes j * 5 % 128) to a (64, 128) accumulator. Modes:
       words on by __shfl_sync (K4's row_loads);
   dep-extract, dep-slice: the same, the next row being the int32 bits of
       lane 0 of this one (a permutation: a pop's dependent chase).
-Each mode runs at two launch shapes: one copy (one block of 1,024 threads,
-8 of the 8,192 values each: the TPU's one program) and as many copies as
-fill the card. The table is arange for the first three modes and a
-permutation in column 0 for the dep- modes (default_rng(0), :103-106).
+Each mode runs at two launch shapes: one copy (one block: the TPU's one
+program) and as many copies as fill the card. The table is arange for the
+first three modes and a permutation in column 0 for the dep- modes
+(default_rng(0), :103-106).
 
-On a CUDA tensor run() launches the mode's kernel (csrc/probes.cu); on a
-CPU tensor it takes the plain version. Nothing runs at import.
+The card's body (csrc/probes.cu, mosaic3_kernel) is a block of 256
+threads a copy, 32 of the 8,192 values each, so that each word loaded or
+shuffled feeds 32 float adds; the next row's loads are issued before this
+row's adds. With -fmad=false the adds are FADDs, one per lane and cycle:
+issue_ms() is that rate's time, half the published-peak bound of bound().
+
+On a CUDA tensor run() launches the mode's kernel; on a CPU tensor it
+takes the plain version. Nothing runs at import.
 
 Usage: python -m rodent_tpu_torch.experiments.probe_mosaic3 [--cpu]
-    [--blocks 3]
+    [--blocks 3] [--against DIR [DIR ...]]
+--against times this tree's body against each other checkout's (its
+rodent_tpu_torch/csrc/probes.cu, built under common.AGAINST_BUILD) in
+turns at one copy, at the other's full shape and at this one's, every
+output bit for bit equal; it needs the card.
 """
 from __future__ import annotations
 
@@ -78,6 +88,15 @@ def plain(mode, tab):
     return acc.expand(R, 128).contiguous()
 
 
+def launch(lib, mode, tab, copies):
+    """rt_probe_mosaic3 of the probes library lib (None: this tree's) on
+    `copies` copies, on the current stream: (copies, 64, 128)."""
+    out = torch.empty(copies, R, 128, dtype=torch.float32, device=tab.device)
+    common.probe_call("rt_probe_mosaic3", MODES.index(mode), tab.data_ptr(),
+                      out.data_ptr(), copies, lib=lib)
+    return out
+
+
 def run(mode, tab, copies=1):
     """(copies, 64, 128): the kernel on a CUDA table, the plain version on
     a CPU one."""
@@ -89,18 +108,55 @@ def run(mode, tab, copies=1):
         raise ValueError("probe_mosaic3 takes a contiguous (1024, 128) "
                          f"float32 CUDA table, not {tab.dtype} "
                          f"{tuple(tab.shape)} on {tab.device}")
-    out = torch.empty(copies, R, 128, dtype=torch.float32, device=tab.device)
-    common.probe_call("rt_probe_mosaic3", MODES.index(mode), tab.data_ptr(),
-                      out.data_ptr(), copies)
+    out = launch(None, mode, tab, copies)
     launches += 1
     return out
 
 
+def adds(mode):
+    """One copy's float adds: 8,192 per word (one for none) and
+    iteration, whatever the threads a copy."""
+    return (1 if mode == "none" else K) * R * 128 * N
+
+
 def bound(mode, copies):
-    """The full launch's bound: 8,192 float adds per word (one for none)
-    per iteration; the table read once and the outputs written."""
-    ops = (1 if mode == "none" else K) * R * 128 * N * copies
-    return common.probe_bound_ms(ops, NN * 512 + copies * R * 512)
+    """The full launch's bound: adds() of every copy against the published
+    float32 peak; the table read once and the outputs written."""
+    return common.probe_bound_ms(adds(mode) * copies,
+                                 NN * 512 + copies * R * 512)
+
+
+def issue_ms(mode, copies, sms, mhz):
+    """The least time the launch's adds take at one FADD per lane and
+    cycle (128 lanes an SM at mhz), the copies spread over `sms` SMs in
+    whole waves: half of bound()'s operations time, where the published
+    peak counts an FMA as two operations."""
+    return -(-copies // sms) * adds(mode) / (128 * mhz * 1e6) * 1e3
+
+
+def resources(lib_path=None, funcs=None):
+    """{mode: {"regs", "spills" (bytes stored and loaded)}} of every
+    mosaic3_kernel of a probes library (this tree's by default;
+    common.probe_kernels)."""
+    return {MODES[m]: {"regs": r["regs"], "spills": r["spills"]}
+            for m, r in common.probe_kernels(r"mosaic3_kernelILi(\d+)EE",
+                                             lib_path, funcs).items()}
+
+
+def against(device, roots, blocks=3):
+    """Every mode in turns with each other checkout's body
+    (common.probe_against), every output bit for bit the other's and the
+    plain version's. {mode: {(root, copies): {"ms", "other_ms",
+    "ratio"}}}."""
+    tabs = {mode: inputs(mode, device) for mode in MODES}
+    want = {mode: plain(mode, tab) for mode, tab in tabs.items()}
+    return common.probe_against(
+        "mosaic3", MODES, MODES.index,
+        lambda mode, c: {"out": run(mode, tabs[mode], c)},
+        lambda lib, mode, c: {"out": launch(lib, mode, tabs[mode], c)},
+        lambda mode, out: bool(torch.equal(
+            out["out"], want[mode].expand_as(out["out"]))),
+        device, roots, blocks)
 
 
 def measure(device, blocks=3):
@@ -132,21 +188,54 @@ def check(res):
     return ok
 
 
+def report(mode, r, clock=None):
+    """A mode's line: both shapes' times and the share of the bound; on a
+    card (clock: its SMs and SM MHz) also of the FADD issue rate
+    (issue_ms) at the full shape."""
+    dep = ", dependent chase" if mode.startswith("dep") else ""
+    line = (f"{mode:>12}: {r['ns1']:7.1f} ns/iter ({K} lane reads{dep}); "
+            f"{r['ns_sm']:.2f} ns/iter per SM with {r['copies']} copies; "
+            f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
+            f"{r['ms']:.4f} ms, {r['bound'][0] / r['ms']:.1%} of it")
+    if clock:
+        issue = issue_ms(mode, r["copies"], *clock)
+        line += (f", {issue / r['ms']:.1%} of the FADD issue rate at "
+                 f"{clock[1]:g} MHz")
+    return line
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="probe_mosaic3")
     common.add_args(p)
+    p.add_argument("--against", nargs="+", metavar="DIR",
+                   help="the roots of other checkouts whose body is timed "
+                   "against this one's, every mode")
     p.set_defaults(blocks=3)
     args = p.parse_args(argv)
+    if args.cpu and args.against:
+        p.error("--against times builds of a CUDA kernel: it needs the "
+                "card")
     device = common.device_of(args, "probe_mosaic3")
     print(f"card: {common.card(device)}", flush=True)
+    if args.against:
+        libs = {"this tree": None} | {root: common.other_library(
+            root, "probes")._name for root in args.against}
+        for label, path in libs.items():
+            print(f"{label}: " + ", ".join(
+                f"{mode} {r['regs']} registers, spills {r['spills']}"
+                for mode, r in resources(path).items()), flush=True)
+        for mode, by in against(device, args.against, args.blocks).items():
+            print(f"{mode:>12}: " + "; ".join(
+                f"{root} {c} copies in turns: {r['other_ms']:.4f} -> "
+                f"{r['ms']:.4f} ms ({r['ratio']:.4f}x)"
+                for (root, c), r in by.items()) + "; equal bit for bit",
+                flush=True)
     res = measure(device, args.blocks)
     ok = check(res)
+    clock = (torch.cuda.get_device_properties(device).multi_processor_count,
+             common.sm_clock_mhz()[1]) if device.type == "cuda" else None
     for mode, r in res.items():
-        dep = ", dependent chase" if mode.startswith("dep") else ""
-        print(f"{mode:>12}: {r['ns1']:7.1f} ns/iter ({K} lane reads{dep}); "
-              f"{r['ns_sm']:.2f} ns/iter per SM with {r['copies']} copies; "
-              f"bound {r['bound'][0]:.4f} ms ({r['bound'][1]}), "
-              f"{r['ms']:.4f} ms; {'OK' if ok[mode] else 'WRONG'}",
+        print(f"{report(mode, r, clock)}; {'OK' if ok[mode] else 'WRONG'}",
               flush=True)
     return 0
 

@@ -974,11 +974,25 @@ def traverse_tile_components(dev, org, dirv, inv_d, tmin, tmax,
         tris_read = torch.zeros(tris.shape[0], dtype=torch.bool,
                                 device=device)
     while True:
-        act = torch.nonzero((sp > 0) & ~done).squeeze(1)
-        if act.numel() == 0:
+        # one host sync a step: the live tiles grouped by their top entry
+        # (pure node, mixed node, leaf, none) and the last step's overflow
+        # check (its pushes write a clamped slot, so sp passes cap)
+        live = (sp > 0) & ~done
+        top = stack.gather(1, (sp - 1).clamp(0, cap - 1)[:, None])[:, 0]
+        kind = torch.where(top > 0, torch.where(pure, 1, 2),
+                           torch.where(top < 0, 3, 4))
+        kind = torch.where(live, kind, 0)
+        n_dead, n_pure, n_mixed, n_leaf, _, over = torch.cat([
+            torch.bincount(kind, minlength=5),
+            (sp > cap).any().view(1).to(torch.int64)]).tolist()
+        if over:
+            raise ValueError(f"tile stack of {cap} entries overflowed")
+        if n_dead == nt:
             break
+        act = torch.argsort(kind, stable=True)[n_dead:]
+        nn = n_pure + n_mixed
         spa = sp[act] - 1
-        code = stack[act, spa]
+        code = top[act]
         pops[act] += 1
         leaf_pops[act] += (code < 0).to(torch.int32)
         t_test = t[act]
@@ -986,28 +1000,27 @@ def traverse_tile_components(dev, org, dirv, inv_d, tmin, tmax,
             t_test = torch.where(prim[act] >= 0, -_F32_MAX, t_test)
         push = torch.zeros((act.numel(), a), dtype=torch.int32,
                            device=device)
-        nd = torch.nonzero(code > 0).squeeze(1)
-        if nd.numel():
-            tl = act[nd]
-            rows = nodes[code[nd] - 1]
+        if nn:
+            tl = act[:nn]
+            rows = nodes[code[:nn] - 1]
             if count_rows:
-                nodes_read[code[nd] - 1] = True
-            tt = t_test[nd]
+                nodes_read[code[:nn] - 1] = True
+            tt = t_test[:nn]
             args = ([c[tl] for c in o], [c[tl] for c in inv], tmn[tl], tt)
             keys = _tile_slab_keys(rows, a, *args)
-            pt = torch.nonzero(pure[tl]).squeeze(1)
-            if pt.numel():
+            if n_pure:
+                pt = tl[:n_pure]
                 if frustum:
                     kp = _tile_frustum_keys(
-                        rows[pt], [q[tl[pt]] for q in pos],
-                        [tuple(x[tl[pt]] for x in f) for f in fr[:3]]
-                        + [fr[3][tl[pt]]], tt[pt], tile_rows)
+                        rows[:n_pure], [q[pt] for q in pos],
+                        [tuple(x[pt] for x in f) for f in fr[:3]]
+                        + [fr[3][pt]], tt[:n_pure], tile_rows)
                 else:
-                    kp = _tile_slab_keys(rows[pt], a,
-                                         *[[c[pt] for c in x] for x in
-                                           args[:2]], args[2][pt], tt[pt],
-                                         [q[tl[pt]] for q in pos])
-                keys[pt] = kp
+                    kp = _tile_slab_keys(rows[:n_pure], a,
+                                         *[[c[:n_pure] for c in x] for x in
+                                           args[:2]], args[2][:n_pure],
+                                         tt[:n_pure], [q[pt] for q in pos])
+                keys[:n_pure] = kp
             ch = rows[:, 6 * a:].view(torch.int32)
             valid = (ch != 0) & (keys < _F32_MAX)
             keys = list(torch.where(valid, keys, _F32_MAX).unbind(1))
@@ -1019,9 +1032,9 @@ def traverse_tile_components(dev, org, dirv, inv_d, tmin, tmax,
                                         torch.where(swap, keys[i], keys[j]))
                     ch[i], ch[j] = (torch.where(swap, ch[j], ch[i]),
                                     torch.where(swap, ch[i], ch[j]))
-            push[nd] = torch.stack(ch, 1)
-        lf = torch.nonzero(code < 0).squeeze(1)
-        if lf.numel():
+            push[:nn] = torch.stack(ch, 1)
+        if n_leaf:
+            lf = slice(nn, nn + n_leaf)
             tl = act[lf]
             lc = code[lf]
             if count_rows:
@@ -1038,12 +1051,12 @@ def traverse_tile_components(dev, org, dirv, inv_d, tmin, tmax,
             geom[tl] = torch.where(upd, gid, geom[tl])
             last = rowi[:, 13 * m - 1] < 0
             push[lf, 0] = torch.where(last, torch.zeros_like(lc), lc - 1)
-        # the last child first, so child 0 ends on top (:836-840)
+        # the last child first, so child 0 ends on top (:836-840); a row
+        # that pushes nothing at r writes its slot's own value back
         for r in range(a - 1, -1, -1):
             ok = push[:, r] != 0
-            if bool(ok.any()) and int(spa[ok].max()) >= cap:
-                raise ValueError(f"tile stack of {cap} entries overflowed")
-            stack[act[ok], spa[ok]] = push[ok, r]
+            at = torch.clamp(spa, max=cap - 1)
+            stack[act, at] = torch.where(ok, push[:, r], stack[act, at])
             spa = spa + ok.to(torch.int64)
         sp[act] = spa
         if any_hit:

@@ -123,16 +123,14 @@ def traverse_pair_components(dev, org, dirv, inv_d, tmin, tmax,
                                 device=device)
     guard = max_iters(dev)
     step = 0
+    ar = torch.arange(nt, device=device)
     while True:
-        act = torch.nonzero((sp > 0) & ~done).squeeze(1)
-        if act.numel() == 0:
-            break
-        if step >= guard:
-            raise ValueError(f"pair traversal reached its guard of {guard} "
-                             "iterations (pallas_pair.py:305)")
-        step += 1
-        top = sp[act] - 1
-        kr = keys[act, top]
+        # one host sync a step: every tile's popped code, the live tiles
+        # grouped by it (node, leaf, none) and the last step's overflow
+        # check (its pushes write a clamped slot, so sp passes cap)
+        live = (sp > 0) & ~done
+        top = (sp - 1).clamp(0, cap - 1)
+        kr = keys[ar, top]
         if "nosort" in ablate:
             # the first finite key; with none, slot 7 and nothing stripped
             finite = kr < _F32_MAX
@@ -143,11 +141,27 @@ def traverse_pair_components(dev, org, dirv, inv_d, tmin, tmax,
             low = kr <= kr.amin(1, keepdim=True)
             slot = torch.argmax(low.to(torch.int8), 1)
             strip = torch.ones_like(low[:, 0])
-        code = codes[act, top].gather(1, slot[:, None])[:, 0]
+        code = codes[ar, top].gather(1, slot[:, None])[:, 0]
+        kind = torch.where(live, torch.where(
+            code > 0, 1, torch.where(code < 0, 2, 3)), 0)
+        n_dead, n_node, n_leaf, _, over = torch.cat([
+            torch.bincount(kind, minlength=4),
+            (sp > cap).any().view(1).to(torch.int64)]).tolist()
+        if over:
+            raise ValueError(f"pair stack of {cap} entries overflowed")
+        if n_dead == nt:
+            break
+        if step >= guard:
+            raise ValueError(f"pair traversal reached its guard of {guard} "
+                             "iterations (pallas_pair.py:305)")
+        step += 1
+        act = torch.argsort(kind, stable=True)[n_dead:]
+        top, slot, strip, code = top[act], slot[act], strip[act], code[act]
         pops[act] += (code != 0).to(torch.int32)
         leaf_pops[act] += (code < 0).to(torch.int32)
         if "nostrip" not in ablate:
-            keys[act[strip], top[strip], slot[strip]] = _F32_MAX
+            keys[act, top, slot] = torch.where(strip, _F32_MAX,
+                                               keys[act, top, slot])
         rem = cnt[act, top] - 1
         cnt[act, top] = rem
         spa = torch.where(rem <= 0, top, top + 1)
@@ -156,21 +170,20 @@ def traverse_pair_components(dev, org, dirv, inv_d, tmin, tmax,
         new_codes = torch.zeros((act.numel(), 8), dtype=torch.int32,
                                 device=device)
         new_cnt = torch.zeros(act.numel(), dtype=torch.int32, device=device)
-        nd = torch.nonzero(code > 0).squeeze(1)
-        if nd.numel() and "nonode" not in ablate:
-            tl = act[nd]
-            rows = nodes[code[nd] - 1]
+        if n_node and "nonode" not in ablate:
+            tl = act[:n_node]
+            rows = nodes[code[:n_node] - 1]
             if count_rows:
-                nodes_read[code[nd] - 1] = True
+                nodes_read[code[:n_node] - 1] = True
             ch = rows[:, 48:56].view(torch.int32)
             kk = _tile_slab_keys(rows, 8, [c[tl] for c in o],
                                  [c[tl] for c in inv], tmn[tl], t[tl])
             kk = torch.where(ch != 0, kk, _F32_MAX)
-            new_keys[nd] = kk
-            new_codes[nd] = ch
-            new_cnt[nd] = (kk < _F32_MAX).sum(1).to(torch.int32)
-        lf = torch.nonzero(code < 0).squeeze(1)
-        if lf.numel() and "noleaf" not in ablate:
+            new_keys[:n_node] = kk
+            new_codes[:n_node] = ch
+            new_cnt[:n_node] = (kk < _F32_MAX).sum(1).to(torch.int32)
+        if n_leaf and "noleaf" not in ablate:
+            lf = slice(n_node, n_node + n_leaf)
             tl = act[lf]
             lc = code[lf]
             if count_rows:
@@ -190,17 +203,16 @@ def traverse_pair_components(dev, org, dirv, inv_d, tmin, tmax,
             prim[tl] = torch.where(upd, pp, prim[tl])
             geom[tl] = torch.where(upd, pg, geom[tl])
             cont = rowi[:, 103] >= 0     # lane 7's pid: not the last row
-            ci = lf[cont]
-            new_keys[ci, 0] = 0.0
-            new_codes[ci, 0] = lc[cont] - 1
-            new_cnt[ci] = 1
+            new_keys[lf, 0] = torch.where(cont, 0.0, _F32_MAX)
+            new_codes[lf, 0] = torch.where(cont, lc - 1, 0)
+            new_cnt[lf] = cont.to(torch.int32)
+        # a row that pushes nothing writes its slot's own entry back
         push = new_cnt > 0
-        if bool(push.any()) and int(spa[push].max()) >= cap:
-            raise ValueError(f"pair stack of {cap} entries overflowed")
-        pa, ps = act[push], spa[push]
-        keys[pa, ps] = new_keys[push]
-        codes[pa, ps] = new_codes[push]
-        cnt[pa, ps] = new_cnt[push]
+        at = torch.clamp(spa, max=cap - 1)
+        keys[act, at] = torch.where(push[:, None], new_keys, keys[act, at])
+        codes[act, at] = torch.where(push[:, None], new_codes,
+                                     codes[act, at])
+        cnt[act, at] = torch.where(push, new_cnt, cnt[act, at])
         sp[act] = spa + push.to(torch.int64)
         if any_hit:
             done[act] = ((tmx[act] < tmn[act]) | (prim[act] >= 0)).all(1)

@@ -683,7 +683,9 @@ PROBES = {m.__name__.rsplit(".", 1)[1]: m for m in (
 def test_probe_kernels_match_plain(card, name):
     """Every body of the probe through its kernel, as its main() drives it
     (the timed ones at one copy and at the copies that fill the card),
-    equal bit for bit to its plain version on the card, every copy."""
+    equal bit for bit to its plain version on the card, every copy;
+    probe_dyn_cost's check() also runs every body at both shapes on a
+    seeded table on which its index moves."""
     m = PROBES[name]
     m.launches = 0
     res = m.measure(card, blocks=1)
@@ -700,6 +702,22 @@ def test_body_resources(card):
     assert set(res) == set(probe_body.CASES)
     assert all(r["spills"] == (0, 0) for r in res.values()), res
     assert all(r["barriers"] == 1 for r in res.values()), res
+
+
+def test_mosaic3_resources(card):
+    """Every mosaic3_kernel instantiation, one a mode, without spills."""
+    res = probe_mosaic3.resources()
+    assert set(res) == set(probe_mosaic3.MODES)
+    assert all(r["spills"] == (0, 0) for r in res.values()), res
+
+
+def test_dyn_cost_resources(card):
+    """Every dyn_cost_kernel instantiation, one a body, without spills and
+    with no BAR.SYNC in its loops: each warp keeps its own acc[0, 0]."""
+    res = probe_dyn_cost.resources()
+    assert set(res) == set(probe_dyn_cost.BODIES)
+    assert all(r["spills"] == (0, 0) for r in res.values()), res
+    assert all(r["barriers"] == 0 for r in res.values()), res
 
 
 def test_body_sort8_matches_the_serial_network(card):

@@ -442,6 +442,28 @@ def test_probe_body_against_refusals(tmp_path, capsys):
     assert build.library_path(tmp_path, "probes", csrc=other) != here
 
 
+@pytest.mark.parametrize("name", ["probe_mosaic3", "probe_dyn_cost"])
+def test_probe_against_refusals(tmp_path, capsys, name):
+    """probe_mosaic3 and probe_dyn_cost --against take one or more
+    checkout roots and refuse the CPU (they time two builds of a CUDA
+    kernel), as probe_body does; against() refuses a root without
+    rodent_tpu_torch/csrc/probes.cu, naming it, before it times
+    anything."""
+    import importlib
+    m = importlib.import_module(f"rodent_tpu_torch.experiments.{name}")
+    root = tmp_path / "parent"
+    (root / "rodent_tpu_torch" / "csrc").mkdir(parents=True)
+    for argv in (["--cpu", "--against", str(root)],
+                 ["--cpu", "--against", str(root), str(tmp_path / "x")]):
+        with pytest.raises(SystemExit):
+            m.main(argv)
+        assert "needs the card" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        m.main(["--against"])
+    with pytest.raises(FileNotFoundError, match="no probes source"):
+        m.against(torch.device("cpu"), [str(root)])
+
+
 def test_against_times_in_turns_and_raises_on_a_difference():
     """common.against times each other call in turns with this one
     (other, this, this, other: four calls each) and returns this over the

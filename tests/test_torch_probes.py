@@ -433,6 +433,94 @@ def test_body_step_barriers_reads_the_step_loop():
         "_ZN12_GLOBAL__N_111body_kernelILi0EEEvPKfPiPfi"]) == 2
 
 
+def _source_constants(*names):
+    """csrc/probes.cu's integer constexprs of these names."""
+    src = (build.CSRC / "probes.cu").read_text()
+    return [int(re.search(rf"\b{n} = (\d+)", src)[1]) for n in names]
+
+
+@pytest.mark.parametrize("mode", probe_mosaic3.MODES)
+def test_mosaic3_bound_counts_the_adds_per_copy(mode):
+    """probe_mosaic3's bound counts one copy's adds (8,192 values x 24
+    words, 1 for none, x 4,096 iterations) against the published float32
+    peak, linear in the copies, whatever the card's threads a copy: the
+    kernel's threads hold the 8,192 values between them; issue_ms, one
+    FADD per lane and cycle, is half of the bound's operation time on a
+    full wave (132 SMs at 1,980 MHz; the published peak counts an FMA as
+    two)."""
+    vals, threads = _source_constants("kM3Vals", "kM3Threads")
+    assert vals * threads == 64 * 128
+    words = 1 if mode == "none" else 24
+    assert probe_mosaic3.adds(mode) == words * 8192 * 4096
+    peak = common.PROBE_PEAKS["float32"]
+    for copies in (1, 132, 264, 528):
+        ms, by = probe_mosaic3.bound(mode, copies)
+        assert by == "operations"
+        assert ms * 1e-3 * peak == pytest.approx(
+            words * 8192 * 4096 * copies, rel=1e-12)
+    assert probe_mosaic3.bound("extract", 264)[0] == pytest.approx(
+        3.1779, abs=5e-5)
+    full = probe_mosaic3.issue_ms(mode, 264, 132, 1980.0)
+    assert full == pytest.approx(
+        2 * probe_mosaic3.issue_ms(mode, 1, 132, 1980.0), rel=1e-12)
+    assert full == pytest.approx(probe_mosaic3.issue_ms(mode, 133, 132,
+                                                        1980.0), rel=1e-12)
+    assert probe_mosaic3.bound(mode, 264)[0] / full == pytest.approx(
+        132 * 128 * 1980e6 / peak, rel=1e-12)
+
+
+@pytest.mark.parametrize("body", list(probe_dyn_cost.BODIES))
+def test_dyn_cost_bound_counts_the_adds_per_copy(body):
+    """probe_dyn_cost's bound counts 1,024 adds per tile added (one tile,
+    four for dyn4 and async4) and iteration of each copy, whatever the
+    card's threads a copy (they hold the 1,024 values, 4 each), against
+    the published float32 peak, or the table's and outputs' bytes where
+    those take longer (one copy)."""
+    threads, = _source_constants("kDynThreads")
+    assert threads * 4 == 8 * 128
+    tiles = 4 if body in ("dyn4", "async4") else 1
+    peak = common.PROBE_PEAKS["float32"]
+    for copies in (1, 132, 1056):
+        ms, by = probe_dyn_cost.bound(body, copies)
+        ops = 1024 * tiles * 2000 * copies / peak
+        nbytes = (4096 * 512 + copies * 4096) / common.PEAK_BYTES
+        assert ms * 1e-3 == pytest.approx(max(ops, nbytes), rel=1e-12)
+        assert by == ("operations" if ops >= nbytes else "bytes")
+    assert probe_dyn_cost.bound(body, 1056)[1] == "operations"
+    assert probe_dyn_cost.bound("async4", 1056)[0] == pytest.approx(
+        0.1293, abs=5e-5)
+
+
+def test_dyn_cost_loop_barriers_reads_every_loop():
+    """loop_barriers counts the BAR.SYNC inside any loop of the listing
+    (between a backward branch's target and the branch, an mbarrier's
+    wait loop nested in the iteration loop included): none for the one
+    before the loop or after it; one in an inner loop counts."""
+    listing = """
+		Function : _ZN12_GLOBAL__N_115dyn_cost_kernelILi4EEEvPKfPf
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0020*/                   LDG.E.CONSTANT R2, desc[UR4][R4.64] ;
+        /*0030*/                   SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R3 ;
+        /*0040*/              @!P0 BRA 0x30 ;
+        /*0050*/                   FADD R6, R6, R2 ;
+        /*0060*/               @P1 BRA 0x20 ;
+        /*0070*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0080*/                   EXIT ;
+        /*0090*/                   BRA 0x90;
+"""
+    name = "_ZN12_GLOBAL__N_115dyn_cost_kernelILi4EEEvPKfPf"
+    fn = common.parse_sass(listing)[name]
+    assert common.loops(fn) == [(0x30, 0x40), (0x20, 0x60)]
+    assert probe_dyn_cost.loop_barriers(fn) == 0
+    inner = listing.replace(
+        "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR4], R3",
+        "BAR.SYNC.DEFER_BLOCKING 0x0")
+    assert probe_dyn_cost.loop_barriers(common.parse_sass(inner)[name]) == 1
+    outer = listing.replace("FADD R6, R6, R2", "BAR.SYNC.DEFER_BLOCKING 0x1")
+    assert probe_dyn_cost.loop_barriers(common.parse_sass(outer)[name]) == 1
+
+
 def _interpret(*a, _orig=pl.pallas_call, **k):
     return _orig(*a, **{**k, "interpret": True})
 
@@ -459,6 +547,48 @@ def test_dyn_cost_matches_jax(body):
     got = probe_dyn_cost.run(body, tab, copies=2).numpy()
     assert got.shape == (2, 8, 128)
     np.testing.assert_array_equal(got[1].view(np.int32), want.view(np.int32))
+
+
+def _dyn_chain(body, tab):
+    """The tiles' indices of a dyn body's 2,000 iterations and the last
+    acc[0, 0], from column 0 alone (make's index :45-83, apart from
+    plain(); the kernel's per-warp chain)."""
+    col0, a00, out = tab[:, 0].numpy(), np.float32(0), []
+    for i in range(probe_dyn_cost.N_IT):
+        idx = int(a00) % (512 if body == "dynrow1" else 64) + i % 64
+        out.append(idx)
+        rows = ([idx] if body == "dynrow1" else
+                [idx * 8 + 64 * s for s in range(
+                    4 if body in ("dyn4", "async4") else 1)])
+        for r in rows:
+            a00 = np.float32(a00 + col0[r])
+    return out, a00
+
+
+@pytest.mark.parametrize("body", list(probe_dyn_cost.BODIES))
+def test_dyn_cost_matches_jax_where_the_index_moves(body):
+    """On moving()'s table (seeded; column 0 in [0, 600)) int(acc[0, 0])
+    takes most of its residues, so the tiles' rows follow the chain; all
+    2,000 iterations bit for bit the JAX body's in interpret mode, its
+    floor-mod index included, and acc[0, 0] the chain of column 0
+    alone."""
+    ns = load_probe("probe_dyn_cost")
+    fn, scratch = DYN[body]
+    tab = probe_dyn_cost.moving()
+    assert torch.equal(tab, probe_dyn_cost.moving())
+    if body != "static":
+        idx, a00 = _dyn_chain(body, tab)
+        wrap = 512 if body == "dynrow1" else 64
+        moved = {(x - i % 64) % wrap for i, x in enumerate(idx)}
+        assert len(moved) > wrap // 2, sorted(moved)
+    with mock.patch.object(pl, "pallas_call", _interpret):
+        want = np.asarray(ns["make"](ns[fn], scratch)(jnp.asarray(
+            tab.numpy())))
+    got = probe_dyn_cost.run(body, tab, copies=2).numpy()
+    assert got.shape == (2, 8, 128)
+    np.testing.assert_array_equal(got[1].view(np.int32), want.view(np.int32))
+    if body != "static":
+        assert got[1, 0, 0].view(np.int32) == a00.view(np.int32)
 
 
 @pytest.mark.parametrize("dtype,rows", vpu_dtype_bench.CASES)

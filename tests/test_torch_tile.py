@@ -12,6 +12,8 @@ The soup is BVH8/Tri8 with leaves of several Tri rows. The coherent batch
 test and the frustum test act; the random batch makes mixed tiles. 300
 rays fill no whole number of tiles.
 """
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +24,7 @@ from rodent_tpu.traversal import api as japi
 from rodent_tpu.traversal.pallas_packet import _call_kernel, pack_rays
 from rodent_tpu_torch.traversal import api as tapi
 from rodent_tpu_torch.traversal import packet as tpacket
+from rodent_tpu_torch.traversal import pair as tpair
 from test_traversal import random_tri_soup
 
 # Small shapes, run beside other pytest-xdist workers: one intra-op
@@ -145,6 +148,50 @@ def test_tile_route_through_the_wrapper_on_cpu(scene):
     plain = tpacket.traverse_packet(tdev, rays, tile_rows=2)
     assert set(plain) == {"t", "u", "v", "prim_id", "geom_id"}
     assert set(tpacket.launches.values()) == {0}
+
+
+def _plain_at(route, tdev, comps, any_hit, cap):
+    """The plain tile (K5's, tile_rows 1) or pair (K6's, tiles of 128 rays)
+    version on a stack of `cap` entries."""
+    o, d, inv, _, tmin, tmax = comps
+    mod = tapi if route == "tile" else tpair
+    with mock.patch.object(mod, "stack_entries", lambda dev: cap):
+        if route == "tile":
+            return tapi.traverse_tile_components(tdev, o, d, inv, tmin, tmax,
+                                                 any_hit=any_hit, tile_rows=1)
+        return tpair.traverse_pair_components(tdev, o, d, inv, tmin, tmax,
+                                              any_hit=any_hit, tile_rays=128,
+                                              count_pops=True)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("route", ["tile", "pair"])
+def test_plain_stack_at_its_edge(scene, route, any_hit):
+    """The plain tile and pair versions on stacks cut short. At the least
+    cap that holds every tile's pushes some tile fills the stack, and rows
+    that pop slot cap - 1 and push nothing write the slot's own entry back
+    (the pushes' clamped slot): every output equals the full stack's bit
+    for bit, pops included. One entry less, some tile's pushes pass the
+    cap and the traversal raises. The coherent batch makes such rows in
+    the pair version (an entry at cap - 1 with children left, whose popped
+    child pushes nothing) and, in any-hit, whose pushes keep slot order,
+    in the tile version."""
+    _, tdev = scene
+    org, d = _batch("coherent")
+    comps = tapi.components(tapi.make_rays(org, d, 0.0, _tmax(any_hit)))
+    full = tapi.stack_entries(tdev)
+    want = _plain_at(route, tdev, comps, any_hit, full)
+    cap, got = full, want
+    while True:
+        try:
+            out = _plain_at(route, tdev, comps, any_hit, cap - 1)
+        except ValueError as e:
+            assert f"stack of {cap - 1} entries overflowed" in str(e)
+            break
+        cap, got = cap - 1, out
+    assert 1 < cap < full
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
 
 
 def test_tile_route_refusals(scene):
