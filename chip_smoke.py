@@ -45,34 +45,43 @@ calls real, and checks it:
    base's and row_loads' every output bit against K3's);
 12. the tile-shared-stack kernels (csrc/bvh_tile.cu), K5 (_kernel's tile
    stack: plain, frustum, nopure) and K6 (the pair layout, each ablation;
-   rodent_tpu_torch.experiments.ab_tile_body): against their plain
-   versions on the soups of phase 11, bit for bit in hits and per-tile
-   pops, and against K1, and on a stack or a guard too small for some
-   tiles, which stop with pops -1; then the measurement path on
+   rodent_tpu_torch.experiments.ab_tile_body) on the measurement path:
    hall-260K (1M sorted primaries: K5 at tile_rows 1, 2, 4, 16, frustum
    off and on, and nopure at 16; K6 at tiles of 256, 1024, 2048 rays; ao
-   rays: K5 at tile_rows 1 and 16, frustum off and on, K6 at 1024 and
-   2048; timed_tile_config) and powerplant-4.3M's sorted primaries (K5,
-   Tri24, at tile_rows 2 and 16, frustum off and on): K1 and the kernel
-   timed in turns (K1, kernel, kernel, K1), counted, beside the
-   bound of the pops made, with each instance's registers, shared memory
-   and resident blocks; these and the others (hall's ao rays at tile_rows
-   2 and 4 and K6 256, and every configuration on its bounce rays),
-   launched once untimed, held against the plain version on up to 65,536
-   of their rays (whole tiles of at most ab_tile_body.PLAIN_POPS pops);
+   and bounce rays: the same but nopure) and powerplant-4.3M's sorted
+   primaries (K5, Tri24, at tile_rows 2 and 16, frustum off and on).
+   First the configurations of timed_tile_config (every one on the
+   primaries; on hall's ao rays tile_rows 1 and 16 and K6 at 1024 and
+   2048) timed in turns with K1 (K1, kernel, kernel, K1). Then, while
+   nothing is timed, a pool of four worker processes spawned on the card
+   (tile_pool, torch.multiprocessing; every job logged with its rays,
+   tiles, seconds and worker; a job that raises or differs, or a worker
+   that dies, fails the run) runs every job of tile_jobs(): the 52 soup
+   runs on phase 11's soups, each rebuilt in its worker from its seed,
+   against their plain versions, bit for bit in hits and per-tile pops,
+   and against K1, and check_stops on a stack or a guard too small for
+   some tiles, which stop with pops -1; and every configuration's
+   plain-version check on up to 65,536 of its rays (whole tiles of at
+   most ab_tile_body.PLAIN_POPS pops), the untimed ones launched once by
+   this process meanwhile. Then each timed configuration beside the
+   bound of the pops made and its hits against K1's, with each
+   instance's registers, shared memory and resident blocks;
 13. the micro-probes (csrc/probes.cu, rodent_tpu_torch.experiments.probe_*
    and vpu_dtype_bench, the ports of the TPU probes of experiments/): every
    body of the eight probe files through its kernel as its main() drives
    it, with the launch counts read around them, the timed probes at one
    copy (the TPU's one program) and at the copies that fill the card; every
    copy's output held bit for bit against the plain version (and every
-   probe_dyn_cost body, at both shapes, on a seeded table on which its
-   index moves); a table of their times beside the card's SM clock, and
-   the vpu kernels' op counts read from their SASS; probe_body's kernels
-   without spills, and one BAR.SYNC in each step loop; the network that
-   its outputs do not read held against the plain one; probe_mosaic3's
-   and probe_dyn_cost's kernels without spills, and no BAR.SYNC in
-   dyn_cost's loops;
+   timed probe_dyn_cost, probe_gather and probe_chain body, at both shapes,
+   on seeded inputs on which its index or chase+vec's minimum moves,
+   chase+vec's aux, the fold of its minima, included); a table of their
+   times beside the card's SM clock and the issue rate of mosaic3's,
+   gather's and chain's work; the vpu kernels' op counts read from their
+   SASS; probe_body's kernels without spills, and one BAR.SYNC in each step
+   loop; the network that its outputs do not read held against the plain
+   one; probe_mosaic3's, probe_dyn_cost's, probe_gather's and
+   probe_chain's kernels without spills, no BAR.SYNC in dyn_cost's loops
+   and one in each chase+vec step loop;
 14. K1/K2/K3's two bodies, built together into the "group" library
    (-DRT_GROUP; rodent_tpu_torch.experiments.ab_body), which no renderer
    runs: the group stack and the first body held bit for bit against the
@@ -1077,74 +1086,44 @@ def against_k1(k, k1, any_hit, what, dev, comps):
     return ties, others
 
 
-def phase_tile_soups(device):
-    """[12] K5 and K6 against their plain versions on the
-    soups of phase 11 (leaves of up to 32 tris): K5 at tile_rows 1 and 2
-    on random rays (mixed tiles, where every mode is the plain one) and in
-    each mode on coherent rays (octant-pure tiles, where the pure slab test
-    and the frustum act), K6 with each ablation at tiles of 128 and 256
-    rays on the random rays; closest-hit and any-hit; hits and per-tile
-    pops bit for bit, and the hits against K1's; then on a stack (K5) or a
-    guard (K6) too small for some tiles, which stop with pops -1, the other
-    tiles equal to the plain version (ab_tile_body.check_stops)."""
-    from rodent_tpu_torch.accel import build_bvh
-    from rodent_tpu_torch.experiments import ab_tile_body as ab
-    from rodent_tpu_torch.traversal import api, pair
-    from rodent_tpu_torch.traversal.packet import TILE_MODES, traverse_packet
-    runs = ties = stops = 0
-    for m in (8, 24):
-        verts, idx = random_tri_soup(3000, seed=70 + m)
-        dev = api.bvh_to_device(build_bvh(
-            verts, idx, arity=8, packet=m, leaf_threshold=32,
-            leaf_cost=0.2), device)
-        r = np.random.RandomState(80 + m)
-        org = r.randn(8192, 3).astype(np.float32) * 3.0
-        d = r.randn(8192, 3).astype(np.float32)
-        d[:64, 0] = 0.0
-        batches = {"random": (org, d), "coherent": coherent_rays(8192, m)}
-        tmax = np.full(8192, 1e30, np.float32)
-        tmax[128:160] = -1.0
-        for (batch, (o, dd)), any_hit in itertools.product(
-                batches.items(), (False, True)):
-            rays = api.make_rays(o, dd, 0.0, np.minimum(tmax, 2.0)
-                                 if any_hit else tmax, device=device)
-            k1 = traverse_packet(dev, rays, any_hit=any_hit)
-            comps = api.components(rays)
+# phase 12's plain-version checks run in this many worker processes on the
+# card (tile_pool), while nothing is timed
+TILE_WORKERS = 4
+# the Tri widths of phase 12's soups (random_tri_soup(3000, 70 + m))
+SOUP_WIDTHS = (8, 24)
+# the distributions phase 12 runs ab_tile_body.configs on, by scene
+TILE_RUNS = (("hall", ("primary", "ao", "bounces")),
+             ("powerplant", ("primary",)))
+
+
+def soup_runs():
+    """[("run" or "stops", m, batch, any_hit, kernel, size, variant)]: phase
+    12's checks on the soups of phase 11 (leaves of up to 32 tris), in the
+    order they were made in one process: K5 (variant: its mode) at
+    tile_rows 1 and 2 on random rays (mixed tiles, where every mode is the
+    plain one) and in each mode on coherent rays (octant-pure tiles, where
+    the pure slab test and the frustum act); K6 (variant: its ablations)
+    at tiles of 128 and 256 rays on the random rays; closest-hit and
+    any-hit; and on the Tri8 soup's random rays, check_stops of K5 at
+    tile_rows 1 and 2 and of K6 at 128 and 256 rays."""
+    from rodent_tpu_torch.traversal import pair
+    from rodent_tpu_torch.traversal.packet import TILE_MODES
+    out = []
+    for m in SOUP_WIDTHS:
+        for batch, any_hit in itertools.product(("random", "coherent"),
+                                                (False, True)):
             modes = TILE_MODES if batch == "coherent" else ("plain",)
-            for rows, mode in itertools.product((1, 2), modes):
-                what = (f"soup Tri{m} {batch} K5 rows {rows} {mode} "
-                        f"any_hit={any_hit}")
-                kw = {"any_hit": any_hit, "count_pops": True,
-                      "tile_rows": rows, **tile_args(mode)}
-                k = traverse_packet(dev, rays, **kw)
-                p = api.traverse(dev, rays, **kw)
-                check_equal(k, p, what)
-                ties += sum(against_k1(k, k1, any_hit, what, dev, comps))
-                runs += 1
+            out += [("run", m, batch, any_hit, "K5", rows, mode)
+                    for rows, mode in itertools.product((1, 2), modes)]
             if m != 8 or batch != "random":
                 continue
-            for tile, abl in itertools.product(
-                    (128, 256), [()] + [(a,) for a in pair.ABLATIONS]):
-                what = f"soup K6 tile {tile} {abl} any_hit={any_hit}"
-                k = pair.traverse_pair(dev, rays, any_hit=any_hit,
-                                       tile_rays=tile, ablate=abl,
-                                       count_pops=True)
-                p = pair.traverse_pair_components(
-                    dev, *comps[:3], *comps[4:], any_hit, tile, abl,
-                    count_pops=True)
-                check_equal(k, p, what)
-                if not abl:
-                    ties += sum(against_k1(k, k1, any_hit, what, dev,
-                                           comps))
-                runs += 1
-            for kernel, size in (("K5", 1), ("K5", 2), ("K6", 128),
-                                 ("K6", 256)):
-                stops += ab.check_stops(dev, comps, any_hit, kernel, size)
-    log(f"[12] K5 and K6 == plain on 2 soups (Tri8, Tri24; random and "
-        f"coherent rays), {runs} runs, closest-hit and any-hit: hits and "
-        f"per-tile pops bit for bit; {ties} prim_id differences with K1; "
-        f"{stops} tiles stopped on a small stack or guard, the others == "
-        "plain")
+            out += [("run", m, batch, any_hit, "K6", tile, abl)
+                    for tile, abl in itertools.product(
+                        (128, 256), [()] + [(a,) for a in pair.ABLATIONS])]
+            out += [("stops", m, batch, any_hit, kernel, size, "plain")
+                    for kernel, size in (("K5", 1), ("K5", 2), ("K6", 128),
+                                         ("K6", 256))]
+    return out
 
 
 def timed_tile_config(name, size):
@@ -1156,68 +1135,270 @@ def timed_tile_config(name, size):
     return name == "primary" or name == "ao" and size in (1, 16, 1024, 2048)
 
 
+def tile_jobs():
+    """The jobs phase 12 hands its worker pool, each once: ("soup", *run)
+    for every run of soup_runs() (a worker rebuilds the soup and its rays
+    from their seeds), then ("subset", scene, name, kernel, size, mode)
+    for every configuration of ab_tile_body.configs on TILE_RUNS: the
+    plain version on the subset of its rays that ab_tile_body.subset
+    picks, the kernel launched in the parent (timed in turns with K1
+    before the pool where timed_tile_config says so, else once while the
+    pool runs)."""
+    from rodent_tpu_torch.experiments import ab_tile_body as ab
+    return [("soup",) + r for r in soup_runs()] + [
+        ("subset", scene, name, kernel, size, mode)
+        for scene, names in TILE_RUNS for name in names
+        for kernel, size, mode in ab.configs(scene, name)]
+
+
+# a worker's soups, their rays and K1's hits, by (m, batch, any_hit)
+_SOUP_CASES = {}
+
+
+def soup_case(m, batch, any_hit, device):
+    """(BVH, rays, their components, K1's hits) of one soup run's soup
+    (random_tri_soup(3000, 70 + m), BVH8 TriM, leaves of up to 32 tris)
+    and rays (8,192 from seed 80 + m, or coherent_rays; tmax -1 on rays
+    128-159, 2.0 for any-hit), built once per worker."""
+    from rodent_tpu_torch.accel import build_bvh
+    from rodent_tpu_torch.traversal import api
+    from rodent_tpu_torch.traversal.packet import traverse_packet
+    key = (m, batch, any_hit)
+    if key not in _SOUP_CASES:
+        verts, idx = random_tri_soup(3000, seed=70 + m)
+        dev = api.bvh_to_device(build_bvh(
+            verts, idx, arity=8, packet=m, leaf_threshold=32,
+            leaf_cost=0.2), device)
+        r = np.random.RandomState(80 + m)
+        org = r.randn(8192, 3).astype(np.float32) * 3.0
+        d = r.randn(8192, 3).astype(np.float32)
+        d[:64, 0] = 0.0
+        if batch == "coherent":
+            org, d = coherent_rays(8192, m)
+        tmax = np.full(8192, 1e30, np.float32)
+        tmax[128:160] = -1.0
+        rays = api.make_rays(org, d, 0.0, np.minimum(tmax, 2.0)
+                             if any_hit else tmax, device=device)
+        _SOUP_CASES[key] = (dev, rays, api.components(rays),
+                            traverse_packet(dev, rays, any_hit=any_hit))
+    return _SOUP_CASES[key]
+
+
+def tile_job(job, data, device):
+    """[12] One job of tile_jobs() in a worker process on the card. A soup
+    run: K5 or K6 against its plain version (hits and per-tile pops bit
+    for bit) and against K1's hits (against_k1; K6 without ablations), or
+    check_stops. A subset job: data = (BVH, the subset's ray components,
+    any_hit, the kernel's outputs there) from the parent, held against the
+    plain version (ab_tile_body.check_plain). Raises on any difference.
+    device: the card's torch.device (the CPU's in a rehearsal, where a
+    soup run's kernel is the plain version and check_stops raises).
+    Returns {"job", "rays", "tiles", "rows" (a subset job's node and Tri
+    rows read by the plain version, else None), "ties", "stops",
+    "seconds", "pid"}."""
+    from rodent_tpu_torch.experiments import ab_tile_body as ab
+    from rodent_tpu_torch.traversal import api, pair
+    from rodent_tpu_torch.traversal.packet import traverse_packet
+    t0 = time.perf_counter()
+    ties = stops = 0
+    rows = None
+    if job[0] == "soup":
+        _, kind, m, batch, any_hit, kernel, size, variant = job
+        dev, rays, comps, k1 = soup_case(m, batch, any_hit, device)
+        what = f"soup Tri{m} {batch} {kernel} {size} {variant} " \
+               f"any_hit={any_hit}"
+        if kind == "stops":
+            stops = ab.check_stops(dev, comps, any_hit, kernel, size)
+            tiles = -(-comps[4].shape[0] // (128 * size if kernel == "K5"
+                                             else size))
+        else:
+            if kernel == "K5":
+                kw = {"any_hit": any_hit, "count_pops": True,
+                      "tile_rows": size, **tile_args(variant)}
+                k = traverse_packet(dev, rays, **kw)
+                p = api.traverse(dev, rays, **kw)
+            else:
+                k = pair.traverse_pair(dev, rays, any_hit=any_hit,
+                                       tile_rays=size, ablate=variant,
+                                       count_pops=True)
+                p = pair.traverse_pair_components(
+                    dev, *comps[:3], *comps[4:], any_hit, size, variant,
+                    count_pops=True)
+            check_equal(k, p, what)
+            if kernel == "K5" or not variant:
+                ties = sum(against_k1(k, k1, any_hit, what, dev, comps))
+            tiles = k["pops"].numel()
+        n = comps[4].shape[0]
+    else:
+        _, scene, name, kernel, size, mode = job
+        dev, sub, any_hit, sub_out = data
+        n, tiles, rows = ab.check_plain(
+            dev, sub, any_hit, kernel, size, mode, sub_out,
+            f"{scene} {name} {ab.label(kernel, size, mode)}")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return {"job": job, "rays": n, "tiles": tiles, "rows": rows,
+            "ties": ties, "stops": stops,
+            "seconds": time.perf_counter() - t0, "pid": os.getpid()}
+
+
+def _pool_worker():
+    """A pool worker's start: one torch thread (TILE_WORKERS of them and
+    the parent share the host's cores)."""
+    torch.set_num_threads(1)
+
+
+def tile_pool(jobs, prepare, device, timeout=900.0):
+    """[12] Runs tile_job on every job of `jobs` in TILE_WORKERS processes
+    spawned on the card (torch.multiprocessing, so CUDA tensors pass as
+    handles to the same memory). prepare(job) returns a job's data, or
+    None; the parent calls it, in the order of `jobs`, while the workers
+    run the jobs already handed over, so it may launch kernels but must
+    time nothing. Logs each job as it ends; raises if a job raises, finds
+    a difference or its worker dies (no job is run again), or when the
+    jobs have not ended in `timeout` seconds, and then stops the workers.
+    Returns the jobs' results in the order of `jobs`."""
+    from concurrent.futures import (FIRST_COMPLETED, ProcessPoolExecutor,
+                                    wait)
+    ctx = torch.multiprocessing.get_context("spawn")
+    pool = ProcessPoolExecutor(TILE_WORKERS, mp_context=ctx,
+                               initializer=_pool_worker)
+    t0 = time.perf_counter()
+    futures, held, workers, done = [], [], {}, set()
+
+    def log_done(fs):
+        for f in fs:
+            if f in done or not f.done() or f.exception() is not None:
+                continue
+            done.add(f)
+            r = f.result()
+            w = workers.setdefault(r["pid"], len(workers))
+            what = (f"soup {r['job'][1]} Tri{r['job'][2]} {r['job'][3]} "
+                    f"{r['job'][5]} {r['job'][6]} {r['job'][7]} "
+                    f"any_hit={r['job'][4]}" if r["job"][0] == "soup" else
+                    f"{r['job'][1]} {r['job'][2]} "
+                    f"{' '.join(map(str, r['job'][3:]))}")
+            log(f"[12] worker {w} (pid {r['pid']}): {what}: {r['rays']} "
+                f"rays in {r['tiles']} tiles == plain"
+                + (f", {r['ties']} ties with K1" if r["ties"] else "")
+                + (f", {r['stops']} tiles stopped" if r["stops"] else "")
+                + f"; {r['seconds']:.1f} s")
+    try:
+        for job in jobs:
+            data = prepare(job)
+            if data is not None:
+                held.append(data)
+            futures.append(pool.submit(tile_job, job, data, device))
+            log_done(futures)
+        while len(done) < len(futures):
+            left = timeout - (time.perf_counter() - t0)
+            check(left > 0, f"phase 12's pool: {len(futures) - len(done)} "
+                  f"jobs not ended in {timeout:.0f} s")
+            fs, _ = wait(set(futures) - done, left, FIRST_COMPLETED)
+            for f in fs:
+                if f.exception() is not None:
+                    raise f.exception()
+            log_done(fs)
+    except BaseException:
+        for p in list(pool._processes.values()):
+            p.terminate()
+        pool.shutdown(wait=False, cancel_futures=True)
+        raise
+    pool.shutdown()
+    log(f"[12] the pool: {len(futures)} jobs on {len(workers)} workers in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return [f.result() for f in futures]
+
+
 def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
-    """[12] The tile kernels' measurement path
-    (rodent_tpu_torch.experiments.ab_tile_body, as measure_packet --rows
-    1,2,4,16 with and without --frustum and measure_pair --tiles
-    256,1024,2048 run them) on hall-260K's 1M sorted primaries, ao and
-    bounce rays, then K5 on powerplant-4.3M's sorted primaries: each
-    configuration equal to the plain version on a subset
-    (ab_tile_body.check_subset); those of timed_tile_config timed in turns
-    with K1 through the wrappers, counted, beside its bound, the others
-    launched once; with each kernel's launch count read around them; then
-    the headline configurations' plain versions on all of their rays.
-    Returns (the
-    launches per kernel, the results, the plain versions' times)."""
+    """[12] K5 and K6 (rodent_tpu_torch.experiments.ab_tile_body) against
+    their plain versions and K1, on the measurement path as
+    measure_packet --rows 1,2,4,16 with and without --frustum and
+    measure_pair --tiles 256,1024,2048 run it: hall-260K's 1M sorted
+    primaries, ao and bounce rays and powerplant-4.3M's sorted primaries.
+    First the configurations of timed_tile_config, each timed in turns
+    with K1 through the wrappers (ab_tile_body.timed); then, while nothing
+    is timed, tile_pool on every job of tile_jobs(): the soup runs and
+    every configuration's plain-version check on a subset of its rays,
+    the untimed configurations launched once here meanwhile; then each
+    timed configuration beside the bound of the pops made and against K1,
+    and the headline configurations' plain versions on all of their rays.
+    Each kernel's launch count is read around the configurations. Returns
+    (the launches per kernel, the timed results, the plain versions'
+    times)."""
     from rodent_tpu_torch.experiments import ab_tile_body as ab
     from rodent_tpu_torch.experiments import common
     from rodent_tpu_torch.traversal import api, packet, pair
-    dists = common.distributions("hall", verts, idx, hall_bvh, side, device,
-                                 ("primary", "ao", "bounces"))
-    runs = [("hall", name, comps, any_hit, hall_bvh)
-            for name, (comps, any_hit) in dists.items()]
-    runs.append(("powerplant", "primary", big_prim, False, big_bvh))
-    res, want = {}, {k: 0 for k in ab.KERNELS}
+    res, want, timed = {}, {k: 0 for k in ab.KERNELS}, {}
+    devs = {"hall": hall_bvh, "powerplant": big_bvh}
+    dists = {"hall": common.distributions(
+        "hall", verts, idx, hall_bvh, side, device,
+        ("primary", "ao", "bounces")),
+        "powerplant": {"primary": (big_prim, False)}}
     packet.reset_launches()
     t0 = time.perf_counter()
-    for scene, name, comps, any_hit, dev in runs:
-        for kernel, size, mode in ab.configs(scene, name):
-            key = (scene, name, kernel, size, mode)
-            what = f"{scene} {name} {ab.label(kernel, size, mode)}"
-            t1 = time.perf_counter()
-            if not timed_tile_config(name, size):
-                out = ab.launch(dev, comps, kernel, any_hit, size, mode)
-                rays, tiles, _ = ab.check_subset(dev, comps, any_hit, kernel,
-                                                 size, mode, out, what)
-                want[kernel] += 1
-                log(f"[12] {what}, untimed: {rays} rays in {tiles} tiles "
-                    f"== plain; {time.perf_counter() - t1:.1f} s")
-                continue
-            want[kernel] += 2
-            r = ab.measure(dev, comps, any_hit, device, kernel, size, mode,
-                           blocks=2, what=f"{scene} {name}")
-            res[key] = r
-            ties, others = against_k1(r["out"], r["k1"], any_hit, what, dev,
-                                      comps)
-            st, ms = r["stats"], r["ms"]
-            log(f"[12] {ab.line(*key, r)}; {ms * 1e6 / st['pops']:.2f} "
-                f"ns per pop, {comps[4].shape[0] / ms / 1e3:.1f} Mrays/s, "
-                f"{st['ray_equiv']:.1f} pops per ray-equivalent; against "
-                f"K1 {ties} ties, {others} others; "
-                f"{time.perf_counter() - t1:.1f} s")
+    for scene, names in TILE_RUNS:
+        for name in names:
+            comps, any_hit = dists[scene][name]
+            for kernel, size, mode in ab.configs(scene, name):
+                if timed_tile_config(name, size):
+                    want[kernel] += 2
+                    timed[(scene, name, kernel, size, mode)] = ab.timed(
+                        devs[scene], comps, any_hit, device, kernel, size,
+                        mode, blocks=2)
+    t_timed = time.perf_counter() - t0
+
+    def prepare(job):
+        if job[0] != "subset":
+            return None
+        _, scene, name, kernel, size, mode = job
+        comps, any_hit = dists[scene][name]
+        if job[1:] in timed:
+            out = timed[job[1:]]["out"]
+        else:
+            out = ab.launch(devs[scene], comps, kernel, any_hit, size, mode)
+            want[kernel] += 1
+        sub, sub_out = ab.subset(comps, kernel, size, out)
+        return devs[scene], sub, any_hit, sub_out
+
+    t0 = time.perf_counter()
+    results = tile_pool(tile_jobs(), prepare, device)
+    t_pool = time.perf_counter() - t0
+    soups = [r for r in results if r["job"][0] == "soup"]
+    runs = sum(r["job"][1] == "run" for r in soups)
+    log(f"[12] K5 and K6 == plain on 2 soups (Tri8, Tri24; random and "
+        f"coherent rays), {runs} runs, closest-hit and any-hit: hits and "
+        f"per-tile pops bit for bit; {sum(r['ties'] for r in soups)} "
+        f"prim_id differences with K1; {sum(r['stops'] for r in soups)} "
+        "tiles stopped on a small stack or guard, the others == plain")
+    checked = {r["job"][1:]: r for r in results if r["job"][0] == "subset"}
+    for key, r in timed.items():
+        scene, name, kernel, size, mode = key
+        comps, any_hit = dists[scene][name]
+        dev, c = devs[scene], checked[key]
+        res[key] = r = ab.bounded(r, dev, comps, kernel, size, mode,
+                                  (c["rays"], c["tiles"], c["rows"]))
+        ties, others = against_k1(
+            r["out"], r["k1"], any_hit,
+            f"{scene} {name} {ab.label(kernel, size, mode)}", dev, comps)
+        st, ms = r["stats"], r["ms"]
+        log(f"[12] {ab.line(*key, r)}; {ms * 1e6 / st['pops']:.2f} "
+            f"ns per pop, {comps[4].shape[0] / ms / 1e3:.1f} Mrays/s, "
+            f"{st['ray_equiv']:.1f} pops per ray-equivalent; against K1 "
+            f"{ties} ties, {others} others")
     torch.cuda.synchronize()
     launched = {k: ab.launch_count(k) for k in ab.KERNELS}
-    log(f"[12] measurement path: {len(res)} configurations timed, "
-        f"{sum(want.values()) - 2 * len(res)} untimed, in "
-        f"{time.perf_counter() - t0:.1f} s, launches {launched} (clock, "
-        f"power after: {sm_clock()})")
+    log(f"[12] measurement path: {len(res)} configurations timed in "
+        f"{t_timed:.1f} s, {sum(want.values()) - 2 * len(res)} untimed, "
+        f"the plain checks and the soups in the pool in {t_pool:.1f} s, "
+        f"launches {launched} (clock, power after: {sm_clock()})")
     for kernel in ab.KERNELS:
         check(launched[kernel] >= want[kernel],
               f"tile phase: {kernel} launched {launched[kernel]} times, "
               f"fewer than its configurations need ({want[kernel]})")
     # the headline configurations' plain versions on all of their rays
     plain = {}
-    o, d, inv, _, tmin, tmax = dists["primary"][0]
+    o, d, inv, _, tmin, tmax = dists["hall"]["primary"][0]
     for key, kernel, size, fn in (
             ("K5", "K5", 16, lambda: api.traverse_tile_components(
                 hall_bvh, o, d, inv, tmin, tmax, tile_rows=16)),
@@ -1388,21 +1569,37 @@ def phase_probes(device):
         + " registers, no spills, one BAR.SYNC in each step loop")
     m3_res = mods["probe_mosaic3"].resources(funcs=funcs)
     dyn_res = mods["probe_dyn_cost"].resources(funcs=funcs)
+    gather_res = mods["probe_gather"].resources(funcs=funcs)
+    chain = mods["probe_chain"]
+    chain_res = chain.resources(funcs=funcs)
     check(set(m3_res) == set(mods["probe_mosaic3"].MODES)
-          and set(dyn_res) == set(mods["probe_dyn_cost"].BODIES),
+          and set(dyn_res) == set(mods["probe_dyn_cost"].BODIES)
+          and len(gather_res) == 6
+          and set(chain_res) == {(c, s) for c in chain.MODES
+                                 for s in chain.STREAMS},
           f"probes: mosaic3 kernels {sorted(m3_res)}, dyn_cost kernels "
-          f"{sorted(dyn_res)}, not one a mode and one a body")
+          f"{sorted(dyn_res)}, gather kernels {sorted(gather_res)}, chain "
+          f"kernels {sorted(chain_res)}, not one a mode, body or S")
     for what, r in itertools.chain(
             (("mosaic3 " + k, r) for k, r in m3_res.items()),
-            (("dyn_cost " + k, r) for k, r in dyn_res.items())):
-        check(r["spills"] == (0, 0) and r.get("barriers", 0) == 0,
+            (("dyn_cost " + k, r) for k, r in dyn_res.items()),
+            ((f"gather {c} {m}", r) for (c, m), r in gather_res.items()),
+            ((f"chain {c} S={s}", r) for (c, s), r in chain_res.items())):
+        check(r["spills"] == (0, 0)
+              and r.get("barriers", 0) == (1 if "chase+vec" in what else 0),
               f"probe_{what}: {r}, not without spills (and, dyn_cost, "
-              "without a BAR.SYNC in its loops)")
+              "without a BAR.SYNC in its loops; chase+vec, with one in its "
+              "step loop)")
     log("[13] probe_mosaic3: " + ", ".join(
         f"{k} {r['regs']}" for k, r in m3_res.items()) + " registers; "
         "probe_dyn_cost: " + ", ".join(
-            f"{k} {r['regs']}" for k, r in dyn_res.items())
-        + " registers; no spills, no BAR.SYNC in dyn_cost's loops")
+            f"{k} {r['regs']}" for k, r in dyn_res.items()) + " registers; "
+        "probe_gather: " + ", ".join(
+            f"{c} {m} {r['regs']}" for (c, m), r in gather_res.items())
+        + " registers; probe_chain: " + ", ".join(
+            f"{c} S={s} {r['regs']}" for (c, s), r in chain_res.items())
+        + " registers; no spills, no BAR.SYNC in dyn_cost's loops, one in "
+        "each chase+vec step loop")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     mhz = common.sm_clock_mhz()[1]
     # the network on keys with ties, against the serial one bit for bit
@@ -1426,12 +1623,16 @@ def phase_probes(device):
             extra = f" ({r['memory']} memory)" if "memory" in r else ""
             rate = (f"; {r['tops1']:.3f} Top/s one copy, {r['tops']:.3f} "
                     f"with the card full" if "tops" in r else "")
-            if n == "probe_mosaic3":
-                one, full = (m.issue_ms(k, c, sms, mhz)
+            if n in ("probe_mosaic3", "probe_gather", "probe_chain"):
+                key = ((k.split(" ")[0],) if n == "probe_gather"
+                       else k if n == "probe_chain" else (k,))
+                one, full = (m.issue_ms(*key, c, sms, mhz)
                              for c in (1, r["copies"]))
+                op = ("FADD" if n == "probe_mosaic3" or n == "probe_gather"
+                      and key[0] != "chain" else "operation")
                 rate = (f"; {one / r['ms1']:.1%} (one copy) and "
-                        f"{full / r['ms']:.1%} of the FADD issue rate at "
-                        f"{mhz:g} MHz")
+                        f"{full / r['ms']:.1%} of the issue rate (one {op} "
+                        f"a lane and cycle) at {mhz:g} MHz")
             log(f"[13] {n} {probe_key(k)}{extra}: one copy {r['ms1']:.4f} "
                 f"ms = {r['ns1']:.1f} ns/iter; {r['copies']} copies "
                 f"{r['ms']:.4f} ms = {r['ns_sm']:.3f} ns/iter per SM; bound "
@@ -1462,7 +1663,8 @@ def phase_probes(device):
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "variants": variants})
-        if n in ("probe_body", "probe_mosaic3", "probe_dyn_cost"):
+        if n in ("probe_body", "probe_mosaic3", "probe_dyn_cost",
+                 "probe_gather", "probe_chain"):
             # a redesigned body's headline: its copies at the full card
             entries[-1]["copies"] = res[n][head]["copies"]
         if n == "probe_gather":
@@ -3184,7 +3386,6 @@ def main():
                           for run, res in runs.items()}
     log(f"[11] the attribution phase took {time.perf_counter() - t_att:.1f} s")
     t_tile = time.perf_counter()
-    phase_tile_soups(device)
     tile_launches, tiles, tile_plain = phase_tiles(
         device, hall_bvh, verts, idx, big_bvh, big_prim)
     log(f"[12] the tile phase took {time.perf_counter() - t_tile:.1f} s")

@@ -311,12 +311,42 @@ __global__ void __launch_bounds__(128) mosaic2_kernel(
 // as K1 does? With smem=1 the table goes in shared memory (56 x 4 KB = 224
 // KB and 2 pages x 28 x 4 KB = 224 KB fit the 227 KB a block may have; 4
 // and 8 pages do not, and the wrapper refuses smem there); with smem=0
-// every gather is an __ldg. Bound with one copy: the latency of one gather
-// per step (a dependent chain); with the card full, shared-memory or L1
-// bandwidth. One block of 1024 threads per copy.
+// every gather is an __ldg of the caller's field-major table.
+//
+// What bounds them: the fields and pages bodies add each element's F = 56
+// or 28 gathered fields in field order, one FADD a field (-fmad=false),
+// and the card issues one FADD a lane and cycle; every load and address
+// instruction takes an issue slot from them, and each load is one or more
+// shared-memory (or L1) wavefronts. The chain is one dependent load a step
+// per element: its latency with one copy, the loads' wavefronts with the
+// card full. The design:
+// - a copy is kThreads threads (256, 512 or 1,024 by body), each holding
+//   1024 / kThreads elements of one column j, rows r0, r0 + kThreads /
+//   128, ... (r0 = t >> 7), so a thread carries independent chains and a
+//   warp's lanes share their rows (the JAX inputs start every lane of a
+//   row at one index, so its gathers are broadcasts);
+// - the shared copy is word-major: word (page, row, w)'s F fields are
+//   contiguous and 16-byte aligned (F x 4 bytes is 224 or 112), so one
+//   16-byte load brings four fields, as K7's and K4's row loads; the
+//   staging loop transposes the caller's field-major table (each thread
+//   reads a word's fields, its warp's lanes neighbouring words);
+// - the global variants have no 16-byte form (the caller's fields are 4 KB
+//   apart): their loads go in batches of kGatherBatch fields for all of a
+//   thread's elements ahead of the adds (asking for the most L1 changed
+//   nothing);
+// - the chain's step loop is unrolled kGatherUnroll times.
+// Every element still adds its fields in field order and converts with
+// the same truncation, so every output is the plain version's bit for bit.
 enum { kTake, kChain, kFields, kPages };
 constexpr int kChainSteps = 2048, kFieldIters = 256, kFields56 = 56,
               kPageFields = 28;
+// threads a copy (kThreads below) of the chain in shared and in global
+// memory and of the other shared-memory and global bodies, each the fastest
+// of 256, 512 and 1,024 (PERF.md, section 6); a thread holds 1024 /
+// kThreads elements
+constexpr int kGatherThreadsChainShared = 256, kGatherThreadsChainGlobal = 1024,
+              kGatherThreadsShared = 512, kGatherThreadsGlobal = 1024;
+constexpr int kGatherBatch = 7, kGatherUnroll = 8;
 
 // kTake: out[e] = tbl[r, idx[e]] (axis 1) or tbl[idx[e], j] (axis 0) over
 // a (rows, 128) table of 32-bit words, jnp.take_along_axis and
@@ -359,49 +389,108 @@ __global__ void __launch_bounds__(kTakeThreads) gather_take_kernel(
   out[g] = o;
 }
 
-template <int kBody, bool kSmem>
-__global__ void __launch_bounds__(1024) gather_kernel(
+template <int kBody, bool kSmem, int kThreads>
+__global__ void __launch_bounds__(kThreads) gather_kernel(
     const float* __restrict__ tbl, const int* __restrict__ idx0,
     int* __restrict__ out, int pages) {
+  constexpr int kE = 1024 / kThreads, kStep = kThreads / 128;
+  static_assert(kStep * kE == 8, "a copy's 8 rows, kE a thread");
   extern __shared__ float4 shm4[];
-  float* sh = reinterpret_cast<float*>(shm4);
-  const int t = threadIdx.x, r = t >> 7;
-  const int words = kBody == kChain ? 1024
-                    : kBody == kFields ? kFields56 * 1024
-                                       : kPageFields * pages * 1024;
-  if (kSmem) {
-    const float4* src = reinterpret_cast<const float4*>(tbl);
-    for (int w = t; w < words / 4; w += blockDim.x) shm4[w] = src[w];
-    __syncthreads();
-  }
-  const float* T = kSmem ? sh : tbl;
-  int idx = idx0[t];
+  const int t = threadIdx.x, j = t & 127, r0 = t >> 7;
+  int idx[kE];
+#pragma unroll
+  for (int e = 0; e < kE; ++e) idx[e] = idx0[(r0 + kStep * e) * 128 + j];
   if (kBody == kChain) {
-    for (int k = 0; k < kChainSteps; ++k) {
-      const int v = __float_as_int(kSmem ? T[r * 128 + idx]
-                                         : __ldg(T + r * 128 + idx));
-      idx = (v + 1) & 127;
+    if (kSmem) {
+      const float4* src = reinterpret_cast<const float4*>(tbl);
+      for (int w = t; w < 256; w += kThreads) shm4[w] = src[w];
+      __syncthreads();
     }
-  } else if (kBody == kFields) {
-    for (int it = 0; it < kFieldIters; ++it) {
-      float acc = 0.f;
-      for (int f = 0; f < kFields56; ++f)
-        acc = acc + (kSmem ? T[(f * 8 + r) * 128 + idx]
-                           : __ldg(T + (f * 8 + r) * 128 + idx));
-      idx = (idx + (int)acc) & 127;
+    const int* T = reinterpret_cast<const int*>(
+        kSmem ? reinterpret_cast<const float*>(shm4) : tbl);
+    for (int k = 0; k < kChainSteps; k += kGatherUnroll) {
+#pragma unroll
+      for (int u = 0; u < kGatherUnroll; ++u) {
+#pragma unroll
+        for (int e = 0; e < kE; ++e) {
+          const int* w = T + (r0 + kStep * e) * 128 + idx[e];
+          idx[e] = ((kSmem ? *w : __ldg(w)) + 1) & 127;
+        }
+      }
     }
   } else {
-    for (int it = 0; it < kFieldIters; ++it) {
-      const int lo = idx & 127, hi = idx >> 7;
-      float acc = 0.f;
-      for (int f = 0; f < kPageFields; ++f) {
-        const int w = ((f * pages + hi) * 8 + r) * 128 + lo;
-        acc = acc + (kSmem ? T[w] : __ldg(T + w));
+    constexpr int F = kBody == kFields ? kFields56 : kPageFields;
+    constexpr int Q = F / 4;               // 16-byte groups of a word
+    const int P = kBody == kFields ? 1 : pages;
+    if (kSmem) {
+      // word (p, r, w) = wd = (p * 8 + r) * 128 + w at shm4[wd * Q]; its
+      // field f at tbl[(f * P + p) * 1024 + (wd & 1023)]
+      for (int wd = t; wd < P * 1024; wd += kThreads) {
+        const float* src = tbl + (wd >> 10) * 1024 + (wd & 1023);
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+          float4 v;
+          v.x = __ldg(src + (4 * q) * P * 1024);
+          v.y = __ldg(src + (4 * q + 1) * P * 1024);
+          v.z = __ldg(src + (4 * q + 2) * P * 1024);
+          v.w = __ldg(src + (4 * q + 3) * P * 1024);
+          shm4[wd * Q + q] = v;
+        }
       }
-      idx = (idx + (int)acc) & (pages * 128 - 1);
+      __syncthreads();
+    }
+    const int mask = P * 128 - 1;
+    for (int it = 0; it < kFieldIters; ++it) {
+      float acc[kE];
+#pragma unroll
+      for (int e = 0; e < kE; ++e) acc[e] = 0.f;
+      if (kSmem) {
+        const float4* w[kE];
+#pragma unroll
+        for (int e = 0; e < kE; ++e)
+          w[e] = shm4 + (((idx[e] >> 7) * 8 + r0 + kStep * e) * 128
+                         + (idx[e] & 127)) * Q;
+#pragma unroll
+        for (int q = 0; q < Q; ++q) {
+#pragma unroll
+          for (int e = 0; e < kE; ++e) {
+            const float4 v = w[e][q];
+            acc[e] = acc[e] + v.x;
+            acc[e] = acc[e] + v.y;
+            acc[e] = acc[e] + v.z;
+            acc[e] = acc[e] + v.w;
+          }
+        }
+      } else {
+        // field f of element e at w[e] + f * P * 1024
+        const float* w[kE];
+#pragma unroll
+        for (int e = 0; e < kE; ++e)
+          w[e] = tbl + ((idx[e] >> 7) * 8 + r0 + kStep * e) * 128
+                 + (idx[e] & 127);
+#pragma unroll
+        for (int f0 = 0; f0 < F; f0 += kGatherBatch) {
+          float v[kE][kGatherBatch];
+#pragma unroll
+          for (int e = 0; e < kE; ++e) {
+#pragma unroll
+            for (int b = 0; b < kGatherBatch; ++b)
+              v[e][b] = __ldg(w[e] + (f0 + b) * P * 1024);
+          }
+#pragma unroll
+          for (int b = 0; b < kGatherBatch; ++b) {
+#pragma unroll
+            for (int e = 0; e < kE; ++e) acc[e] = acc[e] + v[e][b];
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < kE; ++e) idx[e] = (idx[e] + (int)acc[e]) & mask;
     }
   }
-  out[blockIdx.x * 1024 + t] = idx;
+#pragma unroll
+  for (int e = 0; e < kE; ++e)
+    out[blockIdx.x * 1024 + (r0 + kStep * e) * 128 + j] = idx[e];
 }
 
 // ---------------------------------------------------------------------------
@@ -497,26 +586,35 @@ __global__ void __launch_bounds__(kM3Threads) mosaic3_kernel(
 // S = 1, 2, 4 chains interleaved in one loop of N = 2048 steps; a step loads
 // row idx of a (1024, 128) table and takes the int32 bits of its lane 0 as
 // the next idx (a permutation), K1's pop-to-load chain. The chase touches
-// one 128-byte line per row, 128 KB in all: after one lap it runs from L1.
+// one 128-byte line per row, 128 KB in all.
 //   chase, chase+smem: one thread per copy (the TPU's scalar chain).
 //     chase+smem stores each step's idx to a stack and reads it back: a
 //     per-thread local-memory array indexed by a running slot, as K1's
 //     stack (kChaseLocal), or the thread's words of a shared array
-//     (kChaseShared, the TPU's SMEM).
-//   chase+vec: one block of 1024 threads per copy: the (64, 128) vector
-//     stage of each step (8 values a thread) and its minimum over the
-//     block (shuffles, shared memory, two barriers) feed the next idx: K5's
-//     block-synchronous pop.
+//     (kChaseShared, the TPU's SMEM), word s of thread x at s *
+//     kScalarBlock + x, so a warp's 32 words fall in 32 banks.
+//   chase+vec: one block of kVecThreads = 256 threads per copy: the (64,
+//     128) vector stage of each step (32 values a thread, column t & 127)
+//     and its minimum over the block feed the next idx: K5's
+//     block-synchronous pop. probe_body's step (stage_value, put_warp_min,
+//     block_min_of, shared with body_kernel): one barrier a step, the warps'
+//     minima in slots double-buffered by the step's parity, and the row's
+//     lane 0 (thread 0's load) passed on the same way. `aux` gets the
+//     fold of every step's minimum (FNV-1a over its bits, stream by
+//     stream), which the output does not read.
 // Bound with one copy: the latency of a load (plus a local or shared store
 // and load, or the block's reduction) per step; with the card full, the
-// loads' L1 bandwidth.
+// rate at which L1 serves the warps' dependent loads (about 0.55 to 0.65
+// a cycle and SM, PERF.md section 6: unrolling the steps or loading
+// through ld.global.ca moved neither shape).
 enum { kChase, kChaseLocal, kChaseShared, kChaseVec };
-constexpr int kChainN = 2048, kChainNN = 1024, kScalarBlock = 128;
+constexpr int kChainN = 2048, kChainNN = 1024, kScalarBlock = 128,
+              kVecThreads = 256;
 
 template <int kMode, int kS>
 __global__ void __launch_bounds__(kScalarBlock) chain_scalar_kernel(
     const float* __restrict__ tab, int* __restrict__ out, int copies) {
-  __shared__ volatile int shstack[kScalarBlock * 4];
+  __shared__ volatile int shstack[4 * kScalarBlock];
   volatile int stack[4];
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= copies) return;
@@ -531,8 +629,8 @@ __global__ void __launch_bounds__(kScalarBlock) chain_scalar_kernel(
         stack[slot] = nxt;
         nxt = stack[slot];
       } else if (kMode == kChaseShared) {
-        shstack[threadIdx.x * 4 + s] = nxt;
-        nxt = shstack[threadIdx.x * 4 + s];
+        shstack[s * kScalarBlock + threadIdx.x] = nxt;
+        nxt = shstack[s * kScalarBlock + threadIdx.x];
       }
       idx[s] = nxt;
     }
@@ -542,38 +640,80 @@ __global__ void __launch_bounds__(kScalarBlock) chain_scalar_kernel(
   out[c] = acc;
 }
 
+// One value of the vector stage (probe_chain.py :45-46, probe_body.py's):
+// v = row * 1.000001, min(v * 1.5, v + last).
+__device__ __forceinline__ float stage_value(float rj, float last) {
+  const float v = rj * 1.000001f;
+  return fminf(v * 1.5f, v + last);
+}
+
+// Warp w's minimum of m to its slot of `part` (its lane 0 writes it).
+__device__ __forceinline__ void put_warp_min(float m, float* part, int lane,
+                                             int w) {
+  m = warp_min(m);
+  if (lane == 0) part[w] = m;
+}
+
+// After the barrier: the minimum of the kW warps' slots, in every thread
+// (a lane reads one slot, log2(kW) shuffles fold them). A float minimum is
+// exact in any order (the tables hold no NaN and make no -0), so every
+// order gives the plain version's bits.
+template <int kW>
+__device__ __forceinline__ float block_min_of(const float* part, int lane) {
+  float m = part[lane & (kW - 1)];
+#pragma unroll
+  for (int o = kW / 2; o; o >>= 1) m = fminf(m, __shfl_xor_sync(~0u, m, o));
+  return m;
+}
+
 template <int kS>
-__global__ void __launch_bounds__(1024) chain_vec_kernel(
-    const float* __restrict__ tab, int* __restrict__ out) {
-  __shared__ float red[32];
-  const int t = threadIdx.x, j = t & 127;
+__global__ void __launch_bounds__(kVecThreads) chain_vec_kernel(
+    const float* __restrict__ tab, int* __restrict__ out,
+    int* __restrict__ aux) {
+  constexpr int kW = kVecThreads / 32, kV = 64 * 128 / kVecThreads;
+  __shared__ float part[2][kS][kW];     // each warp's minimum
+  __shared__ int word[2][kS];           // the row's lane 0
+  const int t = threadIdx.x, j = t & 127, lane = t & 31, w = t >> 5;
   int idx[kS];
-  float acc[kS][8];
+  float acc[kS][kV];
+#pragma unroll
   for (int s = 0; s < kS; ++s) {
     idx[s] = s * 37 % kChainNN;
-    for (int k = 0; k < 8; ++k) acc[s][k] = 0.f;
+#pragma unroll
+    for (int k = 0; k < kV; ++k) acc[s][k] = 0.f;
   }
+  unsigned h = 2166136261u;
   for (int i = 0; i < kChainN; ++i) {
+    const int b = i & 1;               // every step takes the barrier
+    float rj[kS];
+#pragma unroll
+    for (int s = 0; s < kS; ++s) rj[s] = __ldg(tab + idx[s] * 128 + j);
 #pragma unroll
     for (int s = 0; s < kS; ++s) {
-      const float* row = tab + idx[s] * 128;
-      const float rj = __ldg(row + j);
-      const int r0 = __float_as_int(__ldg(row));
       float m = kInfv;
-      for (int k = 0; k < 8; ++k) {
-        float v = rj * 1.000001f;
-        v = fminf(v * 1.5f, v + acc[s][k]);
+#pragma unroll
+      for (int k = 0; k < kV; ++k) {
+        const float v = stage_value(rj[s], acc[s][k]);
         acc[s][k] = v;
         m = fminf(m, v);
       }
-      m = block_min(m, red);
-      idx[s] = r0 + (m > 1e30f ? 1 : 0);
+      put_warp_min(m, part[b][s], lane, w);
+      if (t == 0) word[b][s] = __float_as_int(rj[s]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      const float m = block_min_of<kW>(part[b][s], lane);
+      idx[s] = word[b][s] + (m > 1e30f ? 1 : 0);
+      h = (h ^ (unsigned)__float_as_int(m)) * 16777619u;
     }
   }
   if (t == 0) {
     int a = 0;
+#pragma unroll
     for (int s = 0; s < kS; ++s) a = a + idx[s];
     out[blockIdx.x] = a;
+    if (aux) aux[blockIdx.x] = (int)h;
   }
 }
 
@@ -676,13 +816,11 @@ __global__ void __launch_bounds__(kBodyThreads) body_kernel(
       float m = kInfv;
 #pragma unroll
       for (int k = 0; k < kV; ++k) {
-        float v = rj * 1.000001f;
-        v = fminf(v * 1.5f, v + buf[0][k]);
+        const float v = stage_value(rj, buf[0][k]);
         m = fminf(m, v);
         for (int c = 0; c < kNC; ++c) buf[c][k] = v < 0.5f ? v : buf[c][k];
       }
-      m = warp_min(m);
-      if (lane == 0) part[b][w] = m;
+      put_warp_min(m, part[b], lane, w);
     }
     if (w == 0) {
       // lane 0's rj is the row's lane 0
@@ -713,13 +851,7 @@ __global__ void __launch_bounds__(kBodyThreads) body_kernel(
     }
     __syncthreads();
     int nxt = word[b][0];
-    if (vec) {
-      float m = part[b][lane & (kW - 1)];
-#pragma unroll
-      for (int o = kW / 2; o; o >>= 1)
-        m = fminf(m, __shfl_xor_sync(~0u, m, o));
-      nxt = nxt + (m > 1e30f ? 1 : 0);
-    }
+    if (vec) nxt = nxt + (block_min_of<kW>(part[b], lane) > 1e30f ? 1 : 0);
     idx = nxt;
     i += 1;
   }
@@ -1096,16 +1228,19 @@ Launch gather_launch(int body, int smem, int pages) {
                     : body == kFields ? kFields56 * 1024
                                       : kPageFields * pages * 1024;
   const int bytes = smem ? words * 4 : 0;
+  constexpr int cs = kGatherThreadsChainShared,
+                cg = kGatherThreadsChainGlobal, s = kGatherThreadsShared,
+                g = kGatherThreadsGlobal;
   if (body == kChain)
-    return smem ? launch_of(gather_kernel<kChain, true>, 1024, bytes)
-                : launch_of(gather_kernel<kChain, false>, 1024);
+    return smem ? launch_of(gather_kernel<kChain, true, cs>, cs, bytes)
+                : launch_of(gather_kernel<kChain, false, cg>, cg);
   if (body == kFields)
-    return smem ? launch_of(gather_kernel<kFields, true>, 1024, bytes)
-                : launch_of(gather_kernel<kFields, false>, 1024);
+    return smem ? launch_of(gather_kernel<kFields, true, s>, s, bytes)
+                : launch_of(gather_kernel<kFields, false, g>, g);
   if (body == kPages && (pages == 1 || pages == 2 || pages == 4
                          || pages == 8) && !(smem && pages > 2))
-    return smem ? launch_of(gather_kernel<kPages, true>, 1024, bytes)
-                : launch_of(gather_kernel<kPages, false>, 1024);
+    return smem ? launch_of(gather_kernel<kPages, true, s>, s, bytes)
+                : launch_of(gather_kernel<kPages, false, g>, g);
   return Launch();
 }
 
@@ -1134,7 +1269,7 @@ Launch chain_launch_s(int mode) {
       return launch_of(chain_scalar_kernel<kChaseLocal, kS>, kScalarBlock);
     case kChaseShared:
       return launch_of(chain_scalar_kernel<kChaseShared, kS>, kScalarBlock);
-    case kChaseVec: return launch_of(chain_vec_kernel<kS>, 1024);
+    case kChaseVec: return launch_of(chain_vec_kernel<kS>, kVecThreads);
   }
   return Launch();
 }
@@ -1287,14 +1422,26 @@ extern "C" int rt_probe_mosaic3(int mode, const float* tab, float* out,
   return launch(mosaic3_launch(mode), copies, args, stream);
 }
 
-// probe_chain: tab (1024, 128) f32, out (copies,) int32; streams 1, 2, 4.
+// probe_chain: tab (1024, 128) f32, out and aux (copies,) int32 (aux: the
+// fold of chase+vec's minima, which the one-thread modes, having none,
+// leave alone; may be null); streams 1, 2, 4.
+extern "C" int rt_probe_chain_aux(int mode, int streams, const float* tab,
+                                  int* out, int* aux, int copies,
+                                  void* stream) {
+  const Launch l = chain_launch(mode, streams);
+  if (mode == kChaseVec) {
+    void* args[] = {&tab, &out, &aux};
+    return launch(l, copies, args, stream);
+  }
+  void* args[] = {&tab, &out, &copies};
+  return launch(l, (copies + kScalarBlock - 1) / kScalarBlock, args, stream);
+}
+
+// probe_chain without aux, the entry of the bodies before it had one.
 extern "C" int rt_probe_chain(int mode, int streams, const float* tab,
                               int* out, int copies, void* stream) {
-  const Launch l = chain_launch(mode, streams);
-  void* args[] = {&tab, &out, &copies};
-  const int blocks = mode == kChaseVec
-                         ? copies : (copies + kScalarBlock - 1) / kScalarBlock;
-  return launch(l, blocks, args, stream);
+  return rt_probe_chain_aux(mode, streams, tab, out, nullptr, copies,
+                            stream);
 }
 
 // probe_body: feats a bit set of kCarry5 ... kPush8; tab (1024, 128) f32,

@@ -177,12 +177,12 @@ def equal(k, p, what):
             raise RuntimeError(f"{what}: {key} differs on {bad} entries")
 
 
-def check_subset(dev, comps, any_hit, kernel, size, mode, out, what):
-    """The kernel's output (out: launch()) against the plain version on the
-    first whole tiles that pop at most PLAIN_POPS times, at most SUBSET
-    rays (the tile that pops least where none does); tiles are
-    independent. Returns (rays, tiles, (node rows, Tri rows) the plain
-    version read there)."""
+def subset(comps, kernel, size, out):
+    """The part of a launch that check_subset holds against the plain
+    version: the first whole tiles that pop at most PLAIN_POPS times, at
+    most SUBSET rays (the tile that pops least where none does); tiles are
+    independent. Returns (their rays' components, the kernel's outputs on
+    them: the rays' hits and the tiles' counters)."""
     tile = 128 * size if kernel == "K5" else size
     pops = out["pops"]
     keep = torch.nonzero((pops >= 0) & (pops <= PLAIN_POPS))[
@@ -192,9 +192,17 @@ def check_subset(dev, comps, any_hit, kernel, size, mode, out, what):
     idx = (keep[:, None] * tile + torch.arange(tile, device=keep.device)
            ).reshape(-1)
     idx = idx[idx < comps[4].shape[0]]
-    o, d, inv, _, tmin, tmax = tuple(
-        tuple(c[idx] for c in x) if isinstance(x, tuple) else x[idx]
-        for x in comps)
+    sub = tuple(tuple(c[idx] for c in x) if isinstance(x, tuple) else x[idx]
+                for x in comps)
+    return sub, {k: v[keep] if k in ("pops", "leaf_pops") else v[idx]
+                 for k, v in out.items()}
+
+
+def check_plain(dev, sub, any_hit, kernel, size, mode, sub_out, what):
+    """The plain version on subset()'s rays `sub` against the kernel's
+    outputs there, bit for bit (raises otherwise). Returns (rays, tiles,
+    (node rows, Tri rows) the plain version read)."""
+    o, d, inv, _, tmin, tmax = sub
     if kernel == "K5":
         p = api.traverse_tile_components(
             dev, o, d, inv, tmin, tmax, any_hit, size, mode == "frustum",
@@ -204,9 +212,16 @@ def check_subset(dev, comps, any_hit, kernel, size, mode, out, what):
                                           any_hit, size, count_pops=True,
                                           count_rows=True)
     rows = (int(p.pop("nodes_read").sum()), int(p.pop("tris_read").sum()))
-    equal({k: v[keep] if k in ("pops", "leaf_pops") else v[idx]
-           for k, v in out.items()}, p, f"{what} ({idx.numel()} rays)")
-    return idx.numel(), keep.numel(), rows
+    equal(sub_out, p, f"{what} ({tmin.numel()} rays)")
+    return tmin.numel(), sub_out["pops"].numel(), rows
+
+
+def check_subset(dev, comps, any_hit, kernel, size, mode, out, what):
+    """The kernel's output (out: launch()) against the plain version on
+    subset()'s tiles (check_plain). Returns (rays, tiles, (node rows, Tri
+    rows) the plain version read there)."""
+    sub, sub_out = subset(comps, kernel, size, out)
+    return check_plain(dev, sub, any_hit, kernel, size, mode, sub_out, what)
 
 
 def check_stops(dev, comps, any_hit, kernel, size, mode="plain",
@@ -257,17 +272,12 @@ def launch_plain(dev, comps, kernel, any_hit, size, mode="plain",
                                          count_pops=True)
 
 
-def measure(dev, comps, any_hit, device, kernel, size, mode="plain",
-            blocks=3, what=""):
-    """One configuration: K1 and the kernel timed in turns (K1, kernel,
-    kernel, K1); the kernel equal to the plain version on a subset
-    (check_subset); the bound of the pops made; the instance's resources.
-    Returns {"k1_ms", "ms", "out": the kernel's output, with its counters,
-    "k1": K1's output, "bound": (ms, by), "stats": common.tile_stats,
-    "subset": (rays, tiles), "rows", "resources": resources()}."""
-    n = comps[4].shape[0]
-    tile = 128 * size if kernel == "K5" else size
-
+def timed(dev, comps, any_hit, device, kernel, size, mode="plain",
+          blocks=3):
+    """One configuration's timing: K1 and the kernel in turns (K1,
+    kernel, kernel, K1), and the instance's resources. Returns {"k1_ms",
+    "ms", "out": the kernel's output, with its counters, "k1": K1's
+    output, "resources": resources(), "any_hit"}."""
     def k1():
         return packet.traverse_packet_components(dev, *comps,
                                                  any_hit=any_hit)
@@ -275,19 +285,40 @@ def measure(dev, comps, any_hit, device, kernel, size, mode="plain",
     def run_kernel():
         return launch(dev, comps, kernel, any_hit, size, mode)
     k1_ms, ms, k1_out, out = common.in_turns(k1, run_kernel, device, blocks)
-    what = f"{what} {label(kernel, size, mode)}"
-    rays, tiles, rows = check_subset(dev, comps, any_hit, kernel, size, mode,
-                                     out, what)
-    pure = api.tile_purity(comps[2], size) if kernel == "K5" else None
-    bound = common.tile_bound_ms(dev, out, tile, n, rows, any_hit, pure,
-                                 mode == "frustum", mode == "nopure",
-                                 pair_kernel=kernel == "K6")
     m = dev["tris"].shape[1] // 14
     return {"k1_ms": k1_ms, "ms": ms, "out": out, "k1": k1_out,
-            "bound": bound, "stats": common.tile_stats(out, tile, n),
-            "subset": (rays, tiles), "rows": rows,
             "resources": resources(kernel, m, any_hit, size, mode,
-                                   api.stack_entries(dev))}
+                                   api.stack_entries(dev)),
+            "any_hit": any_hit}
+
+
+def bounded(r, dev, comps, kernel, size, mode, checked):
+    """timed()'s result r with what its check against the plain version
+    (checked: check_plain's (rays, tiles, rows read)) gives: "bound": (ms,
+    by) of the pops made, "stats": common.tile_stats, "subset": (rays,
+    tiles), "rows"."""
+    n = comps[4].shape[0]
+    tile = 128 * size if kernel == "K5" else size
+    rays, tiles, rows = checked
+    pure = api.tile_purity(comps[2], size) if kernel == "K5" else None
+    bound = common.tile_bound_ms(dev, r["out"], tile, n, rows, r["any_hit"],
+                                 pure, mode == "frustum", mode == "nopure",
+                                 pair_kernel=kernel == "K6")
+    return dict(r, bound=bound, stats=common.tile_stats(r["out"], tile, n),
+                subset=(rays, tiles), rows=rows)
+
+
+def measure(dev, comps, any_hit, device, kernel, size, mode="plain",
+            blocks=3, what=""):
+    """One configuration: timed(), then the kernel equal to the plain
+    version on a subset (check_subset) and bounded(). Returns {"k1_ms",
+    "ms", "out": the kernel's output, with its counters, "k1": K1's
+    output, "bound": (ms, by), "stats": common.tile_stats, "subset":
+    (rays, tiles), "rows", "resources": resources(), "any_hit"}."""
+    r = timed(dev, comps, any_hit, device, kernel, size, mode, blocks)
+    checked = check_subset(dev, comps, any_hit, kernel, size, mode,
+                           r["out"], f"{what} {label(kernel, size, mode)}")
+    return bounded(r, dev, comps, kernel, size, mode, checked)
 
 
 def line(scene, name, kernel, size, mode, r):

@@ -399,11 +399,13 @@ def against_libraries(kind, roots):
 
 
 def probe_against(probe, cases, body, this, other, equal, device, roots,
-                  blocks=3):
+                  blocks=3, per_block=None):
     """Each case of a timed probe in turns with each other checkout's
     kernel (against_libraries: its probes library, the same C entry and
     body), as graph replays (against), at one copy, at the other's full
-    shape and at this one's (full_copies of `probe` with body(case)).
+    shape and at this one's (full_copies of `probe` with body(case), or
+    with its items where it is a tuple (body, arg, arg2), and
+    per_block(case) copies a block where that is given).
     this(case, copies) and other(lib, case, copies) launch without
     synchronising and return {name: tensor}, which must be equal bit for
     bit; equal(case, out) says whether this tree's out is the plain
@@ -412,10 +414,13 @@ def probe_against(probe, cases, body, this, other, equal, device, roots,
     libs = against_libraries("probes", roots)
     res = {}
     for j, case in enumerate(cases):
-        own, _ = full_copies(probe, body(case))
+        args = body(case)
+        args = args if isinstance(args, tuple) else (args,)
+        per = per_block(case) if per_block else 1.0
+        own, _ = full_copies(probe, *args, per_block=per)
         res[case] = {}
         for root, lib in libs.items():
-            full, _ = full_copies(probe, body(case), lib=lib)
+            full, _ = full_copies(probe, *args, per_block=per, lib=lib)
             for copies in sorted({1, full, own}):
                 if not equal(case, this(case, copies)):
                     raise RuntimeError(f"{probe} {case} at {copies} copies "
@@ -430,8 +435,14 @@ def probe_against(probe, cases, body, this, other, equal, device, roots,
 
 
 def same_outputs(out, ref, what):
-    """Raises unless every output of `out` equals ref's bit for bit."""
-    for key in out:
+    """Raises unless every output of `out` that ref also has equals ref's
+    bit for bit, or the two have none in common (a body may add an output
+    that an older tree's lacks, as probe_chain's aux: the plain version
+    holds it)."""
+    keys = [key for key in out if key in ref]
+    if not keys:
+        raise RuntimeError(f"{what} has none of this body's outputs")
+    for key in keys:
         if not torch.equal(out[key], ref[key]):
             raise RuntimeError(f"{what} {key} differs from this body's")
 
@@ -874,7 +885,8 @@ def probe_kernels(pattern, lib_path=None, funcs=None):
     """{template argument: {"regs", "spills" (bytes stored and loaded),
     "sass" (its Sass)}} of a probes library's kernels (this tree's by
     default) whose names match `pattern`, a regex whose one group is the
-    integer template argument; from ptxas' lines of its build
+    integer template argument (with more groups, the key is the tuple of
+    their integers); from ptxas' lines of its build
     (build.kept_log) and cuobjdump. funcs: the library's read_sass, where
     the caller has read it."""
     from . import sass_audit
@@ -887,6 +899,8 @@ def probe_kernels(pattern, lib_path=None, funcs=None):
     for name, fn in (funcs or read_sass(path)).items():
         m = re.search(pattern, name)
         if m:
-            out[int(m[1])] = {"regs": regs.get(name),
-                              "spills": spill.get(name), "sass": fn}
+            key = (int(m[1]) if len(m.groups()) == 1
+                   else tuple(int(g) for g in m.groups()))
+            out[key] = {"regs": regs.get(name), "spills": spill.get(name),
+                        "sass": fn}
     return out

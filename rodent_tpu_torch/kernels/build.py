@@ -118,6 +118,8 @@ _ENTRIES = {
         "rt_probe_mosaic3": (ctypes.c_int, [_I, _P, _P, _I, _P]),
         # mode, streams, tab, out, copies, stream
         "rt_probe_chain": (ctypes.c_int, [_I, _I, _P, _P, _I, _P]),
+        # mode, streams, tab, out, aux, copies, stream
+        "rt_probe_chain_aux": (ctypes.c_int, [_I, _I, _P, _P, _P, _I, _P]),
         # feats, tab, out, aux, zero, copies, stream
         "rt_probe_body": (ctypes.c_int, [_I, _P, _P, _P, _I, _I, _P]),
         # keys, kids, out_keys, out_kids, sets, stream

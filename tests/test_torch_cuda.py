@@ -684,8 +684,10 @@ def test_probe_kernels_match_plain(card, name):
     """Every body of the probe through its kernel, as its main() drives it
     (the timed ones at one copy and at the copies that fill the card),
     equal bit for bit to its plain version on the card, every copy;
-    probe_dyn_cost's check() also runs every body at both shapes on a
-    seeded table on which its index moves."""
+    probe_dyn_cost's, probe_gather's and probe_chain's check() also run
+    every timed body at both shapes on seeded inputs on which their
+    indices move (dyn_cost, gather) or chase+vec's minimum does (chain,
+    whose aux is held too)."""
     m = PROBES[name]
     m.launches = 0
     res = m.measure(card, blocks=1)
@@ -718,6 +720,26 @@ def test_dyn_cost_resources(card):
     assert set(res) == set(probe_dyn_cost.BODIES)
     assert all(r["spills"] == (0, 0) for r in res.values()), res
     assert all(r["barriers"] == 0 for r in res.values()), res
+
+
+def test_gather_resources(card):
+    """Every gather_kernel instantiation, a body and a memory each,
+    without spills."""
+    res = probe_gather.resources()
+    assert set(res) == {(c, m) for c in ("chain", "fields", "pages")
+                        for m in ("shared", "global")}
+    assert all(r["spills"] == (0, 0) for r in res.values()), res
+
+
+def test_chain_resources(card):
+    """Every chain kernel, a mode and S each, without spills, and one
+    BAR.SYNC in chase+vec's step loop."""
+    res = probe_chain.resources()
+    assert set(res) == {(m, s) for m in probe_chain.MODES
+                        for s in probe_chain.STREAMS}
+    assert all(r["spills"] == (0, 0) for r in res.values()), res
+    assert all(res[("chase+vec", s)]["barriers"] == 1
+               for s in probe_chain.STREAMS), res
 
 
 def test_body_sort8_matches_the_serial_network(card):

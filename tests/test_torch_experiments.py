@@ -442,13 +442,14 @@ def test_probe_body_against_refusals(tmp_path, capsys):
     assert build.library_path(tmp_path, "probes", csrc=other) != here
 
 
-@pytest.mark.parametrize("name", ["probe_mosaic3", "probe_dyn_cost"])
+@pytest.mark.parametrize("name", ["probe_mosaic3", "probe_dyn_cost",
+                                  "probe_gather", "probe_chain"])
 def test_probe_against_refusals(tmp_path, capsys, name):
-    """probe_mosaic3 and probe_dyn_cost --against take one or more
-    checkout roots and refuse the CPU (they time two builds of a CUDA
-    kernel), as probe_body does; against() refuses a root without
-    rodent_tpu_torch/csrc/probes.cu, naming it, before it times
-    anything."""
+    """probe_mosaic3, probe_dyn_cost, probe_gather and probe_chain
+    --against take one or more checkout roots and refuse the CPU (they
+    time two builds of a CUDA kernel), as probe_body does; against()
+    refuses a root without rodent_tpu_torch/csrc/probes.cu, naming it,
+    before it times anything."""
     import importlib
     m = importlib.import_module(f"rodent_tpu_torch.experiments.{name}")
     root = tmp_path / "parent"
@@ -462,6 +463,18 @@ def test_probe_against_refusals(tmp_path, capsys, name):
         m.main(["--against"])
     with pytest.raises(FileNotFoundError, match="no probes source"):
         m.against(torch.device("cpu"), [str(root)])
+
+
+def test_same_outputs_compares_the_outputs_both_have():
+    """same_outputs holds the outputs that both trees give (an older
+    body may lack one, as probe_chain's aux before it had one) and
+    raises where they differ or share none."""
+    x, y = torch.arange(4), torch.arange(4) + 1
+    common.same_outputs({"out": x, "aux": y}, {"out": x.clone()}, "old")
+    with pytest.raises(RuntimeError, match="old out differs"):
+        common.same_outputs({"out": x, "aux": y}, {"out": y}, "old")
+    with pytest.raises(RuntimeError, match="none of this body's outputs"):
+        common.same_outputs({"aux": y}, {"out": x}, "old")
 
 
 def test_against_times_in_turns_and_raises_on_a_difference():

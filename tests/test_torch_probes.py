@@ -183,6 +183,54 @@ def test_gather_matches_jax(case):
     np.testing.assert_array_equal(got, want)
 
 
+# the timed cases in the order probe_throughput and probe_pages bench them
+MOVING_ORDER = ["chain", "fields", "pages1", "pages2", "pages4", "pages8"]
+
+
+def _jax_gather_moving():
+    """{case: the JAX body's output} of probe_throughput's and
+    probe_pages' bodies on moving()'s indices: the file's bench(), which
+    each body reaches with its zeros, hands it the next case's moving()
+    indices in their place."""
+    if "gather moving" not in _LOADED:
+        ns = load_probe("probe_gather")
+        outs, cases = [], iter(MOVING_ORDER)
+
+        def bench(fn, tbl, idx, iters=20):
+            assert not np.asarray(idx).any()
+            outs.append(np.asarray(fn(tbl, jnp.asarray(
+                probe_gather.moving(next(cases))))))
+            return 1.0
+        with mock.patch.object(pl, "pallas_call",
+                               _interpret_recording([])), \
+                mock.patch.dict(ns, {"bench": bench}):
+            ns["probe_throughput"]()
+            ns["probe_pages"]()
+        _LOADED["gather moving"] = dict(zip(MOVING_ORDER, outs))
+    return _LOADED["gather moving"]
+
+
+@pytest.mark.parametrize("case", list(probe_gather.TIMED))
+def test_gather_matches_jax_where_lanes_differ(case):
+    """On moving()'s seeded start indices (in [0, 128), or [0, P * 128)
+    for P pages) the lanes of a row hold more than one index at every
+    step or iteration, so a body that mixed up lanes would show; the
+    plain version equals the JAX body in interpret mode there, bit for
+    bit."""
+    want = _jax_gather_moving()[case]
+    body, pages, steps = probe_gather.TIMED[case]
+    tbl = torch.from_numpy(probe_gather.timed_inputs(case)[0])
+    idx = probe_gather.moving(case)
+    np.testing.assert_array_equal(idx, probe_gather.moving(case))
+    assert idx.min() >= 0 and idx.max() < 128 * max(pages, 1)
+    trace = []
+    got = probe_gather.PLAIN[body](tbl, torch.from_numpy(idx), trace)
+    assert len(trace) == steps
+    lanes = torch.stack(trace).sort(dim=2).values
+    assert bool((lanes[:, :, 1:] != lanes[:, :, :1]).any(dim=2).all())
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 TAKE_ROWS = (1, 3, 8, 64, 512, 4096, 65536)
 
 
@@ -260,9 +308,126 @@ def test_chain_matches_jax(mode, streams):
         ns, functools.partial(ns["_kernel"], streams=streams,
                               mode=mode.replace("-shared", "")),
         probe_chain.inputs(), [pltpu.SMEM((max(streams, 1),), jnp.int32)])
-    got = probe_chain.run(mode, streams, probe_chain.inputs(), copies=3)
+    got, aux = probe_chain.run(mode, streams, probe_chain.inputs(), copies=3)
     assert got.shape == (3,) and got.dtype == torch.int32
+    assert aux.shape == (3,) and aux.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy()[2:], want)
+
+
+def _numpy_chain_vec(streams, tab):
+    """chase+vec of the JAX body (probe_chain.py:43-51) in numpy float32:
+    (the sum of the S final indices, (N, S) each step's minimum)."""
+    c1, c2 = np.float32(1.000001), np.float32(1.5)
+    idxs = [s * 37 % probe_chain.NN for s in range(streams)]
+    accs = [np.zeros((64, 128), np.float32) for _ in range(streams)]
+    mins = np.empty((probe_chain.N, streams), np.float32)
+    for i in range(probe_chain.N):
+        for s in range(streams):
+            row = tab[idxs[s]:idxs[s] + 1]
+            v = np.broadcast_to(row, (64, 128)) * c1
+            v = np.minimum(v * c2, v + accs[s])
+            m = v.min()
+            mins[i, s] = m
+            idxs[s] = int(row.view(np.int32)[0, 0]) + int(m > 1e30)
+            accs[s] = v
+    return sum(idxs), mins
+
+
+def test_chain_fold_is_fnv1a_over_the_minima_bits():
+    """fold_minima: FNV-1a over each minimum's 32 bits, step by step and
+    stream by stream, as an int32."""
+    mins = np.array([[0.0, -1.5], [2.0, 0.25]], np.float32)
+    h = 2166136261
+    for b in mins.view(np.uint32).reshape(-1).tolist():
+        h = ((h ^ b) * 16777619) % 2 ** 32
+    assert probe_chain.fold_minima(mins).tolist() == [
+        h - 2 ** 32 if h >= 2 ** 31 else h]
+
+
+@pytest.mark.parametrize("table", ["inputs", "moving"])
+@pytest.mark.parametrize("streams", probe_chain.STREAMS)
+def test_chain_vec_aux_is_the_jax_bodys_minima(table, streams):
+    """chase+vec's aux, the fold of every step's minimum over the block,
+    equals the fold of a numpy loop of the JAX body's arithmetic, and its
+    output the loop's indices. On the JAX table the minimum is 0 at every
+    step (every lane but 0 is zero), so only moving()'s table, random in
+    lanes 1-127 and the same in lane 0, shows a reduction that returns
+    another value."""
+    tab = getattr(probe_chain, table)()
+    np.testing.assert_array_equal(tab[:, 0].numpy(),
+                                  probe_chain.inputs()[:, 0].numpy())
+    total, mins = _numpy_chain_vec(streams, tab.numpy())
+    out, aux = probe_chain.plain("chase+vec", streams, tab)
+    assert out.tolist() == [total]
+    assert aux.tolist() == probe_chain.fold_minima(mins).tolist()
+    distinct = len(np.unique(mins.view(np.int32)))
+    assert distinct == 1 if table == "inputs" else distinct > 1000
+    for mode in ("chase", "chase+smem"):
+        got = probe_chain.plain(mode, streams, tab)
+        assert got[0].tolist() == probe_chain.plain(
+            mode, streams, probe_chain.inputs())[0].tolist()
+        assert got[1].tolist() == [0]
+
+
+def test_gather_and_chain_issue_ms_count_one_operation_a_lane_and_cycle():
+    """issue_ms: the work at one operation a lane and cycle, 128 lanes an
+    SM, in whole waves: a gather copy's FADDs (the chain's add and and)
+    spread over one SM's lanes; a chase's copy on one lane; a chase+vec
+    copy's five operations a value over one SM's lanes."""
+    us = 1e3 / 1980e6
+    assert probe_gather.issue_ms("fields", 132, 132, 1980) == pytest.approx(
+        56 * 1024 * 256 / 128 * us)
+    assert probe_gather.issue_ms("pages2", 133, 132, 1980) == pytest.approx(
+        2 * 28 * 1024 * 256 / 128 * us)
+    assert probe_gather.issue_ms("chain", 1, 132, 1980) == pytest.approx(
+        2 * 1024 * 2048 / 128 * us)
+    assert probe_chain.issue_ms("chase", 1, 1, 132, 1980) == pytest.approx(
+        2048 * us)
+    assert probe_chain.issue_ms("chase", 2, 132 * 128 + 1, 132,
+                                1980) == pytest.approx(2 * 2 * 2048 * us)
+    assert probe_chain.issue_ms("chase+vec", 4, 264, 132,
+                                1980) == pytest.approx(
+        2 * 5 * 8192 * 2048 * 4 / 128 * us)
+
+
+def test_gather_and_chain_resources_read_their_kernels(monkeypatch,
+                                                        tmp_path):
+    """resources() names each gather_kernel by its case and memory and
+    each chain kernel by its mode and S from the kernels' mangled names,
+    and counts the BAR.SYNC in chase+vec's step loop."""
+    from rodent_tpu_torch.experiments import sass_audit
+    gather = [f"_ZN12_GLOBAL__N_113gather_kernelILi{b}ELb{m}ELi256EEEvPKfPK"
+              f"iPii" for b in (1, 2, 3) for m in (0, 1)]
+    scalar = [f"_ZN12_GLOBAL__N_119chain_scalar_kernelILi{m}ELi{s}EEEvPKfPii"
+              for m in (0, 1, 2) for s in (1, 2, 4)]
+    vec = [f"_ZN12_GLOBAL__N_116chain_vec_kernelILi{s}EEEvPKfPiS2_"
+           for s in (1, 2, 4)]
+    take = ["_ZN12_GLOBAL__N_118gather_take_kernelILi1EEEvPKiPK4int4PS2_i"]
+    loop = ("        /*0000*/                   MOV R1, c[0x0][0x28] ;\n"
+            "        /*0010*/                   LDG.E R2, [R4.64] ;\n"
+            "        /*0020*/                   BAR.SYNC.DEFER_BLOCKING "
+            "0x0 ;\n"
+            "        /*0030*/               @P0 BRA 0x10 ;\n"
+            "        /*0040*/                   EXIT ;\n")
+    listing = "".join(f"\tFunction : {n}\n" + loop
+                      for n in gather + scalar + vec + take)
+    names = gather + scalar + vec + take
+    monkeypatch.setattr(sass_audit, "res_usage",
+                        lambda path: {n: {"REG": 40} for n in names})
+    monkeypatch.setattr(sass_audit, "spills",
+                        lambda log: {n: (0, 0) for n in names})
+    monkeypatch.setattr(build, "kept_log", lambda path: "")
+    funcs = common.parse_sass(listing)
+    res = probe_gather.resources(tmp_path / "lib.so", funcs)
+    assert set(res) == {(c, m) for c in ("chain", "fields", "pages")
+                        for m in ("shared", "global")}
+    assert all(r == {"regs": 40, "spills": (0, 0)} for r in res.values())
+    res = probe_chain.resources(tmp_path / "lib.so", funcs)
+    assert set(res) == {(m, s) for m in probe_chain.MODES
+                        for s in probe_chain.STREAMS}
+    assert all(res[("chase+vec", s)]["barriers"] == 1
+               for s in probe_chain.STREAMS)
+    assert "barriers" not in res[("chase", 1)]
 
 
 def test_body_sort_network_is_the_jax_bodys():
@@ -633,6 +798,9 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(out[0], probe_gather.plain_pages(
         torch.from_numpy(tbl), torch.from_numpy(idx)))
     probe_mosaic3.run("none", probe_mosaic3.inputs("none"))
+    out, aux = probe_chain.run("chase+vec", 1, probe_chain.inputs(),
+                               copies=2)
+    assert (out.shape, aux.shape) == ((2,), (2,))
     probe_chain.run("chase", 1, probe_chain.inputs())
     probe_dyn_cost.run("dyn1", probe_dyn_cost.inputs())
     vpu_dtype_bench.run("int16", vpu_dtype_bench.inputs("int16", 256))

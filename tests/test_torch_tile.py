@@ -368,3 +368,85 @@ def test_rounds_order():
                                    blocks=2)
     assert calls == ["x", "x", "y", "y", "y", "y", "x", "x"]
     assert (ra, rb) == ("x", "y")
+
+
+def _chip_smoke(monkeypatch):
+    """chip_smoke.py as a module (its phase 12 pool spawns workers that
+    import it by name, so the repository root goes on sys.path)."""
+    import os
+    monkeypatch.syspath_prepend(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke
+    return chip_smoke
+
+
+def test_phase12_jobs_cover_every_check_once(monkeypatch):
+    """The jobs chip_smoke.py phase 12 hands its worker pool
+    (tile_jobs(), a pure function) hold each check once: the 52 soup runs
+    (K5 at tile_rows 1 and 2 on both soups' random rays and in every mode
+    on their coherent rays, K6 with each ablation at 128 and 256 rays on
+    the Tri8 soup's random rays; closest-hit and any-hit) and the 8
+    check_stops, and the plain-version checks of the 38 configurations of
+    ab_tile_body.configs, the 16 that timed_tile_config leaves untimed
+    among them."""
+    from itertools import product
+    from rodent_tpu_torch.experiments import ab_tile_body
+    cs = _chip_smoke(monkeypatch)
+    jobs = cs.tile_jobs()
+    assert len(jobs) == len(set(jobs)) == 98
+    assert {j[0] for j in jobs} == {"soup", "subset"}
+    soups = [j[1:] for j in jobs if j[0] == "soup"]
+    runs = {("run", m, batch, any_hit, "K5", rows, mode)
+            for m, (batch, modes), any_hit, rows in product(
+                (8, 24), (("random", ("plain",)),
+                          ("coherent", tpacket.TILE_MODES)),
+                (False, True), (1, 2))
+            for mode in modes}
+    runs |= {("run", 8, "random", any_hit, "K6", tile, ablate)
+             for any_hit, tile, ablate in product(
+                 (False, True), (128, 256),
+                 [()] + [(a,) for a in tpair.ABLATIONS])}
+    stops = {("stops", 8, "random", any_hit, kernel, size, "plain")
+             for any_hit, (kernel, size) in product(
+                 (False, True), (("K5", 1), ("K5", 2), ("K6", 128),
+                                 ("K6", 256)))}
+    assert len(runs) == 52 and len(stops) == 8
+    assert sorted(soups, key=repr) == sorted(runs | stops, key=repr)
+    configs = [(scene, name, *c) for scene, names in (
+        ("hall", ("primary", "ao", "bounces")), ("powerplant", ("primary",)))
+        for name in names for c in ab_tile_body.configs(scene, name)]
+    untimed = [c for c in configs if not cs.timed_tile_config(c[1], c[3])]
+    assert (len(configs), len(untimed)) == (38, 16)
+    assert sorted(j[1:] for j in jobs if j[0] == "subset") == sorted(configs)
+
+
+def test_phase12_pool_fails_on_a_difference(monkeypatch):
+    """chip_smoke.py phase 12's pool (tile_pool) on the CPU, the plain
+    version standing for the kernel: a subset job whose kernel outputs
+    equal the plain version's passes, with its rays and tiles; a pool
+    with one job whose outputs differ in one value raises, naming the
+    output."""
+    from rodent_tpu_torch.accel import build_bvh as tbuild_bvh
+    from rodent_tpu_torch.experiments import ab_tile_body
+    cs = _chip_smoke(monkeypatch)
+    monkeypatch.setattr(cs, "TILE_WORKERS", 2)
+    verts, idx = cs.random_tri_soup(300, seed=5)
+    dev = tapi.bvh_to_device(tbuild_bvh(
+        verts, idx, arity=8, packet=8, leaf_threshold=32, leaf_cost=0.2),
+        "cpu")
+    r = np.random.RandomState(6)
+    rays = tapi.make_rays(r.randn(512, 3).astype(np.float32) * 3.0,
+                          r.randn(512, 3).astype(np.float32), 0.0, 1e30,
+                          device="cpu")
+    comps = tapi.components(rays)
+    out = ab_tile_body.launch(dev, comps, "K5", False, 1)
+    sub, sub_out = ab_tile_body.subset(comps, "K5", 1, out)
+    bad = dict(sub_out, prim_id=sub_out["prim_id"].clone())
+    bad["prim_id"][3] += 1
+    job = ("subset", "soup", "random", "K5", 1, "plain")
+    cpu = torch.device("cpu")
+    res = cs.tile_pool([job], lambda j: (dev, sub, False, sub_out), cpu)
+    assert [(x["rays"], x["tiles"]) for x in res] == [(512, 4)]
+    data = iter([(dev, sub, False, sub_out), (dev, sub, False, bad)])
+    with pytest.raises(RuntimeError, match="prim_id differs on 1 entries"):
+        cs.tile_pool([job, job], lambda j: next(data), cpu)
