@@ -1242,27 +1242,61 @@ def tile_job(job, data, device):
             "seconds": time.perf_counter() - t0, "pid": os.getpid()}
 
 
-def _pool_worker():
+# a pool worker's barrier, which its first job waits on (start_pool)
+_READY = None
+
+
+def _pool_worker(ready):
     """A pool worker's start: one torch thread (TILE_WORKERS of them and
-    the parent share the host's cores)."""
+    the parent share the host's cores) and the imports of tile_job, none
+    of which touches CUDA."""
+    global _READY
     torch.set_num_threads(1)
+    _READY = ready
+    from rodent_tpu_torch.accel import build_bvh  # noqa: F401
+    from rodent_tpu_torch.experiments import ab_tile_body  # noqa: F401
+    from rodent_tpu_torch.traversal import api, packet, pair  # noqa: F401
 
 
-def tile_pool(jobs, prepare, device, timeout=900.0):
-    """[12] Runs tile_job on every job of `jobs` in TILE_WORKERS processes
-    spawned on the card (torch.multiprocessing, so CUDA tensors pass as
-    handles to the same memory). prepare(job) returns a job's data, or
-    None; the parent calls it, in the order of `jobs`, while the workers
+def _pool_ready():
+    """A worker's first job, which touches no CUDA: it returns when every
+    worker has run its start, so that each worker takes one."""
+    _READY.wait(600)
+    return os.getpid()
+
+
+def start_pool():
+    """[12] The pool of tile_pool: TILE_WORKERS processes spawned
+    (torch.multiprocessing, so CUDA tensors pass as handles to the same
+    memory), each given _pool_ready as its first job. Returns (the pool,
+    those jobs' futures): once they are done, every worker has its imports
+    and runs nothing, holding no CUDA context."""
+    from concurrent.futures import ProcessPoolExecutor
+    ctx = torch.multiprocessing.get_context("spawn")
+    pool = ProcessPoolExecutor(TILE_WORKERS, mp_context=ctx,
+                               initializer=_pool_worker,
+                               initargs=(ctx.Barrier(TILE_WORKERS),))
+    return pool, [pool.submit(_pool_ready) for _ in range(TILE_WORKERS)]
+
+
+def stop_pool(pool):
+    """Ends a pool's workers at once, whatever they run."""
+    for p in list((pool._processes or {}).values()):
+        p.terminate()
+    pool.shutdown(wait=False, cancel_futures=True)
+
+
+def tile_pool(jobs, prepare, device, pool, timeout=900.0):
+    """[12] Runs tile_job on every job of `jobs` in the workers of `pool`
+    (start_pool's, after its first jobs) on the card. prepare(job)
+    returns a job's data, or None; the parent calls it, in the order of `jobs`, while the workers
     run the jobs already handed over, so it may launch kernels but must
     time nothing. Logs each job as it ends; raises if a job raises, finds
     a difference or its worker dies (no job is run again), or when the
     jobs have not ended in `timeout` seconds, and then stops the workers.
-    Returns the jobs' results in the order of `jobs`."""
-    from concurrent.futures import (FIRST_COMPLETED, ProcessPoolExecutor,
-                                    wait)
-    ctx = torch.multiprocessing.get_context("spawn")
-    pool = ProcessPoolExecutor(TILE_WORKERS, mp_context=ctx,
-                               initializer=_pool_worker)
+    Shuts the pool down. Returns the jobs' results in the order of
+    `jobs`."""
+    from concurrent.futures import FIRST_COMPLETED, wait
     t0 = time.perf_counter()
     futures, held, workers, done = [], [], {}, set()
 
@@ -1300,9 +1334,7 @@ def tile_pool(jobs, prepare, device, timeout=900.0):
                     raise f.exception()
             log_done(fs)
     except BaseException:
-        for p in list(pool._processes.values()):
-            p.terminate()
-        pool.shutdown(wait=False, cancel_futures=True)
+        stop_pool(pool)
         raise
     pool.shutdown()
     log(f"[12] the pool: {len(futures)} jobs on {len(workers)} workers in "
@@ -1316,7 +1348,9 @@ def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
     measure_packet --rows 1,2,4,16 with and without --frustum and
     measure_pair --tiles 256,1024,2048 run it: hall-260K's 1M sorted
     primaries, ao and bounce rays and powerplant-4.3M's sorted primaries.
-    First the configurations of timed_tile_config, each timed in turns
+    The pool's workers start first (start_pool), while hall's rays are
+    made; once each has ended its first job, which touches no CUDA, the
+    configurations of timed_tile_config are timed, each in turns
     with K1 through the wrappers (ab_tile_body.timed); then, while nothing
     is timed, tile_pool on every job of tile_jobs(): the soup runs and
     every configuration's plain-version check on a subset of its rays,
@@ -1326,6 +1360,19 @@ def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
     Each kernel's launch count is read around the configurations. Returns
     (the launches per kernel, the timed results, the plain versions'
     times)."""
+    t0 = time.perf_counter()
+    pool, ready = start_pool()
+    try:
+        return _phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim,
+                            side, pool, ready, t0)
+    except BaseException:
+        stop_pool(pool)
+        raise
+
+
+def _phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side,
+                 pool, ready, t_start):
+    """phase_tiles' body, its pool started at t_start."""
     from rodent_tpu_torch.experiments import ab_tile_body as ab
     from rodent_tpu_torch.experiments import common
     from rodent_tpu_torch.traversal import api, packet, pair
@@ -1335,6 +1382,12 @@ def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
         "hall", verts, idx, hall_bvh, side, device,
         ("primary", "ao", "bounces")),
         "powerplant": {"primary": (big_prim, False)}}
+    t_rays = time.perf_counter() - t_start
+    for f in ready:
+        f.result()
+    log(f"[12] the pool's {TILE_WORKERS} workers started with hall's rays "
+        f"({t_rays:.1f} s); ready {time.perf_counter() - t_start:.1f} s "
+        "after the phase's start, nothing timed before")
     packet.reset_launches()
     t0 = time.perf_counter()
     for scene, names in TILE_RUNS:
@@ -1362,7 +1415,7 @@ def phase_tiles(device, hall_bvh, verts, idx, big_bvh, big_prim, side=1024):
         return devs[scene], sub, any_hit, sub_out
 
     t0 = time.perf_counter()
-    results = tile_pool(tile_jobs(), prepare, device)
+    results = tile_pool(tile_jobs(), prepare, device, pool)
     t_pool = time.perf_counter() - t0
     soups = [r for r in results if r["job"][0] == "soup"]
     runs = sum(r["job"][1] == "run" for r in soups)
@@ -1519,12 +1572,16 @@ def gather_library(m, device, launched):
 
 def phase_probes(device):
     """[13] The micro-probes: each probe file's main path (measure(): the
-    correctness probes once, the timed ones at one copy and at the copies
-    that fill the card), launch counts read around it; then every copy's
-    output against the plain version, bit for bit (probe_dyn_cost's
-    check() also on its moving() table); the headline bodies'
-    plain versions timed on the card; the vpu kernels' SASS op counts.
-    Returns the kernels-line entries."""
+    correctness probes once, probe_mosaic's also on its adversarial()
+    input, the timed ones at one copy and at the copies that fill the
+    card), launch counts read around it; then every copy's output against
+    the plain version, bit for bit (probe_dyn_cost's check() also on its
+    moving() table; probe_mosaic's adversarial outputs by same_bits(), NaN
+    where the plain output is NaN); each timed body's share of its bound
+    and, for mosaic3, gather, chain and vpu, of the issue rate; each
+    probe_mosaic body's launch timed; the headline bodies' plain versions
+    timed on the card; the vpu kernels' SASS op counts, registers and
+    spills. Returns the kernels-line entries."""
     import importlib
     from rodent_tpu_torch.experiments import common, vpu_dtype_bench
     from rodent_tpu_torch.kernels import build
@@ -1551,11 +1608,18 @@ def phase_probes(device):
         f"before: {clock0}; after: {clock1})")
     funcs = common.read_sass(build.library_path(kind="probes"))
     sass = vpu_dtype_bench.sass_counts(funcs=funcs)
-    for dtype, (per_word, ops) in sass.items():
-        log(f"[13] vpu {dtype}: {per_word:g} SASS instructions per 32-bit "
-            f"word and iteration {dict(ops)}")
+    vpu_res = vpu_dtype_bench.resources(funcs=funcs)
+    for dtype, counts in sass.items():
+        log(f"[13] vpu {dtype}: {vpu_dtype_bench.sass_line(counts)}; "
+            f"{vpu_res[dtype]['regs']} registers, spills "
+            f"{vpu_res[dtype]['spills']}")
     check(sass["float32"][0] == 4, f"vpu float32: {sass['float32']} "
           "instructions per iteration, not the probe's 4")
+    check(all(c[2] < 0.02 for c in sass.values())
+          and set(vpu_res) == set(vpu_dtype_bench.DTYPES)
+          and all(r["spills"] == (0, 0) for r in vpu_res.values()),
+          f"vpu: the loop's own share {[c[2] for c in sass.values()]}, not "
+          f"under 2%, or kernels {vpu_res} not one a type without spills")
     body = mods["probe_body"]
     body_res = body.resources(funcs=funcs)
     check(set(body_res) == set(body.CASES), f"probe_body: kernels "
@@ -1623,16 +1687,22 @@ def phase_probes(device):
             extra = f" ({r['memory']} memory)" if "memory" in r else ""
             rate = (f"; {r['tops1']:.3f} Top/s one copy, {r['tops']:.3f} "
                     f"with the card full" if "tops" in r else "")
-            if n in ("probe_mosaic3", "probe_gather", "probe_chain"):
+            if n in ("probe_mosaic3", "probe_gather", "probe_chain",
+                     "vpu_dtype_bench"):
                 key = ((k.split(" ")[0],) if n == "probe_gather"
-                       else k if n == "probe_chain" else (k,))
+                       else k if n in ("probe_chain", "vpu_dtype_bench")
+                       else (k,))
                 one, full = (m.issue_ms(*key, c, sms, mhz)
                              for c in (1, r["copies"]))
                 op = ("FADD" if n == "probe_mosaic3" or n == "probe_gather"
                       and key[0] != "chain" else "operation")
-                rate = (f"; {one / r['ms1']:.1%} (one copy) and "
-                        f"{full / r['ms']:.1%} of the issue rate (one {op} "
-                        f"a lane and cycle) at {mhz:g} MHz")
+                what = (f"the {key[0]} issue floor, "
+                        f"{m.CYCLES[key[0]]} cycles a warp's word"
+                        if n == "vpu_dtype_bench"
+                        else f"one {op} a lane and cycle")
+                rate = (f"{rate}; {one / r['ms1']:.1%} (one copy) and "
+                        f"{full / r['ms']:.1%} of the issue rate ({what}) "
+                        f"at {mhz:g} MHz")
             log(f"[13] {n} {probe_key(k)}{extra}: one copy {r['ms1']:.4f} "
                 f"ms = {r['ns1']:.1f} ns/iter; {r['copies']} copies "
                 f"{r['ms']:.4f} ms = {r['ns_sm']:.3f} ns/iter per SM; bound "
@@ -1641,7 +1711,14 @@ def phase_probes(device):
         plain_ms, _ = common.timed(probe_plain(n, m, device), device,
                                    blocks=1)
         head = m.HEAD
-        if n in ("probe_mosaic", "probe_mosaic2"):
+        if n == "probe_mosaic":
+            # one launch a body: each body's time, the launch's
+            x = m.inputs(device)
+            variants = {b: {"equal": ok[b], "ms": common.launch_ms(
+                lambda b=b: m.run(b, x), device)[0], "copies": 1,
+                "bound_ms": m.bound(b)[0]} for b in res[n]}
+            ms, bound = variants[head]["ms"], m.bound(head)
+        elif n == "probe_mosaic2":
             x = m.inputs(device)
             ms, _ = common.launch_ms(lambda: m.run(head, x), device)
             bound = m.bound(head)
@@ -1664,9 +1741,11 @@ def phase_probes(device):
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "variants": variants})
         if n in ("probe_body", "probe_mosaic3", "probe_dyn_cost",
-                 "probe_gather", "probe_chain"):
+                 "probe_gather", "probe_chain", "vpu_dtype_bench"):
             # a redesigned body's headline: its copies at the full card
             entries[-1]["copies"] = res[n][head]["copies"]
+        elif n == "probe_mosaic":
+            entries[-1]["copies"] = 1
         if n == "probe_gather":
             entries.append(gather_library(m, device, take_launched))
     return entries

@@ -12,7 +12,9 @@
 // Every copy computes the same function and writes its own output.
 //
 // What bounds them here: the correctness probes (mosaic, mosaic2) are one
-// block and bound by nothing worth timing. The chains (chain, body,
+// small launch each, bound by the launch's own cost: a few microseconds
+// against a bound of nanoseconds (mosaic's bodies are timed in turns as
+// CUDA-graph replays, probe_mosaic --against). The chains (chain, body,
 // dyn_cost, gather's chain) are bound by the latency of one dependent load
 // or barrier per step with one copy, and by L1/shared bandwidth or issue
 // slots with the card full. mosaic3 and vpu are bound by the CUDA cores'
@@ -84,12 +86,36 @@ __device__ __forceinline__ int block_sum(int v, int* sh) {
 // ---------------------------------------------------------------------------
 // probe_mosaic: experiments/probe_mosaic.py:31-103, run at :14-24 on the
 // (16, 128) input arange/7. Correctness probes of the pair kernel's Mosaic
-// constructs; here one block of 128 threads, thread j owning lane j of
-// every row. Scratch (the TPU's VMEM and SMEM) is shared memory; pltpu.roll
-// is jnp.roll (lane j takes lane (j - shift) mod 128), done through shared
-// memory. Nothing to bound: one launch, untimed.
+// constructs; each is one launch, timed by CUDA-graph replays against the
+// launch's own cost. dot has a kernel of its own (mosaic_dot_kernel); the
+// other six bodies are one block of 128 threads, thread j owning lane j of
+// every row. Scratch (the TPU's VMEM and SMEM) is shared memory;
+// pltpu.roll is jnp.roll (lane j takes lane (j - shift) mod 128), done
+// through shared memory.
 enum { kDot, kDynRoll, kDynStore, kDynStoreOdd, kSmemDyn, kNested,
        kArgminLane };
+
+// k_dot :31-43: out[r, j] is the 128-term sum over k of lhs[r, k] *
+// sel[k, j] in k order, lhs[r, k] = x[0, k] for k in [8r, 8r + 8) and +0.0
+// elsewhere, sel[k, j] = (k % 8 == j / 16). Outside [8r, 8r + 8) each term
+// is +0.0 * sel = +0.0, and adding +0.0 leaves the running sum as it is:
+// the sum starts at +0.0 and is never -0.0 (a sum is -0.0 only where both
+// addends are), and NaN stays NaN. So the 8 terms over k = 8r..8r+7, in
+// order, give the same bits for every input, inf, NaN, -0.0 and
+// subnormals included. One output a thread, 2,048 threads as two blocks
+// of 1,024: on an H100, in turns, 0.52x the time of one block of 128
+// threads with 16 outputs each and 0.11x the 128-term loop's.
+__global__ void __launch_bounds__(1024) mosaic_dot_kernel(
+    const float* __restrict__ x, float* __restrict__ out) {
+  const int g = blockIdx.x * 1024 + threadIdx.x;
+  // row r, lane j; sel[k, j] is 1 where k % 8 == one
+  const int r = g >> 7, j = g & 127, one = j >> 4;
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    acc = acc + x[8 * r + i] * (i == one ? 1.f : 0.f);
+  out[g] = acc;
+}
 
 __global__ void __launch_bounds__(128) mosaic_kernel(
     int body, const float* __restrict__ x, float* __restrict__ out) {
@@ -100,17 +126,6 @@ __global__ void __launch_bounds__(128) mosaic_kernel(
   const int j = threadIdx.x;
   const int* xi = reinterpret_cast<const int*>(x);
   switch (body) {
-    case kDot:                 // k_dot :31-43, the product as a loop
-      for (int r = 0; r < 16; ++r) {
-        float acc = 0.f;
-        for (int k = 0; k < 128; ++k) {
-          const float lhs = (k / 8 == r) ? x[k] : 0.f;
-          const float sel = (k % 8 == j / 16) ? 1.f : 0.f;
-          acc = acc + lhs * sel;
-        }
-        out[r * 128 + j] = acc;
-      }
-      break;
     case kDynRoll: {           // k_dynroll :46-50
       int* sh = reinterpret_cast<int*>(scr);
       const int s = floor_mod(xi[0], 8) + 1;
@@ -150,10 +165,14 @@ __global__ void __launch_bounds__(128) mosaic_kernel(
       }
       break;
     case kArgminLane: {        // k_argmin_lane :98-103, the first minimum
+      // jnp.min propagates a NaN, and no lane is <= NaN: the lane is then
+      // 128. block_min's fminf skips a NaN, so the NaN is looked for apart.
       const float kr = x[j];
+      const bool nan = __syncthreads_or(kr != kr);
       const float minv = block_min(kr, redf);
       const int lane = block_min(kr <= minv ? j : 128, redi);
-      for (int r = 0; r < 16; ++r) out[r * 128 + j] = (float)lane;
+      const float v = (float)(nan ? 128 : lane);
+      for (int r = 0; r < 16; ++r) out[r * 128 + j] = v;
       break;
     }
   }
@@ -1140,59 +1159,127 @@ __global__ void __launch_bounds__(kDynThreads) dyn_cost_kernel(
 // vpu_dtype_bench: experiments/vpu_dtype_bench.py, make :19-35. ITERS =
 // 2000 rounds of x = min(max(x * c1 - c2, x), c3) (mul, sub, max, min: the
 // slab test's op mix) on a (rows, 128) array of one type. Bound: the CUDA
-// cores' issue rate for the type. One thread per 32-bit word: float32 and
-// int32 one value, bfloat16 a packed __nv_bfloat162 (__hmul2, __hsub2,
-// __hmax2, __hmin2), int16 a packed pair: the subtract, max and min through
-// the SIMD intrinsics __vsub2, __vmaxs2, __vmins2; the multiply, which has
-// no 16-bit SIMD form, in 32-bit registers (each half's product, masked and
-// joined). The constants come in as arguments (their bits, packed pairs
-// for the 16-bit types): in the int types and bfloat16, 1.000001 and 0.5
-// round to 1 and 0, and as literals nvcc would fold x * 1 and x - 0 away.
-// The loop is unrolled by 8 (kVpuUnroll), which the op count read from the
-// SASS divides by.
+// cores' issue rate for the type. Each thread owns kVpuWords 32-bit words:
+// float32 and int32 one value a word, bfloat16 a packed __nv_bfloat162
+// (__hmul2, __hsub2, __hmax2, __hmin2), int16 a packed pair: the subtract,
+// max and min through the SIMD intrinsics __vsub2, __vmaxs2, __vmins2; the
+// multiply, which has no 16-bit SIMD form, in 32-bit registers (each
+// half's product, masked and joined). The constants come in as arguments
+// (their bits, packed pairs for the 16-bit types): in the int types and
+// bfloat16, 1.000001 and 0.5 round to 1 and 0, and as literals nvcc would
+// fold x * 1 and x - 0 away.
+//
+// The design for the card: the thread's words are independent chains,
+// and each round applies one operation to all of them before the next
+// (vpu_round), so a warp issues kVpuWords independent instructions back
+// to back and fewer warps hide an operation's latency. The rounds are
+// unrolled by kVpuUnroll, so that the loop's counter, compare and branch
+// are under 2% of the loop's instructions (int32's 3 a word the fewest);
+// the op count read from the SASS divides by the unroll and by kVpuWords.
+// A block is kVpuThreads threads over kVpuBlockWords consecutive words
+// (word i of thread t at i * kVpuThreads + t: each load and store
+// coalesced), 16 blocks an SM. On an H100, 2 words a thread at 128
+// threads ran 0.81x the time of 4 at 64 on float32 with the card full
+// and 0.76x at one copy, where 4 words leave half of an SM's
+// sub-partitions idle; only 4 words a thread make whole waves of every
+// case: 2 leave a 256-row copy of a 32-bit type 16.5 copies of room (16
+// copies, 2,048 of 2,112 blocks).
 enum { kF32, kBF16, kI32, kI16 };
-constexpr int kVpuIters = 2000, kVpuUnroll = 8;
+constexpr int kVpuIters = 2000, kVpuUnroll = 40, kVpuWords = 2,
+              kVpuThreads = 128, kVpuBlockWords = kVpuWords * kVpuThreads;
+
+__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
 
 template <int kT>
-__global__ void __launch_bounds__(256) vpu_kernel(
-    const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
-    long long words, long long total, uint32_t c1, uint32_t c2,
-    uint32_t c3) {
-  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= total) return;
-  uint32_t v = x[w % words];
-#pragma unroll kVpuUnroll
-  for (int it = 0; it < kVpuIters; ++it) {
-    if (kT == kF32) {
-      const float f = __uint_as_float(v);
-      const float a = f * __uint_as_float(c1);
-      const float b = a - __uint_as_float(c2);
-      const float c = fmaxf(b, f);
-      v = __float_as_uint(fminf(c, __uint_as_float(c3)));
-    } else if (kT == kBF16) {
-      const __nv_bfloat162 f = *reinterpret_cast<const __nv_bfloat162*>(&v);
-      const __nv_bfloat162 a = __hmul2(
-          f, *reinterpret_cast<const __nv_bfloat162*>(&c1));
-      const __nv_bfloat162 b = __hsub2(
-          a, *reinterpret_cast<const __nv_bfloat162*>(&c2));
-      const __nv_bfloat162 c = __hmax2(b, f);
-      const __nv_bfloat162 d = __hmin2(
-          c, *reinterpret_cast<const __nv_bfloat162*>(&c3));
-      v = *reinterpret_cast<const uint32_t*>(&d);
-    } else if (kT == kI32) {
-      const int f = (int)v;
-      const int a = f * (int)c1;
-      const int b = a - (int)c2;
-      v = (uint32_t)min(max(b, f), (int)c3);
-    } else {
-      const int m = (int)(int16_t)(c1 & 0xffff);
-      const uint32_t a = ((v * (uint32_t)m) & 0xffffu)
-                         | ((v & 0xffff0000u) * (uint32_t)m);
-      const uint32_t b = __vsub2(a, c2);
-      v = __vmins2(__vmaxs2(b, v), c3);
-    }
+__device__ __forceinline__ uint32_t vpu_mul(uint32_t x, uint32_t c) {
+  if constexpr (kT == kF32) {
+    return __float_as_uint(__uint_as_float(x) * __uint_as_float(c));
+  } else if constexpr (kT == kBF16) {
+    return bf2_bits(__hmul2(as_bf2(x), as_bf2(c)));
+  } else if constexpr (kT == kI32) {
+    return (uint32_t)((int)x * (int)c);
+  } else {
+    const uint32_t m = (uint32_t)(int)(int16_t)(c & 0xffff);
+    return ((x * m) & 0xffffu) | ((x & 0xffff0000u) * m);
   }
-  out[w] = v;
+}
+
+template <int kT>
+__device__ __forceinline__ uint32_t vpu_sub(uint32_t a, uint32_t c) {
+  if constexpr (kT == kF32) {
+    return __float_as_uint(__uint_as_float(a) - __uint_as_float(c));
+  } else if constexpr (kT == kBF16) {
+    return bf2_bits(__hsub2(as_bf2(a), as_bf2(c)));
+  } else if constexpr (kT == kI32) {
+    return (uint32_t)((int)a - (int)c);
+  } else {
+    return __vsub2(a, c);
+  }
+}
+
+template <int kT>
+__device__ __forceinline__ uint32_t vpu_max(uint32_t a, uint32_t b) {
+  if constexpr (kT == kF32) {
+    return __float_as_uint(fmaxf(__uint_as_float(a), __uint_as_float(b)));
+  } else if constexpr (kT == kBF16) {
+    return bf2_bits(__hmax2(as_bf2(a), as_bf2(b)));
+  } else if constexpr (kT == kI32) {
+    return (uint32_t)max((int)a, (int)b);
+  } else {
+    return __vmaxs2(a, b);
+  }
+}
+
+template <int kT>
+__device__ __forceinline__ uint32_t vpu_min(uint32_t a, uint32_t c) {
+  if constexpr (kT == kF32) {
+    return __float_as_uint(fminf(__uint_as_float(a), __uint_as_float(c)));
+  } else if constexpr (kT == kBF16) {
+    return bf2_bits(__hmin2(as_bf2(a), as_bf2(c)));
+  } else if constexpr (kT == kI32) {
+    return (uint32_t)min((int)a, (int)c);
+  } else {
+    return __vmins2(a, c);
+  }
+}
+
+// One round on every word of the thread, one operation at a time.
+template <int kT>
+__device__ __forceinline__ void vpu_round(uint32_t (&v)[kVpuWords],
+                                          uint32_t c1, uint32_t c2,
+                                          uint32_t c3) {
+  uint32_t a[kVpuWords];
+#pragma unroll
+  for (int i = 0; i < kVpuWords; ++i) a[i] = vpu_mul<kT>(v[i], c1);
+#pragma unroll
+  for (int i = 0; i < kVpuWords; ++i) a[i] = vpu_sub<kT>(a[i], c2);
+#pragma unroll
+  for (int i = 0; i < kVpuWords; ++i) a[i] = vpu_max<kT>(a[i], v[i]);
+#pragma unroll
+  for (int i = 0; i < kVpuWords; ++i) v[i] = vpu_min<kT>(a[i], c3);
+}
+
+// x: `words` words (a multiple of kVpuBlockWords); out: copies x words,
+// one block per kVpuBlockWords of it.
+template <int kT>
+__global__ void __launch_bounds__(kVpuThreads, 2048 / kVpuThreads)
+vpu_kernel(const uint32_t* __restrict__ x, uint32_t* __restrict__ out,
+           long long words, uint32_t c1, uint32_t c2, uint32_t c3) {
+  const long long base =
+      (long long)blockIdx.x * kVpuBlockWords + threadIdx.x;
+  const long long in = base % words;
+  uint32_t v[kVpuWords];
+#pragma unroll
+  for (int i = 0; i < kVpuWords; ++i) v[i] = x[in + i * kVpuThreads];
+#pragma unroll kVpuUnroll
+  for (int it = 0; it < kVpuIters; ++it) vpu_round<kT>(v, c1, c2, c3);
+#pragma unroll
+  for (int i = 0; i < kVpuWords; ++i) out[base + i * kVpuThreads] = v[i];
 }
 
 }  // namespace
@@ -1313,10 +1400,10 @@ Launch dyn_cost_launch(int body) {
 
 Launch vpu_launch(int dtype) {
   switch (dtype) {
-    case kF32: return launch_of(vpu_kernel<kF32>, 256);
-    case kBF16: return launch_of(vpu_kernel<kBF16>, 256);
-    case kI32: return launch_of(vpu_kernel<kI32>, 256);
-    case kI16: return launch_of(vpu_kernel<kI16>, 256);
+    case kF32: return launch_of(vpu_kernel<kF32>, kVpuThreads);
+    case kBF16: return launch_of(vpu_kernel<kBF16>, kVpuThreads);
+    case kI32: return launch_of(vpu_kernel<kI32>, kVpuThreads);
+    case kI16: return launch_of(vpu_kernel<kI16>, kVpuThreads);
   }
   return Launch();
 }
@@ -1366,12 +1453,15 @@ extern "C" int rt_probe_occupancy(int probe, int body, int arg, int arg2,
       blocks_per_sm, l.fn, l.threads, l.smem);
 }
 
-// probe_mosaic: x (16, 128) f32, out (16, 128) f32, one block.
+// probe_mosaic: x (16, 128) f32, out (16, 128) f32.
 extern "C" int rt_probe_mosaic(int body, const float* x, float* out,
                                void* stream) {
   if (body < kDot || body > kArgminLane) return (int)cudaErrorInvalidValue;
-  mosaic_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(body, x,
-                                                                   out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body == kDot)
+    mosaic_dot_kernel<<<2, 1024, 0, s>>>(x, out);
+  else
+    mosaic_kernel<<<1, 128, 0, s>>>(body, x, out);
   return (int)cudaGetLastError();
 }
 
@@ -1469,16 +1559,17 @@ extern "C" int rt_probe_dyn_cost(int body, const float* tab, float* out,
   return launch(dyn_cost_launch(body), copies, args, stream);
 }
 
-// vpu_dtype_bench: x `words` 32-bit words (rows x 128 values), out (copies,
-// words) words; c1, c2, c3: the constants' bits (packed pairs for bf16 and
-// int16).
+// vpu_dtype_bench: x `words` 32-bit words (rows x 128 values, a multiple
+// of kVpuBlockWords), out (copies, words) words; c1, c2, c3: the
+// constants' bits (packed pairs for bf16 and int16).
 extern "C" int rt_probe_vpu(int dtype, const void* x, void* out,
                             long long words, int copies, unsigned c1,
                             unsigned c2, unsigned c3, void* stream) {
-  if (words < 1 || words % 256) return (int)cudaErrorInvalidValue;
-  long long total = words * copies;
+  if (words < 1 || words % kVpuBlockWords || copies < 1)
+    return (int)cudaErrorInvalidValue;
   const uint32_t* xp = static_cast<const uint32_t*>(x);
   uint32_t* op = static_cast<uint32_t*>(out);
-  void* args[] = {&xp, &op, &words, &total, &c1, &c2, &c3};
-  return launch(vpu_launch(dtype), (int)(total / 256), args, stream);
+  void* args[] = {&xp, &op, &words, &c1, &c2, &c3};
+  return launch(vpu_launch(dtype), (int)(words / kVpuBlockWords * copies),
+                args, stream);
 }

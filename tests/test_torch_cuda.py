@@ -795,6 +795,34 @@ def test_vpu_sass_counts(card):
     assert counts["float32"][0] == 4, counts["float32"]
 
 
+def test_vpu_resources(card):
+    """Every vpu_kernel instantiation, one a type, without spills; float32
+    still 4 SASS instructions per word and iteration (the loop read over
+    its unroll and its words a thread); the loop's counter, compare and
+    branch under 2% of every loop's instructions."""
+    res = vpu_dtype_bench.resources()
+    assert set(res) == set(vpu_dtype_bench.DTYPES)
+    assert all(r["spills"] == (0, 0) for r in res.values()), res
+    counts = vpu_dtype_bench.sass_counts()
+    assert counts["float32"][0] == 4, counts["float32"]
+    assert all(c[2] < 0.02 for c in counts.values()), counts
+
+
+def test_mosaic_adversarial(card):
+    """All seven probe_mosaic bodies on adversarial()'s input (+-inf, NaN,
+    -0.0, subnormals, values near FLT_MAX) against their plain versions on
+    the card: bit for bit where the plain output is not NaN, NaN where it
+    is (torch.equal counts NaN as unequal, and a NaN's payload is the
+    card's own). argmin_lane's row 0 holds a NaN: lane 128, as jnp.min's
+    NaN gives."""
+    adv = probe_mosaic.adversarial(card)
+    for body, plain in probe_mosaic.PLAIN.items():
+        got = probe_mosaic.run(body, adv)
+        torch.cuda.synchronize()
+        assert probe_mosaic.same_bits(got, plain(adv)), body
+    assert (probe_mosaic.run("argmin_lane", adv) == 128).all()
+
+
 def test_probe_refusals(card):
     x = probe_mosaic.inputs(card)
     with pytest.raises(ValueError):

@@ -92,10 +92,70 @@ def test_vpu_sass_counts_on_a_listing(monkeypatch):
                "        /*0330*/  EXIT ;\n")
     monkeypatch.setattr(common, "read_sass",
                         lambda path: common.parse_sass(listing))
-    counts = vpu_dtype_bench.sass_counts("unused")
+    counts = vpu_dtype_bench.sass_counts("unused", shape=(8, 1))
     assert counts["float32"][0] == 4
     assert counts["float32"][1] == Counter({"FMUL": 8, "FADD": 8,
                                             "FMNMX": 16})
+
+
+def _vpu_chains_listing(words, counter):
+    """A float32 vpu loop of `words` chains a thread unrolled 8 times, the
+    rounds interleaved operation by operation (R0..R{words-1}), closed by a
+    counter (counter "R": IADD3 and ISETP on R9; "UR": UIADD3 and UISETP
+    on UR4, the uniform datapath)."""
+    lines, a = [], 0x100
+    for _ in range(8):
+        for op, src in (("FMUL", "R20"), ("FADD", "-R21"),
+                        ("FMNMX", "R30, !PT"), ("FMNMX", "R22, PT")):
+            for w in range(words):
+                lines.append(f"        /*{a:04x}*/  {op} R{w}, R{w}, {src} ;")
+                a += 0x10
+    if counter == "R":
+        lines += [f"        /*{a:04x}*/  IADD3 R9, R9, 0x8, RZ ;",
+                  f"        /*{a + 0x10:04x}*/  ISETP.GE.AND P0, PT, R9, "
+                  "0x7d0, PT ;",
+                  f"        /*{a + 0x20:04x}*/  @!P0 BRA 0x100 ;"]
+    else:
+        lines += [f"        /*{a:04x}*/  UIADD3 UR4, UR4, 0x8, URZ ;",
+                  f"        /*{a + 0x10:04x}*/  UISETP.GE.AND UP0, UPT, UR4, "
+                  "0x7d0, UPT ;",
+                  f"        /*{a + 0x20:04x}*/  @!UP0 BRA 0x100 ;"]
+    return ("\t\tFunction : _Z10vpu_kernelILi0EEvPKjPjxjjj\n"
+            "        /*0000*/  MOV R9, RZ ;\n" + "\n".join(lines)
+            + f"\n        /*{a + 0x30:04x}*/  EXIT ;\n")
+
+
+@pytest.mark.parametrize("words,counter", [(4, "R"), (4, "UR"), (2, "R")])
+def test_vpu_sass_counts_divide_by_the_chains(monkeypatch, words, counter):
+    """sass_counts divides the loop by the unroll and by the words a
+    thread (its shape), so a loop of `words` interleaved chains unrolled 8
+    times still reads as 4 instructions per float32 word and iteration;
+    the counter's update, compare and branch are left out whether the
+    counter is a register or a uniform one, and are the loop's own share:
+    3 of the loop's instructions."""
+    listing = _vpu_chains_listing(words, counter)
+    monkeypatch.setattr(common, "read_sass",
+                        lambda path: common.parse_sass(listing))
+    per, ops, own = vpu_dtype_bench.sass_counts("unused", shape=(8, words))[
+        "float32"]
+    assert per == 4
+    assert ops == Counter({"FMUL": 8 * words, "FADD": 8 * words,
+                           "FMNMX": 16 * words})
+    assert own == pytest.approx(3 / (32 * words + 3), rel=1e-12)
+    # read with the one-word shape of the body before the chains
+    assert vpu_dtype_bench.sass_counts("unused", shape=(8, 1))[
+        "float32"][0] == 4 * words
+
+
+def test_vpu_loop_shape_reads_each_trees_source(tmp_path):
+    """loop_shape reads the unroll and the words a thread from a tree's
+    csrc/probes.cu; a body from before the words has one."""
+    assert vpu_dtype_bench.loop_shape()[1] == vpu_dtype_bench.WORDS
+    csrc = tmp_path / "rodent_tpu_torch" / "csrc"
+    csrc.mkdir(parents=True)
+    (csrc / "probes.cu").write_text(
+        "constexpr int kVpuIters = 2000, kVpuUnroll = 8;\n")
+    assert vpu_dtype_bench.loop_shape(tmp_path) == (8, 1)
 
 
 def _k1_listing(reg, fname):
@@ -443,11 +503,13 @@ def test_probe_body_against_refusals(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("name", ["probe_mosaic3", "probe_dyn_cost",
-                                  "probe_gather", "probe_chain"])
+                                  "probe_gather", "probe_chain",
+                                  "probe_mosaic", "vpu_dtype_bench"])
 def test_probe_against_refusals(tmp_path, capsys, name):
-    """probe_mosaic3, probe_dyn_cost, probe_gather and probe_chain
-    --against take one or more checkout roots and refuse the CPU (they
-    time two builds of a CUDA kernel), as probe_body does; against()
+    """probe_mosaic3, probe_dyn_cost, probe_gather, probe_chain,
+    probe_mosaic and vpu_dtype_bench --against take one or more checkout
+    roots and refuse the CPU (they time two builds of a CUDA kernel), as
+    probe_body does; against()
     refuses a root without rodent_tpu_torch/csrc/probes.cu, naming it,
     before it times anything."""
     import importlib

@@ -85,6 +85,89 @@ def test_mosaic_matches_jax(body):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
+def test_mosaic_dot_by_blocks_is_plain_dot():
+    """plain_dot_by_blocks, the kernel's 8-term sums, equals plain_dot's
+    128-term sums bit for bit on arange/7, and on adversarial()'s input
+    (+-inf, NaN, -0.0, subnormals, values near FLT_MAX) bit for bit where
+    finite and NaN where plain_dot is NaN."""
+    x = probe_mosaic.inputs()
+    assert torch.equal(probe_mosaic.plain_dot_by_blocks(x).view(torch.int32),
+                       probe_mosaic.plain_dot(x).view(torch.int32))
+    adv = probe_mosaic.adversarial()
+    row = adv[0].numpy()
+    blocks = row.reshape(16, 8)
+    clean = np.isfinite(blocks).all(1)
+    assert clean.any() and not clean.all()
+    assert (row == 0).any() and np.signbit(row[row == 0]).any()
+    assert (np.abs(row) < np.finfo(np.float32).tiny).any()
+    assert (np.abs(row[np.isfinite(row)]) > 3e38).any()
+    got = probe_mosaic.plain_dot_by_blocks(adv)
+    want = probe_mosaic.plain_dot(adv)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(nan.any(1), torch.from_numpy(~clean))
+    assert torch.isinf(want).any()
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+    assert probe_mosaic.same_bits(got, want)
+
+
+def _finite_normal(x):
+    """x with every non-finite value and every subnormal made +0.0: XLA's
+    CPU backend flushes subnormals (ROADMAP C6), torch and the card keep
+    them."""
+    x = x.numpy().copy()
+    x[~np.isfinite(x) | (np.abs(x) < np.finfo(np.float32).tiny)] = 0.0
+    return x
+
+
+def test_mosaic_dot_matches_jax_on_the_adversarial_inputs_finite_part():
+    """JAX's k_dot in interpret mode on adversarial()'s finite part
+    (subnormals flushed as XLA's CPU backend flushes them) equals
+    plain_dot and plain_dot_by_blocks bit for bit: each output has one
+    nonzero product, so no order of summation moves a bit (-0.0 and
+    values near FLT_MAX included)."""
+    ns = load_probe("probe_mosaic")
+    x = _finite_normal(probe_mosaic.adversarial())
+    assert (x[0] == 0).any() and (np.abs(x[0]) > 3e38).any()
+    want = np.asarray(pl.pallas_call(ns["k_dot"], out_shape=ns["O"],
+                                     interpret=True)(jnp.asarray(x)))
+    for fn in (probe_mosaic.plain_dot, probe_mosaic.plain_dot_by_blocks):
+        got = fn(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got.view(np.int32),
+                                      want.view(np.int32))
+
+
+def test_mosaic_argmin_lane_follows_jnp_min_on_a_nan():
+    """adversarial()'s row 0 holds a NaN: jnp.min propagates it, no lane
+    is <= NaN, and k_argmin_lane in interpret mode gives lane 128, as the
+    plain version does (the card's block_min skips a NaN with fminf, so
+    mosaic_kernel looks for one apart: tests/test_torch_cuda.py
+    test_mosaic_adversarial)."""
+    ns = load_probe("probe_mosaic")
+    adv = probe_mosaic.adversarial()
+    assert torch.isnan(adv[0]).any()
+    want = np.asarray(pl.pallas_call(ns["k_argmin_lane"], out_shape=ns["O"],
+                                     interpret=True)(jnp.asarray(adv.numpy())))
+    got = probe_mosaic.plain_argmin_lane(adv).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got == 128).all()
+    clean = adv.clone()
+    clean[0] = torch.nan_to_num(clean[0], nan=5.0)
+    assert float(probe_mosaic.plain_argmin_lane(clean)[0, 0]) < 128
+
+
+def test_mosaic_same_bits_holds_nan_as_nan():
+    """same_bits: equal bits where the reference is not NaN, NaN (any
+    payload) where it is."""
+    a = torch.tensor([1.0, -0.0, float("nan")])
+    b = torch.tensor([1.0, -0.0, 0.0]).view(torch.int32)
+    b[2] = 0x7FC00001
+    assert probe_mosaic.same_bits(b.view(torch.float32), a)
+    assert not probe_mosaic.same_bits(torch.tensor([1.0, 0.0, 0.0]), a)
+    assert not probe_mosaic.same_bits(torch.tensor([1.0, -0.0, 2.0]), a)
+
+
 # probe_mosaic2.py main and main2 (:138-179): body -> (kernel, scratch)
 MOSAIC2 = {
     "dot_in_loop": ("k_dot_in_loop", []),
@@ -773,6 +856,57 @@ def test_vpu_matches_jax(dtype, rows):
     assert got.shape == (2, rows, 128)
     got = got[1].float().numpy() if dtype == "bfloat16" else got[1].numpy()
     np.testing.assert_array_equal(got, want.astype(got.dtype))
+
+
+def test_vpu_shape_is_the_kernels():
+    """loop_shape() is csrc/probes.cu's kVpuUnroll and kVpuWords, WORDS
+    and THREADS its kVpuWords and kVpuThreads; the unroll divides the
+    2,000 rounds, and a
+    copy of every case is whole blocks. At 16 blocks an SM the copies that
+    fill 132 SMs are whole waves but for 256 rows of a 32-bit type, whose
+    16 copies leave 64 of the 2,112 blocks' room (16.5 copies)."""
+    unroll, words, threads = _source_constants("kVpuUnroll", "kVpuWords",
+                                               "kVpuThreads")
+    assert vpu_dtype_bench.loop_shape() == (unroll, words)
+    assert (vpu_dtype_bench.WORDS, vpu_dtype_bench.THREADS) == (words,
+                                                                threads)
+    assert vpu_dtype_bench.ITERS % unroll == 0
+    slots = 132 * 2048 // vpu_dtype_bench.THREADS
+    idle = {}
+    for dtype, rows in vpu_dtype_bench.CASES:
+        words = vpu_dtype_bench.words_of(dtype, rows)
+        blocks = words // vpu_dtype_bench.BLOCK_WORDS
+        assert blocks * vpu_dtype_bench.BLOCK_WORDS == words
+        idle[(dtype, rows)] = slots % blocks
+    assert idle == {c: 64 if c in (("float32", 256), ("int32", 256)) else 0
+                    for c in vpu_dtype_bench.CASES}
+
+
+@pytest.mark.parametrize("dtype", list(vpu_dtype_bench.DTYPES))
+def test_vpu_issue_ms_against_a_hand_count(dtype):
+    """issue_ms: CYCLES per warp's word and iteration on one of an SM's 4
+    sub-partitions, the blocks spread over the SMs in whole waves. Counted
+    by hand at 128 threads and 2 words a thread, 1,980 MHz, 132 SMs: 256
+    rows of float32 or int32 (32,768 words, 128 blocks a copy) at 16
+    copies are 16 blocks an SM (2,048 blocks; some SMs 15), 64 warps, 16 a
+    sub-partition, each 2 words x 2,000 rounds; one copy is one block an
+    SM, 4 warps, 1 a sub-partition; the 16-bit types hold half the
+    words."""
+    us = 1e3 / 1980e6
+    c = vpu_dtype_bench.CYCLES[dtype]
+    full = 16 if dtype in ("float32", "int32") else 33
+    assert vpu_dtype_bench.issue_ms(dtype, 256, full, 132,
+                                    1980) == pytest.approx(
+        16 * 2 * 2000 * c * us, rel=1e-12)
+    assert vpu_dtype_bench.issue_ms(dtype, 256, 1, 132,
+                                    1980) == pytest.approx(
+        2 * 2000 * c * us, rel=1e-12)
+    # a copy more: some SM runs a 17th block, one more warp a sub-partition
+    assert vpu_dtype_bench.issue_ms(dtype, 256, full + 1, 132,
+                                    1980) == pytest.approx(
+        17 * 2 * 2000 * c * us, rel=1e-12)
+    assert vpu_dtype_bench.CYCLES == {"float32": 4, "bfloat16": 4,
+                                      "int32": 4, "int16": 8}
 
 
 MODULES = (probe_mosaic, probe_mosaic2, probe_gather, probe_mosaic3,

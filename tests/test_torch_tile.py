@@ -445,8 +445,10 @@ def test_phase12_pool_fails_on_a_difference(monkeypatch):
     bad["prim_id"][3] += 1
     job = ("subset", "soup", "random", "K5", 1, "plain")
     cpu = torch.device("cpu")
-    res = cs.tile_pool([job], lambda j: (dev, sub, False, sub_out), cpu)
+    res = cs.tile_pool([job], lambda j: (dev, sub, False, sub_out), cpu,
+                       cs.start_pool()[0])
     assert [(x["rays"], x["tiles"]) for x in res] == [(512, 4)]
     data = iter([(dev, sub, False, sub_out), (dev, sub, False, bad)])
     with pytest.raises(RuntimeError, match="prim_id differs on 1 entries"):
-        cs.tile_pool([job, job], lambda j: next(data), cpu)
+        cs.tile_pool([job, job], lambda j: next(data), cpu,
+                      cs.start_pool()[0])
